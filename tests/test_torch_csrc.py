@@ -1,0 +1,154 @@
+"""The CUDA kernel sources (tpurast_torch/csrc) run on the CPU.
+
+With TR_HOST_EMU defined, csrc/*.cu compile with the host C++ compiler
+against csrc/host_emu.h, which runs every launch's threads on the CPU
+(blocks one after another, a block's threads meeting at a barrier in
+__syncthreads). The emulated kernels are held against their plain torch
+versions on one frame of chip_smoke.py's scene at 256x128, with the
+budgets chip_smoke.py holds the real kernels to on the card: raster
+depth and face id exact; resolve integer planes exact and float planes
+within rtol 1e-5 / atol 1e-6 outside l0 flips (torch's CPU sqrt and
+log2 are not glibc's); plan table and assignment exact; sample within
+1 LSB after the sRGB encode (torch's CPU pow is not glibc's), through
+the planned windows and, with every covered tile forced residual,
+straight from the page. This checks the kernels' indexing, control flow
+and arithmetic where no GPU exists; only the card shows what nvcc makes
+of them. The emulation models threads, blocks, barriers and static
+shared memory only; it goes when a kernel needs more (warp shuffles,
+asynchronous copies), rather than growing to match.
+"""
+
+import ctypes
+import shutil
+import subprocess
+
+import pytest
+import torch
+
+from tpurast.config import RendererConfig
+from tpurast_torch.device.scene import build_orbit_scene, orbit_track
+from tpurast_torch.kernels import _build, geometry, present, raster, resolve, sampler
+from tpurast_torch.renderer import Renderer
+from test_torch_scene import numpy_bc_decoders  # noqa: F401  (module-wide autouse)
+
+
+@pytest.fixture(scope="module")
+def emu(tmp_path_factory):
+    cxx = shutil.which("g++")
+    if cxx is None:
+        pytest.skip("no host C++ compiler (g++) to build the emulated kernels")
+    out = tmp_path_factory.mktemp("emu") / "libtpurast_torch_emu.so"
+    srcs = [str(p) for p in sorted(_build.CSRC.glob("*.cu"))]
+    cmd = [cxx, "-std=c++20", "-O1", "-ffp-contract=off", "-shared", "-fPIC", "-pthread",
+           "-DTR_HOST_EMU", "-x", "c++", *srcs, "-o", str(out)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    assert proc.returncode == 0, proc.stderr
+    lib = ctypes.CDLL(str(out))
+    for name, argtypes in _build.SIGNATURES.items():
+        getattr(lib, name).argtypes = argtypes
+        getattr(lib, name).restype = ctypes.c_int
+    return lib
+
+
+@pytest.fixture(scope="module")
+def frame():
+    scene = build_orbit_scene(seed=2, floor_quads=64, spheres=3, rings=16, segments=16, tex_size=128, n_textures=4)
+    r = Renderer(scene, RendererConfig(width=256, height=128), device="cpu")
+    kw = r._frame_kwargs
+    vp, cp = r.frame_uniforms(orbit_track(8)[5])
+    sc = r.scene
+    clip = geometry.transform_corners(sc["corner_world"], vp)
+    so = geometry.triangle_setup(clip, None, sc["n_faces"], kw["width"], kw["height"])
+    bins = geometry.bin_pairs(so["aabb"], so["valid"], r.tiles_x, r.tiles_y, kw["tile_w"], kw["tile_h"])
+    return r, kw, sc, cp, so, bins
+
+
+def test_raster_kernel(emu, frame):
+    r, kw, _, _, so, bins = frame
+    args = dict(tile_h=kw["tile_h"], tile_w=kw["tile_w"], tiles_x=r.tiles_x, tiles_y=r.tiles_y)
+    vis = raster.rasterize_tiles_plain(so["setup"], bins["pair_faces"], bins["offsets"], **args)
+    out = torch.empty_like(vis)
+    err = emu.tr_raster(so["setup"].data_ptr(), bins["pair_faces"].data_ptr(), bins["offsets"].data_ptr(),
+                        r.tiles_x, r.tiles_y, kw["tile_h"], kw["tile_w"], 0.0, out.data_ptr(), None)
+    assert err == 0
+    assert int((vis[1] >= 0).sum()) > 3000
+    assert torch.equal(out, vis)
+
+
+def test_resolve_kernel(emu, frame):
+    r, kw, sc, _, so, bins = frame
+    vis = raster.rasterize_tiles_plain(so["setup"], bins["pair_faces"], bins["offsets"], tile_h=kw["tile_h"],
+                                       tile_w=kw["tile_w"], tiles_x=r.tiles_x, tiles_y=r.tiles_y)
+    attrs = resolve.pack_resolve_attrs(so["setup"], sc["corner_world"], sc["corner_normal"], sc["corner_uv"],
+                                       sc["face_tex"], sc["atlas"])
+    g = resolve.resolve_gbuffer_plain(vis, attrs, max_anisotropy=16)
+    out = torch.empty_like(g)
+    err = emu.tr_resolve(vis.data_ptr(), attrs.data_ptr(), attrs.shape[0], g.shape[1], g.shape[2], 16,
+                         out.data_ptr(), None)
+    assert err == 0
+    covered = vis[1] >= 0
+    flip = (out[19] != g[19]) & covered
+    assert int(flip.sum()) <= 0.001 * int(covered.sum())
+    keep = ~flip
+    for i in range(resolve.A_OUT):
+        if i in resolve.INT_PLANES:
+            assert torch.equal(out[i][keep], g[i][keep]), f"plane {i}"
+        else:
+            assert torch.allclose(out[i][keep], g[i][keep], rtol=1e-5, atol=1e-6), f"plane {i}"
+
+
+def _gbuf(frame):
+    r, kw, sc, _, so, bins = frame
+    vis = raster.rasterize_tiles_plain(so["setup"], bins["pair_faces"], bins["offsets"], tile_h=kw["tile_h"],
+                                       tile_w=kw["tile_w"], tiles_x=r.tiles_x, tiles_y=r.tiles_y)
+    attrs = resolve.pack_resolve_attrs(so["setup"], sc["corner_world"], sc["corner_normal"], sc["corner_uv"],
+                                       sc["face_tex"], sc["atlas"])
+    return resolve.resolve_gbuffer_plain(vis, attrs, max_anisotropy=16)
+
+
+def _tiles(frame):
+    r, kw = frame[0], frame[1]
+    return dict(tiles_x=r.tiles_x, tiles_y=r.tiles_y, tile_h=kw["tile_h"], tile_w=kw["tile_w"])
+
+
+def test_plan_kernel(emu, frame):
+    g = _gbuf(frame)
+    tiles = _tiles(frame)
+    plan = sampler.plan_tiles_plain(g, max_anisotropy=16, **tiles)
+    table = torch.full_like(plan["table"], -7)
+    assign = torch.full_like(plan["assign"], -9.0)
+    err = emu.tr_plan(g.data_ptr(), tiles["tiles_x"], tiles["tiles_y"], tiles["tile_h"], tiles["tile_w"],
+                      sampler.rc_for(tiles["tile_h"]), 16, table.data_ptr(), assign.data_ptr(), None)
+    assert err == 0
+    assert (plan["cls"] == sampler.CLS_WINDOWED).sum() >= 4
+    assert torch.equal(table, plan["table"])
+    assert torch.equal(assign, plan["assign"])
+
+
+@pytest.mark.parametrize("blend,residual", [("alpha", False), ("opaque", False), ("alpha", True)],
+                         ids=["alpha", "opaque", "residual"])
+def test_sample_kernel(emu, frame, blend, residual):
+    r, kw, sc, cp, _, _ = frame
+    g = _gbuf(frame)
+    tiles = _tiles(frame)
+    plan = sampler.plan_tiles(g, max_anisotropy=16, **tiles)
+    if residual:
+        table = plan["table"].clone()
+        table[:, 0, 0] = torch.where(table[:, 0, 0] == sampler.CLS_WINDOWED, sampler.CLS_RESIDUAL, table[:, 0, 0])
+        plan = dict(plan, table=table)
+    light = dict(light_direction=kw["light_direction"], light_color=kw["light_color"],
+                 ambient_amount=kw["ambient_amount"], specular_power=kw["specular_power"],
+                 clear_color=kw["clear_color"], blend=blend)
+    page = sc["atlas"]["page"]
+    fb = sampler.sample_tiles_plain(g, page, plan, cp, max_anisotropy=16, **tiles, **light)
+    out = torch.empty_like(fb)
+    params = (ctypes.c_float * sampler.N_PARAMS)(*sampler.shade_params(**light))
+    err = emu.tr_sample(g.data_ptr(), page.data_ptr(), page.shape[1], page.shape[2], plan["table"].data_ptr(),
+                        plan["assign"].data_ptr(), cp.data_ptr(), tiles["tiles_x"], tiles["tiles_y"],
+                        tiles["tile_h"], tiles["tile_w"], sampler.rc_for(tiles["tile_h"]), 16,
+                        ctypes.addressof(params), out.data_ptr(), None)
+    assert err == 0
+    w, h = kw["width"], kw["height"]
+    lsb = (present.encode_srgb_u8(out, w, h).int() - present.encode_srgb_u8(fb, w, h).int()).abs().max()
+    assert int(lsb) <= 1
+    assert torch.equal(out[:, g[16] == 0], fb[:, g[16] == 0])

@@ -1,0 +1,111 @@
+"""tpurast_torch geometry stage against the JAX reference (CPU).
+
+transform_corners, triangle_setup and bin_pairs are torch ops in the port
+and XLA ops in the reference. The same ~2k faces (made with numpy from a
+seed: small on-screen faces, faces crossing the eye plane, off-screen
+faces and more than HUGE_BUDGET huge faces) go through both. Everything
+must match bit for bit: the port writes the adjugate's cross products as
+the FMAs XLA:CPU compiles them to (tpurast_torch.kernels.geometry._cross).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tpurast import math3d
+from tpurast.camera import Camera
+from tpurast.kernels import geometry as ref_geometry
+from tpurast_torch.kernels import geometry
+
+W, H = 512, 256
+TILE_H, TILE_W = 32, 128
+TILES_X, TILES_Y = W // TILE_W, H // TILE_H
+
+
+def _random_faces(seed: int = 5) -> np.ndarray:
+    """(F, 3, 3) world corners: 1400 small faces in front of the camera,
+    250 huge ones, 250 around the eye plane and 148 far off screen."""
+    rng = np.random.default_rng(seed)
+
+    def tris(n, center_lo, center_hi, size):
+        c = rng.uniform(center_lo, center_hi, (n, 1, 3))
+        return c + rng.uniform(-size, size, (n, 3, 3))
+
+    return np.concatenate(
+        [
+            tris(1400, [-3, -2, 1], [3, 2, 8], 0.4),
+            tris(250, [-2, -1, 3], [2, 1, 6], 3.0),
+            tris(250, [-2, -2, -0.5], [2, 2, 0.5], 1.5),
+            tris(148, [40, -2, 2], [60, 2, 9], 0.5),
+        ]
+    ).astype(np.float32)
+
+
+def _view_proj() -> np.ndarray:
+    cam = Camera.from_target(np.zeros(3, np.float32), np.array([0.0, 0.0, 1.0], np.float32))
+    proj = math3d.perspective_inverse_depth(np.radians(80.0), W / H, 0.01)
+    return (proj @ cam.view_matrix()).astype(np.float32)
+
+
+@pytest.fixture(scope="module")
+def both():
+    corners = _random_faces()
+    vp = _view_proj()
+    n = corners.shape[0]
+    clip_r = ref_geometry.transform_corners(jnp.asarray(corners), jnp.asarray(vp))
+    s_r = ref_geometry.triangle_setup(clip_r, None, n, W, H)
+    b_r = ref_geometry.bin_pairs(s_r["aabb"], s_r["valid"], TILES_X, TILES_Y, TILE_W, TILE_H)
+    clip_p = geometry.transform_corners(torch.from_numpy(corners), torch.from_numpy(vp))
+    s_p = geometry.triangle_setup(clip_p, None, n, W, H)
+    b_p = geometry.bin_pairs(s_p["aabb"], s_p["valid"], TILES_X, TILES_Y, TILE_W, TILE_H)
+    as_np = lambda d: {k: np.asarray(v) for k, v in d.items()}  # noqa: E731
+    return {
+        "clip": (np.asarray(clip_r), clip_p.numpy()),
+        "setup": (as_np(s_r), {k: v.numpy() for k, v in s_p.items()}),
+        "bins": (as_np(b_r), {k: v.numpy() for k, v in b_p.items()}),
+    }
+
+
+def test_fixture_covers_the_hard_cases(both):
+    s_r, _ = both["setup"]
+    b_r, _ = both["bins"]
+    clip_r, _ = both["clip"]
+    w = clip_r[..., 3]
+    assert ((w <= 0).any(axis=1) & (w > 0).any(axis=1)).sum() > 50, "eye-plane crossers"
+    assert s_r["valid"].sum() > 400
+    assert int(b_r["overflow"]) > 0, "more huge faces than HUGE_BUDGET must overflow"
+
+
+def test_transform_corners_exact(both):
+    ref, port = both["clip"]
+    np.testing.assert_array_equal(port, ref)
+
+
+@pytest.mark.parametrize("field", ["setup", "valid", "aabb", "det"])
+def test_triangle_setup_exact(both, field):
+    ref, port = both["setup"]
+    np.testing.assert_array_equal(port[field], ref[field])
+
+
+@pytest.mark.parametrize("field", ["offsets", "counts", "overflow"])
+def test_bin_pairs_exact(both, field):
+    ref, port = both["bins"]
+    np.testing.assert_array_equal(port[field], ref[field])
+
+
+def test_bin_pairs_tile_lists_exact(both):
+    """Per-tile face lists in the same (y-bucket, face) order; only the
+    live prefix [0, offsets[-1]) of the static pair buffer is defined."""
+    ref, port = both["bins"]
+    n = int(ref["offsets"][-1])
+    assert n > 0
+    np.testing.assert_array_equal(port["pair_faces"][:n], ref["pair_faces"][:n])
+    np.testing.assert_array_equal(port["pair_tiles"][:n], ref["pair_tiles"][:n])
+
+
+def test_bin_pairs_rejects_faces_beyond_the_sort_key():
+    n = 1 << geometry.FACE_BITS
+    aabb = torch.zeros((n, 4))
+    with pytest.raises(ValueError, match="sort-key"):
+        geometry.bin_pairs(aabb, torch.zeros(n, dtype=torch.bool), 1, 1, TILE_W, TILE_H)

@@ -1,0 +1,213 @@
+"""tpurast_torch host side: page and scene build, upload, and no JAX.
+
+  * device.pages.build_pages and device.scene.build_scene against the
+    reference's, field for field (the port has its own copies because the
+    reference's page builder reaches jax through tpurast.kernels);
+  * upload(scene) against np.asarray of the reference's scene.device()
+    leaves, the bf16 page bit for bit (torch's round to nearest even
+    against ml_dtypes');
+  * a fresh interpreter with jax, jaxlib, zstandard and ml_dtypes blocked
+    imports tpurast_torch, builds a procedural scene and renders a frame;
+  * the kernel build and dispatch fail loudly instead of falling back.
+"""
+
+import dataclasses
+import os
+import subprocess
+import sys
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from tpurast.device import pages as ref_pages
+from tpurast.device import scene as ref_scene
+from tpurast_torch import kernels
+from tpurast_torch.device import pages, scene
+from tpurast_torch.kernels import _build
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(scope="module", autouse=True)
+def numpy_bc_decoders():
+    """Decode BC textures with the numpy decoders in the port's tests.
+
+    tpurast.assets.native compiles its C decoder at first use and writes
+    the library in place, so a parallel test worker could load a
+    half-written file; the port's tests keep out of that by not using it.
+    Both decoders give the same texels, and a module that compares the
+    port with the reference decodes for both with the same one. Modules
+    that build scenes import this fixture; the decoder's state is
+    restored afterwards."""
+    from tpurast.assets import native
+
+    saved = (os.environ.get("TPURAST_NATIVE"), native._lib, native._tried)
+    os.environ["TPURAST_NATIVE"] = "0"
+    native._lib, native._tried = None, False
+    yield
+    env, native._lib, native._tried = saved
+    if env is None:
+        os.environ.pop("TPURAST_NATIVE", None)
+    else:
+        os.environ["TPURAST_NATIVE"] = env
+
+
+def _toy_pyramids():
+    """tests/test_sampler.py _toy_pages' pyramids."""
+    rng = np.random.default_rng(7)
+    mips = [
+        rng.uniform(0, 1, (8, 16, 4)).astype(np.float32),
+        rng.uniform(0, 1, (4, 8, 4)).astype(np.float32),
+        rng.uniform(0, 1, (2, 4, 4)).astype(np.float32),
+    ]
+    small = [rng.uniform(0, 1, (4, 4, 4)).astype(np.float32)]
+    return [mips, small]
+
+
+def _big_pyramids():
+    """A mip wider and taller than a sampler window (WRAP_GHOST borders)."""
+    rng = np.random.default_rng(3)
+    return [[rng.uniform(0, 1, (128, 512, 4)).astype(np.float32),
+             rng.uniform(0, 1, (64, 256, 4)).astype(np.float32)]]
+
+
+def _checker_models():
+    """tests/test_sampler.py _checker_scene's model and assets."""
+    from tpurast.assets.gltf import GltfModel
+    from tpurast.assets.ktx2_write import make_bc4_ktx2
+
+    y, x = np.mgrid[0:256, 0:256]
+    checker = ((((x // 16) + (y // 16)) % 2) * 195 + 30).astype(np.uint8)
+    floor = GltfModel(
+        draws=[ref_scene._quad_draw((0.0, 0.0), 16.0, 16.0, 0.0, 16.0, "mem://checker.ktx2")],
+        image_uris=["mem://checker.ktx2"],
+    )
+    return [floor], {"mem://checker.ktx2": make_bc4_ktx2(checker)}
+
+
+def _assert_same_pages(a, b):
+    for f in ("planes", "origins", "sizes", "n_mips"):
+        np.testing.assert_array_equal(getattr(a, f), getattr(b, f), err_msg=f)
+
+
+@pytest.mark.parametrize("pyramids", [_toy_pyramids, _big_pyramids], ids=["toy", "wrap_ghost"])
+def test_build_pages_matches_reference(pyramids):
+    tex = pyramids()
+    _assert_same_pages(pages.build_pages(tex), ref_pages.build_pages(tex))
+
+
+def test_wrap_constants_match_reference():
+    from tpurast.kernels import sampler as ref_sampler
+    from tpurast_torch.kernels import sampler
+
+    for name in ("WRAP_GHOST", "X_WRAP_LIM", "Y_WRAP_LIM"):
+        assert getattr(sampler, name) == getattr(ref_sampler, name)
+
+
+@pytest.fixture(scope="module")
+def checker_scenes():
+    models, assets = _checker_models()
+    return (
+        scene.build_scene(models, memory_assets=assets),
+        ref_scene.build_scene(models, memory_assets=assets),
+    )
+
+
+def test_build_scene_matches_reference(checker_scenes):
+    port, ref = checker_scenes
+    assert type(port) is type(ref)
+    for field in dataclasses.fields(ref):
+        a, b = getattr(port, field.name), getattr(ref, field.name)
+        if field.name == "pages":
+            _assert_same_pages(a, b)
+        elif field.name == "atlas":
+            for f in dataclasses.fields(b):
+                np.testing.assert_array_equal(getattr(a, f.name), getattr(b, f.name))
+        elif isinstance(b, np.ndarray):
+            np.testing.assert_array_equal(a, b, err_msg=field.name)
+        else:
+            assert a == b, field.name
+
+
+def test_upload_matches_reference_device_tree(checker_scenes):
+    port_scene, ref = checker_scenes
+    up = scene.upload(port_scene, "cpu")
+    tree = jax.tree.map(np.asarray, ref.device())
+    for k in ("corner_world", "corner_normal", "corner_uv", "face_tex"):
+        np.testing.assert_array_equal(up[k].numpy(), tree[k], err_msg=k)
+    assert up["n_faces"] == int(tree["n_faces"])
+    for k in ("offsets", "sizes", "n_mips", "page_origins", "page_sizes", "page_n_mips"):
+        np.testing.assert_array_equal(up["atlas"][k].numpy(), tree["atlas"][k], err_msg=k)
+    page = up["atlas"]["page"]
+    assert page.dtype == torch.bfloat16
+    np.testing.assert_array_equal(page.view(torch.int16).numpy(), tree["atlas"]["page"].view(np.int16))
+    assert "texels" not in up["atlas"]
+    # from_numpy takes the same state from the reference's own tree.
+    again = scene.from_numpy(tree, "cpu")
+    assert torch.equal(again["atlas"]["page"].view(torch.int16), page.view(torch.int16))
+    assert torch.equal(again["corner_world"], up["corner_world"])
+
+
+def test_bf16_round_to_nearest_even_matches_ml_dtypes():
+    import ml_dtypes
+
+    rng = np.random.default_rng(0)
+    bits = rng.integers(0, 2**32, 200_000, dtype=np.uint64).astype(np.uint32)
+    x = bits.view(np.float32)
+    x = x[np.isfinite(x)]
+    ties = (np.arange(1, 5000, dtype=np.uint32) << 16 | 0x8000).view(np.float32)
+    x = np.concatenate([x, ties, ties * -1.0]).astype(np.float32)
+    port = torch.from_numpy(x).to(torch.bfloat16).view(torch.int16).numpy()
+    np.testing.assert_array_equal(port, x.astype(ml_dtypes.bfloat16).view(np.int16))
+
+
+_NO_JAX = r"""
+import importlib.abc, sys
+BLOCKED = ("jax", "jaxlib", "zstandard", "ml_dtypes")
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError(f"{name} is blocked in this test")
+sys.meta_path.insert(0, Block())
+sys.path.insert(0, sys.argv[1])
+from tpurast.config import RendererConfig
+from tpurast_torch.device.scene import build_orbit_scene, orbit_track
+from tpurast_torch.renderer import Renderer
+scene = build_orbit_scene(seed=1, floor_quads=16, spheres=2, rings=8, segments=8, tex_size=32, n_textures=2)
+r = Renderer(scene, RendererConfig(width=128, height=64), device="cpu")
+out = r.render(orbit_track(2)[1])
+assert tuple(out["color"].shape) == (4, 64, 128)
+assert int(out["bin_overflow"]) == 0
+assert bool((out["depth"] > 0).any())
+assert not any(m.split(".")[0] in BLOCKED for m in sys.modules)
+print("rendered", int((out["depth"] > 0).sum()))
+"""
+
+
+def test_port_runs_without_jax_zstandard_ml_dtypes():
+    proc = subprocess.run(
+        [sys.executable, "-c", _NO_JAX, REPO], capture_output=True, text=True, timeout=300,
+        env={k: v for k, v in os.environ.items() if k != "PYTHONPATH"},
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.startswith("rendered ")
+    assert int(proc.stdout.split()[1]) > 100
+
+
+def test_build_raises_without_nvcc(monkeypatch, tmp_path):
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build()
+
+
+def test_dispatch_runs_plain_on_cpu_and_refuses_other_devices():
+    cpu = torch.zeros(2)
+    assert kernels.use_kernel(cpu, cpu) is False
+    with pytest.raises(ValueError):
+        kernels.use_kernel(cpu, torch.zeros(2, device="meta"))
+    with pytest.raises(ValueError):
+        kernels.use_kernel(torch.zeros(2, device="meta"))

@@ -1,0 +1,24 @@
+"""tpurast_torch: the PyTorch + CUDA port of tpurast for NVIDIA Hopper.
+
+The JAX package ``tpurast`` is the reference. This package renders the
+same frames from the same scenes and the same ``RendererConfig``, with the
+reference's Pallas kernels replaced by hand-written CUDA kernels
+(``tpurast_torch/csrc``) and the XLA glue between them by torch ops.
+
+It imports torch and never jax; of ``tpurast`` it uses only the host-side
+numpy modules (config, math3d, camera, assets, device.textures,
+device.scene's records, present.interleave).
+"""
+
+_NOT_PORTED = {
+    "Engine": "item 13 (runtime)",
+    "Presenter": "item 13 (runtime)",
+}
+
+
+def __getattr__(name: str):
+    if name in _NOT_PORTED:
+        raise NotImplementedError(
+            f"tpurast_torch.{name} is not ported yet (ROADMAP queue 1 {_NOT_PORTED[name]})"
+        )
+    raise AttributeError(f"module 'tpurast_torch' has no attribute {name!r}")

@@ -1,0 +1,5 @@
+"""Scene residency for the port (host build with numpy, upload with torch).
+
+  pages.py — texture pages (tpurast.device.pages.build_pages without jax)
+  scene.py — build_scene, upload / from_numpy, the procedural smoke scene
+"""

@@ -1,0 +1,365 @@
+"""Scene residency for the port: host build, upload and a procedural scene.
+
+``build_scene`` repeats tpurast.device.scene.build_scene line for line and
+returns the reference's own DeviceScene record; the one difference is that
+its pages come from tpurast_torch.device.pages (the reference's page
+builder reaches jax through its kernels package).
+
+``upload(scene, device)`` is the port's counterpart of DeviceScene.device():
+the frame's inputs as torch tensors on ``device``. It carries the corner
+tables, face_tex and n_faces, the bf16 texture page with its origins,
+sizes and mip counts, and the atlas offsets/sizes/n_mips that resolve
+reads. It leaves out the quad-row atlas texels, which only the (not yet
+ported) gather sampler reads. ``from_numpy(tree, device)`` takes the same
+subset from the reference's device() pytree converted leaf by leaf with
+np.asarray, so tests can feed both packages identical state.
+
+``build_orbit_scene`` / ``orbit_track`` generate the procedural scene that
+chip_smoke.py renders (and the CPU tests at a small size): a textured
+floor grid, a grid of UV spheres and generated BC4 textures, all from a
+seed, with no files from outside the repository.
+"""
+
+from __future__ import annotations
+
+import logging
+import math
+import os
+
+import numpy as np
+import torch
+
+from tpurast.assets.gltf import GltfModel, PrimitiveDraw
+from tpurast.camera import Camera
+from tpurast.device import textures as tex_mod
+from tpurast.device.scene import DeviceScene, _pad_to, _round_up
+from tpurast_torch.device.pages import build_pages
+
+log = logging.getLogger("tpurast_torch.device")
+
+
+def build_scene(
+    models: list[GltfModel],
+    data_dir: str | os.PathLike | None = None,
+    face_pad: int = 256,
+    vert_pad: int = 128,
+    memory_assets: dict[str, bytes] | None = None,
+) -> DeviceScene:
+    """Assemble parsed models into flat buffers + texture atlas + pages
+    (tpurast/device/scene.py build_scene, same arguments and result)."""
+    from tpurast.assets.ktx2 import load_ktx2, parse_ktx2
+
+    draws: list[PrimitiveDraw] = [d for m in models for d in m.draws]
+
+    # Texture registry: id 0 is the fallback; others keyed by URI.
+    uri_to_id: dict[str, int] = {}
+    pyramids: list[list[np.ndarray]] = [tex_mod.fallback_texture(data_dir)]
+    texture_uris = ["builtin://fallback-texture"]
+
+    def texture_id(uri: str | None) -> int:
+        if uri is None:
+            return 0
+        if uri in uri_to_id:
+            return uri_to_id[uri]
+        if memory_assets is not None and uri in memory_assets:
+            ktx = parse_ktx2(memory_assets[uri])
+            pyramids.append(tex_mod.decode_ktx2_texture(ktx))
+            tid = len(pyramids) - 1
+            uri_to_id[uri] = tid
+            texture_uris.append(uri)
+            return tid
+        path = os.path.join(data_dir, uri) if data_dir is not None else uri
+        if not os.path.exists(path):
+            log.error("failed to find texture: %s", uri)
+            uri_to_id[uri] = 0
+            return 0
+        ktx = load_ktx2(path)
+        pyramids.append(tex_mod.decode_ktx2_texture(ktx))
+        tid = len(pyramids) - 1
+        uri_to_id[uri] = tid
+        texture_uris.append(uri)
+        return tid
+
+    positions, normals, uvs, vert_prim = [], [], [], []
+    faces, face_prim = [], []
+    prim_models, prim_normal_mats, prim_tex = [], [], []
+    v_cursor = 0
+    for pid, d in enumerate(draws):
+        nv = d.positions.shape[0]
+        positions.append(d.positions.astype(np.float32))
+        normals.append(d.normals.astype(np.float32))
+        uvs.append(d.uvs.astype(np.float32))
+        vert_prim.append(np.full(nv, pid, dtype=np.int32))
+        faces.append(d.indices.astype(np.int64).reshape(-1, 3).astype(np.int32) + v_cursor)
+        face_prim.append(np.full(len(d.indices) // 3, pid, dtype=np.int32))
+        prim_models.append(d.model_matrix.astype(np.float32))
+        prim_normal_mats.append(d.normal_matrix.astype(np.float32))
+        prim_tex.append(texture_id(d.image_uri))
+        v_cursor += nv
+
+    pos = np.concatenate(positions) if positions else np.zeros((0, 3), np.float32)
+    nrm = np.concatenate(normals) if normals else np.zeros((0, 3), np.float32)
+    uv = np.concatenate(uvs) if uvs else np.zeros((0, 2), np.float32)
+    vp = np.concatenate(vert_prim) if vert_prim else np.zeros(0, np.int32)
+    fc = np.concatenate(faces) if faces else np.zeros((0, 3), np.int32)
+    fp = np.concatenate(face_prim) if face_prim else np.zeros(0, np.int32)
+
+    n_faces = fc.shape[0]
+    n_vertices = pos.shape[0]
+    fpad = max(face_pad, _round_up(n_faces, face_pad))
+    vpad = max(vert_pad, _round_up(n_vertices, vert_pad))
+
+    faces_padded = _pad_to(fc, fpad)
+    prim_tex_arr = np.asarray(prim_tex if prim_tex else [0], dtype=np.int32)
+    face_prim_padded = _pad_to(fp, fpad)
+    scene = DeviceScene(
+        positions=_pad_to(pos, vpad),
+        normals=_pad_to(nrm, vpad),
+        uvs=_pad_to(uv, vpad),
+        vert_prim=_pad_to(vp, vpad),
+        faces=faces_padded,
+        face_prim=face_prim_padded,
+        n_faces=n_faces,
+        n_vertices=n_vertices,
+        models=np.stack(prim_models) if prim_models else np.eye(4, dtype=np.float32)[None],
+        normal_mats=np.stack(prim_normal_mats) if prim_normal_mats else np.eye(3, dtype=np.float32)[None],
+        prim_tex=prim_tex_arr,
+        atlas=tex_mod.build_atlas(pyramids),
+        texture_uris=texture_uris,
+        pages=build_pages(pyramids),
+        face_tex=prim_tex_arr[face_prim_padded],
+    )
+    scene.corner_tables()
+    return scene
+
+
+def _bf16_from_numpy(a: np.ndarray) -> torch.Tensor:
+    """A numpy array of 2-byte bfloat16 (ml_dtypes, as np.asarray of a jax
+    bf16 array gives) as a torch bf16 tensor, by bit view: the port does
+    not import ml_dtypes."""
+    if a.dtype.itemsize != 2 or a.dtype.name != "bfloat16":
+        raise TypeError(f"expected a bfloat16 array, got {a.dtype}")
+    return torch.from_numpy(np.array(a).view(np.uint16)).view(torch.bfloat16)
+
+
+def _tensors(arrays: dict, page: torch.Tensor, n_faces: int, device) -> dict:
+    dev = torch.device(device)
+
+    def t(a):
+        return torch.from_numpy(np.array(a)).to(dev)
+
+    return {
+        "corner_world": t(arrays["corner_world"]),
+        "corner_normal": t(arrays["corner_normal"]),
+        "corner_uv": t(arrays["corner_uv"]),
+        "face_tex": t(arrays["face_tex"].astype(np.int32)),
+        "n_faces": int(n_faces),
+        "atlas": {
+            "offsets": t(arrays["offsets"]),
+            "sizes": t(arrays["sizes"]),
+            "n_mips": t(arrays["n_mips"]),
+            "page": page.contiguous().to(dev),
+            "page_origins": t(arrays["page_origins"]),
+            "page_sizes": t(arrays["page_sizes"]),
+            "page_n_mips": t(arrays["page_n_mips"]),
+        },
+    }
+
+
+def upload(scene: DeviceScene, device) -> dict:
+    """The frame function's scene state as torch tensors on ``device``.
+
+    The page is rounded to bf16 by torch (round to nearest even, bit for
+    bit what ml_dtypes does for the reference's upload)."""
+    if scene.pages is None:
+        raise NotImplementedError(
+            "scenes without texture pages need the gather sampler "
+            "(ROADMAP queue 1 item 10)"
+        )
+    cw, cn, cu = scene.corner_tables()
+    face_tex = (
+        scene.face_tex if scene.face_tex is not None else scene.prim_tex[scene.face_prim]
+    )
+    arrays = {
+        "corner_world": cw,
+        "corner_normal": cn,
+        "corner_uv": cu,
+        "face_tex": face_tex,
+        "offsets": scene.atlas.offsets,
+        "sizes": scene.atlas.sizes,
+        "n_mips": scene.atlas.n_mips,
+        "page_origins": scene.pages.origins,
+        "page_sizes": scene.pages.sizes,
+        "page_n_mips": scene.pages.n_mips,
+    }
+    page = torch.from_numpy(scene.pages.planes).to(torch.bfloat16)
+    return _tensors(arrays, page, scene.n_faces, device)
+
+
+def from_numpy(tree: dict, device) -> dict:
+    """``upload``'s result from the reference's DeviceScene.device() pytree,
+    converted leaf by leaf with np.asarray (nested dicts kept)."""
+    atlas = tree["atlas"]
+    arrays = {
+        "corner_world": tree["corner_world"],
+        "corner_normal": tree["corner_normal"],
+        "corner_uv": tree["corner_uv"],
+        "face_tex": tree["face_tex"],
+        "offsets": atlas["offsets"],
+        "sizes": atlas["sizes"],
+        "n_mips": atlas["n_mips"],
+        "page_origins": atlas["page_origins"],
+        "page_sizes": atlas["page_sizes"],
+        "page_n_mips": atlas["page_n_mips"],
+    }
+    return _tensors(arrays, _bf16_from_numpy(atlas["page"]), int(tree["n_faces"]), device)
+
+
+# --------------------------------------------------------------------------
+# Procedural scene (chip_smoke.py at full size; tests at a small one).
+
+
+def texture_image(rng: np.random.Generator, size: int, index: int) -> np.ndarray:
+    """(size, size) u8: a checker (cell 2^(2 + index % 4) texels) plus
+    noise, so every mip level carries structure."""
+    y, x = np.mgrid[0:size, 0:size]
+    cell = 1 << (2 + index % 4)
+    checker = ((x // cell + y // cell) % 2).astype(np.int32) * 150 + 50
+    noise = rng.integers(-30, 31, (size, size))
+    return np.clip(checker + noise, 0, 255).astype(np.uint8)
+
+
+def bc4_blob(img: np.ndarray) -> bytes:
+    """u8 image -> BC4 KTX2 with a full mip chain, without zstd
+    supercompression (the port's host side needs no zstandard)."""
+    from tpurast.assets.ktx2 import VK_FORMAT_BC4_UNORM_BLOCK
+    from tpurast.assets.ktx2_write import encode_bc4, mip_chain_u8, write_ktx2
+
+    payloads = [encode_bc4(m) for m in mip_chain_u8(img)]
+    return write_ktx2(
+        payloads, VK_FORMAT_BC4_UNORM_BLOCK, img.shape[1], img.shape[0], supercompress=False
+    )
+
+
+def _draw(positions, normals, uvs, tris, uri, name) -> PrimitiveDraw:
+    return PrimitiveDraw(
+        positions=positions.astype(np.float32),
+        normals=normals.astype(np.float32),
+        uvs=uvs.astype(np.float32),
+        indices=tris.astype(np.uint32).reshape(-1),
+        model_matrix=np.eye(4, dtype=np.float32),
+        normal_matrix=np.eye(3, dtype=np.float32),
+        image_uri=uri,
+        material_name="procedural",
+        node_name=name,
+    )
+
+
+def _floor_patch(x0, z0, size_x, size_z, nx, nz, uv_per_unit, uri) -> PrimitiveDraw:
+    """nx x nz quads on the y=0 plane, front side toward -Y (world up)."""
+    xs = np.linspace(x0, x0 + size_x, nx + 1, dtype=np.float64)
+    zs = np.linspace(z0, z0 + size_z, nz + 1, dtype=np.float64)
+    gz, gx = np.meshgrid(zs, xs, indexing="ij")  # (nz+1, nx+1)
+    pos = np.stack([gx, np.zeros_like(gx), gz], axis=-1).reshape(-1, 3)
+    uv = (pos[:, [0, 2]] - [x0, z0]) * uv_per_unit
+    nrm = np.broadcast_to(np.array([0.0, -1.0, 0.0]), pos.shape)
+    i, j = np.meshgrid(np.arange(nz), np.arange(nx), indexing="ij")
+    a = (i * (nx + 1) + j).reshape(-1)
+    b, c, d = a + 1, a + nx + 2, a + nx + 1
+    # Same winding as tpurast.device.scene._quad_draw (front from -Y).
+    tris = np.stack([np.stack([a, b, c], 1), np.stack([a, c, d], 1)], 1)
+    return _draw(pos, nrm, uv, tris, uri, "floor")
+
+
+def _sphere(center, radius, rings, segments, uri) -> PrimitiveDraw:
+    """UV sphere, triangles wound front-facing outward."""
+    th = np.linspace(0.0, math.pi, rings + 1)
+    ph = np.linspace(0.0, 2.0 * math.pi, segments + 1)
+    t, p = np.meshgrid(th, ph, indexing="ij")
+    nrm = np.stack([np.sin(t) * np.cos(p), np.cos(t), np.sin(t) * np.sin(p)], -1).reshape(-1, 3)
+    pos = np.asarray(center) + radius * nrm
+    uv = np.stack([2.0 * p / (2.0 * math.pi), t / math.pi], -1).reshape(-1, 2)
+    tris = []
+    for i in range(rings):
+        for j in range(segments):
+            a = i * (segments + 1) + j
+            b, c, d = a + 1, a + segments + 2, a + segments + 1
+            if i > 0:
+                tris.append((a, b, c))
+            if i < rings - 1:
+                tris.append((a, c, d))
+    tris = np.asarray(tris)
+    # Orient each triangle so its geometric normal points outward: the
+    # floor's convention, (b - a) x (c - a) toward the viewer is front.
+    v = pos[tris]
+    gn = np.cross(v[:, 1] - v[:, 0], v[:, 2] - v[:, 0])
+    flip = np.einsum("ij,ij->i", gn, v.mean(axis=1) - center) < 0
+    tris[flip] = tris[flip][:, [0, 2, 1]]
+    return _draw(pos, nrm, uv, tris, uri, "sphere")
+
+
+def build_orbit_scene(
+    seed: int = 0,
+    floor_quads: int = 256,
+    spheres: int = 8,
+    rings: int = 32,
+    segments: int = 32,
+    tex_size: int = 1024,
+    n_textures: int = 8,
+) -> DeviceScene:
+    """The smoke scene: a 16x16-unit floor of floor_quads^2 quads in
+    n_textures patches (uv repeat 16), a spheres x spheres grid of UV
+    spheres, and n_textures generated tex_size^2 BC4 textures with full
+    mip chains (plus the fallback texture, bound to every fourth sphere).
+    At the defaults: 131,072 floor + 126,976 sphere triangles."""
+    rng = np.random.default_rng(seed)
+    assets = {f"mem://orbit_{i}.ktx2": bc4_blob(texture_image(rng, tex_size, i))
+              for i in range(n_textures)}
+    uris = list(assets)
+    draws = []
+    cols = max(1, n_textures // 2)
+    rows = max(1, n_textures // cols)
+    size = 16.0
+    for k in range(cols * rows):
+        cx, cz = k % cols, k // cols
+        draws.append(
+            _floor_patch(
+                -size / 2 + cx * size / cols,
+                -size / 2 + cz * size / rows,
+                size / cols,
+                size / rows,
+                floor_quads // cols,
+                floor_quads // rows,
+                1.0,
+                uris[k % len(uris)],
+            )
+        )
+    spacing = 1.6
+    radius = 0.5
+    for k in range(spheres * spheres):
+        gx, gz = k % spheres, k // spheres
+        center = np.array(
+            [(gx - (spheres - 1) / 2) * spacing, -radius - 0.05 * (k % 3),
+             (gz - (spheres - 1) / 2) * spacing]
+        )
+        uri = None if k % 4 == 3 else uris[k % len(uris)]
+        draws.append(_sphere(center, radius, rings, segments, uri))
+    model = GltfModel(draws=draws, image_uris=uris)
+    return build_scene([model], memory_assets=assets)
+
+
+def orbit_track(n_frames: int = 8, radius: float = 11.5, height: float = 1.5) -> list[Camera]:
+    """Cameras orbiting the scene `height` units above the floor (world up
+    is -Y), aimed one unit below the floor's center so the floor fills the
+    lower part of the frame: grazing floor pixels take up to 16 probes and
+    the far floor reaches the last mips. The eye plane stays off the floor
+    (it meets the floor plane 11.8 units from the center, beyond the 10.8
+    the floor reaches in the track's directions): floor triangles crossing
+    it would bin as full-screen faces and overflow the binner's huge-face
+    budget."""
+    cams = []
+    for k in range(n_frames):
+        a = 2.0 * math.pi * k / n_frames + 0.3
+        pos = np.array([radius * math.sin(a), -height, -radius * math.cos(a)], np.float32)
+        cams.append(Camera.from_target(pos, np.array([0.0, 1.0, 0.0], np.float32)))
+    return cams

@@ -1,0 +1,134 @@
+"""Build and bind the CUDA kernels in tpurast_torch/csrc/.
+
+The sources have a plain C interface, so they compile with nvcc alone (no
+PyTorch headers) into one shared library that ctypes loads: seconds per
+build instead of minutes. The library lands in tpurast_torch/_build/,
+named by a hash of the sources and flags, so an edited source rebuilds
+and an unchanged one loads the existing file. This is the pattern of
+tpurast/assets/native.py without its fallback: if nvcc is missing or the
+build fails, the caller gets the error (with nvcc's output), never the
+plain torch path.
+
+Every pointer and the stream cross as c_void_p (a bare Python int would
+be cut to 32 bits), and every entry point returns cudaGetLastError() of
+its launch, which ``call`` turns into an exception.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import time
+
+import torch
+
+CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / "_build"
+
+NVCC_FLAGS = [
+    "-gencode",
+    "arch=compute_90a,code=sm_90a",
+    "-std=c++17",
+    "-O3",
+    # No a*b+c contraction: the kernels must round exactly like the
+    # eager torch plain versions (edge functions decide coverage).
+    "--fmad=false",
+    "-Xptxas=-v",
+    "-shared",
+    "-Xcompiler",
+    "-fPIC",
+]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+
+# C signatures (see the extern "C" functions in csrc/*.cu).
+SIGNATURES = {
+    "tr_raster": [_P, _P, _P, _I, _I, _I, _I, _F, _P, _P],
+    "tr_resolve": [_P, _P, _I, _I, _I, _I, _P, _P],
+    "tr_plan": [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
+    "tr_sample": [_P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
+}
+
+
+def nvcc_path() -> str:
+    """nvcc from PATH, else from CUDA_HOME or /usr/local/cuda."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = pathlib.Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError(
+        "nvcc not found (PATH, CUDA_HOME, /usr/local/cuda): the tpurast_torch "
+        "CUDA kernels are built from csrc/ at first use and need the CUDA toolkit"
+    )
+
+
+def _sources() -> list[pathlib.Path]:
+    return sorted(p for p in CSRC.iterdir() if p.suffix in (".cu", ".cuh", ".h"))
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in _sources():
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> tuple[pathlib.Path, float, str]:
+    """Compile the library if it is not built yet. Returns (path, build
+    seconds (0.0 when cached), nvcc's output)."""
+    lib_path = BUILD_DIR / f"libtpurast_torch_{_digest()}.so"
+    if lib_path.exists():
+        return lib_path, 0.0, ""
+    nvcc = nvcc_path()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp)]
+    cmd += [str(p) for p in _sources() if p.suffix == ".cu"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}"
+        )
+    os.replace(tmp, lib_path)
+    return lib_path, seconds, proc.stdout + proc.stderr
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """The built and loaded kernel library (built on first call)."""
+    path, _, _ = build()
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.tr_error_string.argtypes = [ctypes.c_int]
+    lib.tr_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def call(name: str, *args) -> None:
+    """Launch entry point ``name`` on the current stream of its tensors'
+    device; raise on a CUDA error. Tensor arguments are passed by data
+    pointer."""
+    lib = library()
+    device = next(a.device for a in args if isinstance(a, torch.Tensor))
+    conv = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    with torch.cuda.device(device):
+        err = getattr(lib, name)(*conv, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        msg = lib.tr_error_string(err).decode()
+        raise RuntimeError(f"{name}: CUDA error {err} ({msg})")

@@ -1,0 +1,240 @@
+"""Geometry stage as torch ops: corner transform, triangle setup, binning.
+
+Counterpart of tpurast/kernels/geometry.py (transform_corners,
+triangle_setup, _tile_ranges, bin_pairs), same layouts and field
+numbering. These are not kernels on either side: the reference leaves
+them to XLA, the port to eager torch.
+
+Every expression keeps the reference's operation order, with one
+rounding per operation. Eager torch never contracts a*b+c into an FMA on
+the CPU or on the card, so the CPU tests and the card compute the same
+bits here. The one place written as an FMA on purpose is the adjugate's
+cross products (see _cross).
+
+Divisions by a Python number go through a tensor divisor: torch's CUDA
+division turns a CPU-scalar divisor into a multiply by its reciprocal,
+which rounds differently from a true division.
+"""
+
+from __future__ import annotations
+
+import torch
+
+# Per-face setup row (tpurast/kernels/geometry.py SETUP_WIDTH):
+# [E(9), z_clip(3), w_clip(3), face_id, anchor_x, anchor_y, ymin, ymax, pad].
+SETUP_WIDTH = 24
+FIELD_FACE_ID = 15
+FIELD_ANCHOR_X = 16
+FIELD_ANCHOR_Y = 17
+FIELD_YMIN = 18
+FIELD_YMAX = 19
+
+# Binning defaults (tpurast/kernels/geometry.py TILES_PER_FACE, HUGE_BUDGET).
+TILES_PER_FACE = 8
+HUGE_BUDGET = 64
+# y-bucket slots per tile key (geometry.py bin_pairs: key = tile*YB + ybucket).
+YB = 1024
+# Face ids ride the low bits of the one int64 sort key.
+FACE_BITS = 21
+
+
+def _div(a: torch.Tensor, b: float) -> torch.Tensor:
+    return a / torch.full_like(a, b)
+
+
+def transform_corners(corner_world: torch.Tensor, view_proj: torch.Tensor) -> torch.Tensor:
+    """(F, 3, 3) world corners -> (F, 3, 4) clip, world_h @ view_proj.T.
+
+    Written out as the sum XLA's CPU dot computes for this shape,
+    (x*m0 + y*m1) + (z*m2 + 1*m3) with 1*m3 == m3, so the CPU tests match
+    the reference bit for bit; a cuBLAS matmul would fuse multiply-adds."""
+    f = corner_world.shape[0]
+    w = corner_world.reshape(f * 3, 3)
+    m = view_proj
+    x, y, z = w[:, 0:1], w[:, 1:2], w[:, 2:3]
+    clip = (x * m[:, 0] + y * m[:, 1]) + (z * m[:, 2] + m[:, 3])
+    return clip.reshape(f, 3, 4)
+
+
+def _cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """cross(a, b) with each component rounded once as fma(p, q, -(r*s)):
+    the form XLA's CPU backend compiles jnp.cross to (LLVM contracts the
+    multiply-subtract), so setup rows match the reference bit for bit.
+    p*q is exact in float64, and so is the difference wherever the two
+    products cancel; elsewhere the float64 rounding sits 29 bits below
+    the float32 one."""
+    a64, b64 = a.double(), b.double()
+
+    def comp(i, j):
+        return (a64[:, i] * b64[:, j] - (a[:, j] * b[:, i]).double()).float()
+
+    return torch.stack([comp(1, 2), comp(2, 0), comp(0, 1)], dim=-1)
+
+
+def triangle_setup(clip: torch.Tensor, faces, n_faces: int, width: int, height: int) -> dict:
+    """Per-triangle rasterization setup (geometry.py triangle_setup).
+
+    clip: (F, 3, 4) corner clip coords (faces=None), or (V, 4) with faces
+    (F, 3) vertex indices. Returns setup (F, 24) f32, valid (F,) bool,
+    aabb (F, 4) f32 and det (F,) f32."""
+    c = clip if faces is None else clip[faces.long()]
+    dev = c.device
+    nf = c.shape[0]
+    w = c[..., 3]
+    vx = (c[..., 0] + w) * (width * 0.5)
+    vy = (w - c[..., 1]) * (height * 0.5)
+
+    eps = 1e-20
+    w_ok = w > eps
+    one = torch.ones_like(w)
+    sx = torch.where(w_ok, vx / torch.where(w_ok, w, one), torch.zeros_like(w))
+    sy = torch.where(w_ok, vy / torch.where(w_ok, w, one), torch.zeros_like(w))
+    first_ok = torch.argmax(w_ok.to(torch.int8), dim=-1)  # first True, 0 if none
+    ax = torch.round(torch.gather(sx, 1, first_ok[:, None])[:, 0])
+    ay = torch.round(torch.gather(sy, 1, first_ok[:, None])[:, 0])
+    any_ok = w_ok.any(dim=-1)
+    zero = torch.zeros_like(ax)
+    ax = torch.where(any_ok, torch.clamp(ax, -4 * width, 5 * width), zero)
+    ay = torch.where(any_ok, torch.clamp(ay, -4 * height, 5 * height), zero)
+
+    v = torch.stack([vx - ax[:, None] * w, vy - ay[:, None] * w, w], dim=-1)
+    e0 = _cross(v[:, 1], v[:, 2])
+    e1 = _cross(v[:, 2], v[:, 0])
+    e2 = _cross(v[:, 0], v[:, 1])
+    p = e0 * v[:, 0]
+    det = (p[:, 0] + p[:, 1]) + p[:, 2]
+
+    face_ids = torch.arange(nf, dtype=torch.int32, device=dev)
+    in_range = face_ids < n_faces
+    finite = torch.isfinite(c.reshape(nf, -1)).all(dim=-1)
+    front = det < 0.0
+    valid = in_range & finite & front & any_ok
+
+    any_behind = ~w_ok.all(dim=-1)
+    big = torch.full_like(sx, 1e9)
+    minx = torch.where(any_behind, zero, torch.where(w_ok, sx, big).amin(dim=-1))
+    miny = torch.where(any_behind, zero, torch.where(w_ok, sy, big).amin(dim=-1))
+    maxx = torch.where(any_behind, torch.full_like(zero, float(width)),
+                       torch.where(w_ok, sx, -big).amax(dim=-1))
+    maxy = torch.where(any_behind, torch.full_like(zero, float(height)),
+                       torch.where(w_ok, sy, -big).amax(dim=-1))
+    aabb = torch.stack([minx, miny, maxx, maxy], dim=-1)
+
+    on_screen = (maxx >= 0.0) & (maxy >= 0.0) & (minx < width) & (miny < height)
+    valid = valid & on_screen
+
+    setup = torch.cat(
+        [
+            e0,
+            e1,
+            e2,
+            c[..., 2],
+            w,
+            face_ids.to(torch.float32)[:, None],
+            ax[:, None],
+            ay[:, None],
+            miny[:, None],
+            maxy[:, None],
+            torch.zeros((nf, SETUP_WIDTH - 20), dtype=torch.float32, device=dev),
+        ],
+        dim=-1,
+    ).to(torch.float32)
+    return {"setup": setup.contiguous(), "valid": valid, "aabb": aabb, "det": det}
+
+
+def _tile_ranges(aabb, valid, tiles_x, tiles_y, tile_w, tile_h, ty_base=0):
+    """Clamped per-face tile ranges + tile-grid intersection culling
+    (geometry.py _tile_ranges)."""
+    btx0 = torch.floor(_div(aabb[:, 0], tile_w))
+    bty0 = torch.floor(_div(aabb[:, 1], tile_h)) - ty_base
+    btx1 = torch.floor(_div(aabb[:, 2], tile_w))
+    bty1 = torch.floor(_div(aabb[:, 3], tile_h)) - ty_base
+    intersects = (btx1 >= 0.0) & (bty1 >= 0.0) & (btx0 < tiles_x) & (bty0 < tiles_y)
+    tx0 = torch.clamp(btx0, 0, tiles_x - 1).to(torch.int32)
+    ty0 = torch.clamp(bty0, 0, tiles_y - 1).to(torch.int32)
+    tx1 = torch.clamp(btx1, 0, tiles_x - 1).to(torch.int32)
+    ty1 = torch.clamp(bty1, 0, tiles_y - 1).to(torch.int32)
+    return tx0, ty0, tx1, ty1, valid & intersects
+
+
+def bin_pairs(
+    aabb,
+    valid,
+    tiles_x,
+    tiles_y,
+    tile_w,
+    tile_h,
+    tiles_per_face: int = TILES_PER_FACE,
+    huge_budget: int = HUGE_BUDGET,
+    ty_base=0,
+) -> dict:
+    """Pair-expansion binning (geometry.py bin_pairs): the j-th overlapped
+    tile of every small face, a dense round for the first huge_budget
+    huge faces (excess huge faces dropped and counted), one sort by
+    (tile, 8-row y-bucket, face), then searchsorted.
+
+    The reference's 2-key lax.sort becomes one stable sort of a single
+    int64 key (tile*YB + ybucket) << 21 | face. Returns pair_faces (P,)
+    i32, pair_tiles (P,) i32, offsets (T+1,) i32, counts (T,) i32 and
+    overflow (the dropped pair count, 0-dim i32)."""
+    f = aabb.shape[0]
+    if f >= 1 << FACE_BITS:
+        raise ValueError(f"bin_pairs: {f} faces exceed the 2^{FACE_BITS} sort-key field")
+    dev = aabb.device
+    t = tiles_x * tiles_y
+    tx0, ty0, tx1, ty1, valid = _tile_ranges(aabb, valid, tiles_x, tiles_y, tile_w, tile_h, ty_base)
+    span_x = tx1 - tx0 + 1
+    span_y = ty1 - ty0 + 1
+    span = torch.where(valid, span_x * span_y, torch.zeros_like(span_x))
+    face_ids = torch.arange(f, dtype=torch.int32, device=dev)
+    huge = valid & (span > tiles_per_face)
+    ybucket = torch.clamp(torch.floor(aabb[:, 1] * (1.0 / 8.0)), 0, YB - 1).to(torch.int32)
+    sentinel = t * YB
+
+    # Rounds: (TPF, F) j-th tile of each small face.
+    j = torch.arange(tiles_per_face, dtype=torch.int32, device=dev)[:, None]
+    sx = torch.clamp(span_x, min=1)[None, :]
+    jx = j % sx
+    jy = j // sx
+    tile_j = (ty0[None, :] + jy) * tiles_x + (tx0[None, :] + jx)
+    ok = (valid & ~huge)[None, :] & (j < span[None, :])
+    keys_small = torch.where(ok, tile_j * YB + ybucket[None, :], sentinel).reshape(-1)
+    vals_small = face_ids[None, :].expand(tiles_per_face, f).reshape(-1)
+
+    # Huge faces: the first huge_budget in draw order. Weights f - id are
+    # distinct, so topk's set equals lax.top_k's; the zero-weight filler
+    # entries are masked below either way.
+    hb = min(huge_budget, f)
+    hw = torch.where(huge, f - face_ids, torch.zeros_like(face_ids))
+    hidx = torch.topk(hw, hb).indices.to(torch.int32)
+    hl = hidx.long()
+    h_ok_face = huge[hl]
+    jh = torch.arange(t, dtype=torch.int32, device=dev)[None, :]
+    hsx = torch.clamp(span_x[hl], min=1)[:, None]
+    hx = jh % hsx
+    hy = jh // hsx
+    h_tile = (ty0[hl][:, None] + hy) * tiles_x + tx0[hl][:, None] + hx
+    h_ok = h_ok_face[:, None] & (jh < span[hl][:, None])
+    keys_huge = torch.where(h_ok, h_tile * YB + ybucket[hl][:, None], sentinel).reshape(-1)
+    vals_huge = hidx[:, None].expand(hb, t).reshape(-1)
+
+    keys = torch.cat([keys_small, keys_huge]).to(torch.int64)
+    vals = torch.cat([vals_small, vals_huge]).to(torch.int64)
+    packed, _ = torch.sort((keys << FACE_BITS) | vals, stable=True)
+    pair_keys = packed >> FACE_BITS
+    pair_faces = (packed & ((1 << FACE_BITS) - 1)).to(torch.int32)
+    pair_tiles = (pair_keys // YB).to(torch.int32)
+
+    bounds = torch.arange(t + 1, dtype=torch.int64, device=dev) * YB
+    offsets = torch.searchsorted(pair_keys, bounds).to(torch.int32)
+    counts = offsets[1:] - offsets[:-1]
+    dropped = torch.where(huge, span, torch.zeros_like(span)).sum() - torch.where(
+        h_ok_face, span[hl], torch.zeros_like(hidx)
+    ).sum()
+    return {
+        "pair_faces": pair_faces,
+        "pair_tiles": pair_tiles,
+        "offsets": offsets,
+        "counts": counts,
+        "overflow": dropped.to(torch.int32),
+    }

@@ -1,0 +1,136 @@
+"""Visibility raster: depth and winning face id per pixel.
+
+Replaces the Pallas kernel tpurast/kernels/raster.py::_raster_kernel
+(launched by rasterize_tiles). The CUDA kernel is csrc/raster.cu; the
+plain torch version below computes the same bits and is what CPU tensors
+take.
+
+Semantics (raster.py:79-223): anchored homogeneous edge functions at
+pixel centers, the top-left fill rule, the all-positive region only for
+triangles crossing w=0, w(p) > 0 and z in [0, 1], reversed-Z
+GreaterEqual against clear_depth. The merge rule is order-free: the
+largest depth wins and, on equal depth, the largest face id (the later
+draw). The reference documents the same rule; its implementation keeps
+the later *sub-block in bin order* on ties across sub-blocks, which
+differs only for exact depth ties between faces in different 8-row
+y-buckets.
+
+The port has no segment schedule: a tile walks its whole pair range
+[offsets[t], offsets[t+1]) of the binned pair list, so no segment is ever
+dropped.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from tpurast_torch import kernels as _k
+from tpurast_torch.kernels import _build
+from tpurast_torch.kernels import geometry as _g
+
+# Pairs evaluated per step of the plain version (times tile pixels each).
+PLAIN_PAIR_CHUNK = 2048
+# Pixels a raster block holds in registers: 256 threads x 16 (csrc/raster.cu).
+MAX_TILE_PX = 4096
+
+
+def _edge_covered(e, a, b):
+    """Interior-negative coverage with the top-left fill rule
+    (raster.py _edge_covered)."""
+    on_edge_ok = (a < 0.0) | ((a == 0.0) & (b < 0.0))
+    return (e < 0.0) | ((e == 0.0) & on_edge_ok)
+
+
+def _fragments(rows, px, py):
+    """Coverage and depth of faces with setup rows (N, 24) at pixel
+    centers px, py (N, P), raster.py:151-191."""
+
+    def f(i):
+        return rows[:, i : i + 1]
+
+    pxr = px - f(_g.FIELD_ANCHOR_X)
+    pyr = py - f(_g.FIELD_ANCHOR_Y)
+    e0 = pxr * f(0) + pyr * f(1) + f(2)
+    e1 = pxr * f(3) + pyr * f(4) + f(5)
+    e2 = pxr * f(6) + pyr * f(7) + f(8)
+    crossing = (f(12) <= 0.0) | (f(13) <= 0.0) | (f(14) <= 0.0)
+    cov_n = _edge_covered(e0, f(0), f(1)) & _edge_covered(e1, f(3), f(4)) & _edge_covered(e2, f(6), f(7))
+    cov_p = (
+        crossing
+        & _edge_covered(-e0, -f(0), -f(1))
+        & _edge_covered(-e1, -f(3), -f(4))
+        & _edge_covered(-e2, -f(6), -f(7))
+    )
+    esum = e0 + e1 + e2
+    ez = e0 * f(9) + e1 * f(10) + e2 * f(11)
+    ew = e0 * f(12) + e1 * f(13) + e2 * f(14)
+    w_front = (ew * esum) > 0.0
+    z = ez / torch.where(ew == 0.0, torch.full_like(ew, 1e-30), ew)
+    z_ok = (z >= 0.0) & (z <= 1.0)
+    return (cov_n | cov_p) & w_front & z_ok, z
+
+
+def rasterize_tiles_plain(setup, pair_faces, offsets, *, tile_h, tile_w, tiles_x, tiles_y, clear_depth=0.0):
+    """Plain torch version of the raster kernel, chunked over pairs.
+
+    Each (tile, face) pair is evaluated at every pixel of its tile; the
+    winners merge with one scatter-amax over an int64 key
+    (depth bits << 32 | face id + 1): covered depths lie in [0, 1], so
+    their f32 bit patterns order like their values, and the low word
+    breaks ties to the larger face id."""
+    if clear_depth < 0.0:
+        raise ValueError("clear_depth must be >= 0 (reversed-Z)")
+    dev = setup.device
+    hp, wp = tiles_y * tile_h, tiles_x * tile_w
+    n_pairs = int(offsets[-1])
+    clear_bits = int(torch.tensor(clear_depth, dtype=torch.float32).view(torch.int32))
+    best = torch.full((hp * wp,), clear_bits << 32, dtype=torch.int64, device=dev)
+
+    lin = torch.arange(tile_h * tile_w, device=dev)
+    loc_x = (lin % tile_w)[None, :]
+    loc_y = (lin // tile_w)[None, :]
+    pair_tile = torch.searchsorted(offsets[1:].long(), torch.arange(n_pairs, device=dev), right=True)
+    for s in range(0, n_pairs, PLAIN_PAIR_CHUNK):
+        e = min(s + PLAIN_PAIR_CHUNK, n_pairs)
+        tiles = pair_tile[s:e][:, None]
+        faces = pair_faces[s:e].long()
+        gx = (tiles % tiles_x) * tile_w + loc_x  # (N, P) global pixel x
+        gy = (tiles // tiles_x) * tile_h + loc_y
+        covered, z = _fragments(setup[faces], gx.to(torch.float32) + 0.5, gy.to(torch.float32) + 0.5)
+        zbits = (z + 0.0).view(torch.int32).to(torch.int64)  # -0.0 -> +0.0
+        key = torch.where(covered, (zbits << 32) | (faces[:, None] + 1), torch.full_like(zbits, -1))
+        best.scatter_reduce_(0, (gy * wp + gx).reshape(-1), key.reshape(-1), "amax")
+    depth = (best >> 32).to(torch.int32).view(torch.float32)
+    fid = ((best & 0xFFFFFFFF) - 1).to(torch.float32)
+    return torch.stack([depth, fid]).reshape(2, hp, wp)
+
+
+def rasterize_tiles(setup, pair_faces, offsets, *, tile_h, tile_w, tiles_x, tiles_y, clear_depth=0.0):
+    """Visibility raster over all tiles (raster.py rasterize_tiles).
+
+    setup (F, 24) f32 from triangle_setup; pair_faces (P,) i32 and
+    offsets (T+1,) i32 from bin_pairs. Returns (2, Hp, Wp) f32: plane 0
+    depth, plane 1 face id (-1 = none), Hp = tiles_y*tile_h,
+    Wp = tiles_x*tile_w. CPU tensors run the plain version; CUDA tensors
+    launch csrc/raster.cu."""
+    if not _k.use_kernel(setup, pair_faces, offsets):
+        return rasterize_tiles_plain(
+            setup, pair_faces, offsets, tile_h=tile_h, tile_w=tile_w,
+            tiles_x=tiles_x, tiles_y=tiles_y, clear_depth=clear_depth,
+        )
+    _k.check(setup, "setup", torch.float32)
+    if setup.dim() != 2 or setup.shape[1] != _g.SETUP_WIDTH:
+        raise ValueError(f"setup: expected (F, {_g.SETUP_WIDTH}), got {tuple(setup.shape)}")
+    _k.check(pair_faces, "pair_faces", torch.int32)
+    _k.check(offsets, "offsets", torch.int32, (tiles_x * tiles_y + 1,))
+    if tile_h * tile_w > MAX_TILE_PX:
+        raise ValueError(f"the raster kernel takes tiles of at most {MAX_TILE_PX} px")
+    if clear_depth < 0.0:
+        raise ValueError("clear_depth must be >= 0 (reversed-Z)")
+    out = torch.empty((2, tiles_y * tile_h, tiles_x * tile_w), dtype=torch.float32, device=setup.device)
+    _build.call(
+        "tr_raster", setup, pair_faces, offsets, tiles_x, tiles_y, tile_h, tile_w,
+        float(clear_depth), out,
+    )
+    _k.LAUNCHES["raster"] += 1
+    return out

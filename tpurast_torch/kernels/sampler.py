@@ -1,0 +1,431 @@
+"""Texel-window plan and anisotropic trilinear texturing, plus lighting.
+
+Replaces the two Pallas kernels of tpurast/kernels/sampler.py:
+_plan_kernel (launched by plan_tiles; CUDA kernel csrc/plan.cu) and
+_sampler_kernel (helper _slot_accumulate, launched by sample_tiles; CUDA
+kernel csrc/sampler.cu). The plain torch versions below are what CPU
+tensors take.
+
+The plan is the reference's, value for value: per tile a greedy banded
+covering of the pixels' page-space texel footprints by at most K2
+windows of WH x WW texels, the tile's class (windowed, empty, residual),
+each pixel's own and parent window slot, and per (chunk, slot) the y and
+x bands of the window the chunk touches.
+
+The sample kernel reads the plan to stage each planned window region in
+shared memory and takes a texel from there when the region holds it,
+from the page otherwise; residual tiles (more than K2 windows) read the
+page directly, and count as window_miss_px as the reference's gather
+fallback does. Where a texel comes from never changes which texel is
+read or its weight, so the frame is that of direct sampling, and the
+plain version samples straight from the page. Per matched pixel
+(sampler.py:763-880): n = probe_count(...) probes along the major axis at
+the own mip (tw0, th0; page base planes 20/21) and at the parent mip
+(tw1, th1; planes 22/23). Each probe is one bilinear tap at the wrapped
+texel x0w = x0 mod w and its +1 neighbours, which lie in the rect's ghost
+border (device/pages.py). The x weights are rounded to bf16 as the
+reference's matmul operand is; the y weights stay f32; a tap is
+sum_y ry * (sum_x cw * t) in f32. The own and parent probe sums mix as
+((1 - tf) * S_own + tf * S_par) / n, then basic.frag lighting and the
+blend against the clear color. Unmatched pixels get the clear color.
+
+The reference's windowed kernel takes texel positions and bilinear
+fractions relative to the window instead: x - floor(x) rounded at the
+window coordinate's magnitude (a bf16 x weight moves by one bf16 ulp for
+a small share of taps), and on big mips it moves a wrapped texel below
+the pixel's anchored lo texel up one period into the ghost border, also
+when rounding alone put the probe one texel below the anchor range
+(ROADMAP queue 3). Direct positions avoid both.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from tpurast_torch import kernels as _k
+from tpurast_torch.kernels import _build
+from tpurast_torch.kernels import shade as _shade
+from tpurast_torch.kernels.resolve import A_OUT
+
+# Repeat-addressing constants shared with the page builder's ghost-border
+# sizing (tpurast/kernels/sampler.py:116-132, device/pages.py).
+X_WRAP_LIM = 255.0
+Y_WRAP_LIM = 87.0
+WRAP_GHOST = 24
+
+# Window plan (tpurast/kernels/sampler.py:87-182): window origins align
+# to (ALIGN_Y, ALIGN_X); a window is (WH, WW) texels; a tile plans at most
+# K2 windows; per (chunk, slot) the sample reads (YB, XB) bands of it.
+ALIGN_Y = 8
+ALIGN_X = 128
+WH = 96
+WW = 384
+K2 = 32
+YB = 48
+XB = 128
+NXB = WW // XB
+RC = 16
+CLS_WINDOWED = 0
+CLS_EMPTY = 2
+CLS_RESIDUAL = 3
+CHUNK_NP_LANE = 120
+# Pixels per tile the plan kernel holds (512 threads x 8) and per chunk
+# the sample kernel holds (256 threads x 8), csrc/plan.cu, csrc/sampler.cu.
+MAX_TILE_PX = 4096
+MAX_CHUNK_PX = 2048
+
+# Shading parameters passed to csrc/sampler.cu, in this order.
+N_PARAMS = 13
+
+
+def rc_for(tile_h: int) -> int:
+    """Chunk row height for a tile height (sampler.py rc_for)."""
+    if tile_h % 8 != 0:
+        raise ValueError(f"tile_h must be a multiple of 8, got {tile_h}")
+    return RC if tile_h % RC == 0 else 8
+
+
+def _to_tiles(x, tiles_y, tile_h, tiles_x, tile_w):
+    """(..., Hp, Wp) -> (..., T, tile_h * tile_w), tiles in raster order,
+    pixels row-major inside a tile."""
+    lead = x.shape[:-2]
+    x = x.reshape(*lead, tiles_y, tile_h, tiles_x, tile_w).movedim(-3, -2)
+    return x.reshape(*lead, tiles_y * tiles_x, tile_h * tile_w)
+
+
+def _from_tiles(x, tiles_y, tile_h, tiles_x, tile_w):
+    """Inverse of _to_tiles."""
+    lead = x.shape[:-2]
+    x = x.reshape(*lead, tiles_y, tiles_x, tile_h, tile_w).movedim(-2, -3)
+    return x.reshape(*lead, tiles_y * tile_h, tiles_x * tile_w)
+
+
+def _probe_count(g, max_anisotropy):
+    if max_anisotropy > 1:
+        return _shade.probe_count(g[17], g[14], g[15], g[9], g[10], max_anisotropy)
+    return torch.ones_like(g[17])
+
+
+def _probe_extent_anchors(g, max_anisotropy):
+    """Per-pixel page-coordinate anchor ranges, own (y_lo, y_hi, x_lo,
+    x_hi) and parent, and the probe count (sampler.py
+    _probe_extent_anchors)."""
+    u, v = g[6], g[7]
+    tw0, th0, tw1, th1 = g[9], g[10], g[11], g[12]
+    span = g[17]
+    n_px = _probe_count(g, max_anisotropy)
+    fo_ext = (0.5 - _shade.fdiv(0.5, n_px)) * span
+    du_ext = torch.abs(g[14]) * fo_ext
+    dv_ext = torch.abs(g[15]) * fo_ext
+
+    def anchor(uu, ww, dd, lim):
+        lo_u = torch.floor((uu - dd) * ww - 0.5)
+        hi_u = torch.floor((uu + dd) * ww - 0.5)
+        ww_c = torch.clamp(ww, min=1.0)
+        lo_m = torch.remainder(lo_u, ww_c)
+        hi_m = torch.remainder(hi_u, ww_c)
+        big = ww > lim
+        lo = torch.where(big, lo_m, torch.minimum(lo_m, hi_m))
+        hi = torch.where(big, lo_m + (hi_u - lo_u), torch.maximum(lo_m, hi_m))
+        return lo, hi
+
+    xo_lo, xo_hi = anchor(u, tw0, du_ext, X_WRAP_LIM)
+    yo_lo, yo_hi = anchor(v, th0, dv_ext, Y_WRAP_LIM)
+    xp_lo, xp_hi = anchor(u, tw1, du_ext, X_WRAP_LIM)
+    yp_lo, yp_hi = anchor(v, th1, dv_ext, Y_WRAP_LIM)
+    own = (yo_lo + g[20], yo_hi + g[20], xo_lo + g[21], xo_hi + g[21])
+    par = (yp_lo + g[22], yp_hi + g[22], xp_lo + g[23], xp_hi + g[23])
+    return own, par, n_px
+
+
+def plan_tiles_plain(gbuf, *, tiles_x, tiles_y, tile_h, tile_w, max_anisotropy=1):
+    """Plain torch version of the plan kernel, the dict plan_tiles
+    returns; table and assign are laid out as sampler.py _plan_kernel
+    writes them. All tiles run each greedy round at once; a tile whose
+    covering is done stops changing."""
+    dev = gbuf.device
+    t_total = tiles_x * tiles_y
+    rc = rc_for(tile_h)
+    nc = tile_h // rc
+    g = _to_tiles(gbuf, tiles_y, tile_h, tiles_x, tile_w)  # (A_OUT, T, P)
+    big = torch.tensor(3.4e38, dtype=torch.float32, device=dev)
+    half_big = big * 0.5
+    matched = g[16] > 0.0
+    own, par, n_px = _probe_extent_anchors(g, max_anisotropy)
+    anch = own + par
+    unfit_o = (own[1] - own[0] > WH - ALIGN_Y - 2) | (own[3] - own[2] > WW - ALIGN_X - 2)
+    unfit_p = (par[1] - par[0] > WH - ALIGN_Y - 2) | (par[3] - par[2] > WW - ALIGN_X - 2)
+    unfit_any = (matched & (unfit_o | unfit_p)).any(dim=1)
+    todo_o = matched & ~unfit_o
+    todo_p = matched & ~unfit_p
+    assign_o = torch.full_like(g[0], -1.0)
+    assign_p = torch.full_like(g[0], -1.0)
+    share_ok = (g[11] == g[9]) & (g[12] == g[10])
+    done = torch.zeros(t_total, dtype=torch.bool, device=dev)
+    n_used = torch.zeros(t_total, dtype=torch.int32, device=dev)
+    sl_oy = torch.zeros((t_total, K2), dtype=torch.int32, device=dev)
+    sl_ox = torch.zeros((t_total, K2), dtype=torch.int32, device=dev)
+
+    def masked_min(m0, a0, m1, a1):
+        return torch.amin(torch.minimum(torch.where(m0, a0, big), torch.where(m1, a1, big)), dim=1)
+
+    for s in range(K2):
+        ymin = masked_min(todo_o, anch[0], todo_p, anch[4])
+        seed = ~done & (ymin < half_big)
+        done = done | (ymin >= half_big)
+        if not bool(seed.any()):
+            if bool(done.all()):
+                break
+            continue
+        oy = ymin - torch.floor(ymin / ALIGN_Y) * ALIGN_Y
+        lim_y = (ymin - oy + (WH - 2))[:, None]
+        band_o = todo_o & (anch[1] < lim_y)
+        band_p = todo_p & (anch[5] < lim_y)
+        xmin = masked_min(band_o, anch[2], band_p, anch[6])
+        oxs = xmin - torch.floor(xmin / ALIGN_X) * ALIGN_X
+        lim_x = (xmin - oxs + (WW - 2))[:, None]
+        win_o = band_o & (anch[3] < lim_x) & seed[:, None]
+        win_p = band_p & (anch[7] < lim_x) & (~win_o | share_ok) & seed[:, None]
+        assign_o = torch.where(win_o, float(s), assign_o)
+        assign_p = torch.where(win_p, float(s), assign_p)
+        todo_o = todo_o & ~win_o
+        todo_p = todo_p & ~win_p
+        ymin_i = torch.where(seed, ymin, 0.0).to(torch.int32)
+        xmin_i = torch.where(seed, xmin, 0.0).to(torch.int32)
+        sl_oy[:, s] = torch.where(seed, ymin_i - ymin_i % ALIGN_Y, 0)
+        sl_ox[:, s] = torch.where(seed, xmin_i - xmin_i % ALIGN_X, 0)
+        n_used = n_used + seed.to(torch.int32)
+
+    covered = matched.any(dim=1)
+    leftover = (todo_o | todo_p).any(dim=1) | unfit_any
+    cls = torch.where(
+        covered,
+        torch.where(leftover, CLS_RESIDUAL, CLS_WINDOWED),
+        CLS_EMPTY,
+    ).to(torch.int32)
+    table = torch.zeros((t_total, 8, 128), dtype=torch.int32, device=dev)
+    table[:, 0, 0] = cls
+    table[:, 0, 1] = n_used
+    table[:, 0, 32 : 32 + K2] = sl_oy
+    table[:, 0, 64 : 64 + K2] = sl_ox
+
+    # Per-(chunk, slot) plan words (sampler.py:362-445).
+    neg_big = -big
+    cp = rc * tile_w
+    for ci in range(nc):
+        rows = slice(ci * cp, (ci + 1) * cp)
+        ao, ap = assign_o[:, rows], assign_p[:, rows]
+        m_c = matched[:, rows]
+        npx_c = n_px[:, rows]
+        table[:, 1 + ci, CHUNK_NP_LANE] = torch.amax(torch.where(m_c, npx_c, 1.0), dim=1).to(torch.int32)
+        a = [x[:, rows] for x in anch]
+        for j in range(int(n_used.max()) if t_total else 0):
+            m_o = ao == float(j)
+            m_p = ap == float(j)
+            m_any = m_o | m_p
+            use = m_any.any(dim=1) & (j < n_used)
+
+            def vmin(lo_o, lo_p):
+                r = torch.amin(torch.minimum(torch.where(m_o, lo_o, big), torch.where(m_p, lo_p, big)), dim=1)
+                return torch.where(use, r, 0.0).to(torch.int32)
+
+            def vmax(hi_o, hi_p):
+                r = torch.amax(torch.maximum(torch.where(m_o, hi_o, neg_big), torch.where(m_p, hi_p, neg_big)), dim=1)
+                return torch.where(use, r, 0.0).to(torch.int32)
+
+            ylo, yhi = vmin(a[0], a[4]), vmax(a[1], a[5])
+            xlo, xhi = vmin(a[2], a[6]), vmax(a[3], a[7])
+            rylo = torch.clamp(ylo - sl_oy[:, j], 0, WH - 1)
+            ryhi = torch.clamp(yhi - sl_oy[:, j] + 1, 0, WH - 1)
+            rxlo = torch.clamp(xlo - sl_ox[:, j], 0, WW - 1)
+            rxhi = torch.clamp(xhi - sl_ox[:, j] + 1, 0, WW - 1)
+            b0 = rylo - rylo % ALIGN_Y
+            nyb = torch.clamp(torch.div(ryhi + 1 - b0 + YB - 1, YB, rounding_mode="floor"), 1, WH // YB)
+            b0 = torch.minimum(b0, WH - nyb * YB)
+            xb0 = torch.div(rxlo, XB, rounding_mode="floor")
+            nxb = torch.clamp(torch.div(rxhi, XB, rounding_mode="floor"), 0, NXB - 1) - xb0 + 1
+            np_s = torch.clamp(torch.amax(torch.where(m_any, npx_c, 1.0), dim=1).to(torch.int32), 1, 16)
+            word = 1 | (b0 << 1) | (nyb << 9) | (xb0 << 12) | (nxb << 14) | ((np_s - 1) << 16)
+            table[:, 1 + ci, j] = torch.where(use, word, 0)
+    assign = _from_tiles(torch.stack([assign_o, assign_p]), tiles_y, tile_h, tiles_x, tile_w)
+    return _plan_dict(gbuf, table, assign, tiles_y, tile_h, tiles_x, tile_w)
+
+
+def _tap_sum(page, u, v, maj_du, maj_dv, span, n_px, ww, hh, base_y, base_x, n_max):
+    """Probe sum (4, M) at one mip level: sum over probes i < n_px of one
+    bilinear tap each (sampler.py:817-831 positions, :613-642 weights)."""
+    ww_c = torch.clamp(ww, min=1.0)
+    hh_c = torch.clamp(hh, min=1.0)
+    acc = torch.zeros((4,) + u.shape, dtype=torch.float32, device=u.device)
+    for i in range(n_max):
+        fo = (_shade.fdiv(i + 0.5, n_px) - 0.5) * span
+        x = (u + maj_du * fo) * ww - 0.5
+        y = (v + maj_dv * fo) * hh - 0.5
+        x0 = torch.floor(x)
+        y0 = torch.floor(y)
+        fx = x - x0
+        fy = y - y0
+        px = (base_x + torch.remainder(x0, ww_c)).long()
+        py = (base_y + torch.remainder(y0, hh_c)).long()
+        cw1 = fx.to(torch.bfloat16).to(torch.float32)
+        cw0 = (1.0 - fx).to(torch.bfloat16).to(torch.float32)
+        ry0 = 1.0 - fy
+        ry1 = fy
+        t00 = page[:, py, px].to(torch.float32)
+        t01 = page[:, py, px + 1].to(torch.float32)
+        t10 = page[:, py + 1, px].to(torch.float32)
+        t11 = page[:, py + 1, px + 1].to(torch.float32)
+        row0 = t00 * cw0 + t01 * cw1
+        row1 = t10 * cw0 + t11 * cw1
+        tap = row0 * ry0 + row1 * ry1
+        acc = torch.where(i < n_px, acc + tap, acc)
+    return acc
+
+
+def _shade_pixels(g, s_own, s_par, n_px, camera_position, *, light_direction, light_color,
+                  ambient_amount, specular_power, clear_color, blend):
+    """Mip blend, probe normalisation, lighting and blend of matched
+    pixels (sampler.py:867-880, shade_out)."""
+    tfrac = g[13]
+    t_i = 1.0 - tfrac
+    albedo = [_shade.fdiv(s_own[c] * t_i + s_par[c] * tfrac, n_px) for c in range(4)]
+    rgb = _shade._light_planes(
+        albedo,
+        [g[0], g[1], g[2]],
+        [g[3], g[4], g[5]],
+        camera_position,
+        light_direction=light_direction,
+        light_color=light_color,
+        ambient_amount=ambient_amount,
+        specular_power=specular_power,
+    )
+    mask = torch.ones_like(tfrac, dtype=torch.bool)
+    return torch.stack(_shade.blend_planes(rgb, 1.0, mask, clear_color, blend))
+
+
+def sample_pixels(g, page, camera_position, *, max_anisotropy, **light):
+    """Linear color (4, M) of matched pixels with G-buffer columns g
+    (A_OUT, M), every texel read straight from the page."""
+    u, v = g[6], g[7]
+    maj_du, maj_dv, span = g[14], g[15], g[17]
+    n_px = _probe_count(g, max_anisotropy)
+    n_max = int(n_px.max()) if n_px.numel() else 0
+    s_own = _tap_sum(page, u, v, maj_du, maj_dv, span, n_px, g[9], g[10], g[20], g[21], n_max)
+    s_par = _tap_sum(page, u, v, maj_du, maj_dv, span, n_px, g[11], g[12], g[22], g[23], n_max)
+    return _shade_pixels(g, s_own, s_par, n_px, camera_position, **light)
+
+
+def sample_tiles_plain(gbuf, page, plan, camera_position, *, tiles_x, tiles_y, tile_h, tile_w,
+                       max_anisotropy, light_direction, light_color, ambient_amount, specular_power,
+                       clear_color, blend="alpha"):
+    """Plain torch version of the sample kernel: (4, Hp, Wp) f32 linear.
+    The plan decides only where the kernel reads a texel from (its staged
+    window or the page), never which texel or its weight, so the plain
+    version samples every matched pixel straight from the page; unmatched
+    pixels take the clear color."""
+    del plan, tiles_x, tiles_y, tile_h, tile_w
+    _, hp, wp = gbuf.shape
+    g = gbuf.reshape(gbuf.shape[0], -1)
+    pix = torch.nonzero(g[16] > 0.0)[:, 0]
+    out = torch.tensor([float(c) for c in clear_color], dtype=torch.float32, device=gbuf.device)
+    out = out[:, None].repeat(1, hp * wp)
+    if pix.numel():
+        out[:, pix] = sample_pixels(
+            g[:, pix], page, camera_position, max_anisotropy=max_anisotropy,
+            light_direction=light_direction, light_color=light_color,
+            ambient_amount=ambient_amount, specular_power=specular_power,
+            clear_color=clear_color, blend=blend,
+        )
+    return out.reshape(4, hp, wp)
+
+
+def shade_params(*, light_direction, light_color, ambient_amount, specular_power, clear_color, blend):
+    """The N_PARAMS floats csrc/sampler.cu takes: light direction (3),
+    light color (3), ambient, specular power, clear color (4), opaque flag."""
+    if blend not in ("alpha", "opaque"):
+        raise ValueError(f"unknown blend mode {blend!r}")
+    vals = [*light_direction, *light_color, ambient_amount, specular_power, *clear_color,
+            1.0 if blend == "opaque" else 0.0]
+    if len(vals) != N_PARAMS:
+        raise ValueError("light_direction/light_color need 3 entries, clear_color 4")
+    return vals
+
+
+def _plan_dict(gbuf, table, assign, tiles_y, tile_h, tiles_x, tile_w):
+    cls = table[:, 0, 0]
+    n_matched = _to_tiles(gbuf[16] > 0.0, tiles_y, tile_h, tiles_x, tile_w).sum(dim=1)
+    return {
+        "table": table,
+        "assign": assign,
+        "cls": cls,
+        "n_used": table[:, 0, 1],
+        "residual_px": torch.where(cls == CLS_RESIDUAL, n_matched, 0).sum().to(torch.int32),
+    }
+
+
+def plan_tiles(gbuf, *, tiles_x, tiles_y, tile_h, tile_w, max_anisotropy=1):
+    """Per-tile window plan (sampler.py plan_tiles) of the G-buffer
+    (A_OUT, Hp, Wp). Returns a dict: "table" (T, 8, 128) i32 (row 0: class,
+    slot count, window origins at lanes 32+k / 64+k; rows 1..NC: per-chunk
+    plan words, lane CHUNK_NP_LANE the chunk's probe count), "assign"
+    (2, Hp, Wp) f32 own/parent slot per pixel (-1 none), "cls" and
+    "n_used" (views of the table) and "residual_px", the matched pixels
+    of residual tiles (the reference's window_miss_px). CPU tensors run the
+    plain version; CUDA tensors launch csrc/plan.cu."""
+    rc = rc_for(tile_h)
+    if not _k.use_kernel(gbuf):
+        return plan_tiles_plain(
+            gbuf, tiles_x=tiles_x, tiles_y=tiles_y, tile_h=tile_h, tile_w=tile_w,
+            max_anisotropy=max_anisotropy,
+        )
+    _k.check(gbuf, "gbuf", torch.float32, (A_OUT, tiles_y * tile_h, tiles_x * tile_w))
+    if tile_h * tile_w > MAX_TILE_PX or tile_h // rc + 1 > 8:
+        raise ValueError(f"the plan kernel takes tiles of at most {MAX_TILE_PX} px and 7 chunks")
+    t_total = tiles_x * tiles_y
+    table = torch.empty((t_total, 8, 128), dtype=torch.int32, device=gbuf.device)
+    assign = torch.empty((2,) + tuple(gbuf.shape[1:]), dtype=torch.float32, device=gbuf.device)
+    _build.call("tr_plan", gbuf, tiles_x, tiles_y, tile_h, tile_w, rc, max_anisotropy, table, assign)
+    _k.LAUNCHES["plan"] += 1
+    return _plan_dict(gbuf, table, assign, tiles_y, tile_h, tiles_x, tile_w)
+
+
+def sample_tiles(gbuf, page, plan, camera_position, *, tiles_x, tiles_y, tile_h, tile_w,
+                 max_anisotropy, light_direction, light_color, ambient_amount, specular_power,
+                 clear_color, blend="alpha"):
+    """Texture, light and blend every pixel of the G-buffer gbuf
+    (A_OUT, Hp, Wp) from the bf16 page (4, PH, PW) through the window plan
+    from plan_tiles; camera_position (3,) f32. Returns the (4, Hp, Wp) f32
+    linear framebuffer (sampler.py sample_tiles, with the residual tiles
+    already shaded). CPU tensors run the plain version; CUDA tensors launch
+    csrc/sampler.cu."""
+    kw = dict(
+        light_direction=light_direction, light_color=light_color, ambient_amount=ambient_amount,
+        specular_power=specular_power, clear_color=clear_color, blend=blend,
+    )
+    table, assign = plan["table"], plan["assign"]
+    if not _k.use_kernel(gbuf, page, table, assign, camera_position):
+        return sample_tiles_plain(
+            gbuf, page, plan, camera_position, tiles_x=tiles_x, tiles_y=tiles_y, tile_h=tile_h,
+            tile_w=tile_w, max_anisotropy=max_anisotropy, **kw,
+        )
+    hp, wp = tiles_y * tile_h, tiles_x * tile_w
+    _k.check(gbuf, "gbuf", torch.float32, (A_OUT, hp, wp))
+    _k.check(page, "page", torch.bfloat16)
+    if page.dim() != 3 or page.shape[0] != 4:
+        raise ValueError(f"page: expected (4, PH, PW), got {tuple(page.shape)}")
+    _k.check(table, "plan table", torch.int32, (tiles_x * tiles_y, 8, 128))
+    _k.check(assign, "plan assign", torch.float32, (2, hp, wp))
+    _k.check(camera_position, "camera_position", torch.float32, (3,))
+    rc = rc_for(tile_h)
+    if rc * tile_w > MAX_CHUNK_PX:
+        raise ValueError(f"the sample kernel takes chunks of at most {MAX_CHUNK_PX} px")
+    params = (ctypes.c_float * N_PARAMS)(*shade_params(**kw))
+    out = torch.empty((4, hp, wp), dtype=torch.float32, device=gbuf.device)
+    _build.call(
+        "tr_sample", gbuf, page, page.shape[1], page.shape[2], table, assign, camera_position,
+        tiles_x, tiles_y, tile_h, tile_w, rc, max_anisotropy, ctypes.addressof(params), out,
+    )
+    _k.LAUNCHES["sample"] += 1
+    return out
