@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Smoke run of the tpurast_torch main path on one NVIDIA GPU.
+"""Smoke run of the tpurast_torch paths on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -8,23 +8,40 @@ from the seed (a 256x256-quad floor and 64 UV spheres, 258,048 triangles,
 eight generated 1024^2 BC4 textures with full mip chains), and then, at
 1920x1080:
 
-  1. runs one frame's real inputs through each kernel (raster, resolve,
-     plan, sample) and through its plain torch version on the same
-     device, and holds the two against each other: raster depth and face
-     id exact; resolve integer planes exact, float planes within rtol
-     1e-5 / atol 1e-6 outside pixels whose mip level l0 flipped (at most
-     0.1% of covered pixels); plan table and assignment exact; sample
-     within 1 LSB after the sRGB u8 encode, and its frame with every
-     tile forced to direct page reads equal to the staged one;
-  2. renders a warm-up frame plus 8 frames of an orbiting camera through
-     tpurast_torch.renderer.Renderer, checks that every kernel's launch
-     counter rose by one per frame, that nothing overflowed and that
-     5-95% of the pixels are covered;
-  3. renders frame 0 again with every kernel's plain version and compares
-     the frames: color within 1 LSB, depth exact.
+  1. runs one frame's real inputs through each render kernel (raster,
+     resolve, plan, sample) and through its plain torch version on the
+     same device, and holds the two against each other: raster depth and
+     face id exact; resolve integer planes exact, float planes within
+     rtol 1e-5 / atol 1e-6 outside pixels whose mip level l0 flipped (at
+     most 0.1% of covered pixels); plan table and assignment exact;
+     sample within 1 LSB after the sRGB u8 encode, and its frame with
+     every tile forced to direct page reads equal to the staged one;
+  2. runs the microbenchmark probes at the tools' sizes against their
+     plain versions, bit for bit: vmem_take (4096x16 f32 table, 2,073,600
+     indices) and plane_scale on a (24, 1088, 1920) G-buffer in its three
+     launch geometries;
+  3. the window main path: renders a warm-up frame plus 8 frames of an
+     orbiting camera through tpurast_torch.renderer.Renderer, checks that
+     every render kernel's launch counter rose by one per frame, that
+     nothing overflowed and that 5-95% of the pixels are covered, and
+     renders frame 0 again with every kernel's plain version: color
+     within 1 LSB, depth exact;
+  4. the microbenchmark path: tools.microbench's vmemtake and
+     tools.microbench_pipeline's run, with the probe counters from zero
+     (each kernel must launch), and tools.microbench's shade
+     decomposition over the orbit scene's f16 atlas rows;
+  5. the gather path (sampler="gather"): a warm-up frame plus 3 track
+     frames; raster and resolve launch once per frame, plan and sample
+     never; no overflow; depth equal to the window path's; frame 0 within
+     2 LSB of the window path's frame 0 (the reference's budget between
+     its two samplers, tests/test_sampler.py:76);
+  6. the deferred path (shading="deferred"), the same frames: raster
+     launches once per frame and nothing else; color and depth equal to
+     the gather path's bit for bit.
 
-Any failure raises. The last stdout line is {"ok": true, "device": ...};
-the line before it lists each kernel's launches, error and times.
+Each path prints its frame times and a per-stage breakdown. Any failure
+raises. The last stdout line is {"ok": true, "device": ...}; the line
+before it lists each kernel's launches, error and times.
 """
 
 from __future__ import annotations
@@ -45,16 +62,22 @@ import torch  # noqa: E402
 from tpurast.config import RendererConfig  # noqa: E402
 from tpurast_torch import kernels as K  # noqa: E402
 from tpurast_torch.device.scene import build_orbit_scene, orbit_track  # noqa: E402
-from tpurast_torch.kernels import _build, geometry, present, raster, resolve, sampler, shade  # noqa: E402
+from tpurast_torch.kernels import _build, geometry, present, probes, raster, resolve, sampler, shade  # noqa: E402
 from tpurast_torch.renderer import Renderer  # noqa: E402
+from tpurast_torch.tools import microbench, microbench_pipeline  # noqa: E402
 
 KERNELS = {
     "raster": ("tpurast_torch/csrc/raster.cu", "tpurast/kernels/raster.py:88"),
     "resolve": ("tpurast_torch/csrc/resolve.cu", "tpurast/kernels/resolve.py:126"),
     "plan": ("tpurast_torch/csrc/plan.cu", "tpurast/kernels/sampler.py:230"),
     "sample": ("tpurast_torch/csrc/sampler.cu", "tpurast/kernels/sampler.py:650"),
+    "vmem_take": ("tpurast_torch/csrc/probes.cu", "tools/microbench.py:262"),
+    "plane_scale": ("tpurast_torch/csrc/probes.cu", "tools/microbench_pipeline.py:35"),
 }
+RENDER_KERNELS = ("raster", "resolve", "plan", "sample")
+PROBE_KERNELS = ("vmem_take", "plane_scale")
 FRAMES = 8
+GATHER_FRAMES = 3
 WIDTH, HEIGHT = 1920, 1080
 FLOAT_PLANES = [i for i in range(resolve.A_OUT) if i not in resolve.INT_PLANES]
 
@@ -73,18 +96,56 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def device_ms(fn, reps: int) -> float | None:
+    """Device milliseconds per call of fn: the time torch.profiler records
+    in CUDA kernels (and copies) over reps calls after one warm-up call,
+    divided by reps; host time between launches is left out. None when
+    the profiler records no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(e.self_device_time_total for e in prof.key_averages())
+    return total_us / 1e3 / reps if total_us > 0 else None
+
+
+def timed(kernel_fn, plain_fn, reps: int, plain_reps: int) -> dict:
+    """A kernel's and its plain version's ms per call by CUDA events (ms,
+    plain_ms: what a caller waits, launch overhead included) and by the
+    profiler's device time (dev_ms, plain_dev_ms)."""
+    return dict(
+        ms=cuda_ms(kernel_fn, reps), plain_ms=cuda_ms(plain_fn, plain_reps),
+        dev_ms=device_ms(kernel_fn, reps), plain_dev_ms=device_ms(plain_fn, plain_reps),
+    )
+
+
+def fmt_ms(x: float | None) -> str:
+    return "not measured" if x is None else f"{x:.4f}"
+
+
 @contextlib.contextmanager
 def plain_kernels():
     """Route render_frame's kernel calls to their plain torch versions."""
-    saved = (raster.rasterize_tiles, resolve.resolve_gbuffer, sampler.plan_tiles, sampler.sample_tiles)
-    raster.rasterize_tiles = raster.rasterize_tiles_plain
-    resolve.resolve_gbuffer = resolve.resolve_gbuffer_plain
-    sampler.plan_tiles = sampler.plan_tiles_plain
-    sampler.sample_tiles = sampler.sample_tiles_plain
+    swaps = [
+        (raster, "rasterize_tiles", raster.rasterize_tiles_plain),
+        (resolve, "resolve_gbuffer", resolve.resolve_gbuffer_plain),
+        (sampler, "plan_tiles", sampler.plan_tiles_plain),
+        (sampler, "sample_tiles", sampler.sample_tiles_plain),
+        (probes, "vmem_take", probes.vmem_take_plain),
+        (probes, "plane_scale", probes.plane_scale_plain),
+    ]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
+    for mod, name, plain in swaps:
+        setattr(mod, name, plain)
     try:
         yield
     finally:
-        raster.rasterize_tiles, resolve.resolve_gbuffer, sampler.plan_tiles, sampler.sample_tiles = saved
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
 
 
 def check(cond: bool, what: str) -> None:
@@ -113,8 +174,11 @@ def kernel_phases(r: Renderer, cam) -> dict:
     covered = int((vis[1] >= 0).sum())
     out["raster"] = dict(
         max_abs_err=depth_err,
-        ms=cuda_ms(lambda: raster.rasterize_tiles(so["setup"], bins["pair_faces"], bins["offsets"], **rkw), 20),
-        plain_ms=cuda_ms(lambda: raster.rasterize_tiles_plain(so["setup"], bins["pair_faces"], bins["offsets"], **rkw), 2),
+        **timed(
+            lambda: raster.rasterize_tiles(so["setup"], bins["pair_faces"], bins["offsets"], **rkw),
+            lambda: raster.rasterize_tiles_plain(so["setup"], bins["pair_faces"], bins["offsets"], **rkw),
+            20, 2,
+        ),
     )
     counts = bins["counts"].float()
     print(f"raster: pairs {int(bins['offsets'][-1])} (per tile mean {float(counts.mean()):.0f}, "
@@ -139,8 +203,11 @@ def kernel_phases(r: Renderer, cam) -> dict:
     res_err = float((gf - gpf).abs().max())
     out["resolve"] = dict(
         max_abs_err=res_err,
-        ms=cuda_ms(lambda: resolve.resolve_gbuffer(vis, attrs, max_anisotropy=ma), 20),
-        plain_ms=cuda_ms(lambda: resolve.resolve_gbuffer_plain(vis, attrs, max_anisotropy=ma), 3),
+        **timed(
+            lambda: resolve.resolve_gbuffer(vis, attrs, max_anisotropy=ma),
+            lambda: resolve.resolve_gbuffer_plain(vis, attrs, max_anisotropy=ma),
+            20, 3,
+        ),
     )
     print(f"resolve: vs plain: l0 flips at {n_flip} px ({n_flip / max(covered, 1):.2e} of covered), "
           f"integer-plane values differing {int_bad}, float-plane values outside rtol 1e-5/atol 1e-6 "
@@ -157,8 +224,11 @@ def kernel_phases(r: Renderer, cam) -> dict:
     assign_bad = int((plan["assign"] != plan_p["assign"]).sum())
     out["plan"] = dict(
         max_abs_err=float((plan["assign"] - plan_p["assign"]).abs().max()),
-        ms=cuda_ms(lambda: sampler.plan_tiles(g, max_anisotropy=ma, **tiles), 20),
-        plain_ms=cuda_ms(lambda: sampler.plan_tiles_plain(g, max_anisotropy=ma, **tiles), 3),
+        **timed(
+            lambda: sampler.plan_tiles(g, max_anisotropy=ma, **tiles),
+            lambda: sampler.plan_tiles_plain(g, max_anisotropy=ma, **tiles),
+            20, 3,
+        ),
     )
     cls = plan["cls"]
     n_used = plan["n_used"][cls == sampler.CLS_WINDOWED].float()
@@ -184,8 +254,11 @@ def kernel_phases(r: Renderer, cam) -> dict:
     smp_err = float((fb - fb_p).abs().max())
     out["sample"] = dict(
         max_abs_err=smp_err,
-        ms=cuda_ms(lambda: sampler.sample_tiles(g, page, plan, cp, **skw), 20),
-        plain_ms=cuda_ms(lambda: sampler.sample_tiles_plain(g, page, plan, cp, **skw), 3),
+        **timed(
+            lambda: sampler.sample_tiles(g, page, plan, cp, **skw),
+            lambda: sampler.sample_tiles_plain(g, page, plan, cp, **skw),
+            20, 3,
+        ),
     )
     n_probe = shade.probe_count(g[17], g[14], g[15], g[9], g[10], ma)[g[16] > 0]
     print(f"sample: probes per covered px mean {float(n_probe.mean()):.2f} max {float(n_probe.max()):.0f}, "
@@ -209,49 +282,211 @@ def kernel_phases(r: Renderer, cam) -> dict:
     return out
 
 
-def stage_breakdown(r: Renderer, cam, reps: int = 5) -> dict:
-    """Milliseconds per stage of one frame on the main path (CUDA events
-    between the stages, median over reps frames)."""
+def probe_phases(dev) -> dict:
+    """vmem_take and the three plane_scale geometries against their plain
+    versions at the tools' sizes (tools/microbench.py cmd_vmemtake,
+    tools/microbench_pipeline.py main): bit for bit."""
+    out = {}
+    n = microbench.N_PX
+    table = torch.rand((4096, 16), generator=microbench.generator(dev, 1), device=dev)
+    idx = microbench.randint(4096, n, dev, 0)
+    got, want = probes.vmem_take(table, idx), probes.vmem_take_plain(table, idx)
+    torch.cuda.synchronize()
+    bad = int((got != want).sum())
+    out["vmem_take"] = dict(
+        max_abs_err=float((got - want).abs().max()),
+        **timed(
+            lambda: probes.vmem_take(table, idx),
+            lambda: probes.vmem_take_plain(table, idx),
+            20, 5,
+        ),
+    )
+    print(f"vmem_take: {n} indices into a 4096x16 f32 table; vs plain: {bad} sums differ, max abs diff "
+          f"{out['vmem_take']['max_abs_err']}; {out['vmem_take']['ms']:.4f} ms vs plain "
+          f"{out['vmem_take']['plain_ms']:.4f} ms")
+    check(bad == 0, "vmem_take kernel disagrees with its plain version")
+
+    gbuf = torch.rand((24, 1088, 1920), generator=microbench.generator(dev, 0), device=dev)
+    one = gbuf[16:17].clone()
+    geoms = {
+        "tile-grid (24-plane buffer, 32x128 blocks)": (gbuf, 16, 32, 128),
+        "one-plane (1-plane buffer, 32x128 blocks)": (one, 0, 32, 128),
+        "row-band (24-plane buffer, 32x1920 blocks)": (gbuf, 16, 32, 1920),
+    }
+    rows = []
+    for label, (src, plane, bh, bw) in geoms.items():
+        got = probes.plane_scale(src, plane, block_h=bh, block_w=bw)
+        want = probes.plane_scale_plain(src, plane, block_h=bh, block_w=bw)
+        torch.cuda.synchronize()
+        same = bool(torch.equal(got, want))
+        rows.append(dict(
+            max_abs_err=float((got - want).abs().max()),
+            **timed(
+                lambda: probes.plane_scale(src, plane, block_h=bh, block_w=bw),
+                lambda: probes.plane_scale_plain(src, plane, block_h=bh, block_w=bw),
+                50, 50,
+            ),
+        ))
+        print(f"plane_scale {label}: equal to plain {same}; {rows[-1]['ms']:.4f} ms vs plain "
+              f"{rows[-1]['plain_ms']:.4f} ms; device {fmt_ms(rows[-1]['dev_ms'])} ms vs plain "
+              f"{fmt_ms(rows[-1]['plain_dev_ms'])} ms")
+        check(same, f"plane_scale {label} disagrees with its plain version")
+    out["plane_scale"] = dict(rows[0], max_abs_err=max(r["max_abs_err"] for r in rows))
+    return out
+
+
+def frame_stages(r: Renderer, vp, cp):
+    """One frame of r's configured path, stage by stage (the stages of
+    render_frame): yields each stage's name once its work is enqueued."""
     kw = r._frame_kwargs
     sc = r.scene
-    vp, cp = r.frame_uniforms(cam)
-    names = ["geometry", "binning", "raster", "pack_attrs", "resolve", "plan", "sample", "encode"]
+    ma = kw["max_anisotropy"]
     tiles = dict(tiles_x=r.tiles_x, tiles_y=r.tiles_y, tile_h=kw["tile_h"], tile_w=kw["tile_w"])
-    rows = []
+    light = dict(light_direction=kw["light_direction"], light_color=kw["light_color"],
+                 ambient_amount=kw["ambient_amount"], specular_power=kw["specular_power"],
+                 clear_color=kw["clear_color"], blend=kw["blend"])
+    clip = geometry.transform_corners(sc["corner_world"], vp)
+    so = geometry.triangle_setup(clip, None, sc["n_faces"], kw["width"], kw["height"])
+    yield "geometry"
+    bins = geometry.bin_pairs(so["aabb"], so["valid"], r.tiles_x, r.tiles_y, kw["tile_w"], kw["tile_h"])
+    yield "binning"
+    vis = raster.rasterize_tiles(so["setup"], bins["pair_faces"], bins["offsets"], clear_depth=kw["clear_depth"],
+                                 **tiles)
+    yield "raster"
+    corners = (so["setup"], sc["corner_world"], sc["corner_normal"], sc["corner_uv"], sc["face_tex"], sc["atlas"])
+    if kw["shading"] == "forward":
+        attrs = resolve.pack_resolve_attrs(*corners)
+        yield "pack_attrs"
+        g = resolve.resolve_gbuffer(vis, attrs, max_anisotropy=ma)
+        yield "resolve"
+        if kw["sampler"] == "window":
+            plan = sampler.plan_tiles(g, max_anisotropy=ma, **tiles)
+            yield "plan"
+            fb = sampler.sample_tiles(g, sc["atlas"]["page"], plan, cp, max_anisotropy=ma, **light, **tiles)
+            yield "sample"
+        else:
+            fb = shade.shade_gbuffer(g, sc["atlas"]["texels"], cp, max_anisotropy=ma,
+                                     texel_format=kw["texture_format"], **light)
+            yield "shade_gbuffer"
+    else:
+        rows = shade.pack_shade_rows(*corners)
+        yield "pack_shade_rows"
+        fb = shade.shade_deferred(vis[1].to(torch.int32), rows, sc["atlas"]["texels"], cp, max_anisotropy=ma,
+                                  texel_format=kw["texture_format"], **light)
+        yield "shade_deferred"
+    present.encode_srgb_u8(fb, kw["width"], kw["height"])
+    yield "encode"
+
+
+def stage_breakdown(r: Renderer, cam, reps: int = 5) -> dict:
+    """Milliseconds per stage of one frame on r's path (CUDA events
+    between the stages, median over reps frames after one more)."""
+    vp, cp = r.frame_uniforms(cam)
+    rows, names = [], []
     for _ in range(reps + 1):
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(names) + 1)]
+        ev = [torch.cuda.Event(enable_timing=True)]
         ev[0].record()
-        clip = geometry.transform_corners(sc["corner_world"], vp)
-        so = geometry.triangle_setup(clip, None, sc["n_faces"], kw["width"], kw["height"])
-        ev[1].record()
-        bins = geometry.bin_pairs(so["aabb"], so["valid"], r.tiles_x, r.tiles_y, kw["tile_w"], kw["tile_h"])
-        ev[2].record()
-        vis = raster.rasterize_tiles(
-            so["setup"], bins["pair_faces"], bins["offsets"], tile_h=kw["tile_h"], tile_w=kw["tile_w"],
-            tiles_x=r.tiles_x, tiles_y=r.tiles_y, clear_depth=kw["clear_depth"],
-        )
-        ev[3].record()
-        attrs = resolve.pack_resolve_attrs(
-            so["setup"], sc["corner_world"], sc["corner_normal"], sc["corner_uv"], sc["face_tex"], sc["atlas"]
-        )
-        ev[4].record()
-        g = resolve.resolve_gbuffer(vis, attrs, max_anisotropy=kw["max_anisotropy"])
-        ev[5].record()
-        plan = sampler.plan_tiles(g, max_anisotropy=kw["max_anisotropy"], **tiles)
-        ev[6].record()
-        fb = sampler.sample_tiles(
-            g, sc["atlas"]["page"], plan, cp, max_anisotropy=kw["max_anisotropy"],
-            light_direction=kw["light_direction"], light_color=kw["light_color"],
-            ambient_amount=kw["ambient_amount"], specular_power=kw["specular_power"],
-            clear_color=kw["clear_color"], blend=kw["blend"], **tiles,
-        )
-        ev[7].record()
-        present.encode_srgb_u8(fb, kw["width"], kw["height"])
-        ev[8].record()
+        names = []
+        for name in frame_stages(r, vp, cp):
+            ev.append(torch.cuda.Event(enable_timing=True))
+            ev[-1].record()
+            names.append(name)
         torch.cuda.synchronize()
         rows.append([ev[i].elapsed_time(ev[i + 1]) for i in range(len(names))])
     med = np.median(np.array(rows[1:]), axis=0)
     return {n: float(m) for n, m in zip(names, med)}
+
+
+def print_stages(label: str, stages: dict, reps: int = 5) -> None:
+    print(f"{label} stage ms (frame 0, median of {reps}): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()) + f"; sum {sum(stages.values()):.3f}")
+
+
+def run_track(r: Renderer, cams) -> tuple[list, list]:
+    """A warm-up frame on cams[0], then one frame per camera; returns the
+    frames and their CUDA-event milliseconds."""
+    r.render(cams[0])
+    torch.cuda.synchronize()
+    frames, times = [], []
+    for cam in cams:
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        res = r.render(cam)
+        stop.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(stop))
+        frames.append(res)
+    return frames, times
+
+
+def check_frames(frames, label: str) -> None:
+    for k, res in enumerate(frames):
+        color, depth = res["color"], res["depth"]
+        check(tuple(color.shape) == (4, HEIGHT, WIDTH) and color.dtype == torch.uint8, f"{label}: color shape")
+        check(tuple(depth.shape) == (HEIGHT, WIDTH), f"{label}: depth shape")
+        check(bool(torch.isfinite(depth).all()), f"{label}: non-finite depth")
+        check(int(res["bin_overflow"]) == 0, f"{label} frame {k}: bin_overflow {int(res['bin_overflow'])}")
+        cov = float((depth > 0).float().mean())
+        check(0.05 <= cov <= 0.95, f"{label} frame {k}: coverage {cov:.3f} outside [0.05, 0.95]")
+
+
+def print_times(label: str, times, r: Renderer, cam) -> None:
+    """Frame times, and the device's busy time per frame of cam (kernel
+    time by torch.profiler, mean of 3 frames) with the idle share it
+    leaves of the median frame."""
+    med = float(np.median(times))
+    busy = device_ms(lambda: r.render(cam), 3)
+    idle = "not measured" if busy is None else f"{1.0 - busy / med:.3f}"
+    print(f"{label} frame ms: " + ", ".join(f"{t:.2f}" for t in times)
+          + f" (median {med:.2f}); device busy per frame {fmt_ms(busy)} ms, idle share {idle}")
+
+
+def gather_paths(scene, cams, window_frames) -> None:
+    """The gather and deferred paths on the first GATHER_FRAMES cameras,
+    held against the window path's frames and against each other."""
+    n_rendered = GATHER_FRAMES + 1
+    track = cams[:GATHER_FRAMES]
+    paths = {}
+    for label, change in (("gather", dict(sampler="gather")), ("deferred", dict(shading="deferred"))):
+        r = Renderer(scene, RendererConfig(width=WIDTH, height=HEIGHT, **change), device="cuda")
+        texels = r.scene["atlas"]["texels"]
+        torch.cuda.synchronize()
+        print(f"{label} path: sampler {r.sampler}, texels {tuple(texels.shape)} {r.texture_dtype} "
+              f"({texels.numel() * texels.element_size() / 1e9:.2f} GB)")
+        K.reset_launches()
+        frames, times = run_track(r, track)
+        launches = dict(K.LAUNCHES)
+        print(f"{label} path: {n_rendered} frames (1 warm-up), launches {launches}")
+        print_times(label, times, r, track[0])
+        want = {"raster": n_rendered, "resolve": n_rendered if label == "gather" else 0}
+        for name in KERNELS:
+            check(launches[name] == want.get(name, 0),
+                  f"{label}: {name} launched {launches[name]} times for {n_rendered} frames, want {want.get(name, 0)}")
+        check_frames(frames, label)
+        print_stages(label, stage_breakdown(r, cams[0]))
+        paths[label] = (r, frames)
+
+    r_g, gather = paths["gather"]
+    _, deferred = paths["deferred"]
+    for k in range(GATHER_FRAMES):
+        check(bool(torch.equal(gather[k]["depth"], window_frames[k]["depth"])), f"gather frame {k}: depth differs "
+              "from the window path's")
+    diffs = [(d["color"].int() - g["color"].int()).abs() for d, g in zip(deferred, gather)]
+    d_lsb = [int(d.max()) for d in diffs]
+    d_px = [int((d.amax(dim=0) > 0).sum()) for d in diffs]
+    d_depth = [bool(torch.equal(d["depth"], g["depth"])) for d, g in zip(deferred, gather)]
+    print(f"deferred vs gather per frame: color max LSB {d_lsb}, pixels differing {d_px}, depth equal {d_depth}")
+    check(max(d_lsb) == 0 and all(d_depth), "the deferred frames differ from the forward+gather frames")
+    gw = (gather[0]["color"].int() - window_frames[0]["color"].int()).abs()
+    gw_px = gw.amax(dim=0)
+    print(f"gather vs window, frame 0: max {int(gw.max())} LSB, pixels above 0: {int((gw_px > 0).sum())}, "
+          f"above 1: {int((gw_px > 1).sum())}, above 2: {int((gw_px > 2).sum())}")
+    check(int(gw.max()) <= 2, "gather frame 0 is more than 2 LSB from the window frame 0")
+
+    sd = microbench.shade(r_g.scene["atlas"]["texels"], torch.device("cuda"))
+    print(f"microbench shade on the orbit atlas {sd['atlas_shape']} {sd['atlas_dtype']} "
+          f"({sd['atlas_mb']:.1f} MB), synthetic 1088x1920 G-buffer: full shade_gbuffer {sd['full_ms']:.3f} ms, "
+          f"gather-only (1 row/px) {sd['gather_only_ms']:.3f} ms, trilerp-only {sd['trilerp_only_ms']:.3f} ms")
 
 
 def main() -> None:
@@ -287,37 +522,20 @@ def main() -> None:
           f"{tuple(r.scene['atlas']['page'].shape)} bf16; build + upload {time.perf_counter() - t0:.1f} s")
 
     stats = kernel_phases(r, cams[0])
-    stages = stage_breakdown(r, cams[0])
-    print("stage ms (frame 0, median of 5): " + ", ".join(f"{k} {v:.3f}" for k, v in stages.items())
-          + f"; sum {sum(stages.values()):.3f}")
+    stats.update(probe_phases(torch.device("cuda")))
+    print_stages("window", stage_breakdown(r, cams[0]))
 
-    # Main path: a warm-up frame, then the track, with counters from zero.
+    # Window main path: a warm-up frame, then the track, with counters from zero.
     K.reset_launches()
-    r.render(cams[0])
-    torch.cuda.synchronize()
-    frames, times = [], []
-    for cam in cams:
-        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        res = r.render(cam)
-        stop.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(stop))
-        frames.append(res)
+    frames, times = run_track(r, cams)
     launches = dict(K.LAUNCHES)
     n_rendered = FRAMES + 1
     print(f"main path: {n_rendered} frames (1 warm-up), launches {launches}")
-    print("frame ms: " + ", ".join(f"{t:.2f}" for t in times) + f" (median {float(np.median(times)):.2f})")
+    print_times("window", times, r, cams[0])
     for name in KERNELS:
-        check(launches[name] == n_rendered, f"{name}: {launches[name]} launches for {n_rendered} frames")
-    for k, res in enumerate(frames):
-        color, depth = res["color"], res["depth"]
-        check(tuple(color.shape) == (4, HEIGHT, WIDTH) and color.dtype == torch.uint8, "color shape")
-        check(tuple(depth.shape) == (HEIGHT, WIDTH), "depth shape")
-        check(bool(torch.isfinite(depth).all()), "non-finite depth")
-        check(int(res["bin_overflow"]) == 0, f"frame {k}: bin_overflow {int(res['bin_overflow'])}")
-        cov = float((depth > 0).float().mean())
-        check(0.05 <= cov <= 0.95, f"frame {k}: coverage {cov:.3f} outside [0.05, 0.95]")
+        want = n_rendered if name in RENDER_KERNELS else 0
+        check(launches[name] == want, f"{name}: {launches[name]} launches for {n_rendered} frames, want {want}")
+    check_frames(frames, "window")
     print("coverage per frame: " + ", ".join(f"{float((f['depth'] > 0).float().mean()):.3f}" for f in frames))
     print("window_miss_px per frame (pixels of residual tiles, sampled straight from the page): "
           + ", ".join(str(int(f["window_miss_px"])) for f in frames))
@@ -332,8 +550,24 @@ def main() -> None:
           f"window_miss_px equal {miss_eq}")
     check(lsb <= 1 and d_eq and miss_eq, "full frame disagrees with the plain versions")
 
+    # Microbenchmark path: the tools' entry points, probe counters from zero.
+    K.reset_launches()
+    take = microbench.vmemtake(torch.device("cuda"))
+    pipe = microbench_pipeline.run(torch.device("cuda"))
+    for name in PROBE_KERNELS:
+        launches[name] = K.LAUNCHES[name]
+        check(launches[name] > 0, f"{name}: not launched on the microbenchmark path")
+    check(all(K.LAUNCHES[name] == 0 for name in RENDER_KERNELS), "a render kernel launched on the microbench path")
+    print(f"microbench path: launches {dict(K.LAUNCHES)}; vmemtake {take['ms']:.4f} ms "
+          f"({take['ns_per_row']:.4f} ns/row); pipeline " + json.dumps({k: round(v, 4) for k, v in pipe.items()}))
+
+    gather_paths(scene, cams, frames)
+
+    print("device ms per call (torch.profiler), kernel vs plain: " + "; ".join(
+        f"{name} {fmt_ms(stats[name]['dev_ms'])} vs {fmt_ms(stats[name]['plain_dev_ms'])}" for name in KERNELS))
     report = [
-        {"name": name, "route": "cuda", "source": src, "replaces": rep, "launches": launches[name], **stats[name]}
+        {"name": name, "route": "cuda", "source": src, "replaces": rep, "launches": launches[name],
+         **{k: stats[name][k] for k in ("max_abs_err", "ms", "plain_ms")}}
         for name, (src, rep) in KERNELS.items()
     ]
     print(json.dumps({"kernels": report}))

@@ -1,0 +1,174 @@
+"""tpurast_torch gather and deferred shading against the JAX package (CPU).
+
+The reference's forward G-buffer, face ids and triangle setup of one
+frame of the small orbit scene (256x128, tests/test_torch_renderer.py's)
+at max_anisotropy 1 and 4 go through tpurast.kernels.shade and
+tpurast_torch.kernels.shade with the same atlas rows, float32 and srgb8:
+
+  * pack_tex_table and pack_shade_rows: bit for bit (the int32 texture
+    info bit-cast into the f32 row);
+  * _plane_select: exact, also at level indices outside [0, 16);
+  * _trilerp at random (u, v) over the atlas: rtol 2e-6 / atol 1e-6 per
+    channel (XLA:CPU contracts the bilinear a*b+c into FMAs; eager torch
+    rounds each operation);
+  * shade_gbuffer and shade_deferred: within 1 LSB per channel after the
+    sRGB u8 encode, the same pixels covered;
+  * shade_deferred with y_offset shades a band of rows exactly as the
+    full frame does, and an uncovered G-buffer shades to the clear color.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tpurast.config import RendererConfig
+from tpurast.kernels import geometry as ref_geometry
+from tpurast.kernels import shade as ref_shade
+from tpurast.renderer import Renderer as RefRenderer
+from tpurast_torch.device.scene import build_orbit_scene, orbit_track
+from tpurast_torch.device.textures import upload_atlas
+from tpurast_torch.kernels import present, shade
+from test_torch_scene import numpy_bc_decoders  # noqa: F401  (module-wide autouse)
+
+CFG = RendererConfig(width=256, height=128, segment_headroom=512, sampler="gather")
+FORMATS = {"float": "float32", "srgb8": "srgb8"}
+
+
+def _light(cfg):
+    return dict(light_direction=cfg.light_direction, light_color=cfg.light_color,
+                ambient_amount=cfg.ambient_amount, specular_power=cfg.specular_power,
+                clear_color=cfg.clear_color, blend=cfg.blend)
+
+
+@pytest.fixture(scope="module")
+def scene():
+    return build_orbit_scene(seed=0, floor_quads=64, spheres=4, rings=16, segments=16, tex_size=128, n_textures=4)
+
+
+@pytest.fixture(scope="module")
+def texels(scene):
+    """{texel_format: (reference jnp rows, port tensor rows)}."""
+    return {fmt: (jnp.asarray(scene.atlas.device(dt)["texels"]), upload_atlas(scene.atlas, dt, "cpu")["texels"])
+            for fmt, dt in FORMATS.items()}
+
+
+@pytest.fixture(scope="module", params=[1, 4], ids=["aniso1", "aniso4"])
+def frame(request, scene):
+    """The reference's G-buffer, face ids, setup, shade rows and camera
+    position for one frame at max_anisotropy 1 or 4."""
+    cfg = dataclasses.replace(CFG, max_anisotropy=request.param)
+    r = RefRenderer(scene, cfg)
+    cam = orbit_track(8)[3]
+    gbuf, fid = r.debug_gbuf(cam, with_fid=True)
+    vp, cp = r.frame_uniforms(cam)
+    sc = r.scene
+    clip = ref_geometry.transform_corners(sc["corner_world"], vp)
+    setup = ref_geometry.triangle_setup(clip, None, sc["n_faces"], cfg.width, cfg.height)["setup"]
+    rows = ref_shade.pack_shade_rows(setup, sc["corner_world"], sc["corner_normal"], sc["corner_uv"],
+                                     sc["face_tex"], sc["atlas"])
+    return dict(cfg=cfg, gbuf=gbuf, fid=fid, cp=cp, setup=setup, rows=rows, tree=jax.tree.map(np.asarray, sc))
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+def _encode(planes, cfg):
+    return present.encode_srgb_u8(torch.as_tensor(np.asarray(planes)), cfg.width, cfg.height).numpy().astype(int)
+
+
+def _within_one_lsb(port, ref, cfg):
+    pe, re = _encode(port, cfg), _encode(ref, cfg)
+    diff = np.abs(pe - re)
+    assert diff.max() <= 1, f"max {diff.max()} LSB at {(diff > 1).sum()} values"
+    return diff
+
+
+def test_pack_shade_rows_bit_exact(frame):
+    tr = frame["tree"]
+    atlas = {k: _t(tr["atlas"][k]) for k in ("offsets", "sizes", "n_mips")}
+    np.testing.assert_array_equal(shade.pack_tex_table(atlas).numpy(),
+                                  np.asarray(ref_shade.pack_tex_table(frame["tree"]["atlas"])))
+    rows = shade.pack_shade_rows(_t(frame["setup"]), _t(tr["corner_world"]), _t(tr["corner_normal"]),
+                                 _t(tr["corner_uv"]), _t(tr["face_tex"]), atlas)
+    assert rows.shape == (tr["corner_world"].shape[0], shade.SHADE_ROW_WIDTH) and rows.dtype == torch.float32
+    np.testing.assert_array_equal(rows.view(torch.int32).numpy(), np.asarray(frame["rows"]).view(np.int32))
+
+
+def test_plane_select_matches_reference():
+    rng = np.random.default_rng(5)
+    planes = rng.integers(-(2**31), 2**31 - 1, (16, 9, 7), dtype=np.int64).astype(np.int32)
+    lane = rng.integers(-3, 20, (9, 7)).astype(np.int32)
+    got = shade._plane_select(_t(planes), _t(lane)).numpy()
+    np.testing.assert_array_equal(got, np.asarray(ref_shade._plane_select(jnp.asarray(planes), jnp.asarray(lane))))
+    assert (got[(lane < 0) | (lane >= 16)] == 0).all()
+
+
+@pytest.mark.parametrize("fmt", list(FORMATS))
+def test_trilerp_matches_reference(scene, texels, fmt):
+    ref_tex, port_tex = texels[fmt]
+    rng = np.random.default_rng(9)
+    n = 4096
+    tex_id = rng.integers(1, scene.atlas.offsets.shape[0], n)
+    level = np.minimum(rng.integers(0, 8, n), scene.atlas.n_mips[tex_id] - 1)
+    parent = np.minimum(level + 1, scene.atlas.n_mips[tex_id] - 1)
+    fields = [
+        scene.atlas.offsets[tex_id, level], scene.atlas.sizes[tex_id, level, 0],
+        scene.atlas.sizes[tex_id, level, 1], scene.atlas.sizes[tex_id, parent, 0],
+        scene.atlas.sizes[tex_id, parent, 1],
+    ]
+    fields = [f.astype(np.int32) for f in fields]
+    tfrac, u, v = (rng.uniform(lo, hi, n).astype(np.float32) for lo, hi in ((0, 1), (-3, 3), (-3, 3)))
+    want = ref_shade._trilerp(ref_tex, *map(jnp.asarray, fields), jnp.asarray(tfrac), jnp.asarray(u),
+                              jnp.asarray(v), fmt)
+    got = shade._trilerp(port_tex, *map(_t, fields), _t(tfrac), _t(u), _t(v), fmt)
+    for c in range(4):
+        np.testing.assert_allclose(got[c].numpy(), np.asarray(want[c]), rtol=2e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("fmt", list(FORMATS))
+def test_shade_gbuffer_matches_reference(frame, texels, fmt):
+    ref_tex, port_tex = texels[fmt]
+    cfg = frame["cfg"]
+    kw = dict(_light(cfg), max_anisotropy=cfg.max_anisotropy, texel_format=fmt)
+    want = ref_shade.shade_gbuffer(frame["gbuf"], ref_tex, frame["cp"], **kw)
+    got = shade.shade_gbuffer(_t(frame["gbuf"]), port_tex, _t(frame["cp"]), **kw)
+    assert got.shape == (4, 128, 256) and got.dtype == torch.float32
+    diff = _within_one_lsb(got, want, cfg)
+    covered = np.asarray(frame["gbuf"])[16] > 0
+    assert 0.05 < covered.mean() < 0.95
+    assert (diff[:, ~covered] == 0).all()
+
+
+@pytest.mark.parametrize("fmt", list(FORMATS))
+def test_shade_deferred_matches_reference(frame, texels, fmt):
+    ref_tex, port_tex = texels[fmt]
+    cfg = frame["cfg"]
+    kw = dict(_light(cfg), max_anisotropy=cfg.max_anisotropy, texel_format=fmt)
+    want = ref_shade.shade_deferred(frame["fid"], frame["rows"], ref_tex, frame["cp"], **kw)
+    rows = _t(np.asarray(frame["rows"]))
+    got = shade.shade_deferred(_t(frame["fid"]), rows, port_tex, _t(frame["cp"]), **kw)
+    assert got.shape == (4, 128, 256)
+    _within_one_lsb(got, want, cfg)
+
+
+def test_shade_deferred_y_offset_band_equals_full_frame(frame, texels):
+    _, port_tex = texels["float"]
+    cfg = frame["cfg"]
+    kw = dict(_light(cfg), max_anisotropy=cfg.max_anisotropy)
+    fid, rows, cp = _t(frame["fid"]), _t(np.asarray(frame["rows"])), _t(frame["cp"])
+    full = shade.shade_deferred(fid, rows, port_tex, cp, **kw)
+    band = shade.shade_deferred(fid[40:72], rows, port_tex, cp, y_offset=40, **kw)
+    assert torch.equal(band, full[:, 40:72])
+
+
+def test_uncovered_gbuffer_shades_to_clear_color(texels):
+    _, port_tex = texels["float"]
+    out = shade.shade_gbuffer(torch.zeros((24, 8, 16)), port_tex, torch.zeros(3), max_anisotropy=4,
+                              **_light(CFG))
+    want = torch.tensor(CFG.clear_color, dtype=torch.float32)[:, None, None].expand(4, 8, 16)
+    assert torch.equal(out, want)

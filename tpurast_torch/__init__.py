@@ -3,7 +3,14 @@
 The JAX package ``tpurast`` is the reference. This package renders the
 same frames from the same scenes and the same ``RendererConfig``, with the
 reference's Pallas kernels replaced by hand-written CUDA kernels
-(``tpurast_torch/csrc``) and the XLA glue between them by torch ops.
+(``tpurast_torch/csrc``) and the XLA glue between them by torch ops. Both
+shading paths and both samplers render: forward shading through the
+texel-window sampler (the default) or the row-atlas gather, and deferred
+shading, over atlas rows in float32, float16, bfloat16 or srgb8.
+``tpurast_torch.tools`` holds the device microbenchmarks, with CUDA
+kernels for the reference tools' Pallas probes. Scan binning, slabs,
+``stage=`` prefixes and the runtime (Engine, Presenter) are not ported
+yet and raise NotImplementedError.
 
 It imports torch and never jax; of ``tpurast`` it uses only the host-side
 numpy modules (config, math3d, camera, assets, device.textures,

@@ -3,16 +3,19 @@
 ``build_scene`` repeats tpurast.device.scene.build_scene line for line and
 returns the reference's own DeviceScene record; the one difference is that
 its pages come from tpurast_torch.device.pages (the reference's page
-builder reaches jax through its kernels package).
+builder reaches jax through its kernels package). ``load_demo_scene`` is
+tpurast.device.scene.load_demo_scene over this build_scene.
 
-``upload(scene, device)`` is the port's counterpart of DeviceScene.device():
-the frame's inputs as torch tensors on ``device``. It carries the corner
-tables, face_tex and n_faces, the bf16 texture page with its origins,
-sizes and mip counts, and the atlas offsets/sizes/n_mips that resolve
-reads. It leaves out the quad-row atlas texels, which only the (not yet
-ported) gather sampler reads. ``from_numpy(tree, device)`` takes the same
-subset from the reference's device() pytree converted leaf by leaf with
-np.asarray, so tests can feed both packages identical state.
+``upload(scene, device, texture_dtype=None)`` is the port's counterpart of
+DeviceScene.device(): the frame's inputs as torch tensors on ``device``.
+It carries the corner tables, face_tex and n_faces, the atlas
+offsets/sizes/n_mips that resolve reads and, when the scene has pages,
+the bf16 texture page with its origins, sizes and mip counts. The
+quad-row atlas texels, which only the gather sampler reads, are added
+in ``texture_dtype`` (device/textures.py) when one is given.
+``from_numpy(tree, device)`` takes the same state from the reference's
+device() pytree converted leaf by leaf with np.asarray, so tests can
+feed both packages identical state.
 
 ``build_orbit_scene`` / ``orbit_track`` generate the procedural scene that
 chip_smoke.py renders (and the CPU tests at a small size): a textured
@@ -29,11 +32,13 @@ import os
 import numpy as np
 import torch
 
-from tpurast.assets.gltf import GltfModel, PrimitiveDraw
+from tpurast import math3d
+from tpurast.assets.gltf import GltfModel, PrimitiveDraw, load_glb
 from tpurast.camera import Camera
 from tpurast.device import textures as tex_mod
 from tpurast.device.scene import DeviceScene, _pad_to, _round_up
 from tpurast_torch.device.pages import build_pages
+from tpurast_torch.device.textures import texels_tensor
 
 log = logging.getLogger("tpurast_torch.device")
 
@@ -142,40 +147,37 @@ def _bf16_from_numpy(a: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(np.array(a).view(np.uint16)).view(torch.bfloat16)
 
 
-def _tensors(arrays: dict, page: torch.Tensor, n_faces: int, device) -> dict:
+def _tensors(arrays: dict, page, texels, n_faces: int, device) -> dict:
     dev = torch.device(device)
 
     def t(a):
         return torch.from_numpy(np.array(a)).to(dev)
 
+    atlas = {"offsets": t(arrays["offsets"]), "sizes": t(arrays["sizes"]), "n_mips": t(arrays["n_mips"])}
+    if page is not None:
+        atlas["page"] = page.contiguous().to(dev)
+        for k in ("page_origins", "page_sizes", "page_n_mips"):
+            atlas[k] = t(arrays[k])
+    if texels is not None:
+        atlas["texels"] = texels.contiguous().to(dev)
     return {
         "corner_world": t(arrays["corner_world"]),
         "corner_normal": t(arrays["corner_normal"]),
         "corner_uv": t(arrays["corner_uv"]),
         "face_tex": t(arrays["face_tex"].astype(np.int32)),
         "n_faces": int(n_faces),
-        "atlas": {
-            "offsets": t(arrays["offsets"]),
-            "sizes": t(arrays["sizes"]),
-            "n_mips": t(arrays["n_mips"]),
-            "page": page.contiguous().to(dev),
-            "page_origins": t(arrays["page_origins"]),
-            "page_sizes": t(arrays["page_sizes"]),
-            "page_n_mips": t(arrays["page_n_mips"]),
-        },
+        "atlas": atlas,
     }
 
 
-def upload(scene: DeviceScene, device) -> dict:
+def upload(scene: DeviceScene, device, texture_dtype: str | None = None) -> dict:
     """The frame function's scene state as torch tensors on ``device``.
 
     The page is rounded to bf16 by torch (round to nearest even, bit for
-    bit what ml_dtypes does for the reference's upload)."""
-    if scene.pages is None:
-        raise NotImplementedError(
-            "scenes without texture pages need the gather sampler "
-            "(ROADMAP queue 1 item 10)"
-        )
+    bit what ml_dtypes does for the reference's upload). With
+    texture_dtype ("float32", "float16", "bfloat16" or "srgb8") the atlas
+    also carries the quad-row texels in that dtype; without it, it does
+    not. A scene without pages uploads no page."""
     cw, cn, cu = scene.corner_tables()
     face_tex = (
         scene.face_tex if scene.face_tex is not None else scene.prim_tex[scene.face_prim]
@@ -188,17 +190,31 @@ def upload(scene: DeviceScene, device) -> dict:
         "offsets": scene.atlas.offsets,
         "sizes": scene.atlas.sizes,
         "n_mips": scene.atlas.n_mips,
-        "page_origins": scene.pages.origins,
-        "page_sizes": scene.pages.sizes,
-        "page_n_mips": scene.pages.n_mips,
     }
-    page = torch.from_numpy(scene.pages.planes).to(torch.bfloat16)
-    return _tensors(arrays, page, scene.n_faces, device)
+    page = None
+    if scene.pages is not None:
+        arrays.update(
+            page_origins=scene.pages.origins,
+            page_sizes=scene.pages.sizes,
+            page_n_mips=scene.pages.n_mips,
+        )
+        page = torch.from_numpy(scene.pages.planes).to(torch.bfloat16)
+    texels = None if texture_dtype is None else texels_tensor(scene.atlas.texels, texture_dtype)
+    return _tensors(arrays, page, texels, scene.n_faces, device)
+
+
+def _texels_from_numpy(a: np.ndarray) -> torch.Tensor:
+    """The reference's uploaded texel rows (f32, f16, ml_dtypes bf16 or
+    srgb8 u8) as a tensor of the same dtype."""
+    if a.dtype.name == "bfloat16":
+        return _bf16_from_numpy(a)
+    return torch.from_numpy(np.array(a))
 
 
 def from_numpy(tree: dict, device) -> dict:
     """``upload``'s result from the reference's DeviceScene.device() pytree,
-    converted leaf by leaf with np.asarray (nested dicts kept)."""
+    converted leaf by leaf with np.asarray (nested dicts kept). The texels
+    and the page come along when the tree has them."""
     atlas = tree["atlas"]
     arrays = {
         "corner_world": tree["corner_world"],
@@ -208,11 +224,45 @@ def from_numpy(tree: dict, device) -> dict:
         "offsets": atlas["offsets"],
         "sizes": atlas["sizes"],
         "n_mips": atlas["n_mips"],
-        "page_origins": atlas["page_origins"],
-        "page_sizes": atlas["page_sizes"],
-        "page_n_mips": atlas["page_n_mips"],
     }
-    return _tensors(arrays, _bf16_from_numpy(atlas["page"]), int(tree["n_faces"]), device)
+    page = None
+    if "page" in atlas:
+        arrays.update({k: atlas[k] for k in ("page_origins", "page_sizes", "page_n_mips")})
+        page = _bf16_from_numpy(atlas["page"])
+    texels = _texels_from_numpy(atlas["texels"]) if "texels" in atlas else None
+    return _tensors(arrays, page, texels, int(tree["n_faces"]), device)
+
+
+def load_demo_scene(data_dir: str, include_porsche: bool = True) -> DeviceScene:
+    """The reference's 4-model demo scene (tpurast/device/scene.py
+    load_demo_scene, same placements). A mesh missing from data_dir is
+    skipped with a log line; with none present the scene holds only the
+    fallback texture."""
+    up = math3d.WORLD_SPACE.up.vector()
+    fwd = math3d.WORLD_SPACE.forward.vector()
+    placements = [
+        ("meshes/arena.glb", math3d.mat4_identity()),
+        ("meshes/stanford_dragon.glb", math3d.translation(up * -1.0)),
+        ("meshes/crate.glb", math3d.compose(math3d.scaling(0.4), math3d.translation(up * -1.4))),
+    ]
+    if include_porsche:
+        placements.append(
+            (
+                "meshes/porche.glb",
+                math3d.compose(
+                    math3d.rotation_axis(np.deg2rad(90.0), up),
+                    math3d.translation(fwd * 2.0 + up * -1.95),
+                ),
+            )
+        )
+    models = []
+    for rel, post in placements:
+        path = os.path.join(data_dir, rel)
+        if not os.path.exists(path):
+            log.warning("%s missing from data dir (stripped blob?) — skipped", rel)
+            continue
+        models.append(load_glb(path, post_transform=post))
+    return build_scene(models, data_dir=data_dir)
 
 
 # --------------------------------------------------------------------------

@@ -7,8 +7,15 @@ Stages of one frame (tpurast_torch.renderer.render_frame):
   resolve.py  — per-pixel G-buffer of the winning face (CUDA kernel)
   sampler.py  — texel window plan per tile (CUDA kernel), anisotropic
                 trilinear texturing + lighting through it (CUDA kernel)
-  shade.py    — the lighting / footprint formulas shared by the plain paths
+  shade.py    — the lighting / footprint formulas shared by the plain
+                paths, and the row-atlas gather and deferred shading
+                (torch ops)
   present.py  — sRGB encode and crops (torch ops)
+
+and, for the device microbenchmarks (tpurast_torch/tools):
+
+  probes.py   — row sums of an on-chip table (CUDA kernel vmem_take) and
+                a scaled G-buffer plane copy (CUDA kernel plane_scale)
 
 Dispatch rule, the counterpart of tpurast.kernels.interpret_mode: every
 kernel wrapper looks at the tensors it was given. CPU tensors take the
@@ -26,7 +33,7 @@ from __future__ import annotations
 import torch
 
 #: CUDA launches per kernel since the last reset_launches().
-LAUNCHES = {"raster": 0, "resolve": 0, "plan": 0, "sample": 0}
+LAUNCHES = {"raster": 0, "resolve": 0, "plan": 0, "sample": 0, "vmem_take": 0, "plane_scale": 0}
 
 
 def reset_launches() -> None:

@@ -47,6 +47,7 @@ NVCC_FLAGS = [
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 
 # C signatures (see the extern "C" functions in csrc/*.cu).
 SIGNATURES = {
@@ -54,6 +55,8 @@ SIGNATURES = {
     "tr_resolve": [_P, _P, _I, _I, _I, _I, _P, _P],
     "tr_plan": [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
     "tr_sample": [_P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
+    "tr_plane_scale": [_P, _I, _I, _I, _I, _I, _P, _P],
+    "tr_vmem_take": [_P, _I, _P, _L, _P, _P],
 }
 
 

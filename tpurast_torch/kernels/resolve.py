@@ -43,7 +43,10 @@ def pack_resolve_attrs(setup, face_world, face_normal, face_uv, face_tex, atlas)
     sizes = atlas["sizes"]
     n_mips = atlas["n_mips"]
     ft = face_tex.long()
-    page_base = (atlas["page_origins"] + 1).to(torch.float32)  # (T, 16, 2)
+    if "page_origins" in atlas:
+        page_base = (atlas["page_origins"] + 1).to(torch.float32)  # (T, 16, 2)
+    else:  # a scene without pages: the gather sampler reads no page base
+        page_base = torch.zeros((offsets.shape[0], MAX_MIPS, 2), dtype=torch.float32, device=setup.device)
     tex_cols = torch.cat(
         [
             (offsets // 256).to(torch.float32),

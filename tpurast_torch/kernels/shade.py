@@ -1,9 +1,25 @@
-"""Lighting, blend and texture-footprint formulas as torch ops.
+"""Shading as torch ops: lighting, blend, footprint, and the row-atlas
+gather paths.
 
-Counterpart of tpurast/kernels/shade.py (_rnorm3, _light_planes,
-blend_planes, aniso_footprint, probe_count), same names, same operation
-order. The plain versions of the resolve and sample kernels call these;
-csrc/resolve.cu and csrc/sampler.cu repeat them term for term.
+Counterpart of tpurast/kernels/shade.py, same names, same operation
+order. The lighting, blend and footprint formulas (_rnorm3,
+_light_planes, blend_planes, aniso_footprint, probe_count) are shared by
+the plain versions of the resolve and sample kernels; csrc/resolve.cu
+and csrc/sampler.cu repeat them term for term.
+
+The gather sampler (shade_gbuffer, the forward path's shading tail) and
+deferred shading (pack_shade_rows + shade_deferred, the per-pixel
+fat-row path) read the quad-row atlas (device/textures.py): one (N, 52)
+row per trilinear sample holds the own-mip 2x2 quad and the parent mip's
+3x3 window (_trilerp). They stay torch ops, as the reference leaves them
+to XLA. Both paths run the same _trilerp on the same values, so a
+forward+gather frame equals the deferred frame bit for bit.
+
+Two places differ from jnp by necessity, on pixels whose color the blend
+discards: an integer modulus by a texture width of 0 (an uncovered
+forward pixel) is taken at 1, where torch would raise, and gather rows
+are clamped into the table, as JAX clamps an out-of-range gather index
+where torch would fault.
 
 Every division goes through ``fdiv``: torch's CUDA division by a CPU
 scalar multiplies by the scalar's reciprocal, and ``scalar / tensor`` is
@@ -14,6 +30,19 @@ the true division the kernels (and the reference) compute.
 from __future__ import annotations
 
 import torch
+
+from tpurast_torch.kernels.geometry import SETUP_WIDTH as _SETUP_WIDTH
+
+# Fat-row layout of the per-face shading table (pack_shade_rows):
+# [setup(24) | world(9) | normal(9) | uv(6) | tex-info(49, int32 bits) | 0 pad]
+ROW_WORLD = _SETUP_WIDTH
+ROW_NORMAL = _SETUP_WIDTH + 9
+ROW_UV = _SETUP_WIDTH + 18
+ROW_TEXINFO = _SETUP_WIDTH + 24
+SHADE_ROW_WIDTH = 104
+# Texture-info row (int32): [offsets(16) | widths(16) | heights(16) | n_mips]
+TEX_ROW_WIDTH = 49
+MAX_MIPS = 16
 
 
 def fdiv(a, b) -> torch.Tensor:
@@ -106,3 +135,308 @@ def probe_count(span, maj_du, maj_dv, tw0, th0, n: int):
     selected own mip."""
     ext = torch.maximum(torch.abs(maj_du) * tw0, torch.abs(maj_dv) * th0) * span
     return torch.clamp(torch.ceil(ext - 1e-4), 1.0, float(n))
+
+
+def pack_tex_table(atlas) -> torch.Tensor:
+    """(TEX, 49) int32: per-texture mip offsets, widths, heights and mip
+    count (shade.py pack_tex_table)."""
+    sizes = atlas["sizes"]
+    return torch.cat(
+        [
+            atlas["offsets"].to(torch.int32),
+            sizes[..., 0].to(torch.int32),
+            sizes[..., 1].to(torch.int32),
+            atlas["n_mips"].to(torch.int32)[:, None],
+        ],
+        dim=1,
+    )
+
+
+def pack_shade_rows(setup, face_world, face_normal, face_uv, face_tex, atlas) -> torch.Tensor:
+    """(F, 104) f32 per-face shading table (shade.py pack_shade_rows). The
+    int32 texture info rides in the f32 row by bit reinterpretation
+    (Tensor.view), not conversion: offsets exceed f32's integer range."""
+    f = setup.shape[0]
+    tex_rows = pack_tex_table(atlas)[face_tex.long()].contiguous()
+    return torch.cat(
+        [
+            setup,
+            face_world.reshape(f, 9),
+            face_normal.reshape(f, 9),
+            face_uv.reshape(f, 6),
+            tex_rows.view(torch.float32),
+            torch.zeros((f, SHADE_ROW_WIDTH - ROW_TEXINFO - TEX_ROW_WIDTH), dtype=torch.float32,
+                        device=setup.device),
+        ],
+        dim=1,
+    )
+
+
+def _safe_div(a, b, eps=1e-30):
+    """a / b with |b| raised to eps, sign kept (shade.py _safe_div)."""
+    den = torch.where(
+        torch.abs(b) < eps,
+        torch.where(b < 0, torch.full_like(b, -eps), torch.full_like(b, eps)),
+        b,
+    )
+    return fdiv(a, den)
+
+
+def _srgb_texel(c8: torch.Tensor) -> torch.Tensor:
+    """An sRGB-encoded u8 texel plane decoded to linear f32 with the exact
+    piecewise EOTF (shade.py _trilerp, texel_format="srgb8"). The
+    constants are f32 and multiply, as the reference's do."""
+    c = c8.to(torch.float32) * (1.0 / 255.0)
+    return torch.where(c <= 0.04045, c * (1.0 / 12.92), torch.pow((c + 0.055) * (1.0 / 1.055), 2.4))
+
+
+def _trilerp(texels, off0, tw0, th0, tw1, th1, tfrac, u, v, texel_format: str = "float"):
+    """Trilinear sample with repeat addressing from ONE atlas row per pixel
+    (shade.py _trilerp): the row at the own mip's quad (x0, y0) holds the
+    2x2 bilinear quad and the parent mip's 3x3 window anchored at
+    ((x0-1)//2, (y0-1)//2), in which the parent footprint sits at offset
+    dx, dy in {0, 1}. Returns the 4 planes (r, g, b, a) shaped like u."""
+    if texel_format not in ("float", "srgb8"):
+        raise ValueError(f"unknown texel format {texel_format!r}")
+    wf = tw0.to(torch.float32)
+    hf = th0.to(torch.float32)
+    x = u * wf - 0.5
+    y = v * hf - 0.5
+    x0 = torch.floor(x)
+    y0 = torch.floor(y)
+    fx = x - x0
+    fy = y - y0
+    x0i = torch.remainder(x0.to(torch.int32), torch.clamp(tw0, min=1))
+    y0i = torch.remainder(y0.to(torch.int32), torch.clamp(th0, min=1))
+    idx = torch.clamp(off0 + y0i * tw0 + x0i, 0, texels.shape[0] - 1)
+    # The gathered rows, channel-planar and contiguous: (52, ...).
+    row = texels[idx.long()].movedim(-1, 0).contiguous()
+
+    wf1 = tw1.to(torch.float32)
+    hf1 = th1.to(torch.float32)
+    x1f = u * wf1 - 0.5
+    y1f = v * hf1 - 0.5
+    x1 = torch.floor(x1f)
+    y1 = torch.floor(y1f)
+    fx1 = x1f - x1
+    fy1 = y1f - y1
+    dx = torch.clamp(x1 - torch.floor((x0 - 1.0) * 0.5), 0.0, 1.0)
+    dy = torch.clamp(y1 - torch.floor((y0 - 1.0) * 0.5), 0.0, 1.0)
+
+    wx1 = [(1.0 - dx) * (1.0 - fx1), (1.0 - dx) * fx1 + dx * (1.0 - fx1), dx * fx1]
+    wy1 = [(1.0 - dy) * (1.0 - fy1), (1.0 - dy) * fy1 + dy * (1.0 - fy1), dy * fy1]
+    w9 = [wy1[r] * wx1[c] for r in range(3) for c in range(3)]
+    fx_i = 1.0 - fx
+    fy_i = 1.0 - fy
+    t_i = 1.0 - tfrac
+
+    def tex(i):
+        if texel_format == "srgb8":
+            return row[i].to(torch.float32) * (1.0 / 255.0) if i % 4 == 3 else _srgb_texel(row[i])
+        return row[i].to(torch.float32)
+
+    out = []
+    for c in range(4):
+        top = tex(c) * fx_i + tex(4 + c) * fx
+        bot = tex(8 + c) * fx_i + tex(12 + c) * fx
+        c0 = top * fy_i + bot * fy
+        c1 = w9[0] * tex(16 + c)
+        for k in range(1, 9):
+            c1 = c1 + w9[k] * tex(16 + 4 * k + c)
+        out.append(c0 * t_i + c1 * tfrac)
+    return out
+
+
+def _plane_select(planes, lane):
+    """planes (16, ...) at a per-element level index, 0 where the index is
+    not in [0, 16) (shade.py _plane_select: its masked sum picks one
+    level or none, so a gather on the level axis gives the same values)."""
+    ok = (lane >= 0) & (lane < MAX_MIPS)
+    sel = torch.gather(planes, 0, torch.where(ok, lane, 0).long()[None])[0]
+    return torch.where(ok, sel, torch.zeros_like(sel))
+
+
+def _probe_albedo(n: int, npx, span, maj_du, maj_dv, uv_u, uv_v, trilinear_at):
+    """The anisotropic probe train (shade.py:438-444, :518-524): probe i
+    of n at ((i + 0.5)/npx - 0.5) * span along the major axis, counted
+    where i < npx, and the sum divided by npx. One probe's rows are alive
+    at a time."""
+    acc = [torch.zeros_like(uv_u) for _ in range(4)]
+    for i in range(n):
+        live = npx > float(i)
+        fo = (fdiv(i + 0.5, npx) - 0.5) * span
+        probe = trilinear_at(uv_u + maj_du * fo, uv_v + maj_dv * fo)
+        acc = [a + torch.where(live, p, 0.0) for a, p in zip(acc, probe)]
+        del probe
+    return [fdiv(a, npx) for a in acc]
+
+
+def _light_and_blend(albedo, world, normal, mask, camera_position, *, light_direction, light_color,
+                     ambient_amount, specular_power, clear_color, blend):
+    """basic.frag lighting, fragment alpha 1.0, then the blend stage
+    against the clear color: (4, ...) f32 planes."""
+    rgb = _light_planes(
+        albedo, world, normal, camera_position, light_direction=light_direction,
+        light_color=light_color, ambient_amount=ambient_amount, specular_power=specular_power,
+    )
+    return torch.stack(blend_planes(rgb, 1.0, mask, clear_color, blend), dim=0)
+
+
+def shade_deferred(
+    fid,
+    shade_rows,
+    texels,
+    camera_position,
+    *,
+    light_direction,
+    light_color,
+    ambient_amount: float,
+    specular_power: float,
+    clear_color,
+    max_anisotropy: int = 1,
+    y_offset=0,
+    blend: str = "alpha",
+    texel_format: str = "float",
+):
+    """Deferred shading (shade.py shade_deferred): fid (H, W) int32 face
+    id (-1 background), shade_rows (F, 104) from pack_shade_rows, texels
+    (N, 52) atlas rows, camera_position (3,) f32. Each pixel gathers its
+    face's row, re-evaluates the edge functions at its center (pixel rows
+    offset by y_offset), interpolates, derives the UV screen gradients,
+    picks the mip from the row's texture info and samples the atlas.
+    Returns the (4, H, W) f32 linear framebuffer."""
+    h, w = fid.shape
+    dev = fid.device
+    mask = fid >= 0
+    f = torch.clamp(fid, min=0).long()
+    # Channel-planar (104, H, W) rows: one gather per table column.
+    rows = shade_rows.T.contiguous()[:, f]
+    y0 = torch.as_tensor(y_offset, dtype=torch.float32, device=dev)
+    px = (torch.arange(w, dtype=torch.float32, device=dev)[None, :] + 0.5) - rows[16]
+    py = ((torch.arange(h, dtype=torch.float32, device=dev)[:, None] + y0) + 0.5) - rows[17]
+    e0 = rows[0] * px + rows[1] * py + rows[2]
+    e1 = rows[3] * px + rows[4] * py + rows[5]
+    e2 = rows[6] * px + rows[7] * py + rows[8]
+    esum = e0 + e1 + e2
+    inv_esum = _safe_div(1.0, esum)
+    u0 = e0 * inv_esum
+    u1 = e1 * inv_esum
+    u2 = e2 * inv_esum
+
+    def interp(base, k):
+        return u0 * rows[base] + u1 * rows[base + k] + u2 * rows[base + 2 * k]
+
+    world = [interp(ROW_WORLD + i, 3) for i in range(3)]
+    normal = [interp(ROW_NORMAL + i, 3) for i in range(3)]
+    uv_u = interp(ROW_UV, 2)
+    uv_v = interp(ROW_UV + 1, 2)
+
+    a0, a1, a2 = rows[0], rows[3], rows[6]
+    b0, b1, b2 = rows[1], rows[4], rows[7]
+    d_x = a0 + a1 + a2
+    d_y = b0 + b1 + b2
+    inv2 = inv_esum * inv_esum
+
+    def duv(c0, c1, c2):
+        n = e0 * c0 + e1 * c1 + e2 * c2
+        nx = a0 * c0 + a1 * c1 + a2 * c2
+        ny = b0 * c0 + b1 * c1 + b2 * c2
+        return (nx * esum - n * d_x) * inv2, (ny * esum - n * d_y) * inv2
+
+    du_dx, du_dy = duv(rows[ROW_UV], rows[ROW_UV + 2], rows[ROW_UV + 4])
+    dv_dx, dv_dy = duv(rows[ROW_UV + 1], rows[ROW_UV + 3], rows[ROW_UV + 5])
+
+    trow = rows[ROW_TEXINFO : ROW_TEXINFO + TEX_ROW_WIDTH].view(torch.int32)  # (49, H, W)
+    w0 = trow[16].to(torch.float32)
+    h0 = trow[32].to(torch.float32)
+    n_mips = trow[48]
+    last = (n_mips - 1).to(torch.float32)
+    ax, bx = du_dx * w0, dv_dx * h0
+    ay, by = du_dy * w0, dv_dy * h0
+    rho2_x = ax * ax + bx * bx
+    rho2_y = ay * ay + by * by
+
+    def level_fields(lvl):
+        return (_plane_select(trow[0:16], lvl), _plane_select(trow[16:32], lvl),
+                _plane_select(trow[32:48], lvl))
+
+    def clamped_lod(rho2):
+        lod = 0.5 * torch.log2(torch.clamp(rho2, min=1e-24))
+        return torch.minimum(torch.maximum(lod, torch.zeros_like(lod)), last)
+
+    def trilinear_fields(rho2):
+        # shade.py trilinear(): the level fields are the same for every
+        # probe of a pixel, so they are taken once.
+        lod = clamped_lod(rho2)
+        l0 = torch.floor(lod).to(torch.int32)
+        l1 = torch.minimum(l0 + 1, n_mips - 1)
+        tfrac = lod - l0.to(torch.float32)
+        off0, tw0, th0 = level_fields(l0)
+        _, tw1, th1 = level_fields(l1)
+        return off0, tw0, th0, tw1, th1, tfrac
+
+    light = dict(light_direction=light_direction, light_color=light_color, ambient_amount=ambient_amount,
+                 specular_power=specular_power, clear_color=clear_color, blend=blend)
+    if max_anisotropy <= 1:
+        fields = trilinear_fields(torch.maximum(rho2_x, rho2_y))
+        albedo = _trilerp(texels, *fields, uv_u, uv_v, texel_format)
+    else:
+        n = int(max_anisotropy)
+        rho2_used, maj_du, maj_dv, span = aniso_footprint(rho2_x, rho2_y, du_dx, du_dy, dv_dx, dv_dy, n)
+        _, tw0_pc, th0_pc = level_fields(torch.floor(clamped_lod(rho2_used)).to(torch.int32))
+        npx = probe_count(span, maj_du, maj_dv, tw0_pc, th0_pc, n)
+        fields = trilinear_fields(rho2_used)
+        albedo = _probe_albedo(
+            n, npx, span, maj_du, maj_dv, uv_u, uv_v,
+            lambda u, v: _trilerp(texels, *fields, u, v, texel_format),
+        )
+    return _light_and_blend(albedo, world, normal, mask, camera_position, **light)
+
+
+def shade_gbuffer(
+    gbuf,
+    texels,
+    camera_position,
+    *,
+    light_direction,
+    light_color,
+    ambient_amount: float,
+    specular_power: float,
+    clear_color,
+    max_anisotropy: int = 1,
+    blend: str = "alpha",
+    texel_format: str = "float",
+):
+    """The forward path's gather shading tail (shade.py shade_gbuffer):
+    texture taps from the atlas rows at the G-buffer's (A_OUT, H, W)
+    mip fields, then lighting and blend, in shade_deferred's formulas and
+    operation order. Returns (4, H, W) f32 linear planes."""
+    mask = gbuf[16] > 0.0
+    world = [gbuf[0], gbuf[1], gbuf[2]]
+    normal = [gbuf[3], gbuf[4], gbuf[5]]
+    uv_u, uv_v = gbuf[6], gbuf[7]
+    # Offsets ride through f32 as offset/256 (exact); mip dims are small
+    # integers in f32.
+    off0 = gbuf[8].to(torch.int32) * 256
+    tw0 = gbuf[9].to(torch.int32)
+    th0 = gbuf[10].to(torch.int32)
+    tw1 = gbuf[11].to(torch.int32)
+    th1 = gbuf[12].to(torch.int32)
+    tfrac = gbuf[13]
+    maj_du, maj_dv = gbuf[14], gbuf[15]
+    span = gbuf[17]
+
+    def trilinear_at(u, v):
+        return _trilerp(texels, off0, tw0, th0, tw1, th1, tfrac, u, v, texel_format)
+
+    if max_anisotropy <= 1:
+        albedo = trilinear_at(uv_u, uv_v)
+    else:
+        n = int(max_anisotropy)
+        npx = probe_count(span, maj_du, maj_dv, gbuf[9], gbuf[10], n)
+        albedo = _probe_albedo(n, npx, span, maj_du, maj_dv, uv_u, uv_v, trilinear_at)
+    return _light_and_blend(
+        albedo, world, normal, mask, camera_position, light_direction=light_direction,
+        light_color=light_color, ambient_amount=ambient_amount, specular_power=specular_power,
+        clear_color=clear_color, blend=blend,
+    )

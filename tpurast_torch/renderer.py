@@ -4,14 +4,22 @@ Counterpart of tpurast/renderer.py (render_frame, Renderer), same
 keyword arguments and the same output dict. A frame runs
 
   corner transform -> triangle setup/cull -> pair binning      (torch ops)
-  -> raster kernel -> attribute pack (torch) -> resolve kernel
-  -> plan kernel (texel windows per tile) -> sample kernel (texturing
-  + lighting + blend) -> sRGB encode (torch)
+  -> raster kernel, then one of
+       forward + window: attribute pack (torch) -> resolve kernel
+           -> plan kernel (texel windows per tile) -> sample kernel
+              (texturing + lighting + blend)
+       forward + gather: attribute pack -> resolve kernel
+           -> shade_gbuffer (atlas row gathers + lighting, torch ops)
+       deferred: shade-row pack -> shade_deferred (per-pixel fat-row
+           gather, interpolation, atlas row gathers, lighting; torch ops)
+  -> sRGB encode (torch)
 
 eagerly on the device its tensors live on: the kernels launch on a CUDA
 device and take their plain torch versions on the CPU (tpurast_torch.
-kernels). This slice is the reference's default path: forward shading,
-pair binning, the page sampler and 32x128 tiles. The other paths raise
+kernels). The Renderer picks the sampler as the reference does: window
+for forward shading when the scene has texture pages and the config
+asks for "auto" or "window", the row-atlas gather otherwise. Scan
+binning, slabs (tile_row_offset, crop_height) and stage= prefixes raise
 NotImplementedError naming the ROADMAP item that ports them.
 """
 
@@ -27,7 +35,8 @@ from tpurast.camera import Camera
 from tpurast.config import RendererConfig
 from tpurast.device.scene import DeviceScene
 from tpurast_torch.device.scene import upload
-from tpurast_torch.kernels import geometry, present, raster, resolve, sampler as ksampler
+from tpurast_torch.device.textures import resolve_texture_dtype
+from tpurast_torch.kernels import geometry, present, raster, resolve, sampler as ksampler, shade
 
 log = logging.getLogger("tpurast_torch.renderer")
 
@@ -71,21 +80,20 @@ def render_frame(
     stage: str | None = None,
 ):
     """One frame (tpurast/renderer.py render_frame). scene is the dict of
-    tensors from tpurast_torch.device.scene.upload; view_proj (4, 4) and
-    camera_position (3,) are f32 tensors on the scene's device.
+    tensors from tpurast_torch.device.scene.upload (with the atlas texels
+    for sampler="gather" or shading="deferred", with the page for
+    sampler="window"); view_proj (4, 4) and camera_position (3,) are f32
+    tensors on the scene's device.
 
     bin_capacity and segment_headroom size the reference's scan binning
     and segment schedule, which the port does not have; they are accepted
-    and unused. texture_format only matters to the gather sampler.
+    and unused. texture_format ("float" or "srgb8") is the texel format of
+    the atlas rows the gather paths read.
     Returns {"color", "depth", "bin_overflow", "window_miss_px"}, or
-    {"gbuf", "depth", "fid"} for output="gbuf"."""
-    del bin_capacity, segment_headroom, texture_format
+    {"gbuf", "depth", "fid"} for output="gbuf" with forward shading."""
+    del bin_capacity, segment_headroom
     if binning != "pairs":
         raise _not_ported(f"binning={binning!r}", "(bin_triangles / scan)")
-    if shading != "forward":
-        raise _not_ported(f"shading={shading!r}", "item 11")
-    if output != "gbuf" and sampler != "window":
-        raise _not_ported(f"sampler={sampler!r}", "item 10")
     if tile_row_offset is not None or crop_height is not None:
         raise _not_ported("tile_row_offset / crop_height (slabs)", "item 12")
     if stage is not None:
@@ -102,29 +110,51 @@ def render_frame(
         tiles_x=tiles_x, tiles_y=tiles_y, clear_depth=clear_depth,
     )
     depth = vis[0]
-    attrs = resolve.pack_resolve_attrs(
-        setup, scene["corner_world"], scene["corner_normal"], scene["corner_uv"],
-        scene["face_tex"], scene["atlas"],
+    light = dict(
+        light_direction=light_direction, light_color=light_color, ambient_amount=ambient_amount,
+        specular_power=specular_power, clear_color=clear_color, blend=blend,
     )
-    gbuf = resolve.resolve_gbuffer(vis, attrs, max_anisotropy=max_anisotropy)
-    if output == "gbuf":
-        return {"gbuf": gbuf, "depth": depth, "fid": vis[1].to(torch.int32)}
-    tiles = dict(tiles_x=tiles_x, tiles_y=tiles_y, tile_h=tile_h, tile_w=tile_w)
-    plan = ksampler.plan_tiles(gbuf, max_anisotropy=max_anisotropy, **tiles)
-    framebuffer = ksampler.sample_tiles(
-        gbuf, scene["atlas"]["page"], plan, camera_position, max_anisotropy=max_anisotropy,
-        light_direction=light_direction, light_color=light_color,
-        ambient_amount=ambient_amount, specular_power=specular_power,
-        clear_color=clear_color, blend=blend, **tiles,
-    )
+    # Only the window sampler has tiles it cannot window (counted below).
+    window_miss_px = torch.zeros((), dtype=torch.int32, device=depth.device)
+    if shading == "forward":
+        attrs = resolve.pack_resolve_attrs(
+            setup, scene["corner_world"], scene["corner_normal"], scene["corner_uv"],
+            scene["face_tex"], scene["atlas"],
+        )
+        gbuf = resolve.resolve_gbuffer(vis, attrs, max_anisotropy=max_anisotropy)
+        if output == "gbuf":
+            return {"gbuf": gbuf, "depth": depth, "fid": vis[1].to(torch.int32)}
+        if sampler == "window":
+            tiles = dict(tiles_x=tiles_x, tiles_y=tiles_y, tile_h=tile_h, tile_w=tile_w)
+            plan = ksampler.plan_tiles(gbuf, max_anisotropy=max_anisotropy, **tiles)
+            framebuffer = ksampler.sample_tiles(
+                gbuf, scene["atlas"]["page"], plan, camera_position, max_anisotropy=max_anisotropy,
+                **light, **tiles,
+            )
+            # No segment schedule, so nothing is dropped beyond the
+            # binner's huge-face overflow. Pixels of residual tiles (more
+            # windows than the plan's budget) are sampled straight from
+            # the page, and counted as the reference counts its gather
+            # fallback.
+            window_miss_px = plan["residual_px"]
+        else:
+            framebuffer = shade.shade_gbuffer(
+                gbuf, scene["atlas"]["texels"], camera_position, max_anisotropy=max_anisotropy,
+                texel_format=texture_format, **light,
+            )
+    else:
+        shade_rows = shade.pack_shade_rows(
+            setup, scene["corner_world"], scene["corner_normal"], scene["corner_uv"],
+            scene["face_tex"], scene["atlas"],
+        )
+        framebuffer = shade.shade_deferred(
+            vis[1].to(torch.int32), shade_rows, scene["atlas"]["texels"], camera_position,
+            max_anisotropy=max_anisotropy, texel_format=texture_format, **light,
+        )
     result = {
         "depth": present.crop_linear(depth, width, height),
-        # No segment schedule, so nothing is dropped beyond the binner's
-        # huge-face overflow. Pixels of residual tiles (more windows than
-        # the plan's budget) are sampled straight from the page, and
-        # counted as the reference counts its gather fallback.
         "bin_overflow": bins["overflow"],
-        "window_miss_px": plan["residual_px"],
+        "window_miss_px": window_miss_px,
     }
     if output == "srgb_u8":
         result["color"] = present.encode_srgb_u8(framebuffer, width, height)
@@ -152,19 +182,24 @@ class Renderer:
         self.device = torch.device(device)
         self.scene_host = scene
         self.output = output
-        if cfg.shading != "forward":
-            raise _not_ported(f"shading={cfg.shading!r}", "item 11")
-        if cfg.sampler not in ("auto", "window") or scene.pages is None:
-            raise _not_ported("the gather sampler (sampler='gather' or a scene without pages)", "item 10")
         if cfg.binning not in ("auto", "pairs"):
             raise _not_ported(f"binning={cfg.binning!r}", "(bin_triangles / scan)")
-        self.sampler = "window"
         self.binning = "pairs"
-        self.scene = upload(scene, self.device)
+        # tpurast/renderer.py:440-447: the window sampler for forward
+        # shading when the scene has pages, the row-atlas gather otherwise.
+        if cfg.shading == "forward" and cfg.sampler in ("auto", "window") and scene.pages is not None:
+            self.sampler = "window"
+        else:
+            self.sampler = "gather"
+        self.texture_dtype = resolve_texture_dtype(scene, cfg.texture_dtype)
+        # Only the gather paths read the atlas rows (shade.py).
+        self.scene = upload(scene, self.device, self.texture_dtype if self.sampler == "gather" else None)
         self._configure_target(cfg.width, cfg.height)
         log.info(
-            "renderer init: %dx%d | device %s | scene: %d tris, %d textures",
-            cfg.width, cfg.height, self.device, scene.n_faces, len(scene.texture_uris),
+            "renderer init: %dx%d | device %s | scene: %d tris, %d textures | %s shading, %s sampler, "
+            "texels %s",
+            cfg.width, cfg.height, self.device, scene.n_faces, len(scene.texture_uris), cfg.shading,
+            self.sampler, self.texture_dtype if self.sampler == "gather" else "not uploaded",
         )
 
     # -- swapchain-equivalent: (re)configure render target ----------------
@@ -191,6 +226,7 @@ class Renderer:
             specular_power=cfg.specular_power,
             max_anisotropy=cfg.max_anisotropy,
             blend=cfg.blend,
+            texture_format="srgb8" if self.texture_dtype == "srgb8" else "float",
             output=self.output,
             shading=cfg.shading,
             binning=self.binning,
@@ -228,9 +264,9 @@ class Renderer:
         return render_frame(self.scene, view_proj, camera_position, **self._frame_kwargs)
 
     def debug_gbuf(self, camera: Camera, with_fid: bool = False):
-        """Forward-path G-buffer (A_OUT, Hp, Wp); with_fid=True also
-        returns the visibility face-id image."""
-        kw = dict(self._frame_kwargs, output="gbuf")
+        """Forward-path G-buffer (A_OUT, Hp, Wp), whatever the configured
+        shading; with_fid=True also returns the visibility face-id image."""
+        kw = dict(self._frame_kwargs, output="gbuf", shading="forward")
         out = render_frame(self.scene, *self.frame_uniforms(camera), **kw)
         return (out["gbuf"], out["fid"]) if with_fid else out["gbuf"]
 
