@@ -39,9 +39,16 @@ eight generated 1024^2 BC4 textures with full mip chains), and then, at
      launches once per frame and nothing else; color and depth equal to
      the gather path's bit for bit.
 
-Each path prints its frame times and a per-stage breakdown. Any failure
-raises. The last stdout line is {"ok": true, "device": ...}; the line
-before it lists each kernel's launches, error and times.
+Each path prints its frame times and a per-stage breakdown. Each kernel
+also gets its bound: the larger of the bytes it must move over the card's
+memory rate and its f32 operations over the f32 peak (HBM_BYTES_PER_S,
+F32_FLOPS), from this run's inputs; the raster line adds the densest
+tile's pair count, the (pair, pixel) evaluations of the pairs' pixel
+rectangles and the kernel's device time by operation, and plane_scale is
+timed beside torch.mul(gbuf[plane], 2), the one PyTorch call that computes
+the same. Any failure raises. The last stdout line is {"ok": true,
+"device": ...}; the line before it lists each kernel's launches, error,
+times, bound and library time.
 """
 
 from __future__ import annotations
@@ -59,12 +66,13 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from tpurast.config import RendererConfig  # noqa: E402
 from tpurast_torch import kernels as K  # noqa: E402
+from tpurast_torch.config import RendererConfig  # noqa: E402
 from tpurast_torch.device.scene import build_orbit_scene, orbit_track  # noqa: E402
 from tpurast_torch.kernels import _build, geometry, present, probes, raster, resolve, sampler, shade  # noqa: E402
 from tpurast_torch.renderer import Renderer  # noqa: E402
 from tpurast_torch.tools import microbench, microbench_pipeline  # noqa: E402
+from tpurast_torch.tools.microbench import device_ms  # noqa: E402
 
 KERNELS = {
     "raster": ("tpurast_torch/csrc/raster.cu", "tpurast/kernels/raster.py:88"),
@@ -75,6 +83,18 @@ KERNELS = {
     "plane_scale": ("tpurast_torch/csrc/probes.cu", "tools/microbench_pipeline.py:35"),
 }
 RENDER_KERNELS = ("raster", "resolve", "plan", "sample")
+# The card's published peaks (H100 SXM at 700 W): device memory bytes/s
+# and f32 FLOP/s outside the tensor cores. A kernel's bound is the larger of its bytes and its operations
+# over these.
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS = 67e12
+# f32 operations per evaluated (pair, pixel) of the raster kernel: three
+# edge functions, their sum, the depth and w numerators, the w test and
+# the division (csrc/raster.cu).
+RASTER_FLOPS_PER_EVAL = 40
+# Bytes of one face the raster kernel must read: setup fields 0-17 (edges,
+# z, w, face id, anchor; kRowFields in csrc/raster.cu) and its AABB.
+RASTER_FACE_BYTES = 18 * 4 + 4 * 4
 PROBE_KERNELS = ("vmem_take", "plane_scale")
 FRAMES = 8
 GATHER_FRAMES = 3
@@ -96,11 +116,9 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def device_ms(fn, reps: int) -> float | None:
-    """Device milliseconds per call of fn: the time torch.profiler records
-    in CUDA kernels (and copies) over reps calls after one warm-up call,
-    divided by reps; host time between launches is left out. None when
-    the profiler records no device time."""
+def device_ops(fn, reps: int) -> dict:
+    """Device milliseconds per call of fn by operation name (torch.profiler
+    over reps calls after one warm-up call)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -109,8 +127,7 @@ def device_ms(fn, reps: int) -> float | None:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    total_us = sum(e.self_device_time_total for e in prof.key_averages())
-    return total_us / 1e3 / reps if total_us > 0 else None
+    return {e.key: e.self_device_time_total / 1e3 / reps for e in prof.key_averages() if e.self_device_time_total > 0}
 
 
 def timed(kernel_fn, plain_fn, reps: int, plain_reps: int) -> dict:
@@ -125,6 +142,32 @@ def timed(kernel_fn, plain_fn, reps: int, plain_reps: int) -> dict:
 
 def fmt_ms(x: float | None) -> str:
     return "not measured" if x is None else f"{x:.4f}"
+
+
+def bound(nbytes: float, flops: float) -> dict:
+    """The least time the card could take: the larger of the bytes over
+    the memory rate and the f32 operations over the f32 peak."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def raster_work(so, bins, th, tw, tx) -> dict:
+    """Pairs, the distinct faces they name, the densest tile's pair count,
+    the (pair, pixel) evaluations the raster kernel makes (each pair's
+    pixel rectangle, raster.pixel_rects, clamped to its tile) and its work
+    units (tile, chunk of pairs)."""
+    n = int(bins["offsets"][-1])
+    faces = bins["pair_faces"][:n].long()
+    tiles = bins["pair_tiles"][:n].long()
+    r = raster.pixel_rects(so["aabb"])[faces]
+    gx0 = ((tiles % tx) * tw).float()
+    gy0 = ((tiles // tx) * th).float()
+    w = torch.minimum(r[:, 2], gx0 + (tw - 1)) - torch.maximum(r[:, 0], gx0) + 1
+    h = torch.minimum(r[:, 3], gy0 + (th - 1)) - torch.maximum(r[:, 1], gy0) + 1
+    evals = int((w.clamp(min=0).double() * h.clamp(min=0).double()).sum())
+    units = int(((bins["counts"] + raster.UNIT_PAIRS - 1) // raster.UNIT_PAIRS).sum())
+    return dict(pairs=n, faces=int(torch.unique(faces).numel()), densest=int(bins["counts"].max()), evals=evals,
+                units=units)
 
 
 @contextlib.contextmanager
@@ -165,26 +208,38 @@ def kernel_phases(r: Renderer, cam) -> dict:
     rkw = dict(tile_h=th, tile_w=tw, tiles_x=tx, tiles_y=ty, clear_depth=kw["clear_depth"])
     out = {}
 
-    vis = raster.rasterize_tiles(so["setup"], bins["pair_faces"], bins["offsets"], **rkw)
-    vis_p = raster.rasterize_tiles_plain(so["setup"], bins["pair_faces"], bins["offsets"], **rkw)
+    vis = raster.rasterize_tiles(so["setup"], so["aabb"], bins["pair_faces"], bins["offsets"], **rkw)
+    vis_p = raster.rasterize_tiles_plain(so["setup"], so["aabb"], bins["pair_faces"], bins["offsets"], **rkw)
     torch.cuda.synchronize()
     fid_bad = int((vis[1] != vis_p[1]).sum())
     depth_bad = int((vis[0] != vis_p[0]).sum())
     depth_err = float((vis[0] - vis_p[0]).abs().max())
     covered = int((vis[1] >= 0).sum())
+    work = raster_work(so, bins, th, tw, tx)
+    hp, wp = vis.shape[1:]
     out["raster"] = dict(
-        max_abs_err=depth_err,
+        max_abs_err=depth_err, library_ms=None,
+        # Each input read once: the named faces' rows and AABBs, the pair
+        # list and offsets; the (2, Hp, Wp) output written once.
+        **bound(work["faces"] * RASTER_FACE_BYTES + work["pairs"] * 4 + (tx * ty + 1) * 4 + 2 * hp * wp * 4,
+                work["evals"] * RASTER_FLOPS_PER_EVAL),
         **timed(
-            lambda: raster.rasterize_tiles(so["setup"], bins["pair_faces"], bins["offsets"], **rkw),
-            lambda: raster.rasterize_tiles_plain(so["setup"], bins["pair_faces"], bins["offsets"], **rkw),
+            lambda: raster.rasterize_tiles(so["setup"], so["aabb"], bins["pair_faces"], bins["offsets"], **rkw),
+            lambda: raster.rasterize_tiles_plain(so["setup"], so["aabb"], bins["pair_faces"], bins["offsets"], **rkw),
             20, 2,
         ),
     )
-    counts = bins["counts"].float()
-    print(f"raster: pairs {int(bins['offsets'][-1])} (per tile mean {float(counts.mean()):.0f}, "
-          f"max {int(counts.max())}), covered px {covered}; vs plain: face id differs at {fid_bad} px, "
-          f"depth at {depth_bad} px, max abs diff {depth_err}; "
-          f"{out['raster']['ms']:.3f} ms vs plain {out['raster']['plain_ms']:.3f} ms")
+    st = out["raster"]
+    print(f"raster: pairs {work['pairs']} of {work['faces']} faces (per tile mean {work['pairs'] / (tx * ty):.0f}, "
+          f"densest tile "
+          f"{work['densest']}), work units {work['units']}, evaluated (pair, pixel) {work['evals']}, "
+          f"covered px {covered}; vs plain: "
+          f"face id differs at {fid_bad} px, depth at {depth_bad} px, max abs diff {depth_err}; "
+          f"{st['ms']:.4f} ms (device {fmt_ms(st['dev_ms'])}) vs plain {st['plain_ms']:.3f} ms; bound "
+          f"{st['bound_ms']:.4f} ms by {st['bound_by']}, {st['bound_ms'] / st['ms']:.4f} of it")
+    ops = device_ops(lambda: raster.rasterize_tiles(so["setup"], so["aabb"], bins["pair_faces"], bins["offsets"],
+                                                    **rkw), 20)
+    print("raster device ms by operation: " + "; ".join(f"{k[:60]} {v:.4f}" for k, v in ops.items()))
     check(fid_bad == 0 and depth_bad == 0, "raster kernel disagrees with its plain version")
 
     attrs = resolve.pack_resolve_attrs(
@@ -201,8 +256,13 @@ def kernel_phases(r: Renderer, cam) -> dict:
     gf, gpf = g[FLOAT_PLANES][:, keep], g_p[FLOAT_PLANES][:, keep]
     float_bad = int((~torch.isclose(gf, gpf, rtol=1e-5, atol=1e-6)).sum())
     res_err = float((gf - gpf).abs().max())
+    fid = vis[1][vis[1] >= 0].long()
     out["resolve"] = dict(
-        max_abs_err=res_err,
+        max_abs_err=res_err, library_ms=None,
+        # vis read, the attribute rows of the visible faces, the G-buffer written;
+        # ~150 flops per covered pixel (csrc/resolve.cu).
+        **bound(2 * hp * wp * 4 + int(torch.unique(fid).numel()) * attrs.shape[1] * 4 + g.numel() * 4,
+                covered * 150),
         **timed(
             lambda: resolve.resolve_gbuffer(vis, attrs, max_anisotropy=ma),
             lambda: resolve.resolve_gbuffer_plain(vis, attrs, max_anisotropy=ma),
@@ -223,7 +283,10 @@ def kernel_phases(r: Renderer, cam) -> dict:
     table_bad = int((plan["table"] != plan_p["table"]).sum())
     assign_bad = int((plan["assign"] != plan_p["assign"]).sum())
     out["plan"] = dict(
-        max_abs_err=float((plan["assign"] - plan_p["assign"]).abs().max()),
+        max_abs_err=float((plan["assign"] - plan_p["assign"]).abs().max()), library_ms=None,
+        # Every G-buffer plane read, the table and assignment written; its
+        # reductions are a few operations per pixel and round.
+        **bound(g.numel() * 4 + plan["table"].numel() * 4 + plan["assign"].numel() * 4, hp * wp * 100),
         **timed(
             lambda: sampler.plan_tiles(g, max_anisotropy=ma, **tiles),
             lambda: sampler.plan_tiles_plain(g, max_anisotropy=ma, **tiles),
@@ -245,6 +308,7 @@ def kernel_phases(r: Renderer, cam) -> dict:
         clear_color=kw["clear_color"], blend=kw["blend"], **tiles,
     )
     page = sc["atlas"]["page"]
+    n_probe = shade.probe_count(g[17], g[14], g[15], g[9], g[10], ma)[g[16] > 0]
     fb = sampler.sample_tiles(g, page, plan, cp, **skw)
     fb_p = sampler.sample_tiles_plain(g, page, plan, cp, **skw)
     w, h = kw["width"], kw["height"]
@@ -253,14 +317,18 @@ def kernel_phases(r: Renderer, cam) -> dict:
     px_bad = int((enc_diff.amax(dim=0) > 0).sum())
     smp_err = float((fb - fb_p).abs().max())
     out["sample"] = dict(
-        max_abs_err=smp_err,
+        max_abs_err=smp_err, library_ms=None,
+        # G-buffer and plan read, framebuffer written (texel reads, mostly
+        # cache hits, not counted); per probe 2 mips x 4 texels x 4
+        # channels of multiply-adds plus the weights, ~100 flops.
+        **bound((g.numel() + plan["assign"].numel() + plan["table"].numel()) * 4 + fb.numel() * 4,
+                float(n_probe.sum()) * 100),
         **timed(
             lambda: sampler.sample_tiles(g, page, plan, cp, **skw),
             lambda: sampler.sample_tiles_plain(g, page, plan, cp, **skw),
             20, 3,
         ),
     )
-    n_probe = shade.probe_count(g[17], g[14], g[15], g[9], g[10], ma)[g[16] > 0]
     print(f"sample: probes per covered px mean {float(n_probe.mean()):.2f} max {float(n_probe.max()):.0f}, "
           f"mip levels in view {sorted(int(x) for x in torch.unique(g[19][g[16] > 0]).tolist())}; "
           f"vs plain: {px_bad} px differ after the u8 encode, max {lsb} LSB, linear max abs diff {smp_err}; "
@@ -294,7 +362,8 @@ def probe_phases(dev) -> dict:
     torch.cuda.synchronize()
     bad = int((got != want).sum())
     out["vmem_take"] = dict(
-        max_abs_err=float((got - want).abs().max()),
+        max_abs_err=float((got - want).abs().max()), library_ms=None,  # table.sum(1)[idx] is two calls
+        **bound(table.numel() * 4 + idx.numel() * 4 + n * 4, n * 15),
         **timed(
             lambda: probes.vmem_take(table, idx),
             lambda: probes.vmem_take_plain(table, idx),
@@ -319,18 +388,35 @@ def probe_phases(dev) -> dict:
         want = probes.plane_scale_plain(src, plane, block_h=bh, block_w=bw)
         torch.cuda.synchronize()
         same = bool(torch.equal(got, want))
+        # The one-call yardstick, timed like the kernel (50 repeated calls,
+        # so its 16.7 MB come from L2 after the first).
+        lib = lambda: torch.mul(src[plane], 2)  # noqa: E731
         rows.append(dict(
             max_abs_err=float((got - want).abs().max()),
+            library_ms=cuda_ms(lib, 50), library_dev_ms=device_ms(lib, 50),
+            **bound(8 * src.shape[1] * src.shape[2], src.shape[1] * src.shape[2]),
             **timed(
                 lambda: probes.plane_scale(src, plane, block_h=bh, block_w=bw),
                 lambda: probes.plane_scale_plain(src, plane, block_h=bh, block_w=bw),
                 50, 50,
             ),
         ))
-        print(f"plane_scale {label}: equal to plain {same}; {rows[-1]['ms']:.4f} ms vs plain "
-              f"{rows[-1]['plain_ms']:.4f} ms; device {fmt_ms(rows[-1]['dev_ms'])} ms vs plain "
-              f"{fmt_ms(rows[-1]['plain_dev_ms'])} ms")
+        r = rows[-1]
+        print(f"plane_scale {label}: equal to plain {same}; {r['ms']:.4f} ms vs plain {r['plain_ms']:.4f} ms "
+              f"vs torch.mul {r['library_ms']:.4f} ms; device {fmt_ms(r['dev_ms'])} ms vs plain "
+              f"{fmt_ms(r['plain_dev_ms'])} ms vs torch.mul {fmt_ms(r['library_dev_ms'])} ms; bound "
+              f"{r['bound_ms']:.4f} ms by {r['bound_by']}")
         check(same, f"plane_scale {label} disagrees with its plain version")
+    # Rectangles whose rows leave the 16-byte grid take the kernel's scalar
+    # head and tail (odd width, blocks narrower than 4, a plane offset of 1
+    # mod 4 floats): held to the plain version too, small and untimed.
+    off_grid = [((3, 67, 381), 1, 32, 128), ((3, 67, 381), 2, 7, 3), ((3, 15, 23), 1, 5, 2)]
+    for k, (shape, plane, bh, bw) in enumerate(off_grid):
+        src = torch.rand(shape, generator=microbench.generator(dev, 2 + k), device=dev)
+        same = bool(torch.equal(probes.plane_scale(src, plane, block_h=bh, block_w=bw),
+                                probes.plane_scale_plain(src, plane, block_h=bh, block_w=bw)))
+        print(f"plane_scale off the 16-byte grid, {shape} plane {plane}, {bh}x{bw} blocks: equal to plain {same}")
+        check(same, f"plane_scale {shape} {bh}x{bw} disagrees with its plain version")
     out["plane_scale"] = dict(rows[0], max_abs_err=max(r["max_abs_err"] for r in rows))
     return out
 
@@ -350,8 +436,8 @@ def frame_stages(r: Renderer, vp, cp):
     yield "geometry"
     bins = geometry.bin_pairs(so["aabb"], so["valid"], r.tiles_x, r.tiles_y, kw["tile_w"], kw["tile_h"])
     yield "binning"
-    vis = raster.rasterize_tiles(so["setup"], bins["pair_faces"], bins["offsets"], clear_depth=kw["clear_depth"],
-                                 **tiles)
+    vis = raster.rasterize_tiles(so["setup"], so["aabb"], bins["pair_faces"], bins["offsets"],
+                                 clear_depth=kw["clear_depth"], **tiles)
     yield "raster"
     corners = (so["setup"], sc["corner_world"], sc["corner_normal"], sc["corner_uv"], sc["face_tex"], sc["atlas"])
     if kw["shading"] == "forward":
@@ -448,7 +534,7 @@ def gather_paths(scene, cams, window_frames) -> None:
     track = cams[:GATHER_FRAMES]
     paths = {}
     for label, change in (("gather", dict(sampler="gather")), ("deferred", dict(shading="deferred"))):
-        r = Renderer(scene, RendererConfig(width=WIDTH, height=HEIGHT, **change), device="cuda")
+        r = Renderer(scene, RendererConfig(width=WIDTH, height=HEIGHT, **change))
         texels = r.scene["atlas"]["texels"]
         torch.cuda.synchronize()
         print(f"{label} path: sampler {r.sampler}, texels {tuple(texels.shape)} {r.texture_dtype} "
@@ -516,7 +602,7 @@ def main() -> None:
     scene = build_orbit_scene(seed=args.seed)
     cams = orbit_track(FRAMES)
     cfg = RendererConfig(width=WIDTH, height=HEIGHT)
-    r = Renderer(scene, cfg, device="cuda")
+    r = Renderer(scene, cfg)  # on the card: the default device
     torch.cuda.synchronize()
     print(f"scene: {scene.n_faces} triangles, {len(scene.texture_uris)} textures, page "
           f"{tuple(r.scene['atlas']['page'].shape)} bf16; build + upload {time.perf_counter() - t0:.1f} s")
@@ -565,9 +651,10 @@ def main() -> None:
 
     print("device ms per call (torch.profiler), kernel vs plain: " + "; ".join(
         f"{name} {fmt_ms(stats[name]['dev_ms'])} vs {fmt_ms(stats[name]['plain_dev_ms'])}" for name in KERNELS))
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     report = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep, "launches": launches[name],
-         **{k: stats[name][k] for k in ("max_abs_err", "ms", "plain_ms")}}
+         **{k: stats[name][k] for k in keys}}
         for name, (src, rep) in KERNELS.items()
     ]
     print(json.dumps({"kernels": report}))

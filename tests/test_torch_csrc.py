@@ -13,13 +13,17 @@ log2 are not glibc's); plan table and assignment exact; sample within
 the planned windows and, with every covered tile forced residual,
 straight from the page. This checks the kernels' indexing, control flow
 and arithmetic where no GPU exists; only the card shows what nvcc makes
-of them. The emulation models threads, blocks, barriers and static
-shared memory only; it goes when a kernel needs more (warp shuffles,
+of them. The emulation models threads, blocks (one- and two-dimensional
+launches), barriers, static shared memory, atomics (real ones: a block's
+threads run concurrently) and float4 only; it goes when a kernel needs more (warp shuffles,
 asynchronous copies), rather than growing to match. The vmem_take probe
 stages its table in dynamic shared memory, so csrc/probes.cu leaves it
 out of the emulation (#ifndef TR_HOST_EMU) and only the card checks it;
 the plane_scale probe is held here to its plain version exactly, in the
-microbenchmark's three launch geometries.
+microbenchmark's three launch geometries and at widths and block widths
+that leave rows off the 16-byte grid. The raster kernel also runs the
+adversarial faces of tests/test_torch_raster.py, among them a tile whose
+bin holds many work units.
 """
 
 import ctypes
@@ -30,10 +34,11 @@ import numpy as np
 import pytest
 import torch
 
-from tpurast.config import RendererConfig
+from tpurast_torch.config import RendererConfig
 from tpurast_torch.device.scene import build_orbit_scene, orbit_track
 from tpurast_torch.kernels import _build, geometry, present, probes, raster, resolve, sampler
 from tpurast_torch.renderer import Renderer
+from test_torch_raster import ADVERSARIAL, A_TILES_X, A_TILES_Y, AH, AW, adversarial_clip
 from test_torch_scene import numpy_bc_decoders  # noqa: F401  (module-wide autouse)
 
 # Entry points csrc/*.cu compile only for the card (dynamic shared memory).
@@ -74,21 +79,66 @@ def frame():
     return r, kw, sc, cp, so, bins
 
 
-def test_raster_kernel(emu, frame):
+def _frame_case(frame):
     r, kw, _, _, so, bins = frame
-    args = dict(tile_h=kw["tile_h"], tile_w=kw["tile_w"], tiles_x=r.tiles_x, tiles_y=r.tiles_y)
-    vis = raster.rasterize_tiles_plain(so["setup"], bins["pair_faces"], bins["offsets"], **args)
-    out = torch.empty_like(vis)
-    err = emu.tr_raster(so["setup"].data_ptr(), bins["pair_faces"].data_ptr(), bins["offsets"].data_ptr(),
-                        r.tiles_x, r.tiles_y, kw["tile_h"], kw["tile_w"], 0.0, out.data_ptr(), None)
+    return dict(tile_h=kw["tile_h"], tile_w=kw["tile_w"], tiles_x=r.tiles_x, tiles_y=r.tiles_y), so, bins
+
+
+def _adversarial_case(case):
+    """tests/test_torch_raster.py's adversarial faces, 8x128 tiles. For
+    "misbinned", the dense tile's faces (all in the frame's top 11 rows)
+    are binned by hand into the last of four 32x128 tiles (full-size tiles:
+    the kernel's whole shared key buffer), which none of their rectangles
+    reaches."""
+    clip = torch.from_numpy(adversarial_clip("dense_tile" if case == "misbinned" else case))
+    so = geometry.triangle_setup(clip, None, clip.shape[0], AW, AH)
+    if case == "misbinned":
+        n = clip.shape[0]
+        offsets = torch.zeros(5, dtype=torch.int32)
+        offsets[-1] = n
+        bins = dict(pair_faces=torch.arange(n, dtype=torch.int32), offsets=offsets)
+        return dict(tile_h=32, tile_w=128, tiles_x=2, tiles_y=2), so, bins
+    bins = geometry.bin_pairs(so["aabb"], so["valid"], A_TILES_X, A_TILES_Y, 128, 8)
+    return dict(tile_h=8, tile_w=128, tiles_x=A_TILES_X, tiles_y=A_TILES_Y), so, bins
+
+
+# (case, clear depth, the least covered pixel count the case must reach)
+RASTER_CASES = ([("frame", 0.0, 3000)] + [(c, 0.0, 200) for c in ADVERSARIAL]
+                + [("dense_tile", 0.3, 200), ("misbinned", 0.0, 0)])
+
+
+@pytest.mark.parametrize("case,clear_depth,min_covered", RASTER_CASES,
+                         ids=["frame"] + [f"adversarial_{c}" for c in ADVERSARIAL]
+                         + ["dense_tile_clear_0.3", "misbinned"])
+def test_raster_kernel(emu, frame, case, clear_depth, min_covered):
+    """The frame, and tests/test_torch_raster.py's adversarial faces: among
+    them a tile whose bin holds many work units (merged across units
+    through the global key buffer), also with a clear depth that some
+    fragments fail; and units whose every rectangle misses their tile,
+    which must cover nothing."""
+    args, so, bins = _frame_case(frame) if case == "frame" else _adversarial_case(case)
+    if case == "dense_tile":
+        assert int(bins["counts"][0]) > 8 * raster.UNIT_PAIRS
+    vis = raster.rasterize_tiles_plain(so["setup"], so["aabb"], bins["pair_faces"], bins["offsets"],
+                                       clear_depth=clear_depth, **args)
+    out = torch.full_like(vis, -7.0)
+    keys = torch.empty(vis.shape[1] * vis.shape[2], dtype=torch.int64)
+    slots = bins["pair_faces"].numel()
+    work = torch.empty(2 * args["tiles_x"] * args["tiles_y"] + 2 + -(-slots // raster.UNIT_PAIRS),
+                       dtype=torch.int32)
+    err = emu.tr_raster(so["setup"].data_ptr(), so["aabb"].data_ptr(), bins["pair_faces"].data_ptr(),
+                        bins["offsets"].data_ptr(), slots, args["tiles_x"], args["tiles_y"], args["tile_h"],
+                        args["tile_w"], clear_depth, keys.data_ptr(), work.data_ptr(), work.numel(),
+                        out.data_ptr(), None)
     assert err == 0
-    assert int((vis[1] >= 0).sum()) > 3000
+    covered = int((vis[1] >= 0).sum())
+    assert covered > min_covered if min_covered else covered == 0
     assert torch.equal(out, vis)
 
 
 def test_resolve_kernel(emu, frame):
     r, kw, sc, _, so, bins = frame
-    vis = raster.rasterize_tiles_plain(so["setup"], bins["pair_faces"], bins["offsets"], tile_h=kw["tile_h"],
+    vis = raster.rasterize_tiles_plain(so["setup"], so["aabb"], bins["pair_faces"], bins["offsets"], tile_h=kw["tile_h"],
                                        tile_w=kw["tile_w"], tiles_x=r.tiles_x, tiles_y=r.tiles_y)
     attrs = resolve.pack_resolve_attrs(so["setup"], sc["corner_world"], sc["corner_normal"], sc["corner_uv"],
                                        sc["face_tex"], sc["atlas"])
@@ -110,7 +160,7 @@ def test_resolve_kernel(emu, frame):
 
 def _gbuf(frame):
     r, kw, sc, _, so, bins = frame
-    vis = raster.rasterize_tiles_plain(so["setup"], bins["pair_faces"], bins["offsets"], tile_h=kw["tile_h"],
+    vis = raster.rasterize_tiles_plain(so["setup"], so["aabb"], bins["pair_faces"], bins["offsets"], tile_h=kw["tile_h"],
                                        tile_w=kw["tile_w"], tiles_x=r.tiles_x, tiles_y=r.tiles_y)
     attrs = resolve.pack_resolve_attrs(so["setup"], sc["corner_world"], sc["corner_normal"], sc["corner_uv"],
                                        sc["face_tex"], sc["atlas"])
@@ -166,16 +216,30 @@ def test_sample_kernel(emu, frame, blend, residual):
 
 
 @pytest.mark.parametrize(
-    "plane,block_h,block_w",
-    [(16, 32, 128), (0, 32, 128), (16, 32, 384), (3, 24, 100)],
-    ids=["tile_grid", "one_plane", "row_band", "ragged"],
+    "plane,block_h,block_w,height,width",
+    [(16, 32, 128, 64, 384), (0, 32, 128, 64, 384), (16, 32, 384, 64, 384), (3, 24, 100, 64, 384),
+     (16, 32, 128, 64, 381), (5, 7, 3, 16, 24), (1, 5, 2, 15, 23), (2, 9, 10, 20, 24)],
+    ids=["tile_grid", "one_plane", "row_band", "ragged", "odd_width", "narrow_blocks", "unaligned_plane",
+         "mixed_rects"],
 )
-def test_plane_scale_kernel(emu, plane, block_h, block_w):
-    g = torch.from_numpy(np.random.default_rng(4).uniform(-2, 2, (24, 64, 384)).astype(np.float32))
+def test_plane_scale_kernel(emu, plane, block_h, block_w, height, width):
+    """The float4 rectangles, the scalar head and tail (rows not on a
+    16-byte boundary: odd widths, blocks narrower than 4), the all-scalar
+    rows of a plane whose offset is not a multiple of 4 floats (15 x 23),
+    and a launch with both kinds of rectangle (10 columns, the last 4); at the
+    default block size and at sizes that give a row fewer threads than
+    moves (32), a team that does not fill whole warps (100) and the most
+    (1024)."""
+    g = torch.from_numpy(np.random.default_rng(4).uniform(-2, 2, (24, height, width)).astype(np.float32))
     src = g[16:17].clone() if plane == 0 else g
     want = probes.plane_scale_plain(src, plane, block_h=block_h, block_w=block_w)
-    out = torch.full_like(want, -1.0)
-    err = emu.tr_plane_scale(src.data_ptr(), plane, 64, 384, block_h, block_w, out.data_ptr(), None)
-    assert err == 0
-    assert torch.equal(out, want)
+    for threads in (0, 32, 100, 1024):
+        out = torch.full_like(want, -1.0)
+        err = emu.tr_plane_scale(src.data_ptr(), plane, height, width, block_h, block_w, threads, out.data_ptr(),
+                                 None)
+        assert err == 0
+        assert torch.equal(out, want), f"{threads} threads"
     assert torch.equal(out[0], 2.0 * g[16] if plane in (0, 16) else 2.0 * g[plane])
+    for threads in (16, 2048):
+        assert emu.tr_plane_scale(src.data_ptr(), plane, height, width, block_h, block_w, threads, out.data_ptr(),
+                                  None) != 0

@@ -185,6 +185,13 @@ def test_microbench_vmemtake_and_pipeline():
     assert list(res) == ["tile-grid copy", "one-plane copy", "row-band copy"]
 
 
+def test_microbench_planescale():
+    res = mb.planescale(CPU, tiles_x=2, tiles_y=1, n=1, timer=once, dev_timer=once)
+    assert (res["height"], res["width"]) == (32, 256)
+    assert [g["geometry"] for g in res["geometries"]] == ["tile-grid", "one-plane", "row-band"]
+    assert all(list(g["threads"]) == list(mb.SCALE_THREADS) for g in res["geometries"])
+
+
 def test_timing_needs_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):

@@ -2,10 +2,17 @@
 
 Two kinds of check:
   * against the JAX reference's rasterize_visibility on the same setup
-    and bins (random faces, seeded): face ids exact; depth within 5 ulp
-    (largest measured: 4), because XLA:CPU contracts a*b+c into FMAs
-    inside the interpret-mode Pallas kernel, while the port rounds every
-    operation, on the CPU as in the CUDA kernel built with --fmad=false;
+    and bins (random faces, seeded, and adversarial faces: sub-pixel
+    slivers, vertices on pixel centres and tile borders, AABB edges on
+    whole and half pixels, far off-screen faces with clamped anchors,
+    faces crossing w = 0, and one tile holding thousands of pairs): face
+    ids exact; depth within 5 ulp (largest measured: 4), because XLA:CPU
+    contracts a*b+c into FMAs inside the interpret-mode Pallas kernel,
+    while the port rounds every operation, on the CPU as in the CUDA
+    kernel built with --fmad=false. The reference restricts each face to
+    the 8-row groups its sub-block touches, the port to the face's pixel
+    rectangle (its AABB widened by one pixel): equal face ids show that
+    the rectangle loses no covered pixel;
   * the coverage and depth properties of tests/test_raster.py, replayed
     through the port: watertight shared edges, later draw wins equal
     depth, z-clip, and the eye-plane-crossing ray cast.
@@ -33,7 +40,7 @@ def rasterize(clip_verts, width=W, height=H):
     s = geometry.triangle_setup(c, None, n, width, height)
     b = geometry.bin_pairs(s["aabb"], s["valid"], tx, ty, TILE_W, TILE_H)
     vis = raster.rasterize_tiles(
-        s["setup"], b["pair_faces"], b["offsets"], tile_h=TILE_H, tile_w=TILE_W, tiles_x=tx, tiles_y=ty
+        s["setup"], s["aabb"], b["pair_faces"], b["offsets"], tile_h=TILE_H, tile_w=TILE_W, tiles_x=tx, tiles_y=ty
     )
     return vis[0, :height, :width].numpy(), vis[1, :height, :width].numpy().astype(np.int32), s["det"].numpy()
 
@@ -81,7 +88,7 @@ def random_frame():
     s_p = geometry.triangle_setup(torch.from_numpy(clip), None, n, w, h)
     b_p = geometry.bin_pairs(s_p["aabb"], s_p["valid"], tx, ty, TILE_W, TILE_H)
     vis = raster.rasterize_tiles(
-        s_p["setup"], b_p["pair_faces"], b_p["offsets"], tile_h=TILE_H, tile_w=TILE_W, tiles_x=tx, tiles_y=ty
+        s_p["setup"], s_p["aabb"], b_p["pair_faces"], b_p["offsets"], tile_h=TILE_H, tile_w=TILE_W, tiles_x=tx, tiles_y=ty
     )
     return np.asarray(d_r), np.asarray(f_r), vis[0].numpy(), vis[1].numpy().astype(np.int32)
 
@@ -105,6 +112,102 @@ def test_depth_matches_reference(random_frame):
     # XLA:CPU FMA contraction in the reference's interpret mode (see the
     # module docstring); the port rounds every operation.
     assert (d_r >= 0).all() and depth_ulps(d_p, d_r).max() <= 5
+
+
+def _screen_clip(px, z, w):
+    """Screen-space corners (n, 3, 2) in pixels of an AW x AH frame, depth
+    (n,) and w (n, 3) -> clip (n, 3, 4). With w a power of two and
+    dyadic pixel coordinates the screen positions survive exactly."""
+    ndc_x = 2.0 * px[..., 0] / AW - 1.0
+    ndc_y = 1.0 - 2.0 * px[..., 1] / AH
+    return np.stack([ndc_x * w, ndc_y * w, z[:, None] * w, w], -1).astype(np.float32)
+
+
+AW, AH, A_TILES_X, A_TILES_Y = 256, 64, 2, 8
+
+
+def adversarial_clip(case: str) -> np.ndarray:
+    """Clip-space faces (n, 3, 4) for a 256x64 frame of 8x128 tiles."""
+    rng = np.random.default_rng(ADVERSARIAL.index(case))
+    if case == "slivers":  # thinner than a pixel, at any angle
+        n = 300
+        p0 = rng.uniform([0, 0], [AW, AH], (n, 2))
+        ang = rng.uniform(0, 2 * np.pi, n)
+        d = np.stack([np.cos(ang), np.sin(ang)], -1)
+        length = rng.uniform(3, 60, (n, 1))
+        width = rng.uniform(0.02, 0.6, (n, 1))
+        nrm = np.stack([-d[:, 1], d[:, 0]], -1)
+        px = np.stack([p0, p0 + d * length * 0.5 + nrm * width, p0 + d * length], 1)  # front-facing
+        w = np.broadcast_to(rng.choice([0.5, 1.0, 2.0], (n, 1)), (n, 3))
+    elif case == "pixel_centres":  # vertices on pixel centres and on tile borders
+        n = 300
+        base = rng.integers([0, 0], [AW, AH], (n, 1, 2)) + 0.5
+        px = base + rng.integers(-5, 6, (n, 3, 2))
+        border = rng.random((n, 3)) < 0.3
+        px[..., 0] = np.where(border & (rng.random((n, 3)) < 0.5), 128.0, px[..., 0])
+        px[..., 1] = np.where(border, np.round(px[..., 1] / 8) * 8, px[..., 1])
+        w = np.ones((n, 3))
+    elif case == "aabb_on_grid":  # AABB edges on whole and half pixels
+        n = 300
+        px = rng.integers([0, 0], [2 * AW, 2 * AH], (n, 1, 2)) / 2.0 + rng.integers(-12, 13, (n, 3, 2)) / 2.0
+        w = np.full((n, 3), 2.0)
+    elif case == "far_off_screen":  # anchors clamped to [-4W, 5W] x [-4H, 5H]
+        n = 60
+        far = rng.uniform(-1e5, 1e5, (n, 3, 2))
+        far[: n // 2, 0] = rng.uniform([0, 0], [AW, AH], (n // 2, 2))  # one corner on screen
+        px = far
+        w = np.ones((n, 3))
+    elif case == "w_crossing":  # eye-plane crossers behind and among small faces
+        n = 30
+        cross = np.concatenate([rng.uniform(-3, 3, (n, 3, 2)), np.full((n, 3, 1), 0.01),
+                                rng.uniform(-2, 4, (n, 3, 1))], -1)
+        small = _screen_clip(rng.uniform([0, 0], [AW, AH], (200, 1, 2)) + rng.uniform(-12, 12, (200, 3, 2)),
+                             rng.uniform(0.05, 0.95, 200), np.ones((200, 3)))
+        return np.concatenate([cross, small]).astype(np.float32)
+    elif case == "dense_tile":  # thousands of pairs in tile (0, 0), more than a raster work unit
+        n = 6000
+        c = rng.uniform([0, 0], [128, 8], (n, 1, 2))
+        px = c + rng.uniform(-1.5, 1.5, (n, 3, 2))
+        w = np.ones((n, 3))
+    else:
+        raise ValueError(case)
+    z = rng.uniform(0.05, 0.95, px.shape[0])
+    return _screen_clip(px, z, w)
+
+
+ADVERSARIAL = ["slivers", "pixel_centres", "aabb_on_grid", "far_off_screen", "w_crossing", "dense_tile"]
+
+
+@pytest.mark.parametrize("case", ADVERSARIAL)
+def test_adversarial_faces_match_reference(case):
+    clip = adversarial_clip(case)
+    n = clip.shape[0]
+    s_r = ref_geometry.triangle_setup(jnp.asarray(clip), None, n, AW, AH)
+    b_r = ref_geometry.bin_pairs(s_r["aabb"], s_r["valid"], A_TILES_X, A_TILES_Y, TILE_W, TILE_H)
+    d_r, f_r, dropped = ref_raster.rasterize_visibility(
+        b_r, s_r["setup"], tile_h=TILE_H, tile_w=TILE_W, tiles_x=A_TILES_X, tiles_y=A_TILES_Y,
+        segment_headroom=256,
+    )
+    assert int(dropped) == 0
+    s_p = geometry.triangle_setup(torch.from_numpy(clip), None, n, AW, AH)
+    b_p = geometry.bin_pairs(s_p["aabb"], s_p["valid"], A_TILES_X, A_TILES_Y, TILE_W, TILE_H)
+    if case == "dense_tile":
+        assert int(b_p["counts"][0]) > 8 * raster.UNIT_PAIRS
+    vis = raster.rasterize_tiles(s_p["setup"], s_p["aabb"], b_p["pair_faces"], b_p["offsets"], tile_h=TILE_H,
+                                 tile_w=TILE_W, tiles_x=A_TILES_X, tiles_y=A_TILES_Y)
+    d_r, f_r = np.asarray(d_r), np.asarray(f_r)
+    d_p, f_p = vis[0].numpy(), vis[1].numpy().astype(np.int32)
+    assert (f_r >= 0).sum() > 200
+    np.testing.assert_array_equal(f_p, f_r)
+    np.testing.assert_array_equal(d_p[f_r < 0], d_r[f_r < 0])
+    # Depth of faces crossing w = 0 is left out: their ez / ew cancels, and
+    # the reference's FMA contraction moves it by far more than 5 ulp (face
+    # ids still equal); the port's kernel and plain version agree on it bit
+    # for bit on the card.
+    crossing = (clip[..., 3] <= 0.0).any(axis=1)
+    judged = (f_r >= 0) & ~crossing[np.maximum(f_r, 0)]
+    assert judged.sum() > 200
+    assert depth_ulps(d_p[judged], d_r[judged]).max() <= 5
 
 
 # ---------------------------------------------------------------------------
@@ -175,7 +278,7 @@ def test_equal_depth_later_wins_across_sub_blocks():
     st = geometry.triangle_setup(clip, None, clip.shape[0], W, H)
     assert bool(st["valid"].all())
     b = geometry.bin_pairs(st["aabb"], st["valid"], 1, 2, TILE_W, 32)
-    vis = raster.rasterize_tiles(st["setup"], b["pair_faces"], b["offsets"], tile_h=32, tile_w=TILE_W, tiles_x=1, tiles_y=2)
+    vis = raster.rasterize_tiles(st["setup"], st["aabb"], b["pair_faces"], b["offsets"], tile_h=32, tile_w=TILE_W, tiles_x=1, tiles_y=2)
     fid = vis[1, :H, :W].numpy()
     assert (fid[18:] == 17).all()
 
@@ -239,6 +342,7 @@ def test_kernel_inputs_must_share_a_device():
     setup = torch.zeros((1, geometry.SETUP_WIDTH))
     with pytest.raises(ValueError, match="all be on the CPU or all on one CUDA device"):
         raster.rasterize_tiles(
-            setup, torch.zeros(1, dtype=torch.int32, device="meta"), torch.zeros(2, dtype=torch.int32),
+            setup, torch.zeros((1, 4)), torch.zeros(1, dtype=torch.int32, device="meta"),
+            torch.zeros(2, dtype=torch.int32),
             tile_h=TILE_H, tile_w=TILE_W, tiles_x=1, tiles_y=1,
         )

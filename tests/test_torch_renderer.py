@@ -27,6 +27,7 @@ the paths this slice leaves to later work raising NotImplementedError.
 """
 
 import dataclasses
+import inspect
 
 import numpy as np
 import pytest
@@ -37,7 +38,7 @@ from tpurast.renderer import Renderer as RefRenderer
 from tpurast_torch.device.scene import build_orbit_scene, orbit_track
 from tpurast_torch.renderer import Renderer, render_frame
 from test_torch_raster import depth_ulps
-from test_torch_scene import numpy_bc_decoders  # noqa: F401  (module-wide autouse)
+from test_torch_scene import numpy_bc_decoders, reference_scene  # noqa: F401  (module-wide autouse)
 
 CFG = RendererConfig(width=256, height=128, segment_headroom=512)
 
@@ -53,13 +54,19 @@ def cam():
 
 
 @pytest.fixture(scope="module")
+def scene_ref(scene):
+    """The same scene as the reference's record."""
+    return reference_scene(scene)
+
+
+@pytest.fixture(scope="module")
 def port(scene):
     return Renderer(scene, CFG, device="cpu")
 
 
 @pytest.fixture(scope="module", params=["srgb_u8", "linear"])
-def frames(request, scene, cam):
-    ref = RefRenderer(scene, CFG, output=request.param).render(cam)
+def frames(request, scene, scene_ref, cam):
+    ref = RefRenderer(scene_ref, CFG, output=request.param).render(cam)
     port = Renderer(scene, CFG, output=request.param, device="cpu").render(cam)
     return request.param, {k: np.asarray(v) for k, v in ref.items()}, {k: v.numpy() for k, v in port.items()}
 
@@ -82,11 +89,11 @@ def test_frame_matches_reference(frames):
     assert int(port["window_miss_px"]) == int(ref["window_miss_px"])
 
 
-def test_frame_follows_gather_where_reference_window_bands_miss(scene):
+def test_frame_follows_gather_where_reference_window_bands_miss(scene, scene_ref):
     cfg = dataclasses.replace(CFG, width=512, height=256, segment_headroom=1024)
     cam0 = orbit_track(8)[0]
-    window = np.asarray(RefRenderer(scene, cfg).render(cam0)["color"]).astype(np.int32)
-    gather = np.asarray(RefRenderer(scene, dataclasses.replace(cfg, sampler="gather")).render(cam0)["color"])
+    window = np.asarray(RefRenderer(scene_ref, cfg).render(cam0)["color"]).astype(np.int32)
+    gather = np.asarray(RefRenderer(scene_ref, dataclasses.replace(cfg, sampler="gather")).render(cam0)["color"])
     port = Renderer(scene, cfg, device="cpu").render(cam0)["color"].numpy().astype(np.int32)
     assert (np.abs(window - gather).max(axis=0) > 1).sum() > 10  # the reference fault shows here
     assert np.abs(port - gather).max() <= 1
@@ -100,9 +107,9 @@ GATHER_PATHS = {
 
 
 @pytest.fixture(scope="module", params=list(GATHER_PATHS))
-def gather_frames(request, scene, cam):
+def gather_frames(request, scene, scene_ref, cam):
     cfg = dataclasses.replace(CFG, **GATHER_PATHS[request.param])
-    ref = RefRenderer(scene, cfg).render(cam)
+    ref = RefRenderer(scene_ref, cfg).render(cam)
     port = Renderer(scene, cfg, device="cpu").render(cam)
     return {k: np.asarray(v) for k, v in ref.items()}, {k: v.numpy() for k, v in port.items()}
 
@@ -156,9 +163,9 @@ def test_scene_without_pages_renders_through_gather(scene, cam):
     ],
     ids=lambda c: ",".join(f"{k}={v}" for k, v in c.items()) or "default",
 )
-def test_sampler_and_texture_choice_follow_reference(scene, change):
+def test_sampler_and_texture_choice_follow_reference(scene, scene_ref, change):
     cfg = dataclasses.replace(CFG, **change)
-    ref = RefRenderer(scene, cfg)
+    ref = RefRenderer(scene_ref, cfg)
     port = Renderer(scene, cfg, device="cpu")
     assert (port.sampler, port.texture_dtype) == (ref.sampler, ref.texture_dtype)
     assert port._frame_kwargs["texture_format"] == ref._frame_kwargs["texture_format"]
@@ -171,8 +178,8 @@ def test_sampler_and_texture_choice_follow_reference(scene, change):
         np.testing.assert_array_equal(texels.view(torch.uint8).numpy(), want.view(np.uint8))
 
 
-def test_frame_uniforms_match_reference(scene, cam, port):
-    ref = RefRenderer(scene, CFG)
+def test_frame_uniforms_match_reference(scene_ref, cam, port):
+    ref = RefRenderer(scene_ref, CFG)
     for a, b in zip(port.frame_uniforms(cam), ref.frame_uniforms(cam)):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
 
@@ -230,3 +237,7 @@ def test_unported_runtime_raises(name):
 
     with pytest.raises(NotImplementedError, match="item 13"):
         getattr(tpurast_torch, name)
+
+
+def test_renderer_runs_on_the_card_unless_asked_for_the_cpu():
+    assert inspect.signature(Renderer).parameters["device"].default == "cuda"

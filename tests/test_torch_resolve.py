@@ -32,14 +32,14 @@ from tpurast_torch.device.scene import build_orbit_scene, from_numpy, orbit_trac
 from tpurast_torch.kernels import resolve
 from tpurast_torch.renderer import Renderer
 from test_sampler import _checker_scene
-from test_torch_scene import numpy_bc_decoders  # noqa: F401  (module-wide autouse)
+from test_torch_scene import numpy_bc_decoders, reference_scene  # noqa: F401  (module-wide autouse)
 
 INTERP_PLANES = [0, 1, 2, 3, 4, 5, 6, 7]
 DERIV_PLANES = [14, 15]
 
 
 def _gbufs(scene, cfg, cam):
-    ref = RefRenderer(scene, cfg)
+    ref = RefRenderer(reference_scene(scene), cfg)
     g_r, f_r = ref.debug_gbuf(cam, with_fid=True)
     port = Renderer(scene, cfg, device="cpu")
     port.scene = from_numpy(jax.tree.map(np.asarray, ref.scene), "cpu")

@@ -1,13 +1,14 @@
 """tpurast_torch host side: page and scene build, upload, and no JAX.
 
   * device.pages.build_pages and device.scene.build_scene against the
-    reference's, field for field (the port has its own copies because the
-    reference's page builder reaches jax through tpurast.kernels);
+    reference's, field for field (the port keeps its own copies of the
+    reference's host modules);
   * upload(scene) against np.asarray of the reference's scene.device()
     leaves, the bf16 page bit for bit (torch's round to nearest even
     against ml_dtypes');
-  * a fresh interpreter with jax, jaxlib, zstandard and ml_dtypes blocked
-    imports tpurast_torch, builds a procedural scene and renders a frame;
+  * a fresh interpreter with jax, jaxlib, zstandard, ml_dtypes and the
+    reference package blocked imports tpurast_torch, builds a procedural
+    scene and renders a frame;
   * the kernel build and dispatch fail loudly instead of falling back.
 """
 
@@ -34,24 +35,49 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def numpy_bc_decoders():
     """Decode BC textures with the numpy decoders in the port's tests.
 
-    tpurast.assets.native compiles its C decoder at first use and writes
-    the library in place, so a parallel test worker could load a
-    half-written file; the port's tests keep out of that by not using it.
-    Both decoders give the same texels, and a module that compares the
-    port with the reference decodes for both with the same one. Modules
-    that build scenes import this fixture; the decoder's state is
-    restored afterwards."""
-    from tpurast.assets import native
+    The port's scenes decode through tpurast_torch.assets.native, whose
+    build is safe under parallel workers (a temporary file moved into
+    place), but the modules that import this fixture also build the
+    reference's scenes, and tpurast.assets.native writes its library in
+    place, so a parallel worker could load a half-written file. Both
+    decoders give the same texels, and a module that compares the port
+    with the reference decodes for both with the same one: the numpy
+    decoders (TPURAST_NATIVE=0 turns the native one off in both
+    packages). The decoders' state is restored afterwards."""
+    from tpurast.assets import native as ref_native
+    from tpurast_torch.assets import native
 
-    saved = (os.environ.get("TPURAST_NATIVE"), native._lib, native._tried)
+    mods = (native, ref_native)
+    saved = (os.environ.get("TPURAST_NATIVE"), [(m._lib, m._tried) for m in mods])
     os.environ["TPURAST_NATIVE"] = "0"
-    native._lib, native._tried = None, False
+    for m in mods:
+        m._lib, m._tried = None, False
     yield
-    env, native._lib, native._tried = saved
+    env, states = saved
+    for m, (lib, tried) in zip(mods, states):
+        m._lib, m._tried = lib, tried
     if env is None:
         os.environ.pop("TPURAST_NATIVE", None)
     else:
         os.environ["TPURAST_NATIVE"] = env
+
+
+def reference_scene(scene):
+    """A DeviceScene of either package as the reference's own record, so
+    that the JAX package can upload and render a scene the port built: the
+    fields are the same; the atlas and pages become the reference's
+    records (the port's copies have no jax upload)."""
+    if isinstance(scene, ref_scene.DeviceScene):
+        return scene
+    from tpurast.device.pages import TexturePages
+    from tpurast.device.textures import TextureAtlas
+
+    fields = {f.name: getattr(scene, f.name) for f in dataclasses.fields(scene)}
+    fields["atlas"] = TextureAtlas(**{f.name: getattr(scene.atlas, f.name) for f in dataclasses.fields(scene.atlas)})
+    if scene.pages is not None:
+        fields["pages"] = TexturePages(**{f.name: getattr(scene.pages, f.name)
+                                          for f in dataclasses.fields(scene.pages)})
+    return ref_scene.DeviceScene(**fields)
 
 
 def _toy_pyramids():
@@ -117,7 +143,7 @@ def checker_scenes():
 
 def test_build_scene_matches_reference(checker_scenes):
     port, ref = checker_scenes
-    assert type(port) is type(ref)
+    assert [f.name for f in dataclasses.fields(port)] == [f.name for f in dataclasses.fields(ref)]
     for field in dataclasses.fields(ref):
         a, b = getattr(port, field.name), getattr(ref, field.name)
         if field.name == "pages":
@@ -165,14 +191,14 @@ def test_bf16_round_to_nearest_even_matches_ml_dtypes():
 
 _NO_JAX = r"""
 import importlib.abc, sys
-BLOCKED = ("jax", "jaxlib", "zstandard", "ml_dtypes")
+BLOCKED = ("jax", "jaxlib", "zstandard", "ml_dtypes", "tpurast")
 class Block(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
         if name.split(".")[0] in BLOCKED:
             raise ImportError(f"{name} is blocked in this test")
 sys.meta_path.insert(0, Block())
 sys.path.insert(0, sys.argv[1])
-from tpurast.config import RendererConfig
+from tpurast_torch.config import RendererConfig
 from tpurast_torch.device.scene import build_orbit_scene, orbit_track
 from tpurast_torch.renderer import Renderer
 scene = build_orbit_scene(seed=1, floor_quads=16, spheres=2, rings=8, segments=8, tex_size=32, n_textures=2)

@@ -32,7 +32,7 @@ from tpurast.renderer import Renderer as RefRenderer
 from tpurast_torch.device.scene import build_orbit_scene, orbit_track
 from tpurast_torch.device.textures import upload_atlas
 from tpurast_torch.kernels import present, shade
-from test_torch_scene import numpy_bc_decoders  # noqa: F401  (module-wide autouse)
+from test_torch_scene import numpy_bc_decoders, reference_scene  # noqa: F401  (module-wide autouse)
 
 CFG = RendererConfig(width=256, height=128, segment_headroom=512, sampler="gather")
 FORMATS = {"float": "float32", "srgb8": "srgb8"}
@@ -50,18 +50,24 @@ def scene():
 
 
 @pytest.fixture(scope="module")
-def texels(scene):
+def scene_ref(scene):
+    """The same scene as the reference's record."""
+    return reference_scene(scene)
+
+
+@pytest.fixture(scope="module")
+def texels(scene, scene_ref):
     """{texel_format: (reference jnp rows, port tensor rows)}."""
-    return {fmt: (jnp.asarray(scene.atlas.device(dt)["texels"]), upload_atlas(scene.atlas, dt, "cpu")["texels"])
+    return {fmt: (jnp.asarray(scene_ref.atlas.device(dt)["texels"]), upload_atlas(scene.atlas, dt, "cpu")["texels"])
             for fmt, dt in FORMATS.items()}
 
 
 @pytest.fixture(scope="module", params=[1, 4], ids=["aniso1", "aniso4"])
-def frame(request, scene):
+def frame(request, scene_ref):
     """The reference's G-buffer, face ids, setup, shade rows and camera
     position for one frame at max_anisotropy 1 or 4."""
     cfg = dataclasses.replace(CFG, max_anisotropy=request.param)
-    r = RefRenderer(scene, cfg)
+    r = RefRenderer(scene_ref, cfg)
     cam = orbit_track(8)[3]
     gbuf, fid = r.debug_gbuf(cam, with_fid=True)
     vp, cp = r.frame_uniforms(cam)

@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from tpurast.device import scene as ref_scene
 from tpurast.device.textures import build_atlas, fallback_texture, mip_chain
 from tpurast.renderer import Renderer as RefRenderer
 from tpurast_torch.device import scene as port_scene
@@ -93,7 +94,8 @@ def test_scene_upload_and_from_numpy_carry_texels(dtype):
     models, assets = _checker_models()
     scene = port_scene.build_scene(models, memory_assets=assets)
     up = port_scene.upload(scene, "cpu", dtype)
-    tree = jax.tree.map(np.asarray, scene.device(dtype))
+    ref = ref_scene.build_scene(models, memory_assets=assets)
+    tree = jax.tree.map(np.asarray, ref.device(dtype))
     again = port_scene.from_numpy(tree, "cpu")
     for t in (up["atlas"]["texels"], again["atlas"]["texels"]):
         assert t.dtype == {"srgb8": torch.uint8, "float16": torch.float16, "bfloat16": torch.bfloat16,

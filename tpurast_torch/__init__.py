@@ -12,9 +12,11 @@ kernels for the reference tools' Pallas probes. Scan binning, slabs,
 ``stage=`` prefixes and the runtime (Engine, Presenter) are not ported
 yet and raise NotImplementedError.
 
-It imports torch and never jax; of ``tpurast`` it uses only the host-side
-numpy modules (config, math3d, camera, assets, device.textures,
-device.scene's records, present.interleave).
+It imports torch and never jax, and nothing of ``tpurast``: the host-side
+numpy modules it needs are its own copies under the same names (config,
+math3d, camera, assets with the native BC decoder, the host parts of
+device.textures, device.pages and device.scene, and present.interleave in
+kernels/present.py).
 """
 
 _NOT_PORTED = {

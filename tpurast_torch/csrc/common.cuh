@@ -1,5 +1,5 @@
 // Shared helpers of the tpurast_torch CUDA kernels (raster.cu, resolve.cu,
-// plan.cu, sampler.cu).
+// plan.cu, sampler.cu, probes.cu).
 //
 // The kernels are built with --fmad=false and without fast math, so every
 // a*b+c below rounds twice and every division and sqrtf is correctly
@@ -20,6 +20,9 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include <cstdint>
+#include <cstring>
 #define TR_LAUNCH(kernel, grid, block, stream, ...) \
   kernel<<<(grid), (block), 0, (cudaStream_t)(stream)>>>(__VA_ARGS__)
 #endif

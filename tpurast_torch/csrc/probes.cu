@@ -28,8 +28,22 @@
 // cost of DMAing a fat block per grid step; on the card the kernel reads
 // only the plane it scales, and the launch geometry (32x128 tiles of the
 // 24-plane buffer or of a one-plane buffer, 32x1920 row bands) is what
-// varies. Bound by bytes: 8 B moved per pixel. Exact (a product by 2).
-
+// varies. Bound by bytes: 8 B moved per pixel (16.7 MB at 1088x1920,
+// 0.005 ms at 3.35 TB/s). Exact (a product by 2).
+//
+// A row of a rectangle moves as a scalar head up to its first 16-byte
+// boundary, a body of 16-byte float4s and a scalar tail (row_move); where
+// the plane and the output are not aligned alike (the plane's offset not
+// a multiple of 4 floats, or an unaligned pointer) the whole row is head.
+// A block's threads form teams, one thread per move of a row, and each
+// team walks every blockDim.y-th row of the rectangle. A 32x128
+// rectangle (32 float4s a row) takes 512 threads, 16 rows of 32, two
+// vectors each; a 32x1920 band (15,360 float4s) takes 1024 threads, 2 rows
+// of 480, 16 vectors each. These are the fastest block sizes of the
+// three geometries on an H100 (`python -m tpurast_torch.tools.microbench
+// planescale` times 128-1024 threads beside torch.mul). The row-band
+// geometry launches one block per 32 rows, 34 blocks on a 1088-row frame:
+// 34 of the 132 SMs move the whole plane.
 #include "common.cuh"
 
 namespace {
@@ -39,28 +53,78 @@ constexpr int kTakeStride = kTakeWidth + 1;
 constexpr int kTakeMaxRows = 4096;
 constexpr int kTakeThreads = 512;
 constexpr int kTakePerThread = 16;
-constexpr int kScaleThreads = 256;
+constexpr int kScaleThreads = 512;
+constexpr int kScaleBigThreads = 1024;  // for rectangles of kScaleBigMoves moves and more
+constexpr int kScaleBigMoves = 8192;
+constexpr int kScaleBatch = 2;
 
-__global__ void plane_scale_kernel(const float* __restrict__ in, int plane, int height, int width,
-                                   int block_h, int block_w, int blocks_x, float* __restrict__ out) {
-  const int by = blockIdx.x / blocks_x;
-  const int bx = blockIdx.x % blocks_x;
-  // The threads cover the rectangle as rows of `cols` consecutive columns
-  // (coalesced), row_step rows at a time.
-  const int cols = min(block_w, (int)blockDim.x);
-  const int row_step = blockDim.x / cols;
-  const int c0 = threadIdx.x % cols;
-  const int r0 = threadIdx.x / cols;
-  if (r0 >= row_step) return;
-  const float* src = in + (long long)plane * height * width;
-  for (int r = r0; r < block_h; r += row_step) {
-    const int y = by * block_h + r;
-    if (y >= height) break;
-    const long long row = (long long)y * width;
-    for (int c = c0; c < block_w; c += cols) {
-      const int x = bx * block_w + c;
-      if (x >= width) break;
-      out[row + x] = 2.0f * src[row + x];
+__device__ __forceinline__ float4 scale2(float4 v) {
+  return make_float4(2.0f * v.x, 2.0f * v.y, 2.0f * v.z, 2.0f * v.w);
+}
+
+// Move i of a row of n columns whose scalar head (up to its first 16-byte
+// boundary) is `head` columns: moves [0, nvec) are the row's float4s,
+// the next ones its head and tail scalars. Sets *col to the move's first
+// column and returns its width in floats (4, 1, or 0 past the last move).
+__device__ __forceinline__ int row_move(int head, int nvec, int n, int i, int* col) {
+  if (i < nvec) {
+    *col = head + 4 * i;
+    return 4;
+  }
+  const int j = i - nvec;
+  *col = j < head ? j : j + 4 * nvec;
+  return *col < n ? 1 : 0;
+}
+
+// One (block_h, block_w) rectangle per block, block (bx, by) of a 2D grid;
+// thread (x, y) makes moves x, x + blockDim.x, ... of rows y, y +
+// blockDim.y, ...; `moves` bounds the moves of any row. `plane` is the
+// plane's first float. A rectangle whose every row lies on the 16-byte
+// grid (vec_ok, the frame width and the rectangle's columns multiples of
+// 4: the microbenchmark's geometries) moves float4s x, x + blockDim.x, ...
+// of each row, kScaleBatch rows' loads in flight before their stores; any
+// other takes each row's moves from row_move, one at a time. No division,
+// and few instructions before the first load: 2048 threads per SM run
+// each of them, and at 512 threads a block's rectangles must all fit on
+// the card at once (4 blocks per SM, at most 32 registers).
+__global__ void __launch_bounds__(1024, 2)
+    plane_scale_kernel(const float* __restrict__ plane, int height, int width, int block_h, int block_w, int vec_ok,
+                       int moves, float* __restrict__ out) {
+  const int xa = blockIdx.x * block_w;
+  const int y0 = blockIdx.y * block_h;
+  const int n = min(block_w, width - xa);  // this rectangle's columns
+  const int n_rows = min(block_h, height - y0);
+  const int dy = blockDim.y;
+  if (vec_ok && ((width | xa | n) & 3) == 0) {
+    const long long row4 = width / 4;
+    const float4* s = reinterpret_cast<const float4*>(plane + (long long)y0 * width + xa);
+    float4* d = reinterpret_cast<float4*>(out + (long long)y0 * width + xa);
+    for (int x = threadIdx.x; x < n / 4; x += blockDim.x) {
+      for (int r = threadIdx.y; r < n_rows; r += dy * kScaleBatch) {
+        float4 buf[kScaleBatch];
+#pragma unroll
+        for (int u = 0; u < kScaleBatch; ++u) {
+          if (r + u * dy < n_rows) buf[u] = s[(r + u * dy) * row4 + x];
+        }
+#pragma unroll
+        for (int u = 0; u < kScaleBatch; ++u) {
+          if (r + u * dy < n_rows) d[(r + u * dy) * row4 + x] = scale2(buf[u]);
+        }
+      }
+    }
+    return;
+  }
+  for (int r = threadIdx.y; r < n_rows; r += dy) {
+    const long long o = (long long)(y0 + r) * width + xa;  // row start, in floats
+    const int head = vec_ok ? min(n, (int)(-o & 3)) : n;
+    for (int i = threadIdx.x; i < moves; i += blockDim.x) {
+      int col;
+      const int w = row_move(head, (n - head) / 4, n, i, &col);
+      if (w == 4) {
+        *reinterpret_cast<float4*>(out + o + col) = scale2(*reinterpret_cast<const float4*>(plane + o + col));
+      } else if (w == 1) {
+        out[o + col] = 2.0f * plane[o + col];
+      }
     }
   }
 }
@@ -110,12 +174,26 @@ __global__ void __launch_bounds__(kTakeThreads)
 
 }  // namespace
 
+// threads: the block size to aim at, 32-1024 (0: the default below).
 extern "C" int tr_plane_scale(const float* in, int plane, int height, int width, int block_h, int block_w,
-                              float* out, void* stream) {
+                              int threads, float* out, void* stream) {
   const int blocks_x = (width + block_w - 1) / block_w;
   const int blocks_y = (height + block_h - 1) / block_h;
-  TR_LAUNCH(plane_scale_kernel, blocks_x * blocks_y, kScaleThreads, stream, in, plane, height, width,
-            block_h, block_w, blocks_x, out);
+  if ((threads != 0 && (threads < 32 || threads > 1024)) || blocks_y > 65535) return (int)cudaErrorInvalidValue;
+  const float* src = in + (long long)plane * height * width;
+  // float4 moves need the plane and the output 16-byte aligned at the same
+  // columns.
+  const int vec_ok = ((uintptr_t)src % 16 == 0) && ((uintptr_t)out % 16 == 0);
+  // Moves of a full rectangle's row: n / 4 where every row starts and ends
+  // on a 16-byte boundary, else at most n / 4 float4s and 6 scalars (all
+  // scalars without vec_ok).
+  const int n = block_w < width ? block_w : width;
+  const int moves = !vec_ok ? n : width % 4 == 0 && block_w % 4 == 0 ? n / 4 : n / 4 + 6 < n ? n / 4 + 6 : n;
+  if (threads == 0) threads = (long long)block_h * moves >= kScaleBigMoves ? kScaleBigThreads : kScaleThreads;
+  const int team = moves < threads ? moves : threads;
+  const int rows = threads / team < block_h ? threads / team : block_h;
+  TR_LAUNCH(plane_scale_kernel, dim3(blocks_x, blocks_y), dim3(team, rows), stream, src, height, width, block_h,
+            block_w, vec_ok, moves, out);
   return (int)cudaGetLastError();
 }
 

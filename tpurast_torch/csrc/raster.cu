@@ -4,77 +4,205 @@
 // (tile, 128-triangle segment) grid steps). Plain torch version:
 // tpurast_torch/kernels/raster.py::rasterize_tiles_plain.
 //
-// One block per framebuffer tile, 256 threads holding 16 pixels each in
-// registers (best depth and face id), so the tile is written exactly once.
-// The block walks its tile's whole pair range [offsets[t], offsets[t+1])
-// of the binned pair list in chunks of 128 faces, staging their 24-float
-// setup rows in shared memory (12 KB): every thread then reads each row as
-// a broadcast. There is no segment schedule and nothing is dropped.
+// Work: a binned (tile, face) pair evaluates only the pixels of its tile
+// inside its face's pixel rectangle, rows [floor(ymin) - 1, floor(ymax) + 1]
+// and columns [floor(xmin) - 1, floor(xmax) + 1] of the screen AABB from
+// triangle_setup (the reference widens its 8-row groups by the same pixel,
+// raster.py:140-149; faces crossing w = 0 carry the whole screen). On the
+// 1920x1080 smoke frame that is 6.75M evaluations for 203k pairs, against
+// 833M for every pixel of every pair's tile.
 //
-// What bounds it on this card: f32 issue. Each (pair, pixel) costs ~40
-// flops of edge functions and depth, evaluated at every pixel of the tile
-// (no row-group restriction yet), while device memory only sees the setup
-// rows (96 B per pair) and one (2, 32, 128) tile store. Later work: skip
-// pixels outside a face's bounding rows, and split dense tiles over
-// several blocks.
+// Schedule: the work unit is (tile, chunk of at most kChunk pairs of its
+// bin), so a dense tile (18,934 pairs on the smoke frame's horizon) spreads
+// over ~150 units instead of one block. raster_units_kernel (one block)
+// turns the bin offsets into each tile's first unit and each unit's tile;
+// raster_kernel runs a persistent grid (as many blocks as fit on the card
+// at once) whose blocks pull units from an atomic counter. A unit stages its pairs' setup fields
+// and rectangles in shared memory, clears the union of the rectangles in a
+// shared (tile_h x tile_w) buffer of 64-bit keys, lets each warp take one
+// pair at a time with its lanes over the rectangle's pixels, and merges
+// each key into the shared buffer with atomicMax. The unit then merges its
+// union box into a global key buffer (zeroed per frame) with one atomicMax
+// per touched pixel, and raster_unpack_kernel writes the (2, Hp, Wp) f32
+// output. The host needs no count from the device: the grid sizes are fixed
+// by the card and the frame size, and the unit table by the pair list's
+// length (at most n_tiles + ceil(pair slots / kChunk) units).
 //
-// The merge rule is order-free: max depth, ties to the max face id (the
-// later draw, wgpu's GreaterEqual). The expressions are raster.py:151-191
-// term for term.
+// Keys are depth_bits << 32 | (face_id + 1). Covered depths lie in [0, 1]
+// (-0.0 taken as +0.0), so their bit patterns order like their values, and
+// the low word breaks ties to the larger face id: the order-free rule of
+// both versions (max depth, ties to the later draw, wgpu's GreaterEqual),
+// so the atomic merge is exact and its result does not depend on the
+// order of the units. A covered key is never 0, so 0 marks "no fragment";
+// the unpack takes max(key, clear key), which keeps clear_depth and face id
+// -1 where nothing reached clear_depth, as the plain version's scatter-amax
+// over a clear-filled buffer does.
+//
+// kChunk = 128 pairs and 256 threads: the shared keys (32 KB for a 4096-px
+// tile) plus 128 staged rows of 18 fields, face ids and rectangles come to
+// 43.5 KB, under the 48 KB of static shared memory. ptxas gives the kernel
+// 64 registers and no spills, so four blocks (1,024 threads) are resident
+// per SM (shared memory would allow five; more registers would cost one).
+// Each of the 8 warps takes 16 pairs of a unit, enough to amortise the
+// box clear and merge (a unit of a dense tile covers a few 8-row buckets,
+// since bins sort by y-bucket), and the smoke frame has 1,657 units for
+// 528 resident blocks.
+//
+// What bounds it on this card: bytes. Each named face's setup fields 0-17
+// (72 B) and AABB (16 B) read once, 4 B of face id per pair (203k pairs),
+// and a (2, 1088, 1920) f32 output written, against ~0.27 GFLOP of edge
+// and depth arithmetic; the key buffer's zeroing, merge and unpack add
+// ~50 MB of L2 traffic, and a unit reads its pairs' rows once per pair.
+//
+// The edge, depth and division expressions are raster.py:151-191 term for
+// term and the library is built with --fmad=false, so depth and face id
+// equal the plain version's bit for bit.
 
 #include "common.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kPxPerThread = 16;
+constexpr int kWarps = kThreads / 32;
 constexpr int kChunk = 128;
+constexpr int kMaxTilePx = 4096;
 constexpr int kSetupWidth = 24;
+constexpr int kRowFields = 18;  // setup fields 0-17: edges, z, w, face id, anchor
+constexpr int kUnitsThreads = 1024;
+constexpr int kUnpackThreads = 256;
+#ifdef TR_HOST_EMU
+constexpr int kUnpackMaxBlocks = 4;
+#else
+constexpr int kUnpackMaxBlocks = 4096;
+#endif
 
 __device__ __forceinline__ bool edge_covered(float e, bool on_edge_ok) {
   return (e < 0.0f) || (e == 0.0f && on_edge_ok);
 }
 
-__global__ void raster_kernel(const float* __restrict__ setup, const int* __restrict__ pair_faces,
-                              const int* __restrict__ offsets, int tiles_x, int tiles_y, int tile_h,
-                              int tile_w, float clear_depth, float* __restrict__ out) {
-  __shared__ float rows[kChunk][kSetupWidth];
-  __shared__ int faces[kChunk];
+// A rectangle's first and last pixel (whole numbers, as floats) relative
+// to the tile's first pixel g0, clamped into the tile: the first into
+// [0, size], the last into [-1, size - 1] (an empty range when the
+// rectangle misses the tile). Inside the tile the bounds are exact.
+__device__ __forceinline__ int tile_first(float v, int g0, int size) {
+  return (int)fminf(fmaxf(v, (float)g0), (float)(g0 + size)) - g0;
+}
 
-  const int t = blockIdx.x;
-  const int tx = t % tiles_x;
-  const int ty = t / tiles_x;
-  const int tile_px = tile_h * tile_w;
-  const int width = tiles_x * tile_w;
-  const int height = tiles_y * tile_h;
+__device__ __forceinline__ int tile_last(float v, int g0, int size) {
+  return (int)fminf(fmaxf(v, (float)(g0 - 1)), (float)(g0 + size - 1)) - g0;
+}
 
-  float best_z[kPxPerThread];
-  int best_f[kPxPerThread];
-  float pxs[kPxPerThread];  // pixel centers, global framebuffer coordinates
-  float pys[kPxPerThread];
-#pragma unroll
-  for (int k = 0; k < kPxPerThread; ++k) {
-    const int p = threadIdx.x + k * kThreads;
-    best_z[k] = clear_depth;
-    best_f[k] = -1;
-    pxs[k] = (float)(tx * tile_w + p % tile_w) + 0.5f;
-    pys[k] = (float)(ty * tile_h + p / tile_w) + 0.5f;
+// work[t] = first unit of tile t (units: ceil(count / kChunk) per tile),
+// work[n_tiles] = number of units, work[n_tiles + 1] = 0 (the unit
+// counter), work[n_tiles + 2 + u] = the tile of unit u.
+__global__ void raster_units_kernel(const int* __restrict__ offsets, int n_tiles, int* __restrict__ work) {
+  __shared__ int sums[kUnitsThreads];
+  const int per = (n_tiles + kUnitsThreads - 1) / kUnitsThreads;
+  const int t0 = threadIdx.x * per;
+  const int t1 = min(n_tiles, t0 + per);
+  int local = 0;
+  for (int t = t0; t < t1; ++t) local += (offsets[t + 1] - offsets[t] + kChunk - 1) / kChunk;
+  sums[threadIdx.x] = local;
+  __syncthreads();
+  for (int step = 1; step < kUnitsThreads; step <<= 1) {  // inclusive scan
+    const int v = (int)threadIdx.x >= step ? sums[threadIdx.x - step] : 0;
+    __syncthreads();
+    sums[threadIdx.x] += v;
+    __syncthreads();
   }
+  int acc = sums[threadIdx.x] - local;
+  int* unit_tile = work + n_tiles + 2;
+  for (int t = t0; t < t1; ++t) {
+    work[t] = acc;
+    const int units = (offsets[t + 1] - offsets[t] + kChunk - 1) / kChunk;
+    for (int u = 0; u < units; ++u) unit_tile[acc + u] = t;
+    acc += units;
+  }
+  if (threadIdx.x == kUnitsThreads - 1) {
+    work[n_tiles] = sums[kUnitsThreads - 1];
+    work[n_tiles + 1] = 0;
+  }
+}
 
-  const int start = offsets[t];
-  const int end = offsets[t + 1];
-  for (int c0 = start; c0 < end; c0 += kChunk) {
-    const int n = min(kChunk, end - c0);
-    __syncthreads();  // the previous chunk's rows are no longer read
-    for (int i = threadIdx.x; i < n * kSetupWidth; i += kThreads) {
-      const int j = i / kSetupWidth;
-      const int f = pair_faces[c0 + j];
-      rows[j][i % kSetupWidth] = setup[(long long)f * kSetupWidth + i % kSetupWidth];
-      if (i % kSetupWidth == 0) faces[j] = f;
+__global__ void __launch_bounds__(kThreads)
+    raster_kernel(const float* __restrict__ setup, const float* __restrict__ aabb,
+                  const int* __restrict__ pair_faces, const int* __restrict__ offsets, int* __restrict__ work,
+                  int tiles_x, int n_tiles, int tile_h, int tile_w, unsigned long long* __restrict__ gkeys) {
+  __shared__ unsigned long long keys[kMaxTilePx];
+  __shared__ float rows[kChunk][kRowFields];
+  __shared__ int faces[kChunk];
+  __shared__ short rect[kChunk][4];  // tile-local x0, y0, x1, y1 (inclusive)
+  __shared__ int box[4];             // union of the unit's rectangles
+  __shared__ int unit_tile, unit_p0, unit_n;
+
+  const int lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
+  const int width = tiles_x * tile_w;
+  const int n_units = work[n_tiles];
+  int* counter = work + n_tiles + 1;
+  const int* unit_tiles = work + n_tiles + 2;
+
+  for (;;) {
+    if (threadIdx.x == 0) {
+      const int u = atomicAdd(counter, 1);
+      int t = -1;
+      if (u < n_units) {
+        t = unit_tiles[u];
+        unit_p0 = offsets[t] + (u - work[t]) * kChunk;
+        unit_n = min(kChunk, offsets[t + 1] - unit_p0);
+      }
+      unit_tile = t;
+      box[0] = tile_w;
+      box[1] = tile_h;
+      box[2] = -1;
+      box[3] = -1;
+    }
+    __syncthreads();
+    const int t = unit_tile;
+    if (t < 0) break;
+    const int p0 = unit_p0;
+    const int n = unit_n;
+    const int gx0 = (t % tiles_x) * tile_w;
+    const int gy0 = (t / tiles_x) * tile_h;
+
+    for (int i = threadIdx.x; i < n * kRowFields; i += kThreads) {
+      const int j = i / kRowFields;
+      rows[j][i % kRowFields] = setup[(long long)pair_faces[p0 + j] * kSetupWidth + i % kRowFields];
+    }
+    if ((int)threadIdx.x < n) {
+      const int f = pair_faces[p0 + threadIdx.x];
+      faces[threadIdx.x] = f;
+      const float* a = aabb + (long long)f * 4;
+      const int x0 = tile_first(floorf(a[0]) - 1.0f, gx0, tile_w);
+      const int y0 = tile_first(floorf(a[1]) - 1.0f, gy0, tile_h);
+      const int x1 = tile_last(floorf(a[2]) + 1.0f, gx0, tile_w);
+      const int y1 = tile_last(floorf(a[3]) + 1.0f, gy0, tile_h);
+      rect[threadIdx.x][0] = (short)x0;
+      rect[threadIdx.x][1] = (short)y0;
+      rect[threadIdx.x][2] = (short)x1;
+      rect[threadIdx.x][3] = (short)y1;
+      if (x0 <= x1 && y0 <= y1) {
+        atomicMin(&box[0], x0);
+        atomicMin(&box[1], y0);
+        atomicMax(&box[2], x1);
+        atomicMax(&box[3], y1);
+      }
+    }
+    __syncthreads();
+    // Every rectangle of the unit may miss the tile (a pair binned outside
+    // its AABB): the box then stays (tile_w, tile_h, -1, -1), and the
+    // unit clears, evaluates and merges nothing.
+    const int bx0 = box[0], by0 = box[1];
+    const int bw = box[2] < 0 ? 0 : box[2] - bx0 + 1, bh = box[2] < 0 ? 0 : box[3] - by0 + 1;
+    for (int i = threadIdx.x; i < bw * bh; i += kThreads) {
+      keys[(by0 + i / bw) * tile_w + bx0 + i % bw] = 0ull;
     }
     __syncthreads();
 
-    for (int j = 0; j < n; ++j) {
+    for (int j = warp; j < n; j += kWarps) {
+      const int x0 = rect[j][0], y0 = rect[j][1];
+      const int rw = rect[j][2] - x0 + 1, rh = rect[j][3] - y0 + 1;
+      if (rw <= 0 || rh <= 0) continue;
       const float* r = rows[j];
       const float a0 = r[0], b0 = r[1], c0e = r[2];
       const float a1 = r[3], b1 = r[4], c1e = r[5];
@@ -82,7 +210,7 @@ __global__ void raster_kernel(const float* __restrict__ setup, const int* __rest
       const float z0 = r[9], z1 = r[10], z2 = r[11];
       const float w0 = r[12], w1 = r[13], w2 = r[14];
       const float anc_x = r[16], anc_y = r[17];
-      const int fid = faces[j];
+      const unsigned fid1 = (unsigned)(faces[j] + 1);
       const bool crossing = (w0 <= 0.0f) || (w1 <= 0.0f) || (w2 <= 0.0f);
       // _edge_covered's on-edge rule for the edge and for its negation.
       const bool ok0 = (a0 < 0.0f) || (a0 == 0.0f && b0 < 0.0f);
@@ -91,11 +219,11 @@ __global__ void raster_kernel(const float* __restrict__ setup, const int* __rest
       const bool nok0 = (a0 > 0.0f) || (a0 == 0.0f && b0 > 0.0f);
       const bool nok1 = (a1 > 0.0f) || (a1 == 0.0f && b1 > 0.0f);
       const bool nok2 = (a2 > 0.0f) || (a2 == 0.0f && b2 > 0.0f);
-#pragma unroll
-      for (int k = 0; k < kPxPerThread; ++k) {
-        if (threadIdx.x + k * kThreads >= tile_px) break;
-        const float pxr = pxs[k] - anc_x;
-        const float pyr = pys[k] - anc_y;
+      for (int i = lane; i < rw * rh; i += 32) {
+        const int lx = x0 + i % rw;
+        const int ly = y0 + i / rw;
+        const float pxr = ((float)(gx0 + lx) + 0.5f) - anc_x;
+        const float pyr = ((float)(gy0 + ly) + 0.5f) - anc_y;
         const float e0 = pxr * a0 + pyr * b0 + c0e;
         const float e1 = pxr * a1 + pyr * b1 + c1e;
         const float e2 = pxr * a2 + pyr * b2 + c2e;
@@ -108,34 +236,69 @@ __global__ void raster_kernel(const float* __restrict__ setup, const int* __rest
         const bool w_front = (ew * esum) > 0.0f;
         const float z = ez / (ew == 0.0f ? 1e-30f : ew);
         const bool z_ok = (z >= 0.0f) && (z <= 1.0f);
-        if ((cov_n || cov_p) && w_front && z_ok &&
-            (z > best_z[k] || (z == best_z[k] && fid > best_f[k]))) {
-          best_z[k] = z;
-          best_f[k] = fid;
+        if ((cov_n || cov_p) && w_front && z_ok) {
+          const unsigned zbits = z == 0.0f ? 0u : __float_as_uint(z);  // -0.0 -> +0.0
+          atomicMax(&keys[ly * tile_w + lx], ((unsigned long long)zbits << 32) | fid1);
         }
       }
     }
-  }
+    __syncthreads();
 
-  const long long plane = (long long)width * height;
-#pragma unroll
-  for (int k = 0; k < kPxPerThread; ++k) {
-    const int p = threadIdx.x + k * kThreads;
-    if (p >= tile_px) break;
-    const long long o = (long long)(ty * tile_h + p / tile_w) * width + tx * tile_w + p % tile_w;
-    out[o] = best_z[k];
-    out[plane + o] = (float)best_f[k];
+    for (int i = threadIdx.x; i < bw * bh; i += kThreads) {
+      const int ly = by0 + i / bw;
+      const int lx = bx0 + i % bw;
+      const unsigned long long k = keys[ly * tile_w + lx];
+      if (k != 0ull) atomicMax(&gkeys[(long long)(gy0 + ly) * width + gx0 + lx], k);
+    }
+    __syncthreads();  // the unit's shared state is free for the next one
+  }
+}
+
+__global__ void raster_unpack_kernel(const unsigned long long* __restrict__ gkeys, long long n_px,
+                                     unsigned long long clear_key, float* __restrict__ out) {
+  for (long long i = (long long)blockIdx.x * kUnpackThreads + threadIdx.x; i < n_px;
+       i += (long long)gridDim.x * kUnpackThreads) {
+    const unsigned long long k = gkeys[i] < clear_key ? clear_key : gkeys[i];
+    out[i] = __uint_as_float((unsigned)(k >> 32));
+    out[n_px + i] = (float)((int)(unsigned)(k & 0xffffffffull) - 1);
   }
 }
 
 }  // namespace
 
-extern "C" int tr_raster(const float* setup, const int* pair_faces, const int* offsets, int tiles_x,
-                         int tiles_y, int tile_h, int tile_w, float clear_depth, float* out,
-                         void* stream) {
-  if (tile_h * tile_w > kThreads * kPxPerThread) return (int)cudaErrorInvalidValue;
-  TR_LAUNCH(raster_kernel, tiles_x * tiles_y, kThreads, stream, setup, pair_faces, offsets,
-            tiles_x, tiles_y, tile_h, tile_w, clear_depth, out);
+// pair_slots: the length of pair_faces (the binned pairs are its first
+// offsets[n_tiles]); scratch: (Hp * Wp) 64-bit keys; work: work_len ints,
+// at least n_tiles + 2 + n_tiles + ceil(pair_slots / 128).
+extern "C" int tr_raster(const float* setup, const float* aabb, const int* pair_faces, const int* offsets,
+                         int pair_slots, int tiles_x, int tiles_y, int tile_h, int tile_w, float clear_depth,
+                         void* scratch, int* work, int work_len, float* out, void* stream) {
+  const int n_tiles = tiles_x * tiles_y;
+  if (tile_h * tile_w > kMaxTilePx || work_len < 2 * n_tiles + 2 + (pair_slots + kChunk - 1) / kChunk) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const long long n_px = (long long)n_tiles * tile_h * tile_w;
+  unsigned long long* gkeys = (unsigned long long*)scratch;
+  cudaError_t err = cudaMemsetAsync(gkeys, 0, n_px * sizeof(unsigned long long), (cudaStream_t)stream);
+  if (err != cudaSuccess) return (int)err;
+  TR_LAUNCH(raster_units_kernel, 1, kUnitsThreads, stream, offsets, n_tiles, work);
+#ifdef TR_HOST_EMU
+  const int grid = 3;
+#else
+  int device = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&device)) != cudaSuccess) return (int)err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess) return (int)err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, raster_kernel, kThreads, 0);
+  if (err != cudaSuccess) return (int)err;
+  const int grid = sms * (per_sm > 1 ? per_sm : 1);
+#endif
+  TR_LAUNCH(raster_kernel, grid, kThreads, stream, setup, aabb, pair_faces, offsets, work, tiles_x, n_tiles,
+            tile_h, tile_w, gkeys);
+  unsigned clear_bits;
+  memcpy(&clear_bits, &clear_depth, 4);
+  const unsigned long long clear_key = (unsigned long long)clear_bits << 32;
+  const long long px_blocks = (n_px + kUnpackThreads - 1) / kUnpackThreads;
+  const int unpack_blocks = px_blocks < kUnpackMaxBlocks ? (int)px_blocks : kUnpackMaxBlocks;
+  TR_LAUNCH(raster_unpack_kernel, unpack_blocks, kUnpackThreads, stream, gkeys, n_px, clear_key, out);
   return (int)cudaGetLastError();
 }
 

@@ -1,10 +1,10 @@
 """Scene residency for the port: host build, upload and a procedural scene.
 
-``build_scene`` repeats tpurast.device.scene.build_scene line for line and
-returns the reference's own DeviceScene record; the one difference is that
-its pages come from tpurast_torch.device.pages (the reference's page
-builder reaches jax through its kernels package). ``load_demo_scene`` is
-tpurast.device.scene.load_demo_scene over this build_scene.
+``DeviceScene``, ``_pad_to``, ``_round_up`` and ``build_scene`` are
+copies of tpurast/device/scene.py's (DeviceScene without device(), which
+imports jax): the same fields, so a scene built by either package renders
+through the port. ``load_demo_scene`` is the reference's
+load_demo_scene over this build_scene.
 
 ``upload(scene, device, texture_dtype=None)`` is the port's counterpart of
 DeviceScene.device(): the frame's inputs as torch tensors on ``device``.
@@ -25,6 +25,7 @@ seed, with no files from outside the repository.
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 import math
 import os
@@ -32,15 +33,97 @@ import os
 import numpy as np
 import torch
 
-from tpurast import math3d
-from tpurast.assets.gltf import GltfModel, PrimitiveDraw, load_glb
-from tpurast.camera import Camera
-from tpurast.device import textures as tex_mod
-from tpurast.device.scene import DeviceScene, _pad_to, _round_up
+from tpurast_torch import math3d
+from tpurast_torch.assets.gltf import GltfModel, PrimitiveDraw, load_glb
+from tpurast_torch.assets.ktx2 import load_ktx2, parse_ktx2
+from tpurast_torch.camera import Camera
+from tpurast_torch.device import textures as tex_mod
 from tpurast_torch.device.pages import build_pages
 from tpurast_torch.device.textures import texels_tensor
 
 log = logging.getLogger("tpurast_torch.device")
+
+
+def _pad_to(arr: np.ndarray, n: int, fill=0) -> np.ndarray:
+    pad = n - arr.shape[0]
+    if pad <= 0:
+        return arr
+    pad_block = np.full((pad,) + arr.shape[1:], fill, dtype=arr.dtype)
+    return np.concatenate([arr, pad_block], axis=0)
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+@dataclasses.dataclass
+class DeviceScene:
+    """Host-staged scene; ``upload`` returns the frame function's torch
+    tensors. All array sizes are padded to static shapes."""
+
+    positions: np.ndarray  # (Vp, 3) f32, model space
+    normals: np.ndarray  # (Vp, 3) f32, model space
+    uvs: np.ndarray  # (Vp, 2) f32
+    vert_prim: np.ndarray  # (Vp,) i32
+    faces: np.ndarray  # (Fp, 3) i32, global vertex indices
+    face_prim: np.ndarray  # (Fp,) i32
+    n_faces: int
+    n_vertices: int
+    models: np.ndarray  # (P, 4, 4) f32
+    normal_mats: np.ndarray  # (P, 3, 3) f32
+    prim_tex: np.ndarray  # (P,) i32 texture id (0 = fallback)
+    atlas: tex_mod.TextureAtlas
+    texture_uris: list[str]
+    # 2D mip rects for the windowed sampling kernel (device/pages.py);
+    # None disables the windowed path for this scene.
+    pages: "object | None" = None
+    # Build-time face-corner tables (world space). The model->world half
+    # of the vertex stage plus ALL vertex->face gathers run once here:
+    # per frame the geometry stage is pure arithmetic over (Fp, 3, ...)
+    # corner rows (kernels/geometry.transform_corners) — XLA:TPU dynamic
+    # row gathers cost ~7-76 ns each, so gathering 5 rows per face per
+    # frame dominated geometry on 100k+-face scenes.
+    corner_world: np.ndarray | None = None  # (Fp, 3, 3) f32
+    corner_normal: np.ndarray | None = None  # (Fp, 3, 3) f32
+    corner_uv: np.ndarray | None = None  # (Fp, 3, 2) f32
+    face_tex: np.ndarray | None = None  # (Fp,) i32 = prim_tex[face_prim]
+    # Retired fields kept for pickle compatibility with cached scenes:
+    # UV chart ids (device/charts.py) fed an earlier windowed-sampler
+    # plan; the page-coordinate covering subsumed them, so they are no
+    # longer computed, uploaded, or read (host tooling that wants charts
+    # calls charts.face_charts directly, e.g. tools/residual_analysis.py).
+    face_chart: np.ndarray | None = None  # (Fp,) i32
+    n_charts: int = 1
+
+    @property
+    def triangle_count(self) -> int:
+        return self.n_faces
+
+    def page_dtype(self) -> str:
+        """bf16 pages: 2^-9 relative texel error, under half a u8 LSB
+        through the shading chain (and the MXU selection runs bf16
+        regardless — f32 pages would round identically in the matmul)."""
+        return "bfloat16"
+
+    def corner_tables(self):
+        """World-space face-corner tables, computed once (host).
+
+        Runs basic.vert's model->world half (world = model * pos, normal
+        via the 3x3 normal matrix, src/Renderer.zig:797-807 transforms
+        are static per scene) and bakes the vertex->face indirection, so
+        the per-frame vertex stage has zero dynamic gathers."""
+        if self.corner_world is None:
+            m = self.models[self.vert_prim]  # (Vp, 4, 4)
+            ph = np.concatenate(
+                [self.positions, np.ones_like(self.positions[:, :1])], axis=1
+            )
+            world = np.einsum("vij,vj->vi", m, ph).astype(np.float32)[:, :3]
+            nm = self.normal_mats[self.vert_prim]
+            wnormal = np.einsum("vij,vj->vi", nm, self.normals).astype(np.float32)
+            self.corner_world = world[self.faces]
+            self.corner_normal = wnormal[self.faces]
+            self.corner_uv = self.uvs[self.faces]
+        return self.corner_world, self.corner_normal, self.corner_uv
 
 
 def build_scene(
@@ -52,8 +135,6 @@ def build_scene(
 ) -> DeviceScene:
     """Assemble parsed models into flat buffers + texture atlas + pages
     (tpurast/device/scene.py build_scene, same arguments and result)."""
-    from tpurast.assets.ktx2 import load_ktx2, parse_ktx2
-
     draws: list[PrimitiveDraw] = [d for m in models for d in m.draws]
 
     # Texture registry: id 0 is the fallback; others keyed by URI.
@@ -282,8 +363,8 @@ def texture_image(rng: np.random.Generator, size: int, index: int) -> np.ndarray
 def bc4_blob(img: np.ndarray) -> bytes:
     """u8 image -> BC4 KTX2 with a full mip chain, without zstd
     supercompression (the port's host side needs no zstandard)."""
-    from tpurast.assets.ktx2 import VK_FORMAT_BC4_UNORM_BLOCK
-    from tpurast.assets.ktx2_write import encode_bc4, mip_chain_u8, write_ktx2
+    from tpurast_torch.assets.ktx2 import VK_FORMAT_BC4_UNORM_BLOCK
+    from tpurast_torch.assets.ktx2_write import encode_bc4, mip_chain_u8, write_ktx2
 
     payloads = [encode_bc4(m) for m in mip_chain_u8(img)]
     return write_ktx2(
@@ -316,7 +397,7 @@ def _floor_patch(x0, z0, size_x, size_z, nx, nz, uv_per_unit, uri) -> PrimitiveD
     i, j = np.meshgrid(np.arange(nz), np.arange(nx), indexing="ij")
     a = (i * (nx + 1) + j).reshape(-1)
     b, c, d = a + 1, a + nx + 2, a + nx + 1
-    # Same winding as tpurast.device.scene._quad_draw (front from -Y).
+    # Same winding as tpurast/device/scene.py _quad_draw (front from -Y).
     tris = np.stack([np.stack([a, b, c], 1), np.stack([a, c, d], 1)], 1)
     return _draw(pos, nrm, uv, tris, uri, "floor")
 

@@ -1,12 +1,13 @@
 """Present stage as torch ops: linear -> sRGB u8 encode and crops.
 
 Counterpart of tpurast/kernels/present.py, same names. Planes stay
-channel-planar (4, H, W); tpurast.present.interleave makes (H, W, 4) on
-the host.
+channel-planar (4, H, W); ``interleave`` (a copy of
+tpurast/present.py interleave) makes (H, W, 4) on the host.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -28,3 +29,13 @@ def encode_srgb_u8(planes: torch.Tensor, width: int, height: int) -> torch.Tenso
 def crop_linear(framebuffer: torch.Tensor, width: int, height: int) -> torch.Tensor:
     """(..., Hp, Wp) -> (..., height, width)."""
     return framebuffer[..., :height, :width]
+
+
+def interleave(img: np.ndarray) -> np.ndarray:
+    """(4, H, W) channel-planar (the device framebuffer layout; a
+    channel-minor device array would pad 4 -> 128 lanes) -> (H, W, 4)
+    interleaved host image. The host-side half of the swapchain's
+    surface-format conversion."""
+    if img.ndim == 3 and img.shape[0] == 4:
+        return np.ascontiguousarray(np.moveaxis(img, 0, -1))
+    return img

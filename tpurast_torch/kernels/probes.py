@@ -50,16 +50,17 @@ def vmem_take(table, idx) -> torch.Tensor:
     return out
 
 
-def plane_scale_plain(gbuf, plane: int, *, block_h: int, block_w: int) -> torch.Tensor:
+def plane_scale_plain(gbuf, plane: int, *, block_h: int, block_w: int, threads: int = 0) -> torch.Tensor:
     """2 * gbuf[plane] as (1, H, W); the block geometry does not change
     the result."""
-    del block_h, block_w
+    del block_h, block_w, threads
     return 2.0 * gbuf[plane : plane + 1]
 
 
-def plane_scale(gbuf, plane: int, *, block_h: int, block_w: int) -> torch.Tensor:
+def plane_scale(gbuf, plane: int, *, block_h: int, block_w: int, threads: int = 0) -> torch.Tensor:
     """2 * gbuf[plane] of a (P, H, W) f32 G-buffer as (1, H, W), one CUDA
-    block per (block_h, block_w) rectangle. CPU tensors run the plain
+    block per (block_h, block_w) rectangle of about ``threads`` threads
+    (32-1024; 0 takes the kernel's default). CPU tensors run the plain
     version; CUDA tensors launch csrc/probes.cu plane_scale."""
     if not _k.use_kernel(gbuf):
         return plane_scale_plain(gbuf, plane, block_h=block_h, block_w=block_w)
@@ -70,8 +71,10 @@ def plane_scale(gbuf, plane: int, *, block_h: int, block_w: int) -> torch.Tensor
         raise ValueError(f"plane {plane} outside [0, {gbuf.shape[0]})")
     if block_h < 1 or block_w < 1:
         raise ValueError(f"block must be at least 1x1, got {block_h}x{block_w}")
+    if threads != 0 and not 32 <= threads <= 1024:
+        raise ValueError(f"threads must be 0 or in [32, 1024], got {threads}")
     _, h, w = gbuf.shape
     out = torch.empty((1, h, w), dtype=torch.float32, device=gbuf.device)
-    _build.call("tr_plane_scale", gbuf, plane, h, w, block_h, block_w, out)
+    _build.call("tr_plane_scale", gbuf, plane, h, w, block_h, block_w, threads, out)
     _k.LAUNCHES["plane_scale"] += 1
     return out

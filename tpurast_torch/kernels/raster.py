@@ -15,9 +15,14 @@ the later *sub-block in bin order* on ties across sub-blocks, which
 differs only for exact depth ties between faces in different 8-row
 y-buckets.
 
-The port has no segment schedule: a tile walks its whole pair range
-[offsets[t], offsets[t+1]) of the binned pair list, so no segment is ever
-dropped.
+The port has no segment schedule: every pair of a tile's range
+[offsets[t], offsets[t+1]) of the binned pair list is evaluated, so no
+segment is ever dropped. A pair covers only the pixels of its tile in its
+face's pixel rectangle: rows [floor(ymin) - 1, floor(ymax) + 1] and
+columns [floor(xmin) - 1, floor(xmax) + 1] of the face's screen AABB
+(the reference's one-pixel widening of its 8-row groups, raster.py:140-149,
+taken per row and applied to x too). Both versions apply it, the kernel
+by visiting only those pixels, the plain version as a mask.
 """
 
 from __future__ import annotations
@@ -30,8 +35,10 @@ from tpurast_torch.kernels import geometry as _g
 
 # Pairs evaluated per step of the plain version (times tile pixels each).
 PLAIN_PAIR_CHUNK = 2048
-# Pixels a raster block holds in registers: 256 threads x 16 (csrc/raster.cu).
+# Pixels of a tile's key buffer in a raster block's shared memory (csrc/raster.cu).
 MAX_TILE_PX = 4096
+# Pairs per raster work unit (csrc/raster.cu kChunk).
+UNIT_PAIRS = 128
 
 
 def _edge_covered(e, a, b):
@@ -70,20 +77,29 @@ def _fragments(rows, px, py):
     return (cov_n | cov_p) & w_front & z_ok, z
 
 
-def rasterize_tiles_plain(setup, pair_faces, offsets, *, tile_h, tile_w, tiles_x, tiles_y, clear_depth=0.0):
+def pixel_rects(aabb):
+    """(F, 4) screen AABBs -> (F, 4) f32 inclusive pixel bounds x0, y0, x1,
+    y1: floor(min) - 1 and floor(max) + 1, as whole numbers in f32."""
+    lo = torch.floor(aabb[:, 0:2]) - 1.0
+    hi = torch.floor(aabb[:, 2:4]) + 1.0
+    return torch.cat([lo, hi], dim=1)
+
+
+def rasterize_tiles_plain(setup, aabb, pair_faces, offsets, *, tile_h, tile_w, tiles_x, tiles_y, clear_depth=0.0):
     """Plain torch version of the raster kernel, chunked over pairs.
 
-    Each (tile, face) pair is evaluated at every pixel of its tile; the
-    winners merge with one scatter-amax over an int64 key
-    (depth bits << 32 | face id + 1): covered depths lie in [0, 1], so
-    their f32 bit patterns order like their values, and the low word
-    breaks ties to the larger face id."""
+    Each (tile, face) pair is evaluated at every pixel of its tile and
+    masked to its face's pixel rectangle (pixel_rects); the winners merge
+    with one scatter-amax over an int64 key (depth bits << 32 | face id +
+    1): covered depths lie in [0, 1], so their f32 bit patterns order like
+    their values, and the low word breaks ties to the larger face id."""
     if clear_depth < 0.0:
         raise ValueError("clear_depth must be >= 0 (reversed-Z)")
     dev = setup.device
     hp, wp = tiles_y * tile_h, tiles_x * tile_w
     n_pairs = int(offsets[-1])
-    clear_bits = int(torch.tensor(clear_depth, dtype=torch.float32).view(torch.int32))
+    rects = pixel_rects(aabb)
+    clear_bits = int(torch.tensor(float(clear_depth) + 0.0, dtype=torch.float32).view(torch.int32))
     best = torch.full((hp * wp,), clear_bits << 32, dtype=torch.int64, device=dev)
 
     lin = torch.arange(tile_h * tile_w, device=dev)
@@ -96,7 +112,10 @@ def rasterize_tiles_plain(setup, pair_faces, offsets, *, tile_h, tile_w, tiles_x
         faces = pair_faces[s:e].long()
         gx = (tiles % tiles_x) * tile_w + loc_x  # (N, P) global pixel x
         gy = (tiles // tiles_x) * tile_h + loc_y
-        covered, z = _fragments(setup[faces], gx.to(torch.float32) + 0.5, gy.to(torch.float32) + 0.5)
+        fx, fy = gx.to(torch.float32), gy.to(torch.float32)
+        covered, z = _fragments(setup[faces], fx + 0.5, fy + 0.5)
+        r = rects[faces]
+        covered &= (fx >= r[:, 0:1]) & (fy >= r[:, 1:2]) & (fx <= r[:, 2:3]) & (fy <= r[:, 3:4])
         zbits = (z + 0.0).view(torch.int32).to(torch.int64)  # -0.0 -> +0.0
         key = torch.where(covered, (zbits << 32) | (faces[:, None] + 1), torch.full_like(zbits, -1))
         best.scatter_reduce_(0, (gy * wp + gx).reshape(-1), key.reshape(-1), "amax")
@@ -105,32 +124,41 @@ def rasterize_tiles_plain(setup, pair_faces, offsets, *, tile_h, tile_w, tiles_x
     return torch.stack([depth, fid]).reshape(2, hp, wp)
 
 
-def rasterize_tiles(setup, pair_faces, offsets, *, tile_h, tile_w, tiles_x, tiles_y, clear_depth=0.0):
+def rasterize_tiles(setup, aabb, pair_faces, offsets, *, tile_h, tile_w, tiles_x, tiles_y, clear_depth=0.0):
     """Visibility raster over all tiles (raster.py rasterize_tiles).
 
-    setup (F, 24) f32 from triangle_setup; pair_faces (P,) i32 and
-    offsets (T+1,) i32 from bin_pairs. Returns (2, Hp, Wp) f32: plane 0
-    depth, plane 1 face id (-1 = none), Hp = tiles_y*tile_h,
-    Wp = tiles_x*tile_w. CPU tensors run the plain version; CUDA tensors
-    launch csrc/raster.cu."""
-    if not _k.use_kernel(setup, pair_faces, offsets):
+    setup (F, 24) f32 and aabb (F, 4) f32 from triangle_setup;
+    pair_faces (P,) i32 and offsets (T+1,) i32 from bin_pairs. Returns
+    (2, Hp, Wp) f32: plane 0 depth, plane 1 face id (-1 = none),
+    Hp = tiles_y*tile_h, Wp = tiles_x*tile_w. CPU tensors run the plain
+    version; CUDA tensors launch csrc/raster.cu."""
+    if not _k.use_kernel(setup, aabb, pair_faces, offsets):
         return rasterize_tiles_plain(
-            setup, pair_faces, offsets, tile_h=tile_h, tile_w=tile_w,
+            setup, aabb, pair_faces, offsets, tile_h=tile_h, tile_w=tile_w,
             tiles_x=tiles_x, tiles_y=tiles_y, clear_depth=clear_depth,
         )
     _k.check(setup, "setup", torch.float32)
     if setup.dim() != 2 or setup.shape[1] != _g.SETUP_WIDTH:
         raise ValueError(f"setup: expected (F, {_g.SETUP_WIDTH}), got {tuple(setup.shape)}")
+    _k.check(aabb, "aabb", torch.float32, (setup.shape[0], 4))
     _k.check(pair_faces, "pair_faces", torch.int32)
     _k.check(offsets, "offsets", torch.int32, (tiles_x * tiles_y + 1,))
     if tile_h * tile_w > MAX_TILE_PX:
         raise ValueError(f"the raster kernel takes tiles of at most {MAX_TILE_PX} px")
     if clear_depth < 0.0:
         raise ValueError("clear_depth must be >= 0 (reversed-Z)")
-    out = torch.empty((2, tiles_y * tile_h, tiles_x * tile_w), dtype=torch.float32, device=setup.device)
+    hp, wp = tiles_y * tile_h, tiles_x * tile_w
+    n_tiles = tiles_x * tiles_y
+    slots = pair_faces.numel()
+    # Scratch: the frame's 64-bit key buffer, and the unit table (each
+    # tile's first unit, the unit count and counter, each unit's tile),
+    # sized by the pair list's length so that the host never reads a count.
+    keys = torch.empty((hp * wp,), dtype=torch.int64, device=setup.device)
+    work = torch.empty((2 * n_tiles + 2 + -(-slots // UNIT_PAIRS),), dtype=torch.int32, device=setup.device)
+    out = torch.empty((2, hp, wp), dtype=torch.float32, device=setup.device)
     _build.call(
-        "tr_raster", setup, pair_faces, offsets, tiles_x, tiles_y, tile_h, tile_w,
-        float(clear_depth), out,
+        "tr_raster", setup, aabb, pair_faces, offsets, slots, tiles_x, tiles_y, tile_h, tile_w,
+        float(clear_depth) + 0.0, keys, work, work.numel(), out,
     )
     _k.LAUNCHES["raster"] += 1
     return out

@@ -30,11 +30,10 @@ import logging
 import numpy as np
 import torch
 
-from tpurast import math3d
-from tpurast.camera import Camera
-from tpurast.config import RendererConfig
-from tpurast.device.scene import DeviceScene
-from tpurast_torch.device.scene import upload
+from tpurast_torch import math3d
+from tpurast_torch.camera import Camera
+from tpurast_torch.config import RendererConfig
+from tpurast_torch.device.scene import DeviceScene, upload
 from tpurast_torch.device.textures import resolve_texture_dtype
 from tpurast_torch.kernels import geometry, present, raster, resolve, sampler as ksampler, shade
 
@@ -106,7 +105,7 @@ def render_frame(
     bins = geometry.bin_pairs(setup_out["aabb"], setup_out["valid"], tiles_x, tiles_y, tile_w, tile_h)
     setup = setup_out["setup"]
     vis = raster.rasterize_tiles(
-        setup, bins["pair_faces"], bins["offsets"], tile_h=tile_h, tile_w=tile_w,
+        setup, setup_out["aabb"], bins["pair_faces"], bins["offsets"], tile_h=tile_h, tile_w=tile_w,
         tiles_x=tiles_x, tiles_y=tiles_y, clear_depth=clear_depth,
     )
     depth = vis[0]
@@ -166,8 +165,9 @@ def render_frame(
 class Renderer:
     """Owns the resident scene and the render-target configuration
     (tpurast/renderer.py Renderer). ``device`` is where the scene lives
-    and every frame runs: "cuda" launches the kernels, "cpu" runs their
-    plain torch versions."""
+    and every frame runs: "cuda" (the default) launches the kernels,
+    "cpu" runs their plain torch versions. ``scene`` is a DeviceScene of
+    either package: the fields are the same."""
 
     def __init__(
         self,
@@ -175,7 +175,7 @@ class Renderer:
         config: RendererConfig | None = None,
         output: str = "srgb_u8",
         *,
-        device,
+        device="cuda",
     ):
         self.config = config or RendererConfig()
         cfg = self.config
@@ -272,7 +272,5 @@ class Renderer:
 
     def render_to_host(self, camera: Camera) -> np.ndarray:
         """Blocking render + readback of the color buffer, interleaved to
-        (H, W, 4) on the host (tpurast.present.interleave)."""
-        from tpurast.present import interleave
-
-        return interleave(self.render(camera)["color"].cpu().numpy())
+        (H, W, 4) on the host (kernels/present.py interleave)."""
+        return present.interleave(self.render(camera)["color"].cpu().numpy())

@@ -1,7 +1,8 @@
 """Device microbenchmarks that size the kernel and layout decisions.
 
-Counterpart of tools/microbench.py, the same seven subcommands with the
-same arguments and printed quantities, on an NVIDIA GPU:
+Counterpart of tools/microbench.py, its seven subcommands with the same
+arguments and printed quantities, on an NVIDIA GPU, and planescale, which
+chooses the plane_scale kernel's block size:
 
   gather     ns/row vs row width/dtype + index locality + 2x-gather cost
   tablesize  ns/row vs table footprint
@@ -10,11 +11,14 @@ same arguments and printed quantities, on an NVIDIA GPU:
   scatter    scatter-write cost (pair expansion alternative)
   shade      shade_gbuffer decomposed: gather vs trilerp vs the whole
   vmemtake   row sums of an on-chip table (CUDA kernel vmem_take)
+  planescale the plane_scale kernel's three launch geometries at 128-1024
+             threads per block, beside torch.mul (device time too)
 
 Run: python -m tpurast_torch.tools.microbench <subcommand>
 
 Times are CUDA events around n calls after one warm-up call (cuda_ms);
-without a CUDA device the command fails. Random indices and values come
+planescale adds device time (device_ms, torch.profiler). Without a CUDA
+device the command fails. Random indices and values come
 from a seeded torch.Generator on the device. Each subcommand's work is a
 function of the device and the sizes that returns its measurements, so
 chip_smoke.py and the tests can call it; ``timer`` is how a function
@@ -28,7 +32,7 @@ import sys
 
 import torch
 
-from tpurast.config import RendererConfig
+from tpurast_torch.config import RendererConfig
 from tpurast_torch.kernels import probes
 from tpurast_torch.kernels import shade as kshade
 
@@ -42,6 +46,7 @@ TABLE_MB = (0.125, 0.5, 2, 8, 32, 128, 512)
 SURFACE_WIDTHS = (16, 52, 164, 328, 656)
 SURFACE_ROWS = tuple(1 << e for e in (17, 18, 19, 20, 22))
 SORT_SIZES = tuple(1 << e for e in (16, 18, 20, 22))
+SCALE_THREADS = (128, 256, 512, 1024)
 
 
 def cuda_ms(fn, n: int = 20) -> float:
@@ -58,6 +63,23 @@ def cuda_ms(fn, n: int = 20) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / n
+
+
+def device_ms(fn, n: int = 20) -> float | None:
+    """Device milliseconds per call of fn: the time torch.profiler records
+    in CUDA kernels (and copies) over n calls after one warm-up call,
+    divided by n; host time between launches is left out. None when the
+    profiler records no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(e.self_device_time_total for e in prof.key_averages())
+    return total_us / 1e3 / n if total_us > 0 else None
 
 
 def generator(device, seed: int) -> torch.Generator:
@@ -240,6 +262,40 @@ def vmemtake(device, *, rows: int = 4096, n_px: int = N_PX, timer=cuda_ms) -> di
     return {"rows": rows, "width": width, "n_px": n_px, "ms": ms, "ns_per_row": ms * 1e6 / n_px}
 
 
+def planescale(device, *, tiles_x: int = 15, tiles_y: int = 34, threads=SCALE_THREADS, n: int = 50,
+               timer=cuda_ms, dev_timer=device_ms) -> dict:
+    """ms per call of the plane_scale kernel (kernels/probes.py) in
+    microbench_pipeline's three launch geometries over a (24, 32 tiles_y,
+    128 tiles_x) G-buffer, at each block size in threads, by CUDA events
+    (timer) and device time (dev_timer); beside torch.mul(src[plane], 2),
+    the one PyTorch call for the same, timed alike before and after the
+    sweep. n repeated calls, so the plane's bytes come from L2 after the
+    first. Raises if an output is not exactly 2 * gbuf[16]."""
+    h, w = 32 * tiles_y, 128 * tiles_x
+    gbuf = torch.rand((24, h, w), generator=generator(device, 0), device=device)
+    one = gbuf[16:17].clone()
+    want = 2.0 * gbuf[16:17]
+    geoms = {"tile-grid": (gbuf, 16, 32, 128), "one-plane": (one, 0, 32, 128), "row-band": (gbuf, 16, 32, w)}
+    rows = []
+    for label, (src, plane, bh, bw) in geoms.items():
+        def lib():
+            return torch.mul(src[plane], 2)
+
+        row = {"geometry": label, "torch_mul_ms": [timer(lib, n)], "torch_mul_dev_ms": [dev_timer(lib, n)],
+               "threads": {}}
+        for t in threads:
+            def fn():
+                return probes.plane_scale(src, plane, block_h=bh, block_w=bw, threads=t)
+
+            if not torch.equal(fn(), want):
+                raise AssertionError(f"plane_scale {label}, {t} threads: output differs from 2 * gbuf[16]")
+            row["threads"][t] = {"ms": timer(fn, n), "dev_ms": dev_timer(fn, n)}
+        row["torch_mul_ms"].append(timer(lib, n))
+        row["torch_mul_dev_ms"].append(dev_timer(lib, n))
+        rows.append(row)
+    return {"height": h, "width": w, "n": n, "geometries": rows}
+
+
 # -- command line -------------------------------------------------------------
 
 
@@ -303,7 +359,21 @@ def cmd_vmemtake(args, dev):
           f"({r['ns_per_row']:5.3f} ns/row)", flush=True)
 
 
-COMMANDS = ("gather", "tablesize", "surface", "sort", "scatter", "shade", "vmemtake")
+def cmd_planescale(args, dev):
+    r = planescale(dev)
+    print(f"--- plane_scale, 2 * gbuf[16] of a (24, {r['height']}, {r['width']}) f32 G-buffer, {r['n']} calls; "
+          "ms by CUDA events / device ms by torch.profiler ---")
+    for g in r["geometries"]:
+        cells = [f"{t} threads {m['ms']:.4f} / {fmt(m['dev_ms'])}" for t, m in g["threads"].items()]
+        mul = [f"{a:.4f} / {fmt(b)}" for a, b in zip(g["torch_mul_ms"], g["torch_mul_dev_ms"])]
+        print(f"{g['geometry']}: " + "; ".join(cells) + f"; torch.mul before/after {', '.join(mul)}", flush=True)
+
+
+def fmt(ms: float | None) -> str:
+    return "not measured" if ms is None else f"{ms:.4f}"
+
+
+COMMANDS = ("gather", "tablesize", "surface", "sort", "scatter", "shade", "vmemtake", "planescale")
 
 
 def main(argv=None) -> int:
