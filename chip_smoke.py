@@ -14,8 +14,10 @@ eight generated 1024^2 BC4 textures with full mip chains), and then, at
      face id exact; resolve integer planes exact, float planes within
      rtol 1e-5 / atol 1e-6 outside pixels whose mip level l0 flipped (at
      most 0.1% of covered pixels); plan table and assignment exact;
-     sample within 1 LSB after the sRGB u8 encode, and its frame with
-     every tile forced to direct page reads equal to the staged one;
+     sample within 1 LSB after the sRGB u8 encode, and its frame under
+     an all-residual plan equal to the one under the real plan (the plan
+     decides nothing but the empty-tile skip); the sample kernel's other
+     page layout and warp shapes are timed beside the shipped one;
   2. runs the microbenchmark probes at the tools' sizes against their
      plain versions, bit for bit: vmem_take (4096x16 f32 table, 2,073,600
      indices) and plane_scale on a (24, 1088, 1920) G-buffer in its three
@@ -39,10 +41,17 @@ eight generated 1024^2 BC4 textures with full mip chains), and then, at
      launches once per frame and nothing else; color and depth equal to
      the gather path's bit for bit.
 
-Each path prints its frame times and a per-stage breakdown. Each kernel
+Each path prints its frame times and a per-stage breakdown; the window
+path also prints, per stage, the device operations torch.profiler counts
+and their device time beside the stage's event time. Earlier lines give
+the plan and sample kernels' registers and resident blocks per SM, the
+plan's windows-per-tile histogram and the probes a warp runs (its worst
+lane's) beside the mean per pixel. Each kernel
 also gets its bound: the larger of the bytes it must move over the card's
 memory rate and its f32 operations over the f32 peak (HBM_BYTES_PER_S,
-F32_FLOPS), from this run's inputs; the raster line adds the densest
+F32_FLOPS), from this run's inputs (plan and sample: the planes the
+function needs, not all 24, and for sample the distinct page texels its
+probes touch; the earlier count is printed beside it); the raster line adds the densest
 tile's pair count, the (pair, pixel) evaluations of the pairs' pixel
 rectangles and the kernel's device time by operation, and plane_scale is
 timed beside torch.mul(gbuf[plane], 2), the one PyTorch call that computes
@@ -100,6 +109,10 @@ FRAMES = 8
 GATHER_FRAMES = 3
 WIDTH, HEIGHT = 1920, 1080
 FLOAT_PLANES = [i for i in range(resolve.A_OUT) if i not in resolve.INT_PLANES]
+# G-buffer planes the functions read: the plan 6, 7, 9-12, 14-17, 20-23; the
+# sample those and 0-5 and 13 (csrc/plan.cu, csrc/sampler.cu).
+PLAN_PLANES = 14
+SAMPLE_PLANES = 21
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -282,11 +295,17 @@ def kernel_phases(r: Renderer, cam) -> dict:
     torch.cuda.synchronize()
     table_bad = int((plan["table"] != plan_p["table"]).sum())
     assign_bad = int((plan["assign"] != plan_p["assign"]).sum())
+    n_matched = int((g[16] > 0).sum())
+    plan_out_bytes = plan["table"].numel() * 4 + plan["assign"].numel() * 4
+    plan_bound_all = bound(g.numel() * 4 + plan_out_bytes, hp * wp * 100)  # counted with all 24 planes
+    plan_bound_planes = bound(PLAN_PLANES * hp * wp * 4 + plan_out_bytes, hp * wp * 100)
     out["plan"] = dict(
         max_abs_err=float((plan["assign"] - plan_p["assign"]).abs().max()), library_ms=None,
-        # Every G-buffer plane read, the table and assignment written; its
-        # reductions are a few operations per pixel and round.
-        **bound(g.numel() * 4 + plan["table"].numel() * 4 + plan["assign"].numel() * 4, hp * wp * 100),
+        # What this frame needs: the match plane read at every pixel, the
+        # other PLAN_PLANES - 1 planes at the matched pixels, the table and
+        # assignment written; its reductions are a few operations per pixel
+        # and round.
+        **bound(hp * wp * 4 + (PLAN_PLANES - 1) * n_matched * 4 + plan_out_bytes, hp * wp * 100),
         **timed(
             lambda: sampler.plan_tiles(g, max_anisotropy=ma, **tiles),
             lambda: sampler.plan_tiles_plain(g, max_anisotropy=ma, **tiles),
@@ -295,11 +314,26 @@ def kernel_phases(r: Renderer, cam) -> dict:
     )
     cls = plan["cls"]
     n_used = plan["n_used"][cls == sampler.CLS_WINDOWED].float()
+    st = out["plan"]
     print(f"plan: tiles windowed {int((cls == sampler.CLS_WINDOWED).sum())}, residual "
           f"{int((cls == sampler.CLS_RESIDUAL).sum())} ({int(plan['residual_px'])} px), empty "
           f"{int((cls == sampler.CLS_EMPTY).sum())}; windows per windowed tile mean {float(n_used.mean()):.2f} "
           f"max {int(n_used.max())}; vs plain: table words differing {table_bad}, assignments differing "
-          f"{assign_bad}; {out['plan']['ms']:.3f} ms vs plain {out['plan']['plain_ms']:.3f} ms")
+          f"{assign_bad}; {st['ms']:.4f} ms (device {fmt_ms(st['dev_ms'])}) vs plain {st['plain_ms']:.3f} ms; "
+          f"bound {st['bound_ms']:.4f} ms by {st['bound_by']} (plane 16 everywhere, {PLAN_PLANES - 1} planes at "
+          f"the {n_matched} matched px; {PLAN_PLANES} planes at every px: {plan_bound_planes['bound_ms']:.4f} ms; "
+          f"all 24, as counted before: {plan_bound_all['bound_ms']:.4f} ms)")
+    ops = device_ops(lambda: sampler.plan_tiles(g, max_anisotropy=ma, **tiles), 20)
+    print("plan device ms by operation: " + "; ".join(f"{k[:60]} {v:.4f}" for k, v in ops.items()))
+    # The kernel's floor: every tile empty (one barrier, then the table and
+    # assignment writes), against this frame's covered tiles.
+    g_empty = g.clone()
+    g_empty[16] = 0.0
+    empty_ms = device_ms(lambda: sampler.plan_tiles(g_empty, max_anisotropy=ma, **tiles), 20)
+    del g_empty
+    print(f"plan on the same G-buffer with no pixel matched (all {tx * ty} tiles empty): device {fmt_ms(empty_ms)} ms")
+    hist = torch.bincount(plan["n_used"][cls != sampler.CLS_EMPTY].long(), minlength=sampler.K2 + 1).tolist()
+    print("plan: covered tiles by windows used (0..32): " + " ".join(str(n) for n in hist))
     check(table_bad == 0 and assign_bad == 0, "plan kernel disagrees with its plain version")
 
     skw = dict(
@@ -308,7 +342,8 @@ def kernel_phases(r: Renderer, cam) -> dict:
         clear_color=kw["clear_color"], blend=kw["blend"], **tiles,
     )
     page = sc["atlas"]["page"]
-    n_probe = shade.probe_count(g[17], g[14], g[15], g[9], g[10], ma)[g[16] > 0]
+    probe_map = torch.where(g[16] > 0, shade.probe_count(g[17], g[14], g[15], g[9], g[10], ma), 0.0)
+    n_probe = probe_map[g[16] > 0]
     fb = sampler.sample_tiles(g, page, plan, cp, **skw)
     fb_p = sampler.sample_tiles_plain(g, page, plan, cp, **skw)
     w, h = kw["width"], kw["height"]
@@ -316,38 +351,77 @@ def kernel_phases(r: Renderer, cam) -> dict:
     lsb = int(enc_diff.max())
     px_bad = int((enc_diff.amax(dim=0) > 0).sum())
     smp_err = float((fb - fb_p).abs().max())
+    sample_flops = float(n_probe.sum()) * 100
+    # Counted as before: all 24 planes, the assignment and table, no texels.
+    sample_bound_all = bound((g.numel() + plan["assign"].numel() + plan["table"].numel()) * 4 + fb.numel() * 4,
+                             sample_flops)
+    texel_bytes = touched_page_bytes(g, page, ma)
+    sample_bound_planes = bound(SAMPLE_PLANES * hp * wp * 4 + tx * ty * 4 + texel_bytes + fb.numel() * 4,
+                                sample_flops)
     out["sample"] = dict(
         max_abs_err=smp_err, library_ms=None,
-        # G-buffer and plan read, framebuffer written (texel reads, mostly
-        # cache hits, not counted); per probe 2 mips x 4 texels x 4
-        # channels of multiply-adds plus the weights, ~100 flops.
-        **bound((g.numel() + plan["assign"].numel() + plan["table"].numel()) * 4 + fb.numel() * 4,
-                float(n_probe.sum()) * 100),
+        # What this frame needs: the match plane at every pixel, the other
+        # SAMPLE_PLANES - 1 planes at the matched pixels, each tile's class,
+        # every distinct page texel the probes touch read once (8 bytes),
+        # the framebuffer written; per probe 2 mips x 4 texels x 4 channels
+        # of multiply-adds plus the weights, ~100 flops.
+        **bound(hp * wp * 4 + (SAMPLE_PLANES - 1) * n_matched * 4 + tx * ty * 4 + texel_bytes + fb.numel() * 4,
+                sample_flops),
         **timed(
             lambda: sampler.sample_tiles(g, page, plan, cp, **skw),
             lambda: sampler.sample_tiles_plain(g, page, plan, cp, **skw),
             20, 3,
         ),
     )
+    st = out["sample"]
     print(f"sample: probes per covered px mean {float(n_probe.mean()):.2f} max {float(n_probe.max()):.0f}, "
           f"mip levels in view {sorted(int(x) for x in torch.unique(g[19][g[16] > 0]).tolist())}; "
           f"vs plain: {px_bad} px differ after the u8 encode, max {lsb} LSB, linear max abs diff {smp_err}; "
-          f"{out['sample']['ms']:.3f} ms vs plain {out['sample']['plain_ms']:.3f} ms")
+          f"{st['ms']:.4f} ms (device {fmt_ms(st['dev_ms'])}) vs plain {st['plain_ms']:.3f} ms; bound "
+          f"{st['bound_ms']:.4f} ms by {st['bound_by']} (plane 16 everywhere, {SAMPLE_PLANES - 1} planes at the "
+          f"{n_matched} matched px, {texel_bytes} B of distinct page texels of a {page.numel() * 2} B page; "
+          f"{SAMPLE_PLANES} planes at every px: {sample_bound_planes['bound_ms']:.4f} ms; all 24 and the plan, no "
+          f"texels, as counted before: {sample_bound_all['bound_ms']:.4f} ms)")
     check(lsb <= 1, "sample kernel disagrees with its plain version")
+    # A warp runs as many probe rounds as its worst lane needs.
+    for ww, wh in ((32, 1), (8, 4)):
+        worst = probe_map.reshape(hp // wh, wh, wp // ww, ww).amax(dim=(1, 3))
+        worst = worst[worst > 0]
+        print(f"sample: probes per warp of {ww}x{wh} px (worst lane), mean over the {worst.numel()} warps with a "
+              f"covered px {float(worst.mean()):.2f}, {float(worst.mean()) / float(n_probe.mean()):.2f} of the mean "
+              f"per covered px")
 
-    # Residual tiles read every texel straight from the page. The same
-    # plan with every windowed tile marked residual must give the same
-    # frame bit for bit: staging only changes where a texel is read from.
+    # The frame does not depend on the plan: with every windowed tile marked
+    # residual the kernel must give the same frame bit for bit.
     table = plan["table"].clone()
     table[:, 0, 0] = torch.where(table[:, 0, 0] == sampler.CLS_WINDOWED, sampler.CLS_RESIDUAL, table[:, 0, 0])
     forced = dict(plan, table=table)
     fb_r = sampler.sample_tiles(g, page, forced, cp, **skw)
     same = bool(torch.equal(fb_r, fb))
     direct_ms = cuda_ms(lambda: sampler.sample_tiles(g, page, forced, cp, **skw), 20)
-    print(f"sample, every covered tile forced residual (direct page reads): frame equal to the windowed one "
-          f"{same}; {direct_ms:.3f} ms vs windowed {out['sample']['ms']:.3f} ms")
-    check(same, "residual-tile sampling disagrees with windowed sampling")
+    print(f"sample under an all-residual plan: frame equal to the one under the real plan {same}; "
+          f"{direct_ms:.4f} ms vs {st['ms']:.4f} ms")
+    check(same, "the sampled frame depends on the plan")
     return out
+
+
+def touched_page_bytes(g, page, ma) -> int:
+    """Bytes of the distinct page texels (4 bf16 channels each) that the
+    matched pixels' probes touch, own and parent mip, from the plain
+    version's tap positions."""
+    gm = g[:, g[16] > 0]
+    n_px = shade.probe_count(gm[17], gm[14], gm[15], gm[9], gm[10], ma)
+    touched = torch.zeros(page.shape[1:], dtype=torch.bool, device=g.device)
+    for i in range(int(n_px.max()) if n_px.numel() else 0):
+        live = i < n_px
+        for ww, hh, by, bx in ((9, 10, 20, 21), (11, 12, 22, 23)):
+            py, px, _, _ = sampler.tap_position(i, gm[6], gm[7], gm[14], gm[15], gm[17], n_px, gm[ww], gm[hh],
+                                                gm[by], gm[bx])
+            py, px = py[live], px[live]
+            for dy in (0, 1):
+                for dx in (0, 1):
+                    touched[py + dy, px + dx] = True
+    return int(touched.sum()) * 8
 
 
 def probe_phases(dev) -> dict:
@@ -483,6 +557,32 @@ def stage_breakdown(r: Renderer, cam, reps: int = 5) -> dict:
     return {n: float(m) for n, m in zip(names, med)}
 
 
+def stage_device_ops(r: Renderer, cam) -> dict:
+    """Per stage of one frame on r's path: the device operations (kernels,
+    copies, memsets) torch.profiler counts and their device milliseconds.
+    One profile per stage, each closed after a synchronise."""
+    from torch.profiler import ProfilerActivity, profile
+
+    vp, cp = r.frame_uniforms(cam)
+    stages = frame_stages(r, vp, cp)
+    out = {}
+    while True:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            name = next(stages, None)
+            torch.cuda.synchronize()
+        if name is None:
+            return out
+        ops = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+        out[name] = dict(ops=sum(e.count for e in ops), dev_ms=sum(e.self_device_time_total for e in ops) / 1e3)
+
+
+def print_stage_ops(label: str, stages: dict, ops: dict) -> None:
+    print(f"{label} per stage, device operations launched / their device ms / stage ms by events: "
+          + ", ".join(f"{k} {ops[k]['ops']} / {ops[k]['dev_ms']:.3f} / {v:.3f}" for k, v in stages.items())
+          + f"; sum {sum(o['ops'] for o in ops.values())} / {sum(o['dev_ms'] for o in ops.values()):.3f} / "
+          f"{sum(stages.values()):.3f}")
+
+
 def print_stages(label: str, stages: dict, reps: int = 5) -> None:
     print(f"{label} stage ms (frame 0, median of {reps}): "
           + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()) + f"; sum {sum(stages.values()):.3f}")
@@ -597,6 +697,9 @@ def main() -> None:
         if any(k in line for k in ("entry function", "registers", "spill", "error")):
             print("  nvcc:", line.strip())
     _build.library()
+    for name in ("plan", "sample"):
+        regs, blocks = _build.kernel_info(name)
+        print(f"{name} kernel: {regs} registers per thread, {blocks} resident blocks per SM")
 
     t0 = time.perf_counter()
     scene = build_orbit_scene(seed=args.seed)
@@ -609,7 +712,9 @@ def main() -> None:
 
     stats = kernel_phases(r, cams[0])
     stats.update(probe_phases(torch.device("cuda")))
-    print_stages("window", stage_breakdown(r, cams[0]))
+    window_stages = stage_breakdown(r, cams[0])
+    print_stages("window", window_stages)
+    print_stage_ops("window", window_stages, stage_device_ops(r, cams[0]))
 
     # Window main path: a warm-up frame, then the track, with counters from zero.
     K.reset_launches()

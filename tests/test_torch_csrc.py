@@ -9,14 +9,18 @@ budgets chip_smoke.py holds the real kernels to on the card: raster
 depth and face id exact; resolve integer planes exact and float planes
 within rtol 1e-5 / atol 1e-6 outside l0 flips (torch's CPU sqrt and
 log2 are not glibc's); plan table and assignment exact; sample within
-1 LSB after the sRGB encode (torch's CPU pow is not glibc's), through
-the planned windows and, with every covered tile forced residual,
-straight from the page. This checks the kernels' indexing, control flow
-and arithmetic where no GPU exists; only the card shows what nvcc makes
-of them. The emulation models threads, blocks (one- and two-dimensional
-launches), barriers, static shared memory, atomics (real ones: a block's
-threads run concurrently) and float4 only; it goes when a kernel needs more (warp shuffles,
-asynchronous copies), rather than growing to match. The vmem_take probe
+1 LSB after the sRGB encode (torch's CPU pow is not glibc's), from the
+channel-interleaved page, and the same frame bit for bit with every
+covered tile forced residual. The plan kernel also runs tiles that need
+24 windows, more than its 32 slots, and a NaN or an infinity under a
+matched pixel. This checks the kernels'
+indexing, control flow and arithmetic where no GPU exists; only the card
+shows what nvcc makes of them. The emulation models threads, blocks (one-
+and two-dimensional launches), barriers, static shared memory, atomics
+(real ones: a block's threads run concurrently), the warp-wide integer
+reductions and read-only vector loads behind csrc/common.cuh's helpers,
+and float4, int4 and uint2 only; a path that needs more (asynchronous
+copies, dynamic shared memory) is compiled out. The vmem_take probe
 stages its table in dynamic shared memory, so csrc/probes.cu leaves it
 out of the emulation (#ifndef TR_HOST_EMU) and only the card checks it;
 the plane_scale probe is held here to its plain version exactly, in the
@@ -172,43 +176,141 @@ def _tiles(frame):
     return dict(tiles_x=r.tiles_x, tiles_y=r.tiles_y, tile_h=kw["tile_h"], tile_w=kw["tile_w"])
 
 
+def _emu_plan(emu, g, tiles, max_anisotropy=16):
+    """The emulated plan kernel's (table, assign, residual_px) on G-buffer g."""
+    t_total = tiles["tiles_x"] * tiles["tiles_y"]
+    table = torch.full((t_total, 8, 128), -7, dtype=torch.int32)
+    assign = torch.full((2,) + tuple(g.shape[1:]), -9.0)
+    residual_px = torch.zeros((), dtype=torch.int32)
+    err = emu.tr_plan(g.data_ptr(), tiles["tiles_x"], tiles["tiles_y"], tiles["tile_h"], tiles["tile_w"],
+                      sampler.rc_for(tiles["tile_h"]), max_anisotropy, table.data_ptr(), assign.data_ptr(),
+                      residual_px.data_ptr(), None)
+    assert err == 0
+    return table, assign, int(residual_px)
+
+
 def test_plan_kernel(emu, frame):
     g = _gbuf(frame)
     tiles = _tiles(frame)
     plan = sampler.plan_tiles_plain(g, max_anisotropy=16, **tiles)
-    table = torch.full_like(plan["table"], -7)
-    assign = torch.full_like(plan["assign"], -9.0)
-    err = emu.tr_plan(g.data_ptr(), tiles["tiles_x"], tiles["tiles_y"], tiles["tile_h"], tiles["tile_w"],
-                      sampler.rc_for(tiles["tile_h"]), 16, table.data_ptr(), assign.data_ptr(), None)
-    assert err == 0
+    table, assign, residual_px = _emu_plan(emu, g, tiles)
     assert (plan["cls"] == sampler.CLS_WINDOWED).sum() >= 4
     assert torch.equal(table, plan["table"])
     assert torch.equal(assign, plan["assign"])
+    assert residual_px == int(plan["residual_px"])
 
 
-@pytest.mark.parametrize("blend,residual", [("alpha", False), ("opaque", False), ("alpha", True)],
-                         ids=["alpha", "opaque", "residual"])
-def test_sample_kernel(emu, frame, blend, residual):
+def _texture_grid_gbuf(n_tex, cols, seed=11):
+    """One 32x128 tile over a cols-wide grid of n_tex textures, as
+    tests/test_sampler_hard_paths.py's many-texture scenes give the plan:
+    each cell of pixels samples its own 256x64 mip rect of the page (own
+    and parent at the same size; wider than X_WRAP_LIM and shorter than
+    Y_WRAP_LIM, so both anchor rules run, and wider than a plan word's
+    x band and taller than its y band; rects 512 columns and 128 rows
+    apart, so a window holds one), with random uv and a footprint of up
+    to a few probes; one pixel in 11 is unmatched."""
+    rng = np.random.default_rng(seed)
+    h, w = 32, 128
+    rows = -(-n_tex // cols)
+    yy, xx = np.mgrid[0:h, 0:w]
+    tex = np.minimum((yy * rows // h) * cols + xx * cols // w, n_tex - 1)
+    g = np.zeros((resolve.A_OUT, h, w), np.float32)
+    g[6] = rng.uniform(0.0, 1.0, (h, w))
+    g[7] = rng.uniform(0.0, 1.0, (h, w))
+    g[9] = g[11] = 256.0
+    g[10] = g[12] = 64.0
+    g[14] = rng.uniform(-0.04, 0.04, (h, w))
+    g[15] = rng.uniform(-0.04, 0.04, (h, w))
+    g[16] = (rng.integers(0, 11, (h, w)) > 0).astype(np.float32)
+    g[17] = rng.uniform(0.5, 2.0, (h, w))
+    g[20] = g[22] = 8.0 + 128.0 * (tex // 8)
+    g[21] = g[23] = 24.0 + 512.0 * (tex % 8)
+    return torch.from_numpy(g)
+
+
+@pytest.mark.parametrize("n_tex,cols,cls,least_windows", [(24, 6, sampler.CLS_WINDOWED, 24),
+                                                          (40, 10, sampler.CLS_RESIDUAL, 32)],
+                         ids=["many_windows", "residual"])
+def test_plan_kernel_many_textures(emu, n_tex, cols, cls, least_windows):
+    """A tile that needs one window per texture: 24 of them fit the plan's
+    32 slots (each greedy round is two block-wide minima, and the plan
+    words of 24 slots are merged by the warps' atomics); 40 do not, and the
+    tile goes residual with its 32 windows kept."""
+    g = _texture_grid_gbuf(n_tex, cols)
+    tiles = dict(tiles_x=1, tiles_y=1, tile_h=32, tile_w=128)
+    plan = sampler.plan_tiles_plain(g, max_anisotropy=16, **tiles)
+    assert int(plan["cls"][0]) == cls and int(plan["n_used"][0]) >= least_windows
+    assert (int(plan["residual_px"]) > 0) == (cls == sampler.CLS_RESIDUAL)
+    assert int((plan["table"][0, 1:3, :32] != 0).sum()) >= least_windows
+    table, assign, residual_px = _emu_plan(emu, g, tiles)
+    assert torch.equal(table, plan["table"])
+    assert torch.equal(assign, plan["assign"])
+    assert residual_px == int(plan["residual_px"])
+
+
+@pytest.mark.parametrize("planes,value", [((6,), "nan"), ((7,), "nan"), ((6, 7, 14, 15, 17), "nan"),
+                                          ((6,), "inf"), ((20,), "inf"), ((23,), "-inf"), ((20, 21, 22, 23), "inf")],
+                         ids=["nan_u", "nan_v", "nan_all", "inf_u", "inf_own_origin", "neg_inf_parent_origin",
+                              "inf_origins"])
+def test_plan_kernel_nan_under_a_matched_pixel(emu, planes, value):
+    """A NaN or infinite u, v, derivative or page origin under one matched
+    pixel: both versions make that tile residual with no window and no
+    assignment; the tile beside it is planned as if nothing had happened.
+    The reference defines nothing here (it converts the non-finite anchor
+    to an integer), so this rule is the port's own and the case stands
+    outside the comparison with the reference: it holds the kernel to the
+    plain version, and both to the rule. An infinite origin gives an
+    infinite anchor, which the fit test lets through (inf - inf is NaN)."""
+    g = torch.cat([_texture_grid_gbuf(6, 3), _texture_grid_gbuf(6, 3, seed=12)], dim=2)
+    g[16, 5, 17] = 1.0
+    for i in planes:
+        g[i, 5, 17] = float(value)
+    tiles = dict(tiles_x=2, tiles_y=1, tile_h=32, tile_w=128)
+    plan = sampler.plan_tiles_plain(g, max_anisotropy=16, **tiles)
+    assert plan["cls"].tolist() == [sampler.CLS_RESIDUAL, sampler.CLS_WINDOWED]
+    assert plan["n_used"].tolist()[0] == 0 and plan["n_used"].tolist()[1] >= 6
+    assert bool((plan["assign"][:, :, :128] == -1).all())
+    assert int(plan["residual_px"]) == int((g[16, :, :128] > 0).sum())
+    table, assign, residual_px = _emu_plan(emu, g, tiles)
+    assert torch.equal(table, plan["table"])
+    assert torch.equal(assign, plan["assign"])
+    assert residual_px == int(plan["residual_px"])
+
+
+def _emu_sample(emu, g, page, plan, cp, tiles, light, max_anisotropy):
+    out = torch.full((4,) + tuple(g.shape[1:]), -3.0)
+    params = (ctypes.c_float * sampler.N_PARAMS)(*sampler.shade_params(**light))
+    err = emu.tr_sample(g.data_ptr(), page.data_ptr(), page.shape[2], plan["table"].data_ptr(), cp.data_ptr(),
+                        tiles["tiles_x"], tiles["tiles_y"], tiles["tile_h"], tiles["tile_w"], max_anisotropy,
+                        ctypes.addressof(params), out.data_ptr(), None)
+    assert err == 0
+    return out
+
+
+@pytest.mark.parametrize("blend,residual,max_anisotropy",
+                         [("alpha", False, 16), ("opaque", False, 16), ("alpha", True, 16), ("alpha", False, 1)],
+                         ids=["alpha", "opaque", "residual", "isotropic"])
+def test_sample_kernel(emu, frame, blend, residual, max_anisotropy):
+    """The kernel on the channel-interleaved page against the plain version
+    on its (4, PH, PW) view; with every covered tile marked residual the
+    kernel's frame must not change (the plan decides nothing but the
+    empty-tile skip); at max_anisotropy 1 every pixel takes one probe."""
     r, kw, sc, cp, _, _ = frame
     g = _gbuf(frame)
     tiles = _tiles(frame)
-    plan = sampler.plan_tiles(g, max_anisotropy=16, **tiles)
-    if residual:
-        table = plan["table"].clone()
-        table[:, 0, 0] = torch.where(table[:, 0, 0] == sampler.CLS_WINDOWED, sampler.CLS_RESIDUAL, table[:, 0, 0])
-        plan = dict(plan, table=table)
+    plan = sampler.plan_tiles(g, max_anisotropy=max_anisotropy, **tiles)
     light = dict(light_direction=kw["light_direction"], light_color=kw["light_color"],
                  ambient_amount=kw["ambient_amount"], specular_power=kw["specular_power"],
                  clear_color=kw["clear_color"], blend=blend)
     page = sc["atlas"]["page"]
-    fb = sampler.sample_tiles_plain(g, page, plan, cp, max_anisotropy=16, **tiles, **light)
-    out = torch.empty_like(fb)
-    params = (ctypes.c_float * sampler.N_PARAMS)(*sampler.shade_params(**light))
-    err = emu.tr_sample(g.data_ptr(), page.data_ptr(), page.shape[1], page.shape[2], plan["table"].data_ptr(),
-                        plan["assign"].data_ptr(), cp.data_ptr(), tiles["tiles_x"], tiles["tiles_y"],
-                        tiles["tile_h"], tiles["tile_w"], sampler.rc_for(tiles["tile_h"]), 16,
-                        ctypes.addressof(params), out.data_ptr(), None)
-    assert err == 0
+    sampler._check_page(page)
+    fb = sampler.sample_tiles_plain(g, page, plan, cp, max_anisotropy=max_anisotropy, **tiles, **light)
+    out = _emu_sample(emu, g, page, plan, cp, tiles, light, max_anisotropy)
+    if residual:
+        table = plan["table"].clone()
+        table[:, 0, 0] = torch.where(table[:, 0, 0] == sampler.CLS_WINDOWED, sampler.CLS_RESIDUAL, table[:, 0, 0])
+        assert not torch.equal(table, plan["table"])
+        assert torch.equal(_emu_sample(emu, g, page, dict(plan, table=table), cp, tiles, light, max_anisotropy), out)
     w, h = kw["width"], kw["height"]
     lsb = (present.encode_srgb_u8(out, w, h).int() - present.encode_srgb_u8(fb, w, h).int()).abs().max()
     assert int(lsb) <= 1

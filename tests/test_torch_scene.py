@@ -176,6 +176,47 @@ def test_upload_matches_reference_device_tree(checker_scenes):
     assert torch.equal(again["corner_world"], up["corner_world"])
 
 
+def test_uploaded_page_is_one_interleaved_array(checker_scenes):
+    """upload keeps one channel-interleaved (PH, PW, 4) copy of the page and
+    hands out its (4, PH, PW) view: equal, bit for bit, to build_pages'
+    planes rounded to bf16, accepted by the sample kernel's wrapper check
+    where a planar copy is refused, and read by the plain sampler exactly
+    like a contiguous planar copy."""
+    from tpurast_torch.config import RendererConfig
+    from tpurast_torch.kernels import sampler
+    from tpurast_torch.renderer import Renderer
+
+    port_scene, _ = checker_scenes
+    r = Renderer(port_scene, RendererConfig(width=128, height=64), device="cpu")
+    page = r.scene["atlas"]["page"]
+    planes = torch.from_numpy(port_scene.pages.planes).to(torch.bfloat16)
+    _, ph, pw = planes.shape
+    assert tuple(page.shape) == (4, ph, pw) and page.stride() == (1, 4 * pw, 4)
+    assert torch.equal(page.view(torch.int16), planes.view(torch.int16))
+    base = page.permute(1, 2, 0)
+    assert base.is_contiguous() and base.data_ptr() == page.data_ptr()
+    assert torch.equal(sampler.interleave_page(planes).view(torch.int16), planes.view(torch.int16))
+    sampler._check_page(page)
+    for bad in (planes, page.to(torch.float16), page[:, :, :-1], page[:3]):
+        with pytest.raises((TypeError, ValueError)):
+            sampler._check_page(bad)
+
+    from tpurast_torch.camera import Camera
+
+    cam = Camera.from_target([0.0, -0.12, -6.0], [0.0, -0.02, 2.0])
+    g = r.debug_gbuf(cam)
+    _, cp = r.frame_uniforms(cam)
+    kw = r._frame_kwargs
+    tiles = dict(tiles_x=r.tiles_x, tiles_y=r.tiles_y, tile_h=kw["tile_h"], tile_w=kw["tile_w"])
+    light = {k: kw[k] for k in ("light_direction", "light_color", "ambient_amount", "specular_power",
+                                "clear_color", "blend")}
+    plan = sampler.plan_tiles(g, max_anisotropy=16, **tiles)
+    on_view = sampler.sample_tiles(g, page, plan, cp, max_anisotropy=16, **tiles, **light)
+    on_planes = sampler.sample_tiles(g, planes.contiguous(), plan, cp, max_anisotropy=16, **tiles, **light)
+    assert int((g[16] > 0).sum()) > 1000
+    assert torch.equal(on_view, on_planes)
+
+
 def test_bf16_round_to_nearest_even_matches_ml_dtypes():
     import ml_dtypes
 

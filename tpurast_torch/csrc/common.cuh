@@ -46,3 +46,44 @@ __device__ __forceinline__ float floor_mod(float a, float b) {
 __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16(x));
 }
+
+// Integer min / max / sum over the 32 lanes of the calling warp; every lane gets
+// the result. All 32 lanes must call (full mask), so the block size is a
+// multiple of 32. One redux.sync instruction on the card; in the host
+// emulation the warp's threads meet at their own barrier (host_emu.h).
+__device__ __forceinline__ int warp_min_i(int v) {
+#ifdef TR_HOST_EMU
+  return tr_emu_warp_reduce(v, [](int a, int b) { return a < b ? a : b; });
+#else
+  return __reduce_min_sync(0xffffffffu, v);
+#endif
+}
+
+__device__ __forceinline__ int warp_max_i(int v) {
+#ifdef TR_HOST_EMU
+  return tr_emu_warp_reduce(v, [](int a, int b) { return a > b ? a : b; });
+#else
+  return __reduce_max_sync(0xffffffffu, v);
+#endif
+}
+
+__device__ __forceinline__ int warp_add_i(int v) {
+#ifdef TR_HOST_EMU
+  return tr_emu_warp_reduce(v, [](int a, int b) { return a + b; });
+#else
+  return __reduce_add_sync(0xffffffffu, v);
+#endif
+}
+
+// 8-byte load through the read-only data path (ld.global.nc); p is 8-byte
+// aligned.
+__device__ __forceinline__ uint2 ldg_u2(const uint2* p) {
+#ifdef TR_HOST_EMU
+  return *p;
+#else
+  return __ldg(p);
+#endif
+}
+
+// The float a bfloat16's 16 bits stand for.
+__device__ __forceinline__ float bf16_bits(unsigned bits) { return __uint_as_float(bits << 16); }

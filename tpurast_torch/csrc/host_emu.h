@@ -3,7 +3,11 @@
 // run on the CPU: every launch runs its blocks one after another, each
 // block as blockDim.x * blockDim.y std::threads that meet at a
 // std::barrier in __syncthreads(). The atomics are real atomics (std::atomic_ref), since
-// a block's threads run concurrently; float4 is a plain struct. Only for
+// a block's threads run concurrently; float4, int4 and uint2 are plain
+// structs. Every 32 consecutive threads of a block form a warp with a
+// barrier of its own, at which the warp-wide reductions behind
+// common.cuh's warp_min_i / warp_max_i / warp_add_i meet (all of a warp's
+// threads must call them, as with a full mask on the card). Only for
 // checking the kernels' logic against their plain torch versions where
 // there is no GPU (tests/test_torch_csrc.py); the library the port loads
 // is always built by nvcc.
@@ -16,6 +20,7 @@
 #include <barrier>
 #include <cstdint>
 #include <cstring>
+#include <memory>
 #include <thread>
 #include <vector>
 
@@ -25,6 +30,7 @@
 #define __forceinline__ inline
 #define __shared__ static
 #define __launch_bounds__(...)
+#define __align__(n) __attribute__((aligned(n)))
 
 using std::max;
 using std::min;
@@ -39,6 +45,37 @@ inline std::barrier<>* tr_emu_block_barrier = nullptr;
 
 inline void __syncthreads() { tr_emu_block_barrier->arrive_and_wait(); }
 
+// A thread's number in its block, its warp's first thread, size and barrier,
+// and one int per thread of the block for the warp-wide reductions.
+constexpr int kEmuWarp = 32;
+inline thread_local int tr_emu_tid = 0, tr_emu_warp_base = 0, tr_emu_warp_size = 0;
+inline thread_local std::barrier<>* tr_emu_warp_barrier = nullptr;
+inline int tr_emu_lanes[1024];
+
+// op over the values of the calling thread's warp; every thread of the
+// warp gets the result.
+template <class Op>
+int tr_emu_warp_reduce(int v, Op op) {
+  tr_emu_lanes[tr_emu_tid] = v;
+  tr_emu_warp_barrier->arrive_and_wait();
+  int r = tr_emu_lanes[tr_emu_warp_base];
+  for (int i = 1; i < tr_emu_warp_size; ++i) r = op(r, tr_emu_lanes[tr_emu_warp_base + i]);
+  tr_emu_warp_barrier->arrive_and_wait();  // all have read before the next write
+  return r;
+}
+
+// Barrier that returns whether pred was non-zero on any thread of the block.
+inline int __syncthreads_or(int pred) {
+  static int flag = 0;
+  __syncthreads();  // thread 0's reset below is done
+  if (pred) std::atomic_ref<int>(flag).store(1);
+  __syncthreads();
+  const int r = std::atomic_ref<int>(flag).load();
+  __syncthreads();
+  if (tr_emu_tid == 0) flag = 0;
+  return r;
+}
+
 // Launches of one- and two-dimensional grids and blocks (z stays 1).
 template <class F>
 void tr_emu_launch(dim3 grid, dim3 block, F&& body) {
@@ -46,6 +83,8 @@ void tr_emu_launch(dim3 grid, dim3 block, F&& body) {
   for (unsigned b = 0; b < grid.x * grid.y; ++b) {
     std::barrier<> bar(n);
     tr_emu_block_barrier = &bar;
+    std::vector<std::unique_ptr<std::barrier<>>> warp_bars;
+    for (int w = 0; w < n; w += kEmuWarp) warp_bars.push_back(std::make_unique<std::barrier<>>(min(kEmuWarp, n - w)));
     std::vector<std::thread> threads;
     threads.reserve(n);
     for (int t = 0; t < n; ++t) {
@@ -54,6 +93,10 @@ void tr_emu_launch(dim3 grid, dim3 block, F&& body) {
         threadIdx = dim3(t % block.x, t / block.x);
         blockDim = block;
         gridDim = grid;
+        tr_emu_tid = t;
+        tr_emu_warp_base = t / kEmuWarp * kEmuWarp;
+        tr_emu_warp_size = min(kEmuWarp, n - tr_emu_warp_base);
+        tr_emu_warp_barrier = warp_bars[t / kEmuWarp].get();
         body();
       });
     }
@@ -94,6 +137,8 @@ inline int atomicMax(int* p, int v) { return tr_emu_atomic_max(p, v); }
 inline int atomicMin(int* p, int v) { return tr_emu_atomic_min(p, v); }
 inline unsigned long long atomicMax(unsigned long long* p, unsigned long long v) { return tr_emu_atomic_max(p, v); }
 
+inline int __popc(unsigned v) { return __builtin_popcount(v); }
+
 inline unsigned __float_as_uint(float f) {
   unsigned u;
   std::memcpy(&u, &f, 4);
@@ -110,6 +155,12 @@ struct float4 {
   float x, y, z, w;
 };
 inline float4 make_float4(float x, float y, float z, float w) { return {x, y, z, w}; }
+struct int4 {
+  int x, y, z, w;
+};
+struct uint2 {
+  unsigned x, y;
+};
 inline const char* cudaGetErrorString(cudaError_t e) { return e == cudaSuccess ? "no error" : "invalid value"; }
 
 struct __nv_bfloat16 {

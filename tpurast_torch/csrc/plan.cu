@@ -1,44 +1,64 @@
-// Per-tile texel-window plan for the sample kernel.
+// Per-tile texel-window plan.
 //
 // Replaces tpurast/kernels/sampler.py::_plan_kernel (launched by
 // plan_tiles). Plain torch version:
 // tpurast_torch/kernels/sampler.py::plan_tiles_plain.
 //
-// One block per framebuffer tile, 512 threads x 8 pixels (tiles of at most
+// One block per framebuffer tile, 1024 threads x 4 pixels (tiles of at most
 // 4096 px). Each pixel's page-coordinate anchor range (bilinear texel plus
-// the probe train's extremes, own and parent mip) is computed once and
-// held in registers. A greedy banded covering then places up to K2 = 32
-// windows of WH x WW texels: each round seeds at the smallest uncovered
-// anchor row, opens an ALIGN_Y-aligned band there, takes the smallest
-// anchor column inside the band, and assigns every pixel role whose whole
-// range fits the ALIGN_X-aligned window (sampler.py:286-341). Tiles whose
-// pixels do not all fit K2 windows are RESIDUAL; the sample kernel reads
-// their texels straight from the page. Per (chunk of rc rows, slot) the
-// kernel then packs the y and x bands of the window that the chunk's
-// pixels touch and their worst probe count into one plan word
-// (sampler.py:362-445). The output is the reference's table (T, 8, 128)
-// and assign (2, Hp, Wp), value for value.
+// the probe train's extremes, own and parent mip) is computed once, in the
+// reference's f32 arithmetic, and held in registers as integers. A greedy
+// banded covering then places up to K2 = 32 windows of WH x WW texels: each
+// round seeds at the smallest uncovered anchor row, opens an ALIGN_Y-aligned
+// band there, takes the smallest anchor column inside the band, and assigns
+// every pixel role whose whole range fits the ALIGN_X-aligned window
+// (sampler.py:286-341). Tiles whose pixels do not all fit K2 windows are
+// RESIDUAL. Per (chunk of rc rows, slot) the kernel then packs the y and x
+// bands of the window that the chunk's pixels touch and their worst probe
+// count into one plan word (sampler.py:362-445). The output is the
+// reference's table (T, 8, 128) and assign (2, Hp, Wp), value for value,
+// and the matched pixels of the RESIDUAL tiles, summed over the frame. On
+// this card the sample kernel reads the tile's class from the table and
+// nothing else (csrc/sampler.cu); the renderer reports the pixel count.
 //
-// What bounds it on this card: block-wide reductions. A round is two
-// min-reductions over the tile and a chunk slot one 6-value reduction; each
-// is a shared-memory tree with a barrier per level (no warp shuffles, so
-// the host emulation in host_emu.h runs the same code). Most tiles need
-// 1-4 rounds, so the kernel is a small share of a frame; a later PR can
-// move to warp-shuffle reductions.
+// What bounds it on this card: latency, not bytes. A tile's covering is a
+// chain of block-wide minima, two per window, and the horizon tiles need
+// the most windows. So a minimum is one redux.sync per warp, one shared
+// slot per warp, one barrier, and one more redux.sync over the 32 slots
+// (the slots alternate between two buffers, so no second barrier); the plan
+// words are not reduced per (chunk, slot) but gathered in one pass: each
+// warp folds the roles that share a (chunk, slot) with redux.sync and one
+// lane merges them into shared memory with atomicMin / atomicMax, which are
+// order-free, so the table is deterministic. Plane 16 is read first and a
+// tile without a matched pixel leaves after one barrier. 64 registers a
+// thread keep the 1024-thread block resident on an SM.
+//
+// Integers are exact here: a role that can be assigned (it fits a window)
+// has anchors that are either small integral floats (a wrapped texel below
+// the mip's size plus its page origin, and an extent below WW) or not
+// finite, and integer min, max, floor-mod and comparisons on the former
+// give what the plain version's f32 gives. A NaN or infinite anchor on such
+// a role (a non-finite u, v, derivative or page origin under a matched
+// pixel; inf - inf is NaN, so the fit test lets it through) can place no
+// window; where the reference would go on to convert non-finite floats to
+// integers, both versions here make the whole tile RESIDUAL with no window
+// and no assignment, and a NaN probe count counts as 1 in the chunk's lane.
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int kAOut = 24;
-constexpr int kThreads = 512;
-constexpr int kPPT = 8;  // pixels per thread
+constexpr int kThreads = 1024;
+constexpr int kPPT = 4;  // pixels per thread
+constexpr int kWarps = kThreads / 32;
 constexpr int kWH = 96, kWW = 384, kAlignY = 8, kAlignX = 128;
 constexpr int kK2 = 32, kYB = 48, kXB = 128, kNXB = kWW / kXB;
 constexpr int kClsWindowed = 0, kClsEmpty = 2, kClsResidual = 3;
 constexpr int kChunkNpLane = 120;
-constexpr float kBig = 3.4e38f;
-constexpr int kRed = 6;  // values per reduction, at most
+constexpr int kRows = 8, kLanes = 128;  // a tile's table
+constexpr int kMaxChunks = kRows - 1;
+constexpr int kNone = 0x7fffffff;
+static_assert(kWarps == 32 && kRows * kLanes == kThreads, "one table word and one warp slot per thread");
 
 __device__ __forceinline__ int floor_div(int a, int b) {
   int q = a / b;
@@ -50,20 +70,30 @@ __device__ __forceinline__ int floor_mod_i(int a, int b) { return a - floor_div(
 
 __device__ __forceinline__ int clampi(int x, int lo, int hi) { return x < lo ? lo : (x > hi ? hi : x); }
 
-// Block-wide NaN-propagating max of N values per thread; every thread
-// gets the results.
-template <int N>
-__device__ void block_max(float v[N], float (*red)[kThreads]) {
-  const int tid = threadIdx.x;
+// Block-wide minimum; every thread gets it. Consecutive calls alternate
+// between the two rows of part, so a thread that runs ahead into the next
+// call cannot overwrite a slot that a slower one has yet to read.
+__device__ __forceinline__ int block_min(int v, int (*part)[kWarps], int& turn) {
+  int* slots = part[turn];
+  turn ^= 1;
+  v = warp_min_i(v);
+  if ((threadIdx.x & 31) == 0) slots[threadIdx.x >> 5] = v;
   __syncthreads();
-  for (int i = 0; i < N; ++i) red[i][tid] = v[i];
-  __syncthreads();
-  for (int s = kThreads / 2; s > 0; s >>= 1) {
-    if (tid < s)
-      for (int i = 0; i < N; ++i) red[i][tid] = max_nan(red[i][tid], red[i][tid + s]);
-    __syncthreads();
+  return warp_min_i(slots[threadIdx.x & 31]);
+}
+
+// Calls body(key, mine) once for every distinct key >= 0 among the warp's
+// lanes, smallest first; mine says whether the calling lane holds that key.
+// All 32 lanes call; body may use warp-wide reductions.
+template <class Body>
+__device__ __forceinline__ void warp_by_key(int key, Body body) {
+  for (;;) {
+    const int j = warp_min_i(key >= 0 ? key : kNone);
+    if (j == kNone) break;
+    const bool mine = key == j;
+    body(j, mine);
+    if (mine) key = -1;
   }
-  for (int i = 0; i < N; ++i) v[i] = red[i][0];
 }
 
 // One axis of sampler.py _probe_extent_anchors.
@@ -78,190 +108,264 @@ __device__ __forceinline__ void anchor(float uu, float ww, float dd, float lim, 
   *hi = big ? lo_m + (hi_u - lo_u) : max_nan(lo_m, hi_m);
 }
 
-__global__ void plan_kernel(const float* __restrict__ gbuf, int tiles_x, int tiles_y, int tile_h,
-                            int tile_w, int rc, int max_anisotropy, int* __restrict__ table,
-                            float* __restrict__ assign) {
-  __shared__ float red[kRed][kThreads];
-  __shared__ int rows[8][128];
+// Whether a[0..3] are all finite (x - x is NaN for a NaN or infinite x).
+__device__ __forceinline__ bool finite4(const float* a) {
+  return a[0] - a[0] == 0.0f && a[1] - a[1] == 0.0f && a[2] - a[2] == 0.0f && a[3] - a[3] == 0.0f;
+}
+
+// A pixel's own slot + 1, parent slot + 1 and probe count, in one register.
+__device__ __forceinline__ int own_slot(int packed) { return (packed & 0xFF) - 1; }
+__device__ __forceinline__ int par_slot(int packed) { return ((packed >> 8) & 0xFF) - 1; }
+__device__ __forceinline__ int probes(int packed) { return packed >> 16; }
+
+__global__ void __launch_bounds__(kThreads, 1)
+    plan_kernel(const float* __restrict__ gbuf, int tiles_x, int tiles_y, int tile_h, int tile_w, int rc,
+                int max_anisotropy, int* __restrict__ table, float* __restrict__ assign,
+                int* __restrict__ residual_px) {
+  __shared__ int part[2][kWarps];
+  __shared__ __align__(16) int rows[kRows * kLanes];
+  __shared__ int words[kMaxChunks * kK2][5];  // per (chunk, slot): y lo, y hi, x lo, x hi, probes
+  __shared__ int chunk_np[kMaxChunks];
   __shared__ int sl_oy[kK2], sl_ox[kK2];
+  __shared__ int n_matched;
   const int tid = threadIdx.x;
   const int t = blockIdx.x;
   const int hp = tiles_y * tile_h, wp = tiles_x * tile_w;
   const long long plane = (long long)hp * wp;
   const int tpx = tile_h * tile_w;
   const int y0 = (t / tiles_x) * tile_h, x0 = (t % tiles_x) * tile_w;
-
-  float anch[kPPT][8];
-  float npx[kPPT], ao[kPPT], ap[kPPT];
-  unsigned matched = 0, todo_o = 0, todo_p = 0, share = 0;
-  bool unfit_any = false;
-  for (int k = 0; k < kPPT; ++k) {
-    const int q = tid + k * kThreads;
-    ao[k] = -1.0f;
-    ap[k] = -1.0f;
-    npx[k] = 1.0f;
-    for (int i = 0; i < 8; ++i) anch[k][i] = 0.0f;
-    if (q >= tpx) continue;
-    const long long p = (long long)(y0 + q / tile_w) * wp + x0 + q % tile_w;
-    float g[kAOut];
-    for (int i = 0; i < kAOut; ++i) g[i] = gbuf[i * plane + p];
-    const float u = g[6], v = g[7], tw0 = g[9], th0 = g[10], tw1 = g[11], th1 = g[12];
-    const float span = g[17];
-    float n_px = 1.0f;
-    if (max_anisotropy > 1) {
-      // shade.probe_count
-      const float ext = max_nan(fabsf(g[14]) * tw0, fabsf(g[15]) * th0) * span;
-      n_px = min_nan(max_nan(ceilf(ext - 1e-4f), 1.0f), (float)max_anisotropy);
-    }
-    npx[k] = n_px;
-    const float fo_ext = (0.5f - 0.5f / n_px) * span;
-    const float du_ext = fabsf(g[14]) * fo_ext;
-    const float dv_ext = fabsf(g[15]) * fo_ext;
-    float a[8];
-    anchor(v, th0, dv_ext, 87.0f, &a[0], &a[1]);   // Y_WRAP_LIM
-    anchor(u, tw0, du_ext, 255.0f, &a[2], &a[3]);  // X_WRAP_LIM
-    anchor(v, th1, dv_ext, 87.0f, &a[4], &a[5]);
-    anchor(u, tw1, du_ext, 255.0f, &a[6], &a[7]);
-    a[0] = a[0] + g[20];
-    a[1] = a[1] + g[20];
-    a[2] = a[2] + g[21];
-    a[3] = a[3] + g[21];
-    a[4] = a[4] + g[22];
-    a[5] = a[5] + g[22];
-    a[6] = a[6] + g[23];
-    a[7] = a[7] + g[23];
-    for (int i = 0; i < 8; ++i) anch[k][i] = a[i];
-    const bool m = g[16] > 0.0f;
-    const bool unfit_o = (a[1] - a[0] > (float)(kWH - kAlignY - 2)) || (a[3] - a[2] > (float)(kWW - kAlignX - 2));
-    const bool unfit_p = (a[5] - a[4] > (float)(kWH - kAlignY - 2)) || (a[7] - a[6] > (float)(kWW - kAlignX - 2));
-    unfit_any = unfit_any || (m && (unfit_o || unfit_p));
-    if (m) matched |= 1u << k;
-    if (m && !unfit_o) todo_o |= 1u << k;
-    if (m && !unfit_p) todo_p |= 1u << k;
-    if (tw1 == tw0 && th1 == th0) share |= 1u << k;
-  }
-
-  // Greedy banded covering (sampler.py:286-341).
-  int n_used = 0;
-  for (int s = 0; s < kK2; ++s) {
-    float r[1] = {-kBig};
-    for (int k = 0; k < kPPT; ++k) {
-      const float yo = (todo_o >> k & 1) ? anch[k][0] : kBig;
-      const float yp = (todo_p >> k & 1) ? anch[k][4] : kBig;
-      r[0] = max_nan(r[0], -min_nan(yo, yp));
-    }
-    block_max<1>(r, red);
-    const float ymin = -r[0];
-    if (!(ymin < kBig * 0.5f)) break;  // covered (or NaN: nothing can seed)
-    const float oy = ymin - floorf(ymin / (float)kAlignY) * (float)kAlignY;
-    const float lim_y = ymin - oy + (float)(kWH - 2);
-    unsigned band_o = 0, band_p = 0;
-    r[0] = -kBig;
-    for (int k = 0; k < kPPT; ++k) {
-      if ((todo_o >> k & 1) && anch[k][1] < lim_y) band_o |= 1u << k;
-      if ((todo_p >> k & 1) && anch[k][5] < lim_y) band_p |= 1u << k;
-      const float xo = (band_o >> k & 1) ? anch[k][2] : kBig;
-      const float xp = (band_p >> k & 1) ? anch[k][6] : kBig;
-      r[0] = max_nan(r[0], -min_nan(xo, xp));
-    }
-    block_max<1>(r, red);
-    const float xmin = -r[0];
-    const float oxs = xmin - floorf(xmin / (float)kAlignX) * (float)kAlignX;
-    const float lim_x = xmin - oxs + (float)(kWW - 2);
-    for (int k = 0; k < kPPT; ++k) {
-      const bool win_o = (band_o >> k & 1) && anch[k][3] < lim_x;
-      const bool win_p = (band_p >> k & 1) && anch[k][7] < lim_x && (!win_o || (share >> k & 1));
-      if (win_o) {
-        ao[k] = (float)s;
-        todo_o &= ~(1u << k);
-      }
-      if (win_p) {
-        ap[k] = (float)s;
-        todo_p &= ~(1u << k);
-      }
-    }
-    if (tid == 0) {
-      const int ymin_i = (int)ymin, xmin_i = (int)xmin;
-      sl_oy[s] = ymin_i - floor_mod_i(ymin_i, kAlignY);
-      sl_ox[s] = xmin_i - floor_mod_i(xmin_i, kAlignX);
-    }
-    ++n_used;
-  }
-
-  float f[3] = {matched ? 1.0f : 0.0f, (todo_o | todo_p) ? 1.0f : 0.0f, unfit_any ? 1.0f : 0.0f};
-  block_max<3>(f, red);  // also publishes sl_oy / sl_ox
-  const bool covered = f[0] > 0.0f, leftover = f[1] > 0.0f || f[2] > 0.0f;
-  const int cls = covered ? (leftover ? kClsResidual : kClsWindowed) : kClsEmpty;
-  for (int i = tid; i < 8 * 128; i += kThreads) {
-    const int row = i / 128, lane = i % 128;
-    int val = 0;
-    if (row == 0) {
-      if (lane == 0) val = cls;
-      if (lane == 1) val = n_used;
-      if (lane >= 32 && lane < 32 + n_used) val = sl_oy[lane - 32];
-      if (lane >= 64 && lane < 64 + n_used) val = sl_ox[lane - 64];
-    }
-    rows[row][lane] = val;
-  }
-
-  // Per-(chunk, slot) plan words (sampler.py:362-445).
   const int nc = tile_h / rc;
   const int cpx = rc * tile_w;
-  for (int ci = 0; ci < nc; ++ci) {
-    float c[1] = {1.0f};
-    for (int k = 0; k < kPPT; ++k) {
-      const int q = tid + k * kThreads;
-      if (q < tpx && q / cpx == ci && (matched >> k & 1)) c[0] = max_nan(c[0], npx[k]);
-    }
-    block_max<1>(c, red);
-    if (tid == 0) rows[1 + ci][kChunkNpLane] = (int)c[0];
-    for (int j = 0; j < n_used; ++j) {
-      const float jf = (float)j;
-      float v[kRed] = {0.0f, -kBig, -kBig, -kBig, -kBig, 1.0f};
-      for (int k = 0; k < kPPT; ++k) {
-        const int q = tid + k * kThreads;
-        if (q >= tpx || q / cpx != ci) continue;
-        const bool m_o = ao[k] == jf, m_p = ap[k] == jf;
-        if (m_o || m_p) v[0] = 1.0f;
-        v[1] = max_nan(v[1], -min_nan(m_o ? anch[k][0] : kBig, m_p ? anch[k][4] : kBig));
-        v[2] = max_nan(v[2], max_nan(m_o ? anch[k][1] : -kBig, m_p ? anch[k][5] : -kBig));
-        v[3] = max_nan(v[3], -min_nan(m_o ? anch[k][2] : kBig, m_p ? anch[k][6] : kBig));
-        v[4] = max_nan(v[4], max_nan(m_o ? anch[k][3] : -kBig, m_p ? anch[k][7] : -kBig));
-        v[5] = max_nan(v[5], (m_o || m_p) ? npx[k] : 1.0f);
-      }
-      block_max<kRed>(v, red);
-      if (tid == 0 && v[0] > 0.0f) {
-        const int rylo = clampi((int)(-v[1]) - sl_oy[j], 0, kWH - 1);
-        const int ryhi = clampi((int)v[2] - sl_oy[j] + 1, 0, kWH - 1);
-        const int rxlo = clampi((int)(-v[3]) - sl_ox[j], 0, kWW - 1);
-        const int rxhi = clampi((int)v[4] - sl_ox[j] + 1, 0, kWW - 1);
-        int b0 = rylo - floor_mod_i(rylo, kAlignY);
-        const int nyb = clampi(floor_div(ryhi + 1 - b0 + kYB - 1, kYB), 1, kWH / kYB);
-        b0 = min(b0, kWH - nyb * kYB);
-        const int xb0 = floor_div(rxlo, kXB);
-        const int nxb = clampi(floor_div(rxhi, kXB), 0, kNXB - 1) - xb0 + 1;
-        const int np_s = clampi((int)v[5], 1, 16);
-        rows[1 + ci][j] = 1 | (b0 << 1) | (nyb << 9) | (xb0 << 12) | (nxb << 14) | ((np_s - 1) << 16);
-      }
-    }
+
+  rows[tid] = 0;
+  if (tid < kMaxChunks * kK2) {
+    words[tid][0] = kNone;
+    words[tid][1] = -kNone;
+    words[tid][2] = kNone;
+    words[tid][3] = -kNone;
+    words[tid][4] = 0;
   }
-  __syncthreads();
-  for (int i = tid; i < 8 * 128; i += kThreads) table[(long long)t * 8 * 128 + i] = rows[i / 128][i % 128];
+  if (tid < kMaxChunks) chunk_np[tid] = 1;
+  if (tid == 0) n_matched = 0;
+
+  int pix[kPPT];  // offset in a plane (tr_plan refuses planes of 2^31 pixels or more)
+  unsigned matched = 0;
+#pragma unroll
   for (int k = 0; k < kPPT; ++k) {
     const int q = tid + k * kThreads;
-    if (q >= tpx) continue;
-    const long long p = (long long)(y0 + q / tile_w) * wp + x0 + q % tile_w;
-    assign[p] = ao[k];
-    assign[plane + p] = ap[k];
+    pix[k] = (y0 + q / tile_w) * wp + x0 + q % tile_w;
+    if (q < tpx && gbuf[16 * plane + pix[k]] > 0.0f) matched |= 1u << k;
+  }
+
+  int slots[kPPT];  // own slot + 1 | (parent slot + 1) << 8 | probe count << 16
+#pragma unroll
+  for (int k = 0; k < kPPT; ++k) slots[k] = 1 << 16;
+  int n_used = 0;
+  int cls = kClsEmpty;
+
+  if (__syncthreads_or(matched)) {  // else an empty tile: the table and assignment below are all it needs
+    int anch[kPPT][8];  // own y lo, y hi, x lo, x hi; parent the same
+    unsigned todo_o = 0, todo_p = 0, share = 0;
+    bool leftover = false, poison = false;
+#pragma unroll
+    for (int k = 0; k < kPPT; ++k) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) anch[k][i] = 0;
+      if (!(matched >> k & 1)) continue;
+      const float* g = gbuf + pix[k];
+      const float u = g[6 * plane], v = g[7 * plane];
+      const float tw0 = g[9 * plane], th0 = g[10 * plane], tw1 = g[11 * plane], th1 = g[12 * plane];
+      const float maj_du = g[14 * plane], maj_dv = g[15 * plane], span = g[17 * plane];
+      float n_px = 1.0f;
+      if (max_anisotropy > 1) {
+        // shade.probe_count
+        const float ext = max_nan(fabsf(maj_du) * tw0, fabsf(maj_dv) * th0) * span;
+        n_px = min_nan(max_nan(ceilf(ext - 1e-4f), 1.0f), (float)max_anisotropy);
+      }
+      slots[k] = (n_px == n_px ? (int)n_px : 1) << 16;
+      const float fo_ext = (0.5f - 0.5f / n_px) * span;
+      const float du_ext = fabsf(maj_du) * fo_ext;
+      const float dv_ext = fabsf(maj_dv) * fo_ext;
+      float a[8];
+      anchor(v, th0, dv_ext, 87.0f, &a[0], &a[1]);   // Y_WRAP_LIM
+      anchor(u, tw0, du_ext, 255.0f, &a[2], &a[3]);  // X_WRAP_LIM
+      anchor(v, th1, dv_ext, 87.0f, &a[4], &a[5]);
+      anchor(u, tw1, du_ext, 255.0f, &a[6], &a[7]);
+      const float by0 = g[20 * plane], bx0 = g[21 * plane], by1 = g[22 * plane], bx1 = g[23 * plane];
+      a[0] = a[0] + by0;
+      a[1] = a[1] + by0;
+      a[2] = a[2] + bx0;
+      a[3] = a[3] + bx0;
+      a[4] = a[4] + by1;
+      a[5] = a[5] + by1;
+      a[6] = a[6] + bx1;
+      a[7] = a[7] + bx1;
+      const bool unfit_o = (a[1] - a[0] > (float)(kWH - kAlignY - 2)) || (a[3] - a[2] > (float)(kWW - kAlignX - 2));
+      const bool unfit_p = (a[5] - a[4] > (float)(kWH - kAlignY - 2)) || (a[7] - a[6] > (float)(kWW - kAlignX - 2));
+      const bool nan_o = !finite4(a), nan_p = !finite4(a + 4);
+      leftover = leftover || unfit_o || unfit_p;
+      poison = poison || (!unfit_o && nan_o) || (!unfit_p && nan_p);
+      if (!unfit_o && !nan_o) {
+        todo_o |= 1u << k;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) anch[k][i] = (int)a[i];
+      }
+      if (!unfit_p && !nan_p) {
+        todo_p |= 1u << k;
+#pragma unroll
+        for (int i = 4; i < 8; ++i) anch[k][i] = (int)a[i];
+      }
+      if (tw1 == tw0 && th1 == th0) share |= 1u << k;
+    }
+    if (__syncthreads_or(poison)) {
+      todo_o = todo_p = 0;
+      leftover = true;
+    }
+
+    // Greedy banded covering (sampler.py:286-341).
+    int turn = 0;
+    for (int s = 0; s < kK2; ++s) {
+      int m = kNone;
+#pragma unroll
+      for (int k = 0; k < kPPT; ++k) {
+        if (todo_o >> k & 1) m = min(m, anch[k][0]);
+        if (todo_p >> k & 1) m = min(m, anch[k][4]);
+      }
+      const int ymin = block_min(m, part, turn);
+      if (ymin == kNone) break;  // covered
+      const int oy = ymin - floor_mod_i(ymin, kAlignY);
+      const int lim_y = oy + (kWH - 2);
+      unsigned band_o = 0, band_p = 0;
+      m = kNone;
+#pragma unroll
+      for (int k = 0; k < kPPT; ++k) {
+        if ((todo_o >> k & 1) && anch[k][1] < lim_y) {
+          band_o |= 1u << k;
+          m = min(m, anch[k][2]);
+        }
+        if ((todo_p >> k & 1) && anch[k][5] < lim_y) {
+          band_p |= 1u << k;
+          m = min(m, anch[k][6]);
+        }
+      }
+      const int xmin = block_min(m, part, turn);
+      const int ox = xmin - floor_mod_i(xmin, kAlignX);
+      const int lim_x = ox + (kWW - 2);
+#pragma unroll
+      for (int k = 0; k < kPPT; ++k) {
+        const bool win_o = (band_o >> k & 1) && anch[k][3] < lim_x;
+        const bool win_p = (band_p >> k & 1) && anch[k][7] < lim_x && (!win_o || (share >> k & 1));
+        if (win_o) {
+          slots[k] |= s + 1;
+          todo_o &= ~(1u << k);
+        }
+        if (win_p) {
+          slots[k] |= (s + 1) << 8;
+          todo_p &= ~(1u << k);
+        }
+      }
+      if (tid == 0) {
+        sl_oy[s] = oy;
+        sl_ox[s] = ox;
+      }
+      ++n_used;
+    }
+    // Also publishes sl_oy / sl_ox and the initial words.
+    cls = __syncthreads_or(leftover || todo_o || todo_p) ? kClsResidual : kClsWindowed;
+    if (cls == kClsResidual) {
+      // Integer sums: the frame's count does not depend on the order.
+      const int n = warp_add_i(__popc(matched));
+      if ((tid & 31) == 0) atomicAdd(&n_matched, n);
+    }
+
+    // Per (chunk, slot): the anchors' extremes and the worst probe count
+    // over the roles assigned to the slot (sampler.py:362-445), and per
+    // chunk the worst probe count of its matched pixels.
+#pragma unroll
+    for (int k = 0; k < kPPT; ++k) {
+      const int q = tid + k * kThreads;
+      const int ci = q / cpx;
+      const int np = probes(slots[k]);
+      warp_by_key((matched >> k & 1) ? ci : -1, [&](int chunk, bool mine) {
+        const int worst = warp_max_i(mine ? np : 1);
+        if ((tid & 31) == 0) atomicMax(&chunk_np[chunk], worst);
+      });
+#pragma unroll
+      for (int role = 0; role < 2; ++role) {
+        const int slot = role == 0 ? own_slot(slots[k]) : par_slot(slots[k]);
+        const int a0 = anch[k][4 * role], a1 = anch[k][4 * role + 1];
+        const int a2 = anch[k][4 * role + 2], a3 = anch[k][4 * role + 3];
+        warp_by_key(slot >= 0 ? ci * kK2 + slot : -1, [&](int word, bool mine) {
+          const int ylo = warp_min_i(mine ? a0 : kNone), yhi = warp_max_i(mine ? a1 : -kNone);
+          const int xlo = warp_min_i(mine ? a2 : kNone), xhi = warp_max_i(mine ? a3 : -kNone);
+          const int worst = warp_max_i(mine ? np : 0);
+          if ((tid & 31) == 0) {
+            atomicMin(&words[word][0], ylo);
+            atomicMax(&words[word][1], yhi);
+            atomicMin(&words[word][2], xlo);
+            atomicMax(&words[word][3], xhi);
+            atomicMax(&words[word][4], worst);
+          }
+        });
+      }
+    }
+    __syncthreads();
+    if (tid < nc * kK2 && tid % kK2 < n_used && words[tid][4] > 0) {
+      const int ci = tid / kK2, j = tid % kK2;
+      const int rylo = clampi(words[tid][0] - sl_oy[j], 0, kWH - 1);
+      const int ryhi = clampi(words[tid][1] - sl_oy[j] + 1, 0, kWH - 1);
+      const int rxlo = clampi(words[tid][2] - sl_ox[j], 0, kWW - 1);
+      const int rxhi = clampi(words[tid][3] - sl_ox[j] + 1, 0, kWW - 1);
+      int b0 = rylo - floor_mod_i(rylo, kAlignY);
+      const int nyb = clampi(floor_div(ryhi + 1 - b0 + kYB - 1, kYB), 1, kWH / kYB);
+      b0 = min(b0, kWH - nyb * kYB);
+      const int xb0 = floor_div(rxlo, kXB);
+      const int nxb = clampi(floor_div(rxhi, kXB), 0, kNXB - 1) - xb0 + 1;
+      const int np_s = clampi(words[tid][4], 1, 16);
+      rows[(1 + ci) * kLanes + j] = 1 | (b0 << 1) | (nyb << 9) | (xb0 << 12) | (nxb << 14) | ((np_s - 1) << 16);
+    }
+    if (tid < n_used) {
+      rows[32 + tid] = sl_oy[tid];
+      rows[64 + tid] = sl_ox[tid];
+    }
+  }
+
+  if (tid == 0) {
+    rows[0] = cls;
+    rows[1] = n_used;
+    if (cls == kClsResidual) atomicAdd(residual_px, n_matched);  // summed before the words' barrier
+  }
+  if (tid < nc) rows[(1 + tid) * kLanes + kChunkNpLane] = chunk_np[tid];
+  __syncthreads();
+  if (tid < kRows * kLanes / 4)
+    reinterpret_cast<int4*>(table + (long long)t * kRows * kLanes)[tid] = reinterpret_cast<const int4*>(rows)[tid];
+#pragma unroll
+  for (int k = 0; k < kPPT; ++k) {
+    if (tid + k * kThreads >= tpx) continue;
+    assign[pix[k]] = (float)own_slot(slots[k]);
+    assign[plane + pix[k]] = (float)par_slot(slots[k]);
   }
 }
 
 }  // namespace
 
 extern "C" int tr_plan(const float* gbuf, int tiles_x, int tiles_y, int tile_h, int tile_w, int rc,
-                       int max_anisotropy, int* table, float* assign, void* stream) {
-  if (tile_h * tile_w > kThreads * kPPT || tile_h % rc != 0 || tile_h / rc + 1 > 8) return (int)cudaErrorInvalidValue;
+                       int max_anisotropy, int* table, float* assign, int* residual_px, void* stream) {
+  if (tile_h * tile_w > kThreads * kPPT || tile_h % rc != 0 || tile_h / rc > kMaxChunks ||
+      (long long)tiles_x * tile_w * tiles_y * tile_h > kNone)
+    return (int)cudaErrorInvalidValue;
   TR_LAUNCH(plan_kernel, tiles_x * tiles_y, kThreads, stream, gbuf, tiles_x, tiles_y, tile_h, tile_w, rc,
-            max_anisotropy, table, assign);
+            max_anisotropy, table, assign, residual_px);
   return (int)cudaGetLastError();
 }
+
+#ifndef TR_HOST_EMU
+// The plan kernel's registers per thread and resident blocks per SM.
+extern "C" int tr_plan_info(int* registers, int* blocks_per_sm) {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, plan_kernel);
+  if (err != cudaSuccess) return (int)err;
+  *registers = attr.numRegs;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, plan_kernel, kThreads, 0);
+}
+#endif

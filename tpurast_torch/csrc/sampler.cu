@@ -1,26 +1,30 @@
-// Anisotropic trilinear texturing from the bf16 texture page through the
-// per-tile window plan, basic.frag lighting and the framebuffer blend.
+// Anisotropic trilinear texturing from the bf16 texture page, basic.frag
+// lighting and the framebuffer blend.
 //
 // Replaces tpurast/kernels/sampler.py::_sampler_kernel (helper
 // _slot_accumulate), and for residual tiles the gather fallback the
 // reference's renderer overlays (renderer.py:54-173). Plain torch version:
 // tpurast_torch/kernels/sampler.py::sample_tiles_plain.
 //
-// One block per (tile, chunk of rc rows), 256 threads x 8 pixels. The
-// plan (csrc/plan.cu) gives the tile's class, its window origins, each
-// pixel's own and parent slot, and per (chunk, slot) the y and x bands of
-// the window that the chunk's pixels touch. For a windowed tile the block
-// walks its chunk's live slots and stages each slot's planned region
-// (nyb*YB x nxb*XB texels) in 48 KB of shared memory, all four channels
-// when they fit, else one or two at a time, then every pixel whose own
-// or parent role uses the slot sums that role's probes, reading a texel
-// from the staged region when the region holds it and from the page
-// otherwise (sampler.py:550-647, 705-880, with shared memory in place of
-// the VMEM window DMAs). Residual tiles read every texel from the page
-// (the port's counterpart of the reference's gather fallback); empty
-// tiles and unmatched pixels take the clear color. Where a texel is read
-// from never changes the sum, so the frame equals direct sampling bit for
-// bit, whatever the plan.
+// One thread per pixel, one pass: the pixel reads its G-buffer planes once,
+// runs its own and parent probe trains, mixes, lights, blends and stores.
+// Every texel comes straight from the page through the read-only path and
+// L1 / L2; there is no staging, no shared memory and no barrier. The
+// reference stages planned windows because its vector unit cannot gather
+// per lane; this card can, and its L1 does the windowing, so windowed and
+// residual tiles run the same code and the plan (csrc/plan.cu) is read for
+// one thing: a tile of class EMPTY gets the clear color without a look at
+// the G-buffer. Unmatched pixels take the clear color too.
+//
+// The page is channel-interleaved, (PH, PW, 4) bf16: a texel is one 8-byte
+// load, a tap's x neighbours are 16 adjacent bytes, and a 32-byte sector
+// holds 4 whole texels. A block is 32 x 8 pixels in 8 warps of 32 x 1
+// pixels (kWarpW x kWarpH): a warp reads one 128-byte line per G-buffer
+// plane. Warps of 16 x 2, 8 x 4 and 4 x 8 pixels, whose taps fall in a more
+// compact patch of the page but whose G-buffer reads split into 2, 4 and 8
+// requests per plane, measured 1.5%, 1.7% and 12% slower on chip_smoke.py's
+// 1920x1080 frame, and a channel-planar page (4, PH, PW) 16% slower
+// (NVIDIA H100 80GB HBM3, 700 W; PERF.md keeps the table).
 //
 // Per pixel: n = probe_count(...) <= 16 probes along the footprint's
 // major axis; each probe is one bilinear tap at the own mip and one at
@@ -31,25 +35,21 @@
 // sum_y ry * (sum_x cw * t). The sums mix as ((1 - tf) * S_own +
 // tf * S_par) / n (sampler.py:870-880).
 //
-// What bounds it on this card: texel reads and the per-slot staging. A
-// pixel makes up to 16 probes x 2 mips x 4 texels x 4 channels reads;
-// staged ones come from shared memory. A region is loaded once per
-// (chunk, slot) when its four channels fit (one band: 48 KB), and every
-// pass over it recomputes the pixels' probe positions; the loop that
-// stages a region is unrolled so that a thread has 8 page loads in
-// flight. Later work: vector loads for the staging, channel-interleaved
-// texels, and staging only where it beats the L1/L2 hits of direct reads.
+// What bounds it on this card: texel loads in flight and divergence. A
+// pixel makes up to 16 probes x 2 mips x 4 texel loads; one loop iteration
+// has the 8 loads of an own and a parent tap in flight together. A warp
+// runs to its worst lane's probe count (chip_smoke.py prints the mean of
+// that beside the mean per pixel).
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int kAOut = 24;
 constexpr int kThreads = 256;
-constexpr int kPPT = 8;  // pixels per thread
-constexpr int kYB = 48, kXB = 128;
-constexpr int kStage = 24576;  // staged bf16 texels per block (48 KB)
-constexpr int kClsWindowed = 0, kClsResidual = 3;
+constexpr int kBlockW = 32, kBlockH = kThreads / kBlockW;  // pixels of a block
+constexpr int kWarpW = 32, kWarpH = 32 / kWarpW;  // pixels of a warp
+constexpr int kClsEmpty = 2;
+static_assert(kBlockW % kWarpW == 0 && kBlockH % kWarpH == 0, "the warps tile the block");
 
 struct ShadeParams {
   float light_direction[3];
@@ -60,60 +60,47 @@ struct ShadeParams {
   float opaque;
 };
 
-// A texel of channel c at page row py, column px, from the page.
-struct PageFetch {
-  const __nv_bfloat16* __restrict__ page;
-  long long plane;
+// The (PH, PW, 4) bf16 page; page(py, px, t) reads the four channels of
+// the texel at page row py, column px.
+struct Page {
+  const uint2* __restrict__ texels;
   int page_w;
-  __device__ __forceinline__ float operator()(int c, int py, int px) const {
-    return __bfloat162float(page[c * plane + (long long)py * page_w + px]);
+  __device__ __forceinline__ void operator()(int py, int px, float t[4]) const {
+    const uint2 bits = ldg_u2(texels + ((long long)py * page_w + px));
+    t[0] = bf16_bits(bits.x & 0xFFFFu);
+    t[1] = bf16_bits(bits.x >> 16);
+    t[2] = bf16_bits(bits.y & 0xFFFFu);
+    t[3] = bf16_bits(bits.y >> 16);
   }
 };
 
-// The same texel from the staged region (channels c0.., rows y0.. h,
-// columns x0.. w) when it holds it, else from the page.
-struct StageFetch {
-  const __nv_bfloat16* stage;
-  int c0, y0, x0, h, w;
-  PageFetch page;
-  __device__ __forceinline__ float operator()(int c, int py, int px) const {
-    const int dy = py - y0, dx = px - x0;
-    if (dy >= 0 && dy < h && dx >= 0 && dx < w) return __bfloat162float(stage[((c - c0) * h + dy) * w + dx]);
-    return page(c, py, px);
-  }
-};
-
-// Probe sum of one mip level into acc[c] for channels c0 <= c < c0 + nch.
-template <class Fetch>
-__device__ __forceinline__ void tap_sum(const Fetch& fetch, int c0, int nch, float u, float v, float maj_du,
-                                        float maj_dv, float span, float n_px, float ww, float hh, float base_y,
-                                        float base_x, float acc[4]) {
-  const float ww_c = max_nan(ww, 1.0f);
-  const float hh_c = max_nan(hh, 1.0f);
+// One bilinear tap of probe offset fo at the mip of size (ww, hh) whose
+// rect starts at page (base_y, base_x), added to acc.
+__device__ __forceinline__ void tap(const Page& page, float u, float v, float maj_du, float maj_dv, float fo,
+                                    float ww, float hh, float ww_c, float hh_c, float base_y, float base_x,
+                                    float acc[4]) {
+  const float x = (u + maj_du * fo) * ww - 0.5f;
+  const float y = (v + maj_dv * fo) * hh - 0.5f;
+  const float x0 = floorf(x);
+  const float y0 = floorf(y);
+  const float fx = x - x0;
+  const float fy = y - y0;
+  const int px = (int)(base_x + floor_mod(x0, ww_c));
+  const int py = (int)(base_y + floor_mod(y0, hh_c));
+  const float cw1 = round_bf16(fx);
+  const float cw0 = round_bf16(1.0f - fx);
+  const float ry0 = 1.0f - fy;
+  const float ry1 = fy;
+  float t00[4], t01[4], t10[4], t11[4];
+  page(py, px, t00);
+  page(py, px + 1, t01);
+  page(py + 1, px, t10);
+  page(py + 1, px + 1, t11);
 #pragma unroll
-  for (int c = 0; c < 4; ++c)
-    if (c >= c0 && c < c0 + nch) acc[c] = 0.0f;
-  for (int i = 0; (float)i < n_px; ++i) {
-    const float fo = (((float)i + 0.5f) / n_px - 0.5f) * span;
-    const float x = (u + maj_du * fo) * ww - 0.5f;
-    const float y = (v + maj_dv * fo) * hh - 0.5f;
-    const float x0 = floorf(x);
-    const float y0 = floorf(y);
-    const float fx = x - x0;
-    const float fy = y - y0;
-    const int px = (int)(base_x + floor_mod(x0, ww_c));
-    const int py = (int)(base_y + floor_mod(y0, hh_c));
-    const float cw1 = round_bf16(fx);
-    const float cw0 = round_bf16(1.0f - fx);
-    const float ry0 = 1.0f - fy;
-    const float ry1 = fy;
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      if (c < c0 || c >= c0 + nch) continue;
-      const float row0 = fetch(c, py, px) * cw0 + fetch(c, py, px + 1) * cw1;
-      const float row1 = fetch(c, py + 1, px) * cw0 + fetch(c, py + 1, px + 1) * cw1;
-      acc[c] = acc[c] + (row0 * ry0 + row1 * ry1);
-    }
+  for (int c = 0; c < 4; ++c) {
+    const float row0 = t00[c] * cw0 + t01[c] * cw1;
+    const float row1 = t10[c] * cw0 + t11[c] * cw1;
+    acc[c] = acc[c] + (row0 * ry0 + row1 * ry1);
   }
 }
 
@@ -159,133 +146,55 @@ __device__ void shade_store(const float* __restrict__ gbuf, long long plane, lon
   out[3 * plane + p] = prm.opaque != 0.0f ? 1.0f : prm.clear[3];
 }
 
-__device__ __forceinline__ float probe_count(const float* __restrict__ gbuf, long long plane, long long p,
+// shade.probe_count
+__device__ __forceinline__ float probe_count(float maj_du, float maj_dv, float tw0, float th0, float span,
                                              int max_anisotropy) {
   if (max_anisotropy <= 1) return 1.0f;
-  // shade.probe_count
-  const float ext = max_nan(fabsf(gbuf[14 * plane + p]) * gbuf[9 * plane + p],
-                            fabsf(gbuf[15 * plane + p]) * gbuf[10 * plane + p]) *
-                    gbuf[17 * plane + p];
+  const float ext = max_nan(fabsf(maj_du) * tw0, fabsf(maj_dv) * th0) * span;
   return min_nan(max_nan(ceilf(ext - 1e-4f), 1.0f), (float)max_anisotropy);
 }
 
-// Residual tiles: every texel straight from the page.
-__device__ void sample_direct(const float* __restrict__ gbuf, long long plane, long long p,
-                              const __nv_bfloat16* __restrict__ page, int page_h, int page_w,
-                              const float* __restrict__ cam, int max_anisotropy, const ShadeParams& prm,
-                              float* __restrict__ out) {
-  float g[kAOut];
+__global__ void __launch_bounds__(kThreads)
+    sample_kernel(const float* __restrict__ gbuf, Page page, const int* __restrict__ table,
+                  const float* __restrict__ cam, int tiles_x, int tile_h, int tile_w, int hp, int wp,
+                  int max_anisotropy, ShadeParams prm, float* __restrict__ out) {
+  // A warp's lanes cover kWarpW x kWarpH pixels; the warps tile the block.
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int x = blockIdx.x * kBlockW + warp % (kBlockW / kWarpW) * kWarpW + lane % kWarpW;
+  const int y = blockIdx.y * kBlockH + warp / (kBlockW / kWarpW) * kWarpH + lane / kWarpW;
+  if (x >= wp || y >= hp) return;
+  const long long plane = (long long)hp * wp;
+  const long long p = (long long)y * wp + x;
+  const int cls = table[((long long)(y / tile_h) * tiles_x + x / tile_w) * 8 * 128];
+  if (cls == kClsEmpty || !(gbuf[16 * plane + p] > 0.0f)) {
 #pragma unroll
-  for (int i = 0; i < kAOut; ++i) g[i] = gbuf[i * plane + p];
-  const float n_px = probe_count(gbuf, plane, p, max_anisotropy);
-  const PageFetch fetch{page, (long long)page_h * page_w, page_w};
-  float s_own[4], s_par[4];
-  tap_sum(fetch, 0, 4, g[6], g[7], g[14], g[15], g[17], n_px, g[9], g[10], g[20], g[21], s_own);
-  tap_sum(fetch, 0, 4, g[6], g[7], g[14], g[15], g[17], n_px, g[11], g[12], g[22], g[23], s_par);
-  shade_store(gbuf, plane, p, s_own, s_par, n_px, cam, prm, out);
-}
-
-__global__ void sample_kernel(const float* __restrict__ gbuf, const __nv_bfloat16* __restrict__ page,
-                              int page_h, int page_w, const int* __restrict__ table,
-                              const float* __restrict__ assign, const float* __restrict__ cam, int tiles_x,
-                              int tiles_y, int tile_h, int tile_w, int rc, int max_anisotropy,
-                              ShadeParams prm, float* __restrict__ out) {
-  __shared__ __nv_bfloat16 stage[kStage];
-  const int tid = threadIdx.x;
-  const int nc = tile_h / rc;
-  const int t = blockIdx.x / nc, ci = blockIdx.x % nc;
-  const int wp = tiles_x * tile_w;
-  const long long plane = (long long)tiles_y * tile_h * wp;
-  const int cpx = rc * tile_w;
-  const int y0 = (t / tiles_x) * tile_h + ci * rc, x0 = (t % tiles_x) * tile_w;
-  const int* meta = table + (long long)t * 8 * 128;
-  const int* words = meta + (1 + ci) * 128;
-  const int cls = meta[0];
-
-  if (cls != kClsWindowed) {
-    for (int k = 0; k < kPPT; ++k) {
-      const int q = tid + k * kThreads;
-      if (q >= cpx) continue;
-      const long long p = (long long)(y0 + q / tile_w) * wp + x0 + q % tile_w;
-      if (cls == kClsResidual && gbuf[16 * plane + p] > 0.0f) {
-        sample_direct(gbuf, plane, p, page, page_h, page_w, cam, max_anisotropy, prm, out);
-      } else {
-        for (int c = 0; c < 4; ++c) out[c * plane + p] = prm.clear[c];
-      }
-    }
+    for (int c = 0; c < 4; ++c) out[c * plane + p] = prm.clear[c];
     return;
   }
-
-  float s_own[kPPT][4], s_par[kPPT][4];
-#pragma unroll
-  for (int k = 0; k < kPPT; ++k)
-    for (int c = 0; c < 4; ++c) s_own[k][c] = s_par[k][c] = 0.0f;
-  const PageFetch page_fetch{page, (long long)page_h * page_w, page_w};
-  const int n_used = meta[1];
-  for (int j = 0; j < n_used; ++j) {
-    const int word = words[j];
-    if (!(word & 1)) continue;
-    // The slot's planned region: rows [b0, b0 + nyb*YB) and columns
-    // [xb0*XB, (xb0 + nxb)*XB) of the window at page (oy, ox).
-    const int ry0 = meta[32 + j] + ((word >> 1) & 0xFF);
-    const int rx0 = meta[64 + j] + ((word >> 12) & 0x3) * kXB;
-    const int rh = ((word >> 9) & 0x7) * kYB, rw = ((word >> 14) & 0x3) * kXB;
-    const int fit = rh * rw > 0 ? kStage / (rh * rw) : 0;  // channels the stage holds
-    const int step = fit >= 4 || fit == 0 ? 4 : (fit >= 2 ? 2 : 1);
-    const float jf = (float)j;
-    for (int c0 = 0; c0 < 4; c0 += step) {
-      const StageFetch fetch{stage, c0, ry0, rx0, rh, fit > 0 ? rw : 0, page_fetch};
-      if (fit > 0) {
-        __syncthreads();  // the previous pass's readers are done
-#pragma unroll 8
-        for (int i = tid; i < step * rh * rw; i += kThreads) {
-          const int c = c0 + i / (rh * rw), r = i / rw % rh, col = i % rw;
-          const int py = ry0 + r, px = rx0 + col;
-          stage[i] = py < page_h && px < page_w ? page[c * page_fetch.plane + (long long)py * page_w + px]
-                                                : __float2bfloat16(0.0f);
-        }
-        __syncthreads();
-      }
-#pragma unroll
-      for (int k = 0; k < kPPT; ++k) {
-        const int q = tid + k * kThreads;
-        if (q >= cpx) continue;
-        const long long p = (long long)(y0 + q / tile_w) * wp + x0 + q % tile_w;
-        const bool own_j = assign[p] == jf, par_j = assign[plane + p] == jf;
-        if (!(own_j || par_j)) continue;
-        const float u = gbuf[6 * plane + p], v = gbuf[7 * plane + p];
-        const float maj_du = gbuf[14 * plane + p], maj_dv = gbuf[15 * plane + p], span = gbuf[17 * plane + p];
-        const float n_px = probe_count(gbuf, plane, p, max_anisotropy);
-        if (own_j)
-          tap_sum(fetch, c0, step, u, v, maj_du, maj_dv, span, n_px, gbuf[9 * plane + p], gbuf[10 * plane + p],
-                  gbuf[20 * plane + p], gbuf[21 * plane + p], s_own[k]);
-        if (par_j)
-          tap_sum(fetch, c0, step, u, v, maj_du, maj_dv, span, n_px, gbuf[11 * plane + p], gbuf[12 * plane + p],
-                  gbuf[22 * plane + p], gbuf[23 * plane + p], s_par[k]);
-      }
-    }
+  const float u = gbuf[6 * plane + p], v = gbuf[7 * plane + p];
+  const float maj_du = gbuf[14 * plane + p], maj_dv = gbuf[15 * plane + p], span = gbuf[17 * plane + p];
+  const float tw0 = gbuf[9 * plane + p], th0 = gbuf[10 * plane + p];
+  const float tw1 = gbuf[11 * plane + p], th1 = gbuf[12 * plane + p];
+  const float by0 = gbuf[20 * plane + p], bx0 = gbuf[21 * plane + p];
+  const float by1 = gbuf[22 * plane + p], bx1 = gbuf[23 * plane + p];
+  const float tw0_c = max_nan(tw0, 1.0f), th0_c = max_nan(th0, 1.0f);
+  const float tw1_c = max_nan(tw1, 1.0f), th1_c = max_nan(th1, 1.0f);
+  const float n_px = probe_count(maj_du, maj_dv, tw0, th0, span, max_anisotropy);
+  float s_own[4] = {0.0f, 0.0f, 0.0f, 0.0f}, s_par[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  for (int i = 0; (float)i < n_px; ++i) {
+    const float fo = (((float)i + 0.5f) / n_px - 0.5f) * span;
+    tap(page, u, v, maj_du, maj_dv, fo, tw0, th0, tw0_c, th0_c, by0, bx0, s_own);
+    tap(page, u, v, maj_du, maj_dv, fo, tw1, th1, tw1_c, th1_c, by1, bx1, s_par);
   }
-#pragma unroll
-  for (int k = 0; k < kPPT; ++k) {
-    const int q = tid + k * kThreads;
-    if (q >= cpx) continue;
-    const long long p = (long long)(y0 + q / tile_w) * wp + x0 + q % tile_w;
-    if (gbuf[16 * plane + p] > 0.0f) {
-      shade_store(gbuf, plane, p, s_own[k], s_par[k], probe_count(gbuf, plane, p, max_anisotropy), cam, prm,
-                  out);
-    } else {
-      for (int c = 0; c < 4; ++c) out[c * plane + p] = prm.clear[c];
-    }
-  }
+  shade_store(gbuf, plane, p, s_own, s_par, n_px, cam, prm, out);
 }
 
 }  // namespace
 
-extern "C" int tr_sample(const float* gbuf, const void* page, int page_h, int page_w, const int* table,
-                         const float* assign, const float* cam, int tiles_x, int tiles_y, int tile_h,
-                         int tile_w, int rc, int max_anisotropy, const float* params, float* out,
-                         void* stream) {
-  if (rc * tile_w > kThreads * kPPT || tile_h % rc != 0) return (int)cudaErrorInvalidValue;
+// page: (PH, PW, 4) bf16, PW = page_w.
+extern "C" int tr_sample(const float* gbuf, const void* page, int page_w, const int* table, const float* cam,
+                         int tiles_x, int tiles_y, int tile_h, int tile_w, int max_anisotropy, const float* params,
+                         float* out, void* stream) {
   ShadeParams prm;
   const float* q = params;
   for (int i = 0; i < 3; ++i) prm.light_direction[i] = *q++;
@@ -294,8 +203,22 @@ extern "C" int tr_sample(const float* gbuf, const void* page, int page_h, int pa
   prm.specular_power = *q++;
   for (int i = 0; i < 4; ++i) prm.clear[i] = *q++;
   prm.opaque = *q++;
-  const int blocks = tiles_x * tiles_y * (tile_h / rc);
-  TR_LAUNCH(sample_kernel, blocks, kThreads, stream, gbuf, (const __nv_bfloat16*)page, page_h, page_w, table,
-            assign, cam, tiles_x, tiles_y, tile_h, tile_w, rc, max_anisotropy, prm, out);
+  const int hp = tiles_y * tile_h, wp = tiles_x * tile_w;
+  const dim3 grid((wp + kBlockW - 1) / kBlockW, (hp + kBlockH - 1) / kBlockH);
+  if (grid.y > 65535) return (int)cudaErrorInvalidValue;
+  const Page texels{(const uint2*)page, page_w};
+  TR_LAUNCH(sample_kernel, grid, kThreads, stream, gbuf, texels, table, cam, tiles_x, tile_h, tile_w, hp, wp,
+            max_anisotropy, prm, out);
   return (int)cudaGetLastError();
 }
+
+#ifndef TR_HOST_EMU
+// The sample kernel's registers per thread and resident blocks per SM.
+extern "C" int tr_sample_info(int* registers, int* blocks_per_sm) {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, sample_kernel);
+  if (err != cudaSuccess) return (int)err;
+  *registers = attr.numRegs;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, sample_kernel, kThreads, 0);
+}
+#endif

@@ -40,6 +40,7 @@ from tpurast_torch.camera import Camera
 from tpurast_torch.device import textures as tex_mod
 from tpurast_torch.device.pages import build_pages
 from tpurast_torch.device.textures import texels_tensor
+from tpurast_torch.kernels.sampler import interleave_page
 
 log = logging.getLogger("tpurast_torch.device")
 
@@ -236,7 +237,9 @@ def _tensors(arrays: dict, page, texels, n_faces: int, device) -> dict:
 
     atlas = {"offsets": t(arrays["offsets"]), "sizes": t(arrays["sizes"]), "n_mips": t(arrays["n_mips"])}
     if page is not None:
-        atlas["page"] = page.contiguous().to(dev)
+        # One resident copy, channel-interleaved for the sample kernel; every
+        # reader holds its (4, PH, PW) view (kernels/sampler.py).
+        atlas["page"] = interleave_page(page.to(dev))
         for k in ("page_origins", "page_sizes", "page_n_mips"):
             atlas[k] = t(arrays[k])
     if texels is not None:
@@ -255,7 +258,9 @@ def upload(scene: DeviceScene, device, texture_dtype: str | None = None) -> dict
     """The frame function's scene state as torch tensors on ``device``.
 
     The page is rounded to bf16 by torch (round to nearest even, bit for
-    bit what ml_dtypes does for the reference's upload). With
+    bit what ml_dtypes does for the reference's upload) and kept as one
+    channel-interleaved (PH, PW, 4) array; atlas["page"] is its
+    (4, PH, PW) view, which indexes like the reference's planar page. With
     texture_dtype ("float32", "float16", "bfloat16" or "srgb8") the atlas
     also carries the quad-row texels in that dtype; without it, it does
     not. A scene without pages uploads no page."""

@@ -6,7 +6,7 @@ Stages of one frame (tpurast_torch.renderer.render_frame):
   raster.py   — visibility: depth + winning face id per pixel (CUDA kernel)
   resolve.py  — per-pixel G-buffer of the winning face (CUDA kernel)
   sampler.py  — texel window plan per tile (CUDA kernel), anisotropic
-                trilinear texturing + lighting through it (CUDA kernel)
+                trilinear texturing from the page + lighting (CUDA kernel)
   shade.py    — the lighting / footprint formulas shared by the plain
                 paths, and the row-atlas gather and deferred shading
                 (torch ops)

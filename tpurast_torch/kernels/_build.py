@@ -53,8 +53,8 @@ _L = ctypes.c_longlong
 SIGNATURES = {
     "tr_raster": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _P, _I, _P, _P],
     "tr_resolve": [_P, _P, _I, _I, _I, _I, _P, _P],
-    "tr_plan": [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
-    "tr_sample": [_P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
+    "tr_plan": [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
+    "tr_sample": [_P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
     "tr_plane_scale": [_P, _I, _I, _I, _I, _I, _I, _P, _P],
     "tr_vmem_take": [_P, _I, _P, _L, _P, _P],
 }
@@ -118,9 +118,23 @@ def library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
+    for name in ("tr_plan_info", "tr_sample_info"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
+        fn.restype = ctypes.c_int
     lib.tr_error_string.argtypes = [ctypes.c_int]
     lib.tr_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def kernel_info(name: str) -> tuple[int, int]:
+    """(registers per thread, resident blocks per SM) of the "plan" or
+    "sample" kernel as built, from the CUDA runtime."""
+    regs, blocks = ctypes.c_int(), ctypes.c_int()
+    err = getattr(library(), f"tr_{name}_info")(ctypes.byref(regs), ctypes.byref(blocks))
+    if err != 0:
+        raise RuntimeError(f"tr_{name}_info: CUDA error {err} ({library().tr_error_string(err).decode()})")
+    return regs.value, blocks.value
 
 
 def call(name: str, *args) -> None:

@@ -12,13 +12,24 @@ windows of WH x WW texels, the tile's class (windowed, empty, residual),
 each pixel's own and parent window slot, and per (chunk, slot) the y and
 x bands of the window the chunk touches.
 
-The sample kernel reads the plan to stage each planned window region in
-shared memory and takes a texel from there when the region holds it,
-from the page otherwise; residual tiles (more than K2 windows) read the
-page directly, and count as window_miss_px as the reference's gather
-fallback does. Where a texel comes from never changes which texel is
-read or its weight, so the frame is that of direct sampling, and the
-plain version samples straight from the page. Per matched pixel
+On this card the plan decides nothing about texel reads: the sample
+kernel runs one pass per pixel and reads every texel straight from the
+page through L1 / L2, windowed and residual tiles alike (the reference
+stages the planned windows because its vector unit has no per-lane
+gather). The plan stays on the main path for two things: the kernel
+skips tiles of class EMPTY, and the renderer reports the matched pixels
+of residual tiles (more than K2 windows) as window_miss_px, as the
+reference counts its gather fallback. So the frame is that of direct
+sampling whatever the plan says, and the plain version samples straight
+from the page too.
+
+The page the kernel takes is channel-interleaved: one (PH, PW, 4) bf16
+array, 8 bytes a texel, built once at upload (device/scene.py). Callers
+hold the (4, PH, PW) view of it (``interleave_page``), which indexes like
+the reference's planar page, so the plain version and every other reader
+take the same tensor; the wrapper raises on a page with other strides.
+
+Per matched pixel
 (sampler.py:763-880): n = probe_count(...) probes along the major axis at
 the own mip (tw0, th0; page base planes 20/21) and at the parent mip
 (tw1, th1; planes 22/23). Each probe is one bilinear tap at the wrapped
@@ -71,10 +82,8 @@ CLS_WINDOWED = 0
 CLS_EMPTY = 2
 CLS_RESIDUAL = 3
 CHUNK_NP_LANE = 120
-# Pixels per tile the plan kernel holds (512 threads x 8) and per chunk
-# the sample kernel holds (256 threads x 8), csrc/plan.cu, csrc/sampler.cu.
+# Pixels per tile the plan kernel holds (1024 threads x 4, csrc/plan.cu).
 MAX_TILE_PX = 4096
-MAX_CHUNK_PX = 2048
 
 # Shading parameters passed to csrc/sampler.cu, in this order.
 N_PARAMS = 13
@@ -160,6 +169,19 @@ def plan_tiles_plain(gbuf, *, tiles_x, tiles_y, tile_h, tile_w, max_anisotropy=1
     unfit_any = (matched & (unfit_o | unfit_p)).any(dim=1)
     todo_o = matched & ~unfit_o
     todo_p = matched & ~unfit_p
+    # A NaN or infinite anchor on a role that could be assigned (a
+    # non-finite u, v, derivative or page origin under a matched pixel;
+    # inf - inf is NaN, so the fit test lets it through) can place no
+    # window, and the reference goes on to convert non-finite floats to
+    # integers. Here such a tile is RESIDUAL with no window and no
+    # assignment, in the kernel too (csrc/plan.cu).
+    nan_o = ~torch.isfinite(torch.stack(own)).all(dim=0)
+    nan_p = ~torch.isfinite(torch.stack(par)).all(dim=0)
+    poison = ((todo_o & nan_o) | (todo_p & nan_p)).any(dim=1)
+    unfit_any = unfit_any | poison
+    todo_o = todo_o & ~poison[:, None]
+    todo_p = todo_p & ~poison[:, None]
+    n_px = torch.nan_to_num(n_px, nan=1.0)  # a NaN probe count counts as 1 in the chunk's lane
     assign_o = torch.full_like(g[0], -1.0)
     assign_p = torch.full_like(g[0], -1.0)
     share_ok = (g[11] == g[9]) & (g[12] == g[10])
@@ -250,25 +272,31 @@ def plan_tiles_plain(gbuf, *, tiles_x, tiles_y, tile_h, tile_w, max_anisotropy=1
             word = 1 | (b0 << 1) | (nyb << 9) | (xb0 << 12) | (nxb << 14) | ((np_s - 1) << 16)
             table[:, 1 + ci, j] = torch.where(use, word, 0)
     assign = _from_tiles(torch.stack([assign_o, assign_p]), tiles_y, tile_h, tiles_x, tile_w)
-    return _plan_dict(gbuf, table, assign, tiles_y, tile_h, tiles_x, tile_w)
+    n_matched = matched.sum(dim=1)
+    residual_px = torch.where(cls == CLS_RESIDUAL, n_matched, 0).sum().to(torch.int32)
+    return _plan_dict(table, assign, residual_px)
+
+
+def tap_position(i, u, v, maj_du, maj_dv, span, n_px, ww, hh, base_y, base_x):
+    """Probe i's bilinear tap at one mip level: the page row and column of
+    its wrapped top-left texel (int64) and its y and x fractions
+    (sampler.py:817-831)."""
+    fo = (_shade.fdiv(i + 0.5, n_px) - 0.5) * span
+    x = (u + maj_du * fo) * ww - 0.5
+    y = (v + maj_dv * fo) * hh - 0.5
+    x0 = torch.floor(x)
+    y0 = torch.floor(y)
+    px = (base_x + torch.remainder(x0, torch.clamp(ww, min=1.0))).long()
+    py = (base_y + torch.remainder(y0, torch.clamp(hh, min=1.0))).long()
+    return py, px, y - y0, x - x0
 
 
 def _tap_sum(page, u, v, maj_du, maj_dv, span, n_px, ww, hh, base_y, base_x, n_max):
     """Probe sum (4, M) at one mip level: sum over probes i < n_px of one
-    bilinear tap each (sampler.py:817-831 positions, :613-642 weights)."""
-    ww_c = torch.clamp(ww, min=1.0)
-    hh_c = torch.clamp(hh, min=1.0)
+    bilinear tap each (tap_position; sampler.py:613-642 weights)."""
     acc = torch.zeros((4,) + u.shape, dtype=torch.float32, device=u.device)
     for i in range(n_max):
-        fo = (_shade.fdiv(i + 0.5, n_px) - 0.5) * span
-        x = (u + maj_du * fo) * ww - 0.5
-        y = (v + maj_dv * fo) * hh - 0.5
-        x0 = torch.floor(x)
-        y0 = torch.floor(y)
-        fx = x - x0
-        fy = y - y0
-        px = (base_x + torch.remainder(x0, ww_c)).long()
-        py = (base_y + torch.remainder(y0, hh_c)).long()
+        py, px, fy, fx = tap_position(i, u, v, maj_du, maj_dv, span, n_px, ww, hh, base_y, base_x)
         cw1 = fx.to(torch.bfloat16).to(torch.float32)
         cw0 = (1.0 - fx).to(torch.bfloat16).to(torch.float32)
         ry0 = 1.0 - fy
@@ -321,10 +349,9 @@ def sample_tiles_plain(gbuf, page, plan, camera_position, *, tiles_x, tiles_y, t
                        max_anisotropy, light_direction, light_color, ambient_amount, specular_power,
                        clear_color, blend="alpha"):
     """Plain torch version of the sample kernel: (4, Hp, Wp) f32 linear.
-    The plan decides only where the kernel reads a texel from (its staged
-    window or the page), never which texel or its weight, so the plain
-    version samples every matched pixel straight from the page; unmatched
-    pixels take the clear color."""
+    Every matched pixel is sampled straight from the page (4, PH, PW),
+    whatever the plan says (the kernel skips EMPTY tiles, which hold no
+    matched pixel); unmatched pixels take the clear color."""
     del plan, tiles_x, tiles_y, tile_h, tile_w
     _, hp, wp = gbuf.shape
     g = gbuf.reshape(gbuf.shape[0], -1)
@@ -353,15 +380,13 @@ def shade_params(*, light_direction, light_color, ambient_amount, specular_power
     return vals
 
 
-def _plan_dict(gbuf, table, assign, tiles_y, tile_h, tiles_x, tile_w):
-    cls = table[:, 0, 0]
-    n_matched = _to_tiles(gbuf[16] > 0.0, tiles_y, tile_h, tiles_x, tile_w).sum(dim=1)
+def _plan_dict(table, assign, residual_px):
     return {
         "table": table,
         "assign": assign,
-        "cls": cls,
+        "cls": table[:, 0, 0],
         "n_used": table[:, 0, 1],
-        "residual_px": torch.where(cls == CLS_RESIDUAL, n_matched, 0).sum().to(torch.int32),
+        "residual_px": residual_px,
     }
 
 
@@ -381,51 +406,67 @@ def plan_tiles(gbuf, *, tiles_x, tiles_y, tile_h, tile_w, max_anisotropy=1):
             max_anisotropy=max_anisotropy,
         )
     _k.check(gbuf, "gbuf", torch.float32, (A_OUT, tiles_y * tile_h, tiles_x * tile_w))
-    if tile_h * tile_w > MAX_TILE_PX or tile_h // rc + 1 > 8:
+    if tile_h * tile_w > MAX_TILE_PX or tile_h // rc > 7:
         raise ValueError(f"the plan kernel takes tiles of at most {MAX_TILE_PX} px and 7 chunks")
     t_total = tiles_x * tiles_y
     table = torch.empty((t_total, 8, 128), dtype=torch.int32, device=gbuf.device)
     assign = torch.empty((2,) + tuple(gbuf.shape[1:]), dtype=torch.float32, device=gbuf.device)
-    _build.call("tr_plan", gbuf, tiles_x, tiles_y, tile_h, tile_w, rc, max_anisotropy, table, assign)
+    residual_px = torch.zeros((), dtype=torch.int32, device=gbuf.device)  # the kernel adds to it
+    _build.call("tr_plan", gbuf, tiles_x, tiles_y, tile_h, tile_w, rc, max_anisotropy, table, assign, residual_px)
     _k.LAUNCHES["plan"] += 1
-    return _plan_dict(gbuf, table, assign, tiles_y, tile_h, tiles_x, tile_w)
+    return _plan_dict(table, assign, residual_px)
+
+
+def interleave_page(planes: torch.Tensor) -> torch.Tensor:
+    """The (4, PH, PW) page as the sample kernel takes it: the same values
+    in one channel-interleaved (PH, PW, 4) array, returned as its
+    (4, PH, PW) view, which indexes like the planar page."""
+    return planes.permute(1, 2, 0).contiguous().permute(2, 0, 1)
+
+
+def _check_page(page):
+    if page.dtype != torch.bfloat16:
+        raise TypeError(f"page: expected torch.bfloat16, got {page.dtype}")
+    if page.dim() != 3 or page.shape[0] != 4:
+        raise ValueError(f"page: expected (4, PH, PW), got {tuple(page.shape)}")
+    pw = page.shape[2]
+    if page.stride() != (1, 4 * pw, 4) or page.data_ptr() % 8 != 0:
+        raise ValueError(
+            f"page: the sample kernel takes the (4, PH, PW) view of a channel-interleaved (PH, PW, 4) array "
+            f"(interleave_page), strides (1, {4 * pw}, 4); got strides {page.stride()}"
+        )
 
 
 def sample_tiles(gbuf, page, plan, camera_position, *, tiles_x, tiles_y, tile_h, tile_w,
                  max_anisotropy, light_direction, light_color, ambient_amount, specular_power,
                  clear_color, blend="alpha"):
     """Texture, light and blend every pixel of the G-buffer gbuf
-    (A_OUT, Hp, Wp) from the bf16 page (4, PH, PW) through the window plan
-    from plan_tiles; camera_position (3,) f32. Returns the (4, Hp, Wp) f32
+    (A_OUT, Hp, Wp) from the bf16 page, the (4, PH, PW) view that
+    interleave_page gives, with the plan from plan_tiles (read for the
+    tiles' classes); camera_position (3,) f32. Returns the (4, Hp, Wp) f32
     linear framebuffer (sampler.py sample_tiles, with the residual tiles
-    already shaded). CPU tensors run the plain version; CUDA tensors launch
-    csrc/sampler.cu."""
+    already shaded). CPU tensors run the plain version, on any (4, PH, PW)
+    page; CUDA tensors launch csrc/sampler.cu."""
     kw = dict(
         light_direction=light_direction, light_color=light_color, ambient_amount=ambient_amount,
         specular_power=specular_power, clear_color=clear_color, blend=blend,
     )
-    table, assign = plan["table"], plan["assign"]
-    if not _k.use_kernel(gbuf, page, table, assign, camera_position):
+    table = plan["table"]
+    if not _k.use_kernel(gbuf, page, table, camera_position):
         return sample_tiles_plain(
             gbuf, page, plan, camera_position, tiles_x=tiles_x, tiles_y=tiles_y, tile_h=tile_h,
             tile_w=tile_w, max_anisotropy=max_anisotropy, **kw,
         )
     hp, wp = tiles_y * tile_h, tiles_x * tile_w
     _k.check(gbuf, "gbuf", torch.float32, (A_OUT, hp, wp))
-    _k.check(page, "page", torch.bfloat16)
-    if page.dim() != 3 or page.shape[0] != 4:
-        raise ValueError(f"page: expected (4, PH, PW), got {tuple(page.shape)}")
+    _check_page(page)
     _k.check(table, "plan table", torch.int32, (tiles_x * tiles_y, 8, 128))
-    _k.check(assign, "plan assign", torch.float32, (2, hp, wp))
     _k.check(camera_position, "camera_position", torch.float32, (3,))
-    rc = rc_for(tile_h)
-    if rc * tile_w > MAX_CHUNK_PX:
-        raise ValueError(f"the sample kernel takes chunks of at most {MAX_CHUNK_PX} px")
     params = (ctypes.c_float * N_PARAMS)(*shade_params(**kw))
     out = torch.empty((4, hp, wp), dtype=torch.float32, device=gbuf.device)
     _build.call(
-        "tr_sample", gbuf, page, page.shape[1], page.shape[2], table, assign, camera_position,
-        tiles_x, tiles_y, tile_h, tile_w, rc, max_anisotropy, ctypes.addressof(params), out,
+        "tr_sample", gbuf, page, page.shape[2], table, camera_position,
+        tiles_x, tiles_y, tile_h, tile_w, max_anisotropy, ctypes.addressof(params), out,
     )
     _k.LAUNCHES["sample"] += 1
     return out

@@ -6,8 +6,9 @@ keyword arguments and the same output dict. A frame runs
   corner transform -> triangle setup/cull -> pair binning      (torch ops)
   -> raster kernel, then one of
        forward + window: attribute pack (torch) -> resolve kernel
-           -> plan kernel (texel windows per tile) -> sample kernel
-              (texturing + lighting + blend)
+           -> plan kernel (texel windows per tile: the empty tiles and
+              the residual pixel count) -> sample kernel (texturing from
+              the page + lighting + blend)
        forward + gather: attribute pack -> resolve kernel
            -> shade_gbuffer (atlas row gathers + lighting, torch ops)
        deferred: shade-row pack -> shade_deferred (per-pixel fat-row
@@ -131,10 +132,10 @@ def render_frame(
                 **light, **tiles,
             )
             # No segment schedule, so nothing is dropped beyond the
-            # binner's huge-face overflow. Pixels of residual tiles (more
-            # windows than the plan's budget) are sampled straight from
-            # the page, and counted as the reference counts its gather
-            # fallback.
+            # binner's huge-face overflow. Every tile is sampled straight
+            # from the page; the pixels of residual tiles (more windows
+            # than the plan's budget) are counted as the reference counts
+            # its gather fallback.
             window_miss_px = plan["residual_px"]
         else:
             framebuffer = shade.shade_gbuffer(
