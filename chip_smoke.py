@@ -20,7 +20,9 @@ eight generated 1024^2 BC4 textures with full mip chains), and then, at
      page layout and warp shapes are timed beside the shipped one;
   2. runs the microbenchmark probes at the tools' sizes against their
      plain versions, bit for bit: vmem_take (4096x16 f32 table, 2,073,600
-     indices) and plane_scale on a (24, 1088, 1920) G-buffer in its three
+     indices; then an odd row count, a count of indices that fills no whole
+     warp, indices outside the table and an index array off the 16-byte
+     grid) and plane_scale on a (24, 1088, 1920) G-buffer in its three
      launch geometries;
   3. the window main path: renders a warm-up frame plus 8 frames of an
      orbiting camera through tpurast_torch.renderer.Renderer, checks that
@@ -39,12 +41,30 @@ eight generated 1024^2 BC4 textures with full mip chains), and then, at
      its two samplers, tests/test_sampler.py:76);
   6. the deferred path (shading="deferred"), the same frames: raster
      launches once per frame and nothing else; color and depth equal to
-     the gather path's bit for bit.
+     the gather path's bit for bit;
+  7. the runtime path: tpurast_torch.cli.main in-process for --scene orbit
+     at 1920x1080, 32 frames after 4 warm-up frames, with --stages. Its JSON
+     line is printed and checked: parity_max_lsb <= 1, dropped_pairs 0,
+     backend "cuda", and every render kernel's launch counter equal to the
+     frames the run rendered (gate, warm-up, timed loop, present loop and
+     the stage prefixes that reach the kernel), the probes' at 0. Then an
+     Engine at its default 1280x720 over the same scene for 8 ticks under a
+     scripted controller: None first, every later image (720, 1280, 4) u8,
+     nothing dropped, the camera moved, and the last presented image equal
+     to render_to_host of the same camera; a Presenter given CUDA frames
+     of changing shapes hands each back as given. The read-back's copy is timed
+     alone (one 1080p frame into pinned memory) beside the bench's
+     present_ms_per_frame and p50_frame_ms.
+
+The run writes nothing but the kernels' build: the scene cache is off
+(TPURAST_TORCH_SCENE_CACHE=0 unless the caller set it). The whole run takes
+about 100 s on an H100; should it ever pass 150 s, the gather and deferred
+phases are the ones to cut from 4 frames to 2.
 
 Each path prints its frame times and a per-stage breakdown; the window
 path also prints, per stage, the device operations torch.profiler counts
 and their device time beside the stage's event time. Earlier lines give
-the plan and sample kernels' registers and resident blocks per SM, the
+the plan, sample and vmem_take kernels' registers and resident blocks per SM, the
 plan's windows-per-tile histogram and the probes a warp runs (its worst
 lane's) beside the mean per pixel. Each kernel
 also gets its bound: the larger of the bytes it must move over the card's
@@ -56,14 +76,17 @@ tile's pair count, the (pair, pixel) evaluations of the pairs' pixel
 rectangles and the kernel's device time by operation, and plane_scale is
 timed beside torch.mul(gbuf[plane], 2), the one PyTorch call that computes
 the same. Any failure raises. The last stdout line is {"ok": true,
-"device": ...}; the line before it lists each kernel's launches, error,
-times, bound and library time.
+"device": ...}; the line before it lists each kernel's launches (on the
+window path for the render kernels, on the microbenchmark path for the
+probes; runtime_launches on the bench run), error, times, bound and
+library time.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import io
 import json
 import os
 import subprocess
@@ -75,10 +98,16 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from tpurast_torch import cli  # noqa: E402
 from tpurast_torch import kernels as K  # noqa: E402
+from tpurast_torch.camera import MoveDirection  # noqa: E402
 from tpurast_torch.config import RendererConfig  # noqa: E402
-from tpurast_torch.device.scene import build_orbit_scene, orbit_track  # noqa: E402
+from tpurast_torch.device.scene import orbit_track  # noqa: E402
+from tpurast_torch.device.scene_cache import load_named_scene  # noqa: E402
+from tpurast_torch.engine import Engine  # noqa: E402
 from tpurast_torch.kernels import _build, geometry, present, probes, raster, resolve, sampler, shade  # noqa: E402
+from tpurast_torch.present import Presenter  # noqa: E402
+from tpurast_torch.profiling import STAGES  # noqa: E402
 from tpurast_torch.renderer import Renderer  # noqa: E402
 from tpurast_torch.tools import microbench, microbench_pipeline  # noqa: E402
 from tpurast_torch.tools.microbench import device_ms  # noqa: E402
@@ -181,27 +210,6 @@ def raster_work(so, bins, th, tw, tx) -> dict:
     units = int(((bins["counts"] + raster.UNIT_PAIRS - 1) // raster.UNIT_PAIRS).sum())
     return dict(pairs=n, faces=int(torch.unique(faces).numel()), densest=int(bins["counts"].max()), evals=evals,
                 units=units)
-
-
-@contextlib.contextmanager
-def plain_kernels():
-    """Route render_frame's kernel calls to their plain torch versions."""
-    swaps = [
-        (raster, "rasterize_tiles", raster.rasterize_tiles_plain),
-        (resolve, "resolve_gbuffer", resolve.resolve_gbuffer_plain),
-        (sampler, "plan_tiles", sampler.plan_tiles_plain),
-        (sampler, "sample_tiles", sampler.sample_tiles_plain),
-        (probes, "vmem_take", probes.vmem_take_plain),
-        (probes, "plane_scale", probes.plane_scale_plain),
-    ]
-    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
-    for mod, name, plain in swaps:
-        setattr(mod, name, plain)
-    try:
-        yield
-    finally:
-        for mod, name, fn in saved:
-            setattr(mod, name, fn)
 
 
 def check(cond: bool, what: str) -> None:
@@ -448,6 +456,16 @@ def probe_phases(dev) -> dict:
           f"{out['vmem_take']['max_abs_err']}; {out['vmem_take']['ms']:.4f} ms vs plain "
           f"{out['vmem_take']['plain_ms']:.4f} ms")
     check(bad == 0, "vmem_take kernel disagrees with its plain version")
+    # Shapes that stress the design: an odd row count, a count of indices
+    # that fills no whole warp or block, rows outside the table (clamped),
+    # an index array that starts off the 16-byte grid, one row.
+    for rows, n_idx, off in ((4095, n, 0), (4096, 1_000_003, 0), (4096, 1_000_003, 1), (7, 33, 0), (1, 5, 0)):
+        tab = torch.rand((rows, 16), generator=microbench.generator(dev, 3), device=dev)
+        wild = torch.randint(-3, rows + 3, (n_idx + off,), generator=microbench.generator(dev, 4), device=dev,
+                             dtype=torch.int32)[off:]
+        same = bool(torch.equal(probes.vmem_take(tab, wild), probes.vmem_take_plain(tab, wild)))
+        print(f"vmem_take {rows} rows, {n_idx} indices in [-3, {rows + 3}), array offset {off}: equal to plain {same}")
+        check(same, f"vmem_take disagrees with its plain version at {rows} rows, {n_idx} indices")
 
     gbuf = torch.rand((24, 1088, 1920), generator=microbench.generator(dev, 0), device=dev)
     one = gbuf[16:17].clone()
@@ -675,6 +693,127 @@ def gather_paths(scene, cams, window_frames) -> None:
           f"gather-only (1 row/px) {sd['gather_only_ms']:.3f} ms, trilerp-only {sd['trilerp_only_ms']:.3f} ms")
 
 
+BENCH_FRAMES, BENCH_WARMUP = 32, 4
+
+
+def readback_ms(height: int, width: int) -> tuple[float, int]:
+    """Milliseconds of one (height, width, 4) u8 frame's copy from the card
+    into pinned host memory (CUDA events, mean of 20 after one), and its
+    bytes."""
+    src = torch.zeros((height, width, 4), dtype=torch.uint8, device="cuda")
+    dst = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
+    return cuda_ms(lambda: dst.copy_(src, non_blocking=True), 20), src.numel()
+
+
+def present_breakdown(r: Renderer, cams, frames: int = 24) -> None:
+    """Where a frame of the present loop spends the host's time: enqueueing
+    the render, Presenter.present (interleave launch, events, the copy's
+    launch, the wait for the frame before, and the copy out of the pinned
+    buffer), beside that last copy and the interleave kernel alone."""
+    presenter = Presenter()
+    render_ms, present_ms = [], []
+    t_loop = time.perf_counter()
+    for k in range(frames):
+        t0 = time.perf_counter()
+        color = r.render(cams[k % len(cams)])["color"]
+        t1 = time.perf_counter()
+        presenter.present(color)
+        t2 = time.perf_counter()
+        render_ms.append((t1 - t0) * 1e3)
+        present_ms.append((t2 - t1) * 1e3)
+    presenter.flush()
+    loop_ms = (time.perf_counter() - t_loop) * 1e3 / frames
+    torch.cuda.synchronize()
+    pinned = torch.empty((HEIGHT, WIDTH, 4), dtype=torch.uint8, pin_memory=True)
+    t0 = time.perf_counter()
+    for _ in range(20):
+        pinned.numpy().copy()
+    copy_out_ms = (time.perf_counter() - t0) * 1e3 / 20
+    interleave_ms = device_ms(lambda: color.permute(1, 2, 0).contiguous(), 20)
+    print(f"present loop breakdown, {frames} frames at {WIDTH}x{HEIGHT}, host ms a frame (median): render enqueue "
+          f"{np.median(render_ms):.3f}, Presenter.present {np.median(present_ms):.3f} (mean {np.mean(present_ms):.3f}, "
+          f"max {np.max(present_ms):.3f}), loop {loop_ms:.3f}; alone: copy of a frame out of the pinned buffer "
+          f"{copy_out_ms:.3f} ms of host time, interleave kernel {fmt_ms(interleave_ms)} ms of device time")
+
+
+def runtime_path(scene, seed: int) -> dict:
+    """The bench entry point in-process, then the Engine; returns the render
+    kernels' launches on the bench run."""
+    argv = ["--scene", "orbit", "--width", str(WIDTH), "--height", str(HEIGHT), "--frames", str(BENCH_FRAMES),
+            "--warmup", str(BENCH_WARMUP), "--stages", "--seed", str(seed)]
+    K.reset_launches()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(argv)
+    launches = dict(K.LAUNCHES)
+    lines = out.getvalue().strip().splitlines()
+    print(f"runtime path: python -m tpurast_torch.cli {' '.join(argv)} -> exit {rc} in "
+          f"{time.perf_counter() - t0:.1f} s, launches {launches}")
+    check(rc == 0 and len(lines) == 1, f"the bench exited {rc} with {len(lines)} lines")
+    print(lines[0])
+    res = json.loads(lines[0])
+    check(res["parity_max_lsb"] is not None and res["parity_max_lsb"] <= 1, "the bench's parity gate")
+    check(res["dropped_pairs"] == 0, f"the bench dropped {res['dropped_pairs']} pairs")
+    check(res["backend"] == "cuda" and res["device"] == torch.cuda.get_device_name(0), "the bench's device")
+    check(res["triangles"] == scene.n_faces and res["frames"] == BENCH_FRAMES, "the bench's scene")
+    # Frames that reach each kernel: the gate's kernel frame, the warm-up,
+    # the timed loop, the present loop, and warm-up + frames of every stage
+    # prefix from the kernel's own stage on ("frame" included).
+    loops = 1 + BENCH_WARMUP + BENCH_FRAMES + min(BENCH_FRAMES, cli.PRESENT_FRAMES)
+    per_prefix = cli.SWEEP_WARMUP + cli.SWEEP_FRAMES
+    prefixes = [s or "frame" for s in STAGES]
+    for name in KERNELS:
+        want = loops + per_prefix * (len(prefixes) - prefixes.index(name)) if name in RENDER_KERNELS else 0
+        check(launches[name] == want, f"runtime path: {name} launched {launches[name]} times, want {want}")
+    check(list(res["stage_ms"]) == prefixes, "the bench's stage_ms keys")
+    copy_ms, nbytes = readback_ms(HEIGHT, WIDTH)
+    print(f"present loop: {res['present_ms_per_frame']:.4f} ms a frame with the double-buffered read-back against "
+          f"{res['p50_frame_ms']:.4f} ms a frame without ({res['present_ms_per_frame'] - res['p50_frame_ms']:+.4f}); "
+          f"one read-back is {nbytes} B, {copy_ms:.4f} ms alone into pinned memory "
+          f"({nbytes / copy_ms / 1e6:.2f} GB/s)")
+    print("stage_sweep (differences of prefix medians, each prefix with its probe's sums) ms: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in res["stage_ms"].items()))
+
+    # The Presenter on CUDA frames whose shape changes between calls: each
+    # pinned buffer is allocated anew, and every frame comes back as given.
+    gen = microbench.generator(torch.device("cuda"), 5)
+    shapes = [(4, 8, 16), (4, 8, 16), (4, 5, 7), (4, 8, 16), (4, 5, 7)]
+    sent = [torch.randint(0, 256, sh, generator=gen, device="cuda", dtype=torch.uint8) for sh in shapes]
+    presenter = Presenter()
+    back = [presenter.present(f) for f in sent] + [presenter.flush()]
+    check(back[0] is None and all(np.array_equal(b, f.permute(1, 2, 0).cpu().numpy())
+                                  for b, f in zip(back[1:], sent)), "presenter: a frame came back changed")
+    print(f"presenter: {len(sent)} CUDA frames of shapes {shapes} came back as given, one call late")
+
+    # The Engine at its default target, started on the scene's camera track
+    # (Engine.init's start lies in this scene's floor plane).
+    eng = Engine(scene=scene, overlay=False)
+    eng.camera = orbit_track(FRAMES)[0]
+    start = eng.camera.position.copy()
+
+    def controller(i):
+        return MoveDirection(forward=True), (12.0 if i % 2 else -8.0, 3.0)
+
+    images = [eng.tick(*controller(i)) for i in range(8)]
+    final_camera = eng.camera
+    tail = eng.presenter.flush()
+    check(images[0] is None, "engine: the first tick handed out an image")
+    for img in images[1:] + [tail]:
+        check(img is not None and img.shape == (720, 1280, 4) and img.dtype == np.uint8, "engine: image shape")
+    moved = float(np.linalg.norm(eng.camera.position - start))
+    check(moved > 0 and eng.frame_index == 8, "engine: the camera did not move")
+    check(eng.dropped_total == 0, f"engine: {eng.dropped_total} pairs dropped")
+    want = eng.renderer.render_to_host(final_camera)
+    same = bool(np.array_equal(tail, want))
+    distinct = sum(not np.array_equal(a, b) for a, b in zip(images[1:], images[2:] + [tail]))
+    print(f"engine: 8 ticks at {eng.renderer.width}x{eng.renderer.height}, p50 {eng.stats.p50_ms:.3f} ms a tick, camera "
+          f"moved {moved:.4f}, window_miss_px {eng.window_miss_total}, {distinct} of 7 consecutive images differ; "
+          f"last presented image equal to render_to_host of its camera {same}")
+    check(same and distinct == 7, "engine: the read-back path did not return the frame it was given")
+    return launches
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -682,6 +821,7 @@ def main() -> None:
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this script needs a GPU")
+    os.environ.setdefault("TPURAST_TORCH_SCENE_CACHE", "0")
     smi = subprocess.run(
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
@@ -697,12 +837,12 @@ def main() -> None:
         if any(k in line for k in ("entry function", "registers", "spill", "error")):
             print("  nvcc:", line.strip())
     _build.library()
-    for name in ("plan", "sample"):
+    for name in ("plan", "sample", "vmem_take"):
         regs, blocks = _build.kernel_info(name)
         print(f"{name} kernel: {regs} registers per thread, {blocks} resident blocks per SM")
 
     t0 = time.perf_counter()
-    scene = build_orbit_scene(seed=args.seed)
+    scene = load_named_scene("orbit", seed=args.seed)
     cams = orbit_track(FRAMES)
     cfg = RendererConfig(width=WIDTH, height=HEIGHT)
     r = Renderer(scene, cfg)  # on the card: the default device
@@ -731,7 +871,7 @@ def main() -> None:
     print("window_miss_px per frame (pixels of residual tiles, sampled straight from the page): "
           + ", ".join(str(int(f["window_miss_px"])) for f in frames))
 
-    with plain_kernels():
+    with K.plain_kernels():
         plain = r.render(cams[0])
     torch.cuda.synchronize()
     lsb = int((plain["color"].int() - frames[0]["color"].int()).abs().max())
@@ -753,13 +893,15 @@ def main() -> None:
           f"({take['ns_per_row']:.4f} ns/row); pipeline " + json.dumps({k: round(v, 4) for k, v in pipe.items()}))
 
     gather_paths(scene, cams, frames)
+    runtime_launches = runtime_path(scene, args.seed)
+    present_breakdown(r, cams)
 
     print("device ms per call (torch.profiler), kernel vs plain: " + "; ".join(
         f"{name} {fmt_ms(stats[name]['dev_ms'])} vs {fmt_ms(stats[name]['plain_dev_ms'])}" for name in KERNELS))
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     report = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep, "launches": launches[name],
-         **{k: stats[name][k] for k in keys}}
+         "runtime_launches": runtime_launches[name], **{k: stats[name][k] for k in keys}}
         for name, (src, rep) in KERNELS.items()
     ]
     print(json.dumps({"kernels": report}))

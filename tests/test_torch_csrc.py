@@ -20,10 +20,12 @@ and two-dimensional launches), barriers, static shared memory, atomics
 (real ones: a block's threads run concurrently), the warp-wide integer
 reductions and read-only vector loads behind csrc/common.cuh's helpers,
 and float4, int4 and uint2 only; a path that needs more (asynchronous
-copies, dynamic shared memory) is compiled out. The vmem_take probe
-stages its table in dynamic shared memory, so csrc/probes.cu leaves it
-out of the emulation (#ifndef TR_HOST_EMU) and only the card checks it;
-the plane_scale probe is held here to its plain version exactly, in the
+copies, dynamic shared memory, clusters) would be compiled out. The
+vmem_take probe (four lanes per table row, the row number and the running
+sum passed by warp shuffles) is held to its plain version bit for bit at
+the shapes that stress it: an odd row count, a count of indices that fills
+no whole warp or block, indices outside the table, an index array off the
+16-byte grid; the plane_scale probe is held here to its plain version exactly, in the
 microbenchmark's three launch geometries and at widths and block widths
 that leave rows off the 16-byte grid. The raster kernel also runs the
 adversarial faces of tests/test_torch_raster.py, among them a tile whose
@@ -45,10 +47,6 @@ from tpurast_torch.renderer import Renderer
 from test_torch_raster import ADVERSARIAL, A_TILES_X, A_TILES_Y, AH, AW, adversarial_clip
 from test_torch_scene import numpy_bc_decoders  # noqa: F401  (module-wide autouse)
 
-# Entry points csrc/*.cu compile only for the card (dynamic shared memory).
-NOT_EMULATED = {"tr_vmem_take"}
-
-
 @pytest.fixture(scope="module")
 def emu(tmp_path_factory):
     cxx = shutil.which("g++")
@@ -61,10 +59,7 @@ def emu(tmp_path_factory):
     proc = subprocess.run(cmd, capture_output=True, text=True)
     assert proc.returncode == 0, proc.stderr
     lib = ctypes.CDLL(str(out))
-    assert not hasattr(lib, "tr_vmem_take")
     for name, argtypes in _build.SIGNATURES.items():
-        if name in NOT_EMULATED:
-            continue
         getattr(lib, name).argtypes = argtypes
         getattr(lib, name).restype = ctypes.c_int
     return lib
@@ -345,3 +340,23 @@ def test_plane_scale_kernel(emu, plane, block_h, block_w, height, width):
     for threads in (16, 2048):
         assert emu.tr_plane_scale(src.data_ptr(), plane, height, width, block_h, block_w, threads, out.data_ptr(),
                                   None) != 0
+
+
+@pytest.mark.parametrize(
+    "rows,n,offset",
+    [(4096, 1000, 0), (4095, 999, 0), (33, 130, 1), (1, 5, 0), (64, 32, 0), (7, 0, 0)],
+    ids=["tool_table", "odd_rows_ragged_n", "unaligned_idx", "one_row", "one_warp", "no_index"],
+)
+def test_vmem_take_kernel(emu, rows, n, offset):
+    """Bit for bit the plain version: the left-to-right sum carried across
+    the four lanes of a row, the last warp and block partly past n, rows
+    outside [0, rows) clamped, and an index array that starts off the
+    16-byte grid."""
+    rng = np.random.default_rng(rows + n)
+    table = torch.from_numpy(rng.uniform(-1, 1, (rows, probes.TAKE_WIDTH)).astype(np.float32))
+    idx = torch.from_numpy(rng.integers(-3, rows + 3, n + offset).astype(np.int32))[offset:]
+    out = torch.full((n,), -7.0)
+    assert emu.tr_vmem_take(table.data_ptr(), rows, idx.data_ptr(), n, out.data_ptr(), None) == 0
+    assert torch.equal(out, probes.vmem_take_plain(table, idx))
+    assert emu.tr_vmem_take(table.data_ptr() + 4, rows, idx.data_ptr(), n, out.data_ptr(), None) != 0
+    assert emu.tr_vmem_take(table.data_ptr(), 0, idx.data_ptr(), n, out.data_ptr(), None) != 0

@@ -12,7 +12,12 @@ of the reference's host modules agree with the originals.
     decoders, numpy and native, on seeded random blocks (the reference
     decodes no BC1, BC3, BC5 or signed BC4, so neither package does);
     build_atlas, fallback_texture and build_pages field for field;
-    interleave.
+    interleave; and the runtime's copies: replicate_model and _quad_draw
+    draw for draw, FrameStats' and Engine's constants, the stage order of
+    profiling, and the bench's command line (every option of the
+    reference's, with its default, plus the port's own). The named-scene
+    loaders read the reference's data directory and are held to their
+    originals where it is mounted (tests/test_torch_runtime.py).
 """
 
 import ast
@@ -27,17 +32,24 @@ import numpy as np
 import pytest
 
 from tpurast import camera as ref_camera
+from tpurast import cli as ref_cli
 from tpurast import config as ref_config
+from tpurast import engine as ref_engine
 from tpurast import math3d as ref_math3d
+from tpurast import overlay as ref_overlay
 from tpurast import present as ref_present
+from tpurast import profiling as ref_profiling
+from tpurast.assets import gltf as ref_gltf
 from tpurast.assets import bcdec as ref_bcdec
 from tpurast.assets import ktx2 as ref_ktx2
 from tpurast.assets import ktx2_write as ref_ktx2_write
 from tpurast.device import pages as ref_pages
+from tpurast.device import scene as ref_scene
 from tpurast.device import textures as ref_textures
-from tpurast_torch import camera, config, math3d
-from tpurast_torch.assets import bcdec, ktx2, ktx2_write, native
-from tpurast_torch.device import pages, textures
+from tpurast_torch import camera, cli, config, engine, math3d, overlay, profiling
+from tpurast_torch import present as runtime_present
+from tpurast_torch.assets import bcdec, gltf, ktx2, ktx2_write, native
+from tpurast_torch.device import pages, scene, textures
 from tpurast_torch.kernels import present
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
@@ -54,8 +66,11 @@ for name in names:
 import chip_smoke
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("tpurast", "jax") and sys.modules[m] is not None)
 assert not loaded, loaded
-print(len(names))
+print(" ".join(names))
 """
+
+# Modules the runtime slice added; the walk must reach each of them.
+RUNTIME_MODULES = {"cli", "engine", "present", "overlay", "profiling", "device.scene_cache"}
 
 
 def test_port_imports_without_the_reference_package():
@@ -64,7 +79,9 @@ def test_port_imports_without_the_reference_package():
         env={k: v for k, v in os.environ.items() if k != "PYTHONPATH"}, cwd=REPO / "tests",
     )
     assert proc.returncode == 0, proc.stderr[-3000:]
-    assert int(proc.stdout.split()[-1]) >= 25  # every module was walked
+    walked = set(proc.stdout.split())
+    assert len(walked) >= 31  # every module was walked
+    assert {f"tpurast_torch.{m}" for m in RUNTIME_MODULES} <= walked
 
 
 def _forbidden(name: str) -> bool:
@@ -96,7 +113,9 @@ PORT_FILES = sorted(p for p in (REPO / "tpurast_torch").rglob("*.py") if "_build
 
 
 def test_no_file_of_the_port_imports_tpurast_or_jax():
-    assert len(PORT_FILES) >= 25
+    assert len(PORT_FILES) >= 31
+    assert {m.replace(".", "/") + ".py" for m in RUNTIME_MODULES} <= {
+        str(p.relative_to(REPO / "tpurast_torch")) for p in PORT_FILES[:-1]}
     bad = {str(p.relative_to(REPO)): n for p in PORT_FILES for n in _imports(p) if _forbidden(n) or n == "<computed>"}
     assert not bad, bad
 
@@ -257,3 +276,71 @@ def test_interleave_matches_reference(shape):
     got, want = present.interleave(img), ref_present.interleave(img)
     assert got.flags["C_CONTIGUOUS"] == want.flags["C_CONTIGUOUS"]
     np.testing.assert_array_equal(got, want)
+    assert runtime_present.interleave is present.interleave  # one definition
+
+
+def _draws_equal(got, want):
+    assert len(got.draws) == len(want.draws) and got.image_uris == want.image_uris
+    for a, b in zip(got.draws, want.draws):
+        assert [f.name for f in dataclasses.fields(a)] == [f.name for f in dataclasses.fields(b)]
+        for f in dataclasses.fields(b):
+            x, y = getattr(a, f.name), getattr(b, f.name)
+            if isinstance(y, np.ndarray):
+                assert x.dtype == y.dtype
+                np.testing.assert_array_equal(x, y, err_msg=f.name)
+            else:
+                assert x == y, f.name
+
+
+@pytest.mark.parametrize("normal_up", [True, False])
+def test_quad_draw_and_replicate_model_match_reference(normal_up):
+    rng = np.random.default_rng(11)
+    args = ((0.5, -1.0), 8.0, 6.0, 1.8, 8.0, "mem://quad.ktx2")
+    quad, ref_quad = scene._quad_draw(*args, normal_up=normal_up), ref_scene._quad_draw(*args, normal_up=normal_up)
+    model = gltf.GltfModel(draws=[quad], image_uris=["mem://quad.ktx2"])
+    ref_model = ref_gltf.GltfModel(draws=[ref_quad], image_uris=["mem://quad.ktx2"])
+    _draws_equal(model, ref_model)
+    transforms = [math3d.trs(_vec(rng), _quat(rng), np.abs(_vec(rng)) + 0.5) for _ in range(5)]
+    _draws_equal(scene.replicate_model(model, transforms), ref_scene.replicate_model(ref_model, transforms))
+
+
+def test_frametime_overlay_matches_reference():
+    pytest.importorskip("PIL")
+    frame = np.random.default_rng(2).integers(0, 256, (48, 320, 4), dtype=np.uint8)
+    got, want = overlay.draw_frametime_overlay(frame, 1.33230), ref_overlay.draw_frametime_overlay(frame, 1.33230)
+    assert got.shape == want.shape and got.dtype == want.dtype
+    np.testing.assert_array_equal(got, want)
+    assert (got != frame).any() and (got[40:] == frame[40:]).all()  # a box at the top, nothing below it
+
+
+def test_runtime_constants_match_reference():
+    assert profiling.STAGES == ref_profiling.STAGES
+    assert engine.Engine.MAX_TIMESTEP == ref_engine.Engine.MAX_TIMESTEP
+    assert inspect.signature(overlay.FrameStats).parameters["window"].default == \
+        inspect.signature(ref_overlay.FrameStats).parameters["window"].default
+    ref_tick, tick = inspect.signature(ref_engine.Engine.tick), inspect.signature(engine.Engine.tick)
+    assert list(tick.parameters) == list(ref_tick.parameters)
+    assert list(inspect.signature(engine.Engine.run).parameters) == list(
+        inspect.signature(ref_engine.Engine.run).parameters)
+    assert list(inspect.signature(profiling.stage_sweep).parameters)[:4] == list(
+        inspect.signature(ref_profiling.stage_sweep).parameters)
+
+
+def test_bench_command_line_keeps_the_reference_options():
+    def options(parser):
+        return {a.dest: a for a in parser._actions if a.dest != "help"}
+
+    port, ref = options(cli._build_parser()), options(ref_cli._build_parser())
+    assert set(port) - set(ref) == {"device", "seed"}
+    for dest, action in ref.items():
+        assert port[dest].option_strings == action.option_strings
+        if dest == "data_dir":
+            assert port[dest].default is None  # no path of any machine in the port
+        elif dest == "scene":
+            assert port[dest].default == action.default
+            assert set(port[dest].choices) == set(action.choices) | {"orbit"}
+        else:
+            assert (port[dest].default, port[dest].choices, port[dest].type) == (
+                action.default, action.choices, action.type), dest
+    assert port["device"].default == "cuda"
+    assert [c for c in cli.ALL_CONFIGS if c[1] != "orbit_1080p"] == ref_cli.ALL_CONFIGS

@@ -6,8 +6,10 @@
     rebuilt here at a small size and run with interpret=True. vmem_take:
     within 4e-6 absolute (4 ulp of a 16-term sum of values in [0, 1): the
     Pallas body sums in XLA's order, the port left to right), and equal
-    to numpy's left-to-right f32 sum exactly. plane_scale: exact, in the
-    three launch geometries;
+    to numpy's left-to-right f32 sum exactly, also at an odd row count, a
+    ragged index count (the shapes the card holds the kernel to), and with
+    indices outside the table against numpy alone. plane_scale: exact, in the three launch
+    geometries;
   * the wrappers take the plain versions for CPU tensors;
   * each tools.microbench subcommand function and tools.microbench_pipeline
     run at a tiny size with a timer that calls once, and the helpers they
@@ -102,6 +104,35 @@ def test_vmem_take_plain_matches_pallas_kernel():
     for j in range(1, 16):
         left_to_right = left_to_right + table[idx, j]
     np.testing.assert_array_equal(got, left_to_right)
+
+
+@pytest.mark.parametrize(
+    "rows,n,keep,blk",
+    [(63, 512, 512, 128), (64, 512, 475, 128), (4095, 256, 219, 256)],
+    ids=["odd_rows", "ragged_n", "tool_rows_less_one_ragged"],
+)
+def test_vmem_take_plain_at_the_shapes_the_card_checks(rows, n, keep, blk):
+    """The shapes chip_smoke.py adds for the kernel: an odd row count and a
+    count of indices that is no multiple of the kernel's warp or block (the
+    Pallas grid takes whole blocks, so the ragged count is cut from a padded
+    run). Indices outside the table are the port's own rule, clamped into
+    it: the tool passes none, and the Pallas body's jnp.take would fill
+    their sums with NaN, so they are held to numpy alone."""
+    rng = np.random.default_rng(rows)
+    table = rng.uniform(0, 1, (rows, 16)).astype(np.float32)
+    idx = rng.integers(0, rows, n).astype(np.int32)
+    want = np.asarray(_pallas_vmem_take(jnp.asarray(table), jnp.asarray(idx), blk))[:keep]
+    got = probes.vmem_take(torch.from_numpy(table), torch.from_numpy(idx[:keep])).numpy()
+    assert got.shape == (keep,)
+    np.testing.assert_allclose(got, want, rtol=0, atol=4e-6)
+    wild = rng.integers(0, rows, keep).astype(np.int32)
+    wild[::7] = np.resize(np.array([-4, -1, rows, rows + 3], np.int32), wild[::7].shape)
+    clamped = np.clip(wild, 0, rows - 1)
+    left_to_right = table[clamped, 0]
+    for j in range(1, 16):
+        left_to_right = left_to_right + table[clamped, j]
+    np.testing.assert_array_equal(probes.vmem_take(torch.from_numpy(table), torch.from_numpy(wild)).numpy(),
+                                  left_to_right)
 
 
 def test_vmem_take_wrapper_on_cpu_and_index_clamp():

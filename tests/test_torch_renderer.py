@@ -23,7 +23,9 @@ gather sampler; the Renderer's sampler, texture dtype and texel format
 chosen as the reference's are, and the atlas rows uploaded only for the
 gather paths. Also the Renderer surface: output="gbuf" and "linear",
 frame_uniforms, render_to_host, the zero-extent recreate_swapchain, and
-the paths this slice leaves to later work raising NotImplementedError.
+the paths left to later work (scan binning, slabs) raising
+NotImplementedError. The runtime (stage= prefixes, Engine, Presenter, the
+bench) is held in tests/test_torch_runtime.py.
 """
 
 import dataclasses
@@ -223,20 +225,11 @@ def test_unported_config_raises(scene, change, item):
     [
         (dict(tile_row_offset=0), "item 12"),
         (dict(crop_height=64), "item 12"),
-        (dict(stage="raster"), "item 13"),
     ],
 )
 def test_unported_frame_options_raise(port, cam, change, item):
     with pytest.raises(NotImplementedError, match=item):
         render_frame(port.scene, *port.frame_uniforms(cam), **dict(port._frame_kwargs, **change))
-
-
-@pytest.mark.parametrize("name", ["Engine", "Presenter"])
-def test_unported_runtime_raises(name):
-    import tpurast_torch
-
-    with pytest.raises(NotImplementedError, match="item 13"):
-        getattr(tpurast_torch, name)
 
 
 def test_renderer_runs_on_the_card_unless_asked_for_the_cpu():

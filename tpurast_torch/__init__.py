@@ -8,9 +8,12 @@ shading paths and both samplers render: forward shading through the
 texel-window sampler (the default) or the row-atlas gather, and deferred
 shading, over atlas rows in float32, float16, bfloat16 or srgb8.
 ``tpurast_torch.tools`` holds the device microbenchmarks, with CUDA
-kernels for the reference tools' Pallas probes. Scan binning, slabs,
-``stage=`` prefixes and the runtime (Engine, Presenter) are not ported
-yet and raise NotImplementedError.
+kernels for the reference tools' Pallas probes. The runtime is here too:
+``Engine`` (frame loop, fly camera, frame statistics), ``Presenter``
+(double-buffered read-back through pinned memory), ``render_frame``'s
+``stage=`` prefixes with ``profiling.stage_sweep``, the bench's named
+scenes and ``python -m tpurast_torch.cli``, the benchmark entry point. Scan
+binning and slabs are not ported yet and raise NotImplementedError.
 
 It imports torch and never jax, and nothing of ``tpurast``: the host-side
 numpy modules it needs are its own copies under the same names (config,
@@ -19,15 +22,18 @@ device.textures, device.pages and device.scene, and present.interleave in
 kernels/present.py).
 """
 
-_NOT_PORTED = {
-    "Engine": "item 13 (runtime)",
-    "Presenter": "item 13 (runtime)",
-}
+from tpurast_torch.config import RendererConfig  # noqa: F401
 
 
 def __getattr__(name: str):
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"tpurast_torch.{name} is not ported yet (ROADMAP queue 1 {_NOT_PORTED[name]})"
-        )
+    # Engine and Presenter import torch: resolved on first use, so that
+    # importing the package stays as cheap as importing its config.
+    if name == "Engine":
+        from tpurast_torch.engine import Engine
+
+        return Engine
+    if name == "Presenter":
+        from tpurast_torch.present import Presenter
+
+        return Presenter
     raise AttributeError(f"module 'tpurast_torch' has no attribute {name!r}")

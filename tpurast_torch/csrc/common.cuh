@@ -85,5 +85,63 @@ __device__ __forceinline__ uint2 ldg_u2(const uint2* p) {
 #endif
 }
 
+// A value of another lane of the calling warp: warp_shfl_* of lane `src`,
+// warp_shfl_up_f of the lane `delta` below (a lane with none below gets its
+// own). All 32 lanes must call. shfl.sync on the card; in the host
+// emulation the warp's threads exchange at their own barrier (host_emu.h).
+__device__ __forceinline__ int warp_shfl_i(int v, int src) {
+#ifdef TR_HOST_EMU
+  return tr_emu_warp_shfl(v, src);
+#else
+  return __shfl_sync(0xffffffffu, v, src);
+#endif
+}
+
+__device__ __forceinline__ float warp_shfl_f(float v, int src) {
+#ifdef TR_HOST_EMU
+  return __uint_as_float((unsigned)tr_emu_warp_shfl((int)__float_as_uint(v), src));
+#else
+  return __shfl_sync(0xffffffffu, v, src);
+#endif
+}
+
+__device__ __forceinline__ float warp_shfl_up_f(float v, int delta) {
+#ifdef TR_HOST_EMU
+  const int lane = tr_emu_tid - tr_emu_warp_base;
+  return __uint_as_float((unsigned)tr_emu_warp_shfl((int)__float_as_uint(v), lane >= delta ? lane - delta : lane));
+#else
+  return __shfl_up_sync(0xffffffffu, v, delta);
+#endif
+}
+
+// 16-byte load through the read-only data path (ld.global.nc), for data
+// that many threads read again; p is 16-byte aligned.
+__device__ __forceinline__ float4 ldg_f4(const float4* p) {
+#ifdef TR_HOST_EMU
+  return *p;
+#else
+  return __ldg(p);
+#endif
+}
+
+// Streaming 4-byte load and store (ld.global.cs, st.global.cs: evict
+// first), for data that passes once and should not push reused lines out
+// of L1 / L2.
+__device__ __forceinline__ int ld_stream_i(const int* p) {
+#ifdef TR_HOST_EMU
+  return *p;
+#else
+  return __ldcs(p);
+#endif
+}
+
+__device__ __forceinline__ void st_stream_f(float* p, float v) {
+#ifdef TR_HOST_EMU
+  *p = v;
+#else
+  __stcs(p, v);
+#endif
+}
+
 // The float a bfloat16's 16 bits stand for.
 __device__ __forceinline__ float bf16_bits(unsigned bits) { return __uint_as_float(bits << 16); }

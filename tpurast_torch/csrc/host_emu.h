@@ -7,7 +7,8 @@
 // structs. Every 32 consecutive threads of a block form a warp with a
 // barrier of its own, at which the warp-wide reductions behind
 // common.cuh's warp_min_i / warp_max_i / warp_add_i meet (all of a warp's
-// threads must call them, as with a full mask on the card). Only for
+// threads must call them, as with a full mask on the card), and the
+// shuffles behind warp_shfl_i / warp_shfl_f / warp_shfl_up_f too. Only for
 // checking the kernels' logic against their plain torch versions where
 // there is no GPU (tests/test_torch_csrc.py); the library the port loads
 // is always built by nvcc.
@@ -60,6 +61,16 @@ int tr_emu_warp_reduce(int v, Op op) {
   tr_emu_warp_barrier->arrive_and_wait();
   int r = tr_emu_lanes[tr_emu_warp_base];
   for (int i = 1; i < tr_emu_warp_size; ++i) r = op(r, tr_emu_lanes[tr_emu_warp_base + i]);
+  tr_emu_warp_barrier->arrive_and_wait();  // all have read before the next write
+  return r;
+}
+
+// The value of lane `src` of the calling thread's warp (its own where the
+// warp has no such lane).
+inline int tr_emu_warp_shfl(int v, int src) {
+  tr_emu_lanes[tr_emu_tid] = v;
+  tr_emu_warp_barrier->arrive_and_wait();
+  const int r = src >= 0 && src < tr_emu_warp_size ? tr_emu_lanes[tr_emu_warp_base + src] : v;
   tr_emu_warp_barrier->arrive_and_wait();  // all have read before the next write
   return r;
 }

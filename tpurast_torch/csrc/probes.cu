@@ -3,23 +3,29 @@
 // vmem_take replaces the Pallas kernel of tools/microbench.py cmd_vmemtake
 // (run, the kernel body at :256-258): out[i] = sum_j table[idx[i], j] for
 // a 4096 x 16 f32 table held in on-chip memory and 2,073,600 int32
-// indices. The TPU kernel keeps the whole 256 KB table in VMEM. Here the
-// table stays on chip too, but a block may hold at most 227 KB of shared
-// memory, so each block stages it in two halves (rows [0, h) and [h, R),
-// h = ceil(R / 2), 139,264 B each with the row stride padded to 17 words)
-// as dynamic shared memory, and gives each of its indices its row sum
-// during the pass that holds the row. The 17-word stride spreads the rows
-// a warp reads over the 32 banks (a 16-word stride would put every row on
-// the same two). Sums run left to right over the 16
-// columns, as the plain version (kernels/probes.py) adds them, so the two
-// agree bit for bit. An index outside [0, R) is clamped into it (JAX's
-// gather semantics). What bounds it: staging the table, 272 KB from L2
-// per block of 8,192 indices (~70 MB over the frame's 254 blocks), against
-// 16.6 MB of index and output traffic. A 2-block cluster that reads the
-// partner's half through distributed shared memory would stage each
-// half once per pair; that is later work. The host emulation
-// (host_emu.h) models static shared memory only, so this kernel is left
-// out of it.
+// indices. The TPU kernel keeps the whole 256 KB table in VMEM. On the card
+// the table's on-chip home is the caches: 256 KB is at home in every SM's
+// L1 and in L2, so nothing is staged and no block waits at a barrier. What
+// bounds such a gather is not bytes (16.6 MB of indices and sums, 0.005 ms
+// at 3.35 TB/s) but how many cache lines one load instruction touches: with
+// a thread per index a warp's 16-byte load reads 32 rows and takes 32 tag
+// lookups for 512 bytes. Here kTakeLanes = 4 neighbouring lanes share a row
+// and load its four 16-byte quarters (ld.global.nc), so a warp's load reads
+// 8 whole rows: 8 lines, 16 fully used sectors. A warp takes 32 indices
+// (one coalesced 128-byte streaming load), and in each of 4 rounds its 8
+// lane groups take 8 of them (the row number by shuffle). The sum runs left
+// to right over the 16 columns, as the plain version (kernels/probes.py)
+// adds them, so the two agree bit for bit: quarter 0's lane adds its four
+// columns, hands the sum to quarter 1's lane by shuffle, and so on; three
+// steps, the lanes of the later quarters redoing theirs with the final
+// carry. The sums return to the lanes that own the indices by shuffle and
+// leave as one coalesced streaming store. An index outside [0, R) is clamped
+// into it (the port's rule; the tool passes none). Designs measured on an
+// H100 and not kept (PERF.md has the times): the table staged in shared
+// memory in two halves per block (the TPU design carried over), each half
+// staged once per 2-block cluster and the partner's read through
+// distributed shared memory, the halves split over pairs of blocks, and a
+// thread per index with four 16-byte loads.
 //
 // plane_scale replaces the three Pallas kernels of
 // tools/microbench_pipeline.py main (:32-45, :60-73, :86-97): out =
@@ -48,11 +54,9 @@
 
 namespace {
 
-constexpr int kTakeWidth = 16;
-constexpr int kTakeStride = kTakeWidth + 1;
-constexpr int kTakeMaxRows = 4096;
-constexpr int kTakeThreads = 512;
-constexpr int kTakePerThread = 16;
+constexpr int kTakeLanes = 4;                // lanes that share a row, one 16-byte quarter each
+constexpr int kTakeGroups = 32 / kTakeLanes;  // rows a warp reads per round
+constexpr int kTakeThreads = 128;
 constexpr int kScaleThreads = 512;
 constexpr int kScaleBigThreads = 1024;  // for rectangles of kScaleBigMoves moves and more
 constexpr int kScaleBigMoves = 8192;
@@ -129,48 +133,46 @@ __global__ void __launch_bounds__(1024, 2)
   }
 }
 
-#ifndef TR_HOST_EMU
-__global__ void __launch_bounds__(kTakeThreads)
-    vmem_take_kernel(const float* __restrict__ table, int rows, const int* __restrict__ idx, long long n,
-                     float* __restrict__ out) {
-  extern __shared__ float half_table[];
-  const int half = (rows + 1) / 2;
-  const long long base = (long long)blockIdx.x * kTakeThreads * kTakePerThread + threadIdx.x;
-  int row[kTakePerThread];
-  float acc[kTakePerThread];
-#pragma unroll
-  for (int k = 0; k < kTakePerThread; ++k) {
-    const long long i = base + (long long)k * kTakeThreads;
-    row[k] = i < n ? min(max(idx[i], 0), rows - 1) : -1;
-    acc[k] = 0.0f;
-  }
-  for (int pass = 0; pass < 2; ++pass) {
-    const int r0 = pass * half;
-    const int r1 = min(rows, r0 + half);
-    const float* src = table + (long long)r0 * kTakeWidth;
-    for (int j = threadIdx.x; j < (r1 - r0) * kTakeWidth; j += kTakeThreads) {
-      half_table[(j / kTakeWidth) * kTakeStride + j % kTakeWidth] = src[j];
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < kTakePerThread; ++k) {
-      if (row[k] >= r0 && row[k] < r1) {
-        const float* r = half_table + (row[k] - r0) * kTakeStride;
-        float s = r[0];
-#pragma unroll
-        for (int c = 1; c < kTakeWidth; ++c) s += r[c];
-        acc[k] = s;
-      }
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int k = 0; k < kTakePerThread; ++k) {
-    const long long i = base + (long long)k * kTakeThreads;
-    if (i < n) out[i] = acc[k];
-  }
+// s + v.x + v.y + v.z + v.w, left to right.
+__device__ __forceinline__ float add4(float s, float4 v) {
+  s += v.x;
+  s += v.y;
+  s += v.z;
+  s += v.w;
+  return s;
 }
-#endif
+
+// Thread t of the grid owns index t, so warp w takes [32 w, 32 w + 32);
+// every lane of a warp runs every step (the shuffles take the full mask),
+// and a lane past n reads row 0 and stores nothing.
+__global__ void __launch_bounds__(kTakeThreads)
+    vmem_take_kernel(const float4* __restrict__ table4, int rows, const int* __restrict__ idx, long long n,
+                     float* __restrict__ out) {
+  const int lane = threadIdx.x & 31;
+  const int part = lane % kTakeLanes, grp = lane / kTakeLanes;
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const int row = i < n ? min(max(ld_stream_i(idx + i), 0), rows - 1) : 0;
+  float4 v[kTakeLanes];
+#pragma unroll
+  for (int k = 0; k < kTakeLanes; ++k) {
+    const long long r = warp_shfl_i(row, k * kTakeGroups + grp);
+    v[k] = ldg_f4(table4 + 4 * r + part);
+  }
+  float res = 0.0f;
+#pragma unroll
+  for (int k = 0; k < kTakeLanes; ++k) {
+    float cur = ((v[k].x + v[k].y) + v[k].z) + v[k].w;  // final for quarter 0
+#pragma unroll
+    for (int step = 1; step < kTakeLanes; ++step) {
+      const float nxt = add4(warp_shfl_up_f(cur, 1), v[k]);
+      if (part >= step) cur = nxt;  // final for quarter `step`
+    }
+    // The group's last lane holds the sum of index k * kTakeGroups + grp.
+    const float got = warp_shfl_f(cur, kTakeLanes * (lane % kTakeGroups) + kTakeLanes - 1);
+    if (lane / kTakeGroups == k) res = got;
+  }
+  if (i < n) st_stream_f(out + i, res);
+}
 
 }  // namespace
 
@@ -197,20 +199,24 @@ extern "C" int tr_plane_scale(const float* in, int plane, int height, int width,
   return (int)cudaGetLastError();
 }
 
-#ifndef TR_HOST_EMU
 extern "C" int tr_vmem_take(const float* table, int rows, const int* idx, long long n, float* out,
                             void* stream) {
-  if (rows < 1 || rows > kTakeMaxRows) return (int)cudaErrorInvalidValue;
-  const int half = (rows + 1) / 2;
-  const int smem = half * kTakeStride * (int)sizeof(float);
-  cudaError_t err =
-      cudaFuncSetAttribute(vmem_take_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  const long long per_block = (long long)kTakeThreads * kTakePerThread;
-  const int blocks = (int)((n + per_block - 1) / per_block);
+  if (rows < 1 || (uintptr_t)table % 16 != 0) return (int)cudaErrorInvalidValue;
+  const long long blocks = (n + kTakeThreads - 1) / kTakeThreads;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   if (blocks > 0) {
-    vmem_take_kernel<<<blocks, kTakeThreads, smem, (cudaStream_t)stream>>>(table, rows, idx, n, out);
+    TR_LAUNCH(vmem_take_kernel, dim3((unsigned)blocks), dim3(kTakeThreads), stream,
+              reinterpret_cast<const float4*>(table), rows, idx, n, out);
   }
   return (int)cudaGetLastError();
+}
+
+#ifndef TR_HOST_EMU
+extern "C" int tr_vmem_take_info(int* registers, int* blocks_per_sm) {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, vmem_take_kernel);
+  if (err != cudaSuccess) return (int)err;
+  *registers = attr.numRegs;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, vmem_take_kernel, kTakeThreads, 0);
 }
 #endif

@@ -3,8 +3,11 @@
 ``DeviceScene``, ``_pad_to``, ``_round_up`` and ``build_scene`` are
 copies of tpurast/device/scene.py's (DeviceScene without device(), which
 imports jax): the same fields, so a scene built by either package renders
-through the port. ``load_demo_scene`` is the reference's
-load_demo_scene over this build_scene.
+through the port. ``load_demo_scene`` and the bench's named scenes
+(``replicate_model``, ``load_instanced_dragons``, ``load_hdr_scene``,
+``load_porsche_class_scene``) are the reference's loaders over this
+build_scene; they read the reference's data directory (meshes/,
+textures/), which is not part of the repository.
 
 ``upload(scene, device, texture_dtype=None)`` is the port's counterpart of
 DeviceScene.device(): the frame's inputs as torch tensors on ``device``.
@@ -26,6 +29,7 @@ seed, with no files from outside the repository.
 from __future__ import annotations
 
 import dataclasses
+import glob
 import logging
 import math
 import os
@@ -348,6 +352,158 @@ def load_demo_scene(data_dir: str, include_porsche: bool = True) -> DeviceScene:
             log.warning("%s missing from data dir (stripped blob?) — skipped", rel)
             continue
         models.append(load_glb(path, post_transform=post))
+    return build_scene(models, data_dir=data_dir)
+
+
+def replicate_model(model: GltfModel, transforms: list[np.ndarray]) -> GltfModel:
+    """Instancing: one draw record per instance transform
+    (tpurast/device/scene.py replicate_model). Instances share the source
+    arrays (no vertex copy on host); the flat scene build emits a primitive
+    record per instance, so the corner tables treat instances like any
+    other primitive."""
+    draws = []
+    for t in transforms:
+        for d in model.draws:
+            draws.append(
+                dataclasses.replace(
+                    d,
+                    model_matrix=math3d.compose(d.model_matrix, t),
+                    normal_matrix=math3d.normal_matrix(math3d.compose(d.model_matrix, t)),
+                )
+            )
+    return GltfModel(draws=draws, image_uris=model.image_uris)
+
+
+def load_instanced_dragons(data_dir: str, count: int = 64, spacing: float = 0.35) -> DeviceScene:
+    """BASELINE config #4 scene: dragon x N in a grid (default 8x8)."""
+    up = math3d.WORLD_SPACE.up.vector()
+    dragon = load_glb(
+        os.path.join(data_dir, "meshes/stanford_dragon.glb"),
+        post_transform=math3d.translation(up * -1.0),
+    )
+    side = int(np.ceil(np.sqrt(count)))
+    transforms = []
+    for i in range(count):
+        gx, gz = i % side, i // side
+        offs = np.array(
+            [(gx - (side - 1) / 2) * spacing, 0.0, (gz - (side - 1) / 2) * spacing],
+            dtype=np.float32,
+        )
+        transforms.append(math3d.translation(offs))
+    return build_scene([replicate_model(dragon, transforms)], data_dir=data_dir)
+
+
+def _quad_draw(center, size_x, size_z, y, uv_scale, image_uri, normal_up=True) -> PrimitiveDraw:
+    """Procedural textured floor/ceiling quad (world-space verts)."""
+    hx, hz = size_x / 2, size_z / 2
+    cx, cz = center
+    positions = np.array(
+        [
+            [cx - hx, y, cz - hz],
+            [cx + hx, y, cz - hz],
+            [cx + hx, y, cz + hz],
+            [cx - hx, y, cz + hz],
+        ],
+        dtype=np.float32,
+    )
+    n = np.array([0.0, -1.0 if normal_up else 1.0, 0.0], dtype=np.float32)
+    # Winding: front-facing (CCW in y-down framebuffer coords) when seen
+    # from the -Y (up) side.
+    indices = np.array([0, 1, 2, 0, 2, 3] if normal_up else [0, 2, 1, 0, 3, 2], np.uint32)
+    uvs = np.array([[0, 0], [uv_scale, 0], [uv_scale, uv_scale], [0, uv_scale]], np.float32)
+    return PrimitiveDraw(
+        positions=positions,
+        normals=np.broadcast_to(n, (4, 3)).copy(),
+        uvs=uvs,
+        indices=indices,
+        model_matrix=math3d.mat4_identity(),
+        normal_matrix=np.eye(3, dtype=np.float32),
+        image_uri=image_uri,
+        material_name="procedural",
+        node_name="quad",
+    )
+
+
+def load_hdr_scene(data_dir: str) -> DeviceScene:
+    """BASELINE config #3: BC6H HDR base color + BC4u monochrome maps,
+    full mip chains, trilinear.
+
+    Geometry: two crates textured with the shipped BC6H assets
+    (hdr_bc6u: true HDR radiances up to 65504; missing_bc6u: 8-mip
+    chain) over a floor quad textured with a GENERATED BC4u KTX2 (written
+    without zstd supercompression, so that the port needs no zstandard)."""
+    up = math3d.WORLD_SPACE.up.vector()
+    crate = load_glb(
+        os.path.join(data_dir, "meshes/crate.glb"),
+        post_transform=math3d.compose(math3d.scaling(0.4), math3d.translation(up * -1.4)),
+    )
+    crate_hdr = GltfModel(
+        draws=[dataclasses.replace(d, image_uri="textures/hdr_bc6u.ktx2") for d in crate.draws],
+        image_uris=["textures/hdr_bc6u.ktx2"],
+    )
+    crate2 = load_glb(
+        os.path.join(data_dir, "meshes/crate.glb"),
+        post_transform=math3d.compose(
+            math3d.scaling(0.4), math3d.translation(up * -1.4 + np.array([1.0, 0, 0]))
+        ),
+    )
+    crate_mips = GltfModel(
+        draws=[dataclasses.replace(d, image_uri="textures/missing_bc6u.ktx2") for d in crate2.draws],
+        image_uris=["textures/missing_bc6u.ktx2"],
+    )
+    # Generated BC4u stripes (full mip chain exercises trilinear).
+    y, x = np.mgrid[0:256, 0:256]
+    stripes = (((x // 8) % 2) * 220 + 20).astype(np.uint8)
+    floor = GltfModel(
+        draws=[_quad_draw((0.0, 0.0), 8.0, 8.0, 1.8, 8.0, "mem://bc4_stripes.ktx2")],
+        image_uris=["mem://bc4_stripes.ktx2"],
+    )
+    return build_scene(
+        [floor, crate_hdr, crate_mips],
+        data_dir=data_dir,
+        memory_assets={"mem://bc4_stripes.ktx2": bc4_blob(stripes)},
+    )
+
+
+def load_porsche_class_scene(data_dir: str, max_textures: int = 11) -> DeviceScene:
+    """BASELINE config #2 stand-in: the reference's data directory ships
+    the Porsche's BC7 textures without its mesh. This scene exercises the
+    multi-material / high-res-texture path the Porsche would: dragons +
+    crates, each draw bound to a different Porsche 2048x2048 BC7 texture
+    (full mip chains), arena around them.
+
+    When porche.glb is present, load_demo_scene picks it up instead.
+    """
+    uris = sorted(
+        os.path.relpath(p, data_dir)
+        for p in glob.glob(os.path.join(data_dir, "textures/porche/*.ktx2"))
+    )[:max_textures]
+    if not uris:
+        raise FileNotFoundError("no porsche textures in data dir")
+
+    arena = load_glb(os.path.join(data_dir, "meshes/arena.glb"))
+    dragon = load_glb(os.path.join(data_dir, "meshes/stanford_dragon.glb"))
+    crate = load_glb(os.path.join(data_dir, "meshes/crate.glb"))
+    models = [arena]
+    for i, uri in enumerate(uris):
+        src = dragon if i % 2 == 0 else crate
+        gx, gz = i % 4, i // 4
+        post = math3d.compose(
+            math3d.scaling(2.0 if src is dragon else 0.25),
+            math3d.translation(
+                np.array([(gx - 1.5) * 0.8, 1.0 if src is dragon else 1.25, (gz - 1.0) * 0.8], np.float32)
+            ),
+        )
+        draws = [
+            dataclasses.replace(
+                d,
+                image_uri=uri,
+                model_matrix=math3d.compose(d.model_matrix, post),
+                normal_matrix=math3d.normal_matrix(math3d.compose(d.model_matrix, post)),
+            )
+            for d in src.draws
+        ]
+        models.append(GltfModel(draws=draws, image_uris=[uri]))
     return build_scene(models, data_dir=data_dir)
 
 

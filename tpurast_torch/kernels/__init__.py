@@ -23,12 +23,20 @@ kernel's plain torch version (in the same module), which is what the CPU
 tests run; CUDA tensors launch the CUDA kernel, and a failed build or
 launch raises. There is no fallback from one to the other.
 
+``plain_kernels()`` is the counterpart of tpurast.kernels.force_interpret: a
+context in which the wrappers take their plain versions for CUDA tensors
+too, so that one frame can be rendered both ways on the same device. Only
+a comparison enters it (the bench's parity gate, chip_smoke.py, the
+tests), never a frame loop.
+
 Each wrapper adds one to its entry of ``LAUNCHES`` when it launches its
 CUDA kernel, and nowhere else, so a run can show that the main path went
 through the kernels.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -41,15 +49,30 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
+_plain_depth = 0  # nesting depth of plain_kernels()
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Within the context every kernel wrapper runs its plain torch version,
+    on CUDA tensors too (and counts no launch)."""
+    global _plain_depth
+    _plain_depth += 1
+    try:
+        yield
+    finally:
+        _plain_depth -= 1
+
+
 def use_kernel(*tensors: torch.Tensor) -> bool:
     """True when the tensors live on one CUDA device (launch the kernel),
-    False when they all live on the CPU (run the plain version). Anything
-    else is an error."""
+    False when they all live on the CPU (run the plain version) or, inside
+    plain_kernels(), on one CUDA device. Anything else is an error."""
     devices = {t.device for t in tensors}
     if {d.type for d in devices} == {"cpu"}:
         return False
     if len(devices) == 1 and next(iter(devices)).type == "cuda":
-        return True
+        return _plain_depth == 0
     raise ValueError(f"kernel inputs must all be on the CPU or all on one CUDA device, got {devices}")
 
 

@@ -2,7 +2,8 @@
 
 The sources have a plain C interface, so they compile with nvcc alone (no
 PyTorch headers) into one shared library that ctypes loads: seconds per
-build instead of minutes. The library lands in tpurast_torch/_build/,
+build instead of minutes. Each source compiles in an nvcc of its own, all
+started together, and one more call links the objects. The library lands in tpurast_torch/_build/,
 named by a hash of the sources and flags, so an edited source rebuilds
 and an unchanged one loads the existing file. This is the pattern of
 tpurast/assets/native.py without its fallback: if nvcc is missing or the
@@ -16,6 +17,7 @@ its launch, which ``call`` turns into an exception.
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import functools
 import hashlib
@@ -23,6 +25,7 @@ import os
 import pathlib
 import shutil
 import subprocess
+import tempfile
 import time
 
 import torch
@@ -39,7 +42,6 @@ NVCC_FLAGS = [
     # eager torch plain versions (edge functions decide coverage).
     "--fmad=false",
     "-Xptxas=-v",
-    "-shared",
     "-Xcompiler",
     "-fPIC",
 ]
@@ -87,6 +89,13 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
+def _nvcc(cmd: list[str]) -> str:
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
+    return proc.stdout + proc.stderr
+
+
 def build() -> tuple[pathlib.Path, float, str]:
     """Compile the library if it is not built yet. Returns (path, build
     seconds (0.0 when cached), nvcc's output)."""
@@ -95,18 +104,16 @@ def build() -> tuple[pathlib.Path, float, str]:
         return lib_path, 0.0, ""
     nvcc = nvcc_path()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp)]
-    cmd += [str(p) for p in _sources() if p.suffix == ".cu"]
+    srcs = [p for p in _sources() if p.suffix == ".cu"]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}"
-        )
-    os.replace(tmp, lib_path)
-    return lib_path, seconds, proc.stdout + proc.stderr
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [str(pathlib.Path(tmp) / f"{p.stem}.o") for p in srcs]
+        with concurrent.futures.ThreadPoolExecutor(len(srcs)) as pool:
+            logs = list(pool.map(_nvcc, [[nvcc, *NVCC_FLAGS, "-c", str(p), "-o", o] for p, o in zip(srcs, objs)]))
+        linked = str(pathlib.Path(tmp) / lib_path.name)
+        logs.append(_nvcc([nvcc, "-shared", "-o", linked, *objs]))
+        os.replace(linked, lib_path)
+    return lib_path, time.perf_counter() - t0, "".join(logs)
 
 
 @functools.cache
@@ -118,7 +125,7 @@ def library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-    for name in ("tr_plan_info", "tr_sample_info"):
+    for name in ("tr_plan_info", "tr_sample_info", "tr_vmem_take_info"):
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
         fn.restype = ctypes.c_int
@@ -128,8 +135,8 @@ def library() -> ctypes.CDLL:
 
 
 def kernel_info(name: str) -> tuple[int, int]:
-    """(registers per thread, resident blocks per SM) of the "plan" or
-    "sample" kernel as built, from the CUDA runtime."""
+    """(registers per thread, resident blocks per SM) of the "plan",
+    "sample" or "vmem_take" kernel as built, from the CUDA runtime."""
     regs, blocks = ctypes.c_int(), ctypes.c_int()
     err = getattr(library(), f"tr_{name}_info")(ctypes.byref(regs), ctypes.byref(blocks))
     if err != 0:

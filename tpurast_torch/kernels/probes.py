@@ -15,15 +15,15 @@ import torch
 from tpurast_torch import kernels as _k
 from tpurast_torch.kernels import _build
 
-#: Table width and the most rows csrc/probes.cu stages (two halves of
-#: 2048 rows fit the shared memory of one block).
+#: Table width of csrc/probes.cu vmem_take: a row is four 16-byte quarters.
 TAKE_WIDTH = 16
-MAX_TAKE_ROWS = 4096
 
 
 def vmem_take_plain(table, idx) -> torch.Tensor:
     """out[i] = sum_j table[idx[i], j], the columns added left to right (as
-    the kernel adds them); idx is clamped into the table (JAX's gather)."""
+    the kernel adds them); an idx outside the table is clamped into it (the
+    port's rule: the tool's indices are all inside, and jnp.take would fill
+    the others' sums with NaN)."""
     rows = table[torch.clamp(idx.long(), 0, table.shape[0] - 1)]
     acc = rows[:, 0]
     for j in range(1, table.shape[1]):
@@ -32,15 +32,17 @@ def vmem_take_plain(table, idx) -> torch.Tensor:
 
 
 def vmem_take(table, idx) -> torch.Tensor:
-    """Row sums of table (R, 16) f32, R <= 4096, at idx (N,) int32:
-    (N,) f32. CPU tensors run the plain version; CUDA tensors launch
-    csrc/probes.cu vmem_take, which holds the table in shared memory."""
+    """Row sums of table (R, 16) f32 at idx (N,) int32: (N,) f32. CPU
+    tensors run the plain version; CUDA tensors launch csrc/probes.cu
+    vmem_take, which reads each row as four 16-byte quarters (the table's
+    first byte must lie on a 16-byte boundary) from the card's caches."""
     if not _k.use_kernel(table, idx):
         return vmem_take_plain(table, idx)
     _k.check(table, "table", torch.float32)
-    if table.dim() != 2 or table.shape[1] != TAKE_WIDTH or not 1 <= table.shape[0] <= MAX_TAKE_ROWS:
-        raise ValueError(f"table: expected (R, {TAKE_WIDTH}) with 1 <= R <= {MAX_TAKE_ROWS}, "
-                         f"got {tuple(table.shape)}")
+    if table.dim() != 2 or table.shape[1] != TAKE_WIDTH or table.shape[0] < 1:
+        raise ValueError(f"table: expected (R, {TAKE_WIDTH}) with R >= 1, got {tuple(table.shape)}")
+    if table.data_ptr() % 16 != 0:
+        raise ValueError("table: its first byte must lie on a 16-byte boundary")
     _k.check(idx, "idx", torch.int32)
     if idx.dim() != 1:
         raise ValueError(f"idx: expected (N,), got {tuple(idx.shape)}")

@@ -19,8 +19,10 @@ eagerly on the device its tensors live on: the kernels launch on a CUDA
 device and take their plain torch versions on the CPU (tpurast_torch.
 kernels). The Renderer picks the sampler as the reference does: window
 for forward shading when the scene has texture pages and the config
-asks for "auto" or "window", the row-atlas gather otherwise. Scan
-binning, slabs (tile_row_offset, crop_height) and stage= prefixes raise
+asks for "auto" or "window", the row-atlas gather otherwise.
+render_frame(stage=...) runs a prefix of the frame and returns a scalar
+probe of the stage's outputs (profiling.stage_sweep times the prefixes).
+Scan binning and slabs (tile_row_offset, crop_height) raise
 NotImplementedError naming the ROADMAP item that ports them.
 """
 
@@ -47,6 +49,22 @@ def _round_up(x: int, m: int) -> int:
 
 def _not_ported(what: str, item: str):
     return NotImplementedError(f"{what} is not ported to tpurast_torch yet (ROADMAP queue 1 {item})")
+
+
+#: The stage= prefixes of render_frame, in frame order. "segments" is the
+#: reference's static segment schedule, which the port does not have.
+STAGE_PREFIXES = ("geometry", "binning", "segments", "raster", "resolve", "plan", "sample")
+
+
+def _stage_probe(*tensors):
+    """{"stage_probe": f32 scalar}, the sum of a stage's outputs: what a
+    stage= prefix frame returns in place of the framebuffer, so that a
+    timed prefix runs exactly the work up to that stage and one read of
+    its outputs (tpurast/renderer.py _stage_probe)."""
+    s = torch.zeros((), dtype=torch.float32, device=tensors[0].device)
+    for t in tensors:
+        s = s + t.to(torch.float32).sum()
+    return {"stage_probe": s}
 
 
 def render_frame(
@@ -90,25 +108,44 @@ def render_frame(
     and unused. texture_format ("float" or "srgb8") is the texel format of
     the atlas rows the gather paths read.
     Returns {"color", "depth", "bin_overflow", "window_miss_px"}, or
-    {"gbuf", "depth", "fid"} for output="gbuf" with forward shading."""
+    {"gbuf", "depth", "fid"} for output="gbuf" with forward shading.
+
+    stage (one of STAGE_PREFIXES) stops the frame after that stage and
+    returns {"stage_probe": the f32 sum of the stage's outputs}: geometry
+    (setup, valid, aabb), binning (counts, offsets, pair_faces), raster
+    (depth and face id), resolve (the G-buffer), plan (table and
+    assignment), sample (the linear framebuffer). The port has no segment
+    schedule, so "segments" is the binning prefix once more. "resolve"
+    needs forward shading, "plan" and "sample" the window sampler: asked of
+    another path they raise ValueError, as an unknown name does."""
     del bin_capacity, segment_headroom
     if binning != "pairs":
-        raise _not_ported(f"binning={binning!r}", "(bin_triangles / scan)")
+        raise _not_ported(f"binning={binning!r}", "item 14 (bin_triangles / scan)")
     if tile_row_offset is not None or crop_height is not None:
         raise _not_ported("tile_row_offset / crop_height (slabs)", "item 12")
-    if stage is not None:
-        raise _not_ported(f"stage={stage!r}", "item 13 (profiling)")
+    if stage is not None and stage not in STAGE_PREFIXES:
+        raise ValueError(f"unknown stage {stage!r}: expected one of {STAGE_PREFIXES}")
+    if (stage == "resolve" and shading != "forward") or (
+        stage in ("plan", "sample") and (shading != "forward" or sampler != "window")
+    ):
+        raise ValueError(f"stage={stage!r} does not exist with shading={shading!r}, sampler={sampler!r}")
     if output not in ("srgb_u8", "linear", "gbuf"):
         raise ValueError(f"unknown output {output!r}")
 
     clip_c = geometry.transform_corners(scene["corner_world"], view_proj)
     setup_out = geometry.triangle_setup(clip_c, None, scene["n_faces"], width, height)
+    if stage == "geometry":
+        return _stage_probe(setup_out["setup"], setup_out["valid"], setup_out["aabb"])
     bins = geometry.bin_pairs(setup_out["aabb"], setup_out["valid"], tiles_x, tiles_y, tile_w, tile_h)
+    if stage in ("binning", "segments"):
+        return _stage_probe(bins["counts"], bins["offsets"], bins["pair_faces"])
     setup = setup_out["setup"]
     vis = raster.rasterize_tiles(
         setup, setup_out["aabb"], bins["pair_faces"], bins["offsets"], tile_h=tile_h, tile_w=tile_w,
         tiles_x=tiles_x, tiles_y=tiles_y, clear_depth=clear_depth,
     )
+    if stage == "raster":
+        return _stage_probe(vis)
     depth = vis[0]
     light = dict(
         light_direction=light_direction, light_color=light_color, ambient_amount=ambient_amount,
@@ -124,13 +161,19 @@ def render_frame(
         gbuf = resolve.resolve_gbuffer(vis, attrs, max_anisotropy=max_anisotropy)
         if output == "gbuf":
             return {"gbuf": gbuf, "depth": depth, "fid": vis[1].to(torch.int32)}
+        if stage == "resolve":
+            return _stage_probe(gbuf)
         if sampler == "window":
             tiles = dict(tiles_x=tiles_x, tiles_y=tiles_y, tile_h=tile_h, tile_w=tile_w)
             plan = ksampler.plan_tiles(gbuf, max_anisotropy=max_anisotropy, **tiles)
+            if stage == "plan":
+                return _stage_probe(plan["table"], plan["assign"])
             framebuffer = ksampler.sample_tiles(
                 gbuf, scene["atlas"]["page"], plan, camera_position, max_anisotropy=max_anisotropy,
                 **light, **tiles,
             )
+            if stage == "sample":
+                return _stage_probe(framebuffer)
             # No segment schedule, so nothing is dropped beyond the
             # binner's huge-face overflow. Every tile is sampled straight
             # from the page; the pixels of residual tiles (more windows
@@ -184,7 +227,7 @@ class Renderer:
         self.scene_host = scene
         self.output = output
         if cfg.binning not in ("auto", "pairs"):
-            raise _not_ported(f"binning={cfg.binning!r}", "(bin_triangles / scan)")
+            raise _not_ported(f"binning={cfg.binning!r}", "item 14 (bin_triangles / scan)")
         self.binning = "pairs"
         # tpurast/renderer.py:440-447: the window sampler for forward
         # shading when the scene has pages, the row-atlas gather otherwise.
