@@ -54,12 +54,32 @@ eight generated 1024^2 BC4 textures with full mip chains), and then, at
      to render_to_host of the same camera; a Presenter given CUDA frames
      of changing shapes hands each back as given. The read-back's copy is timed
      alone (one 1080p frame into pinned memory) beside the bench's
-     present_ms_per_frame and p50_frame_ms.
+     present_ms_per_frame and p50_frame_ms;
+  8. slabs and scan (after phase 6, on its renderers): raster and resolve
+     at a global row offset (the second slab of a 4-slab split of frame
+     0) against their plain versions (raster exact; resolve integer planes
+     exact, float planes phase 1's rule) and against the same rows of the
+     whole frame, bit for bit; parallel.make_sharded_renderer with 2 and 8
+     slabs on the window path and 2 on gather and on deferred, each frame
+     equal to the single Renderer frame bit for bit with the same
+     counters, raster (resolve, plan, sample where the path has them)
+     launched once per slab; Renderer(binning="scan"): a warm-up and 2
+     track frames equal to the pairs frames, frame 0's counts, offsets and
+     per-tile face sets equal to bin_pairs', and a pair buffer of half the
+     pairs counting the rest in overflow while the frame renders; the
+     binning stage's event ms under each binner and the slab frames' ms
+     beside the single frame's, with the card's name and power limit;
+  9. the analysis tools (tpurast_torch/tools: profile_stages,
+     sample_stage_probe, profile_sampler, sampler_plan_stats,
+     check_sampler, aniso_mode_stats, residual_analysis, sampler_sim)
+     once each in-process on the scene already built, at 1920x1080
+     (check_sampler at its 256x128) and 2 frames, their lines printed.
 
 The run writes nothing but the kernels' build: the scene cache is off
-(TPURAST_TORCH_SCENE_CACHE=0 unless the caller set it). The whole run takes
-about 100 s on an H100; should it ever pass 150 s, the gather and deferred
-phases are the ones to cut from 4 frames to 2.
+(TPURAST_TORCH_SCENE_CACHE=0 unless the caller set it), and the tools'
+G-buffer dump lives in a temporary directory. The whole run takes about
+100 s on an H100; should it ever pass 150 s, the tools' frame counts are the
+first to cut, then the gather and deferred phases from 4 frames to 2.
 
 Each path prints its frame times and a per-stage breakdown; the window
 path also prints, per stage, the device operations torch.profiler counts
@@ -78,7 +98,8 @@ timed beside torch.mul(gbuf[plane], 2), the one PyTorch call that computes
 the same. Any failure raises. The last stdout line is {"ok": true,
 "device": ...}; the line before it lists each kernel's launches (on the
 window path for the render kernels, on the microbenchmark path for the
-probes; runtime_launches on the bench run), error, times, bound and
+probes; runtime_launches on the bench run, slab_launches on the 8-slab
+window frame, scan_launches on the scan track), error, times, bound and
 library time.
 """
 
@@ -91,6 +112,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -106,10 +128,13 @@ from tpurast_torch.device.scene import orbit_track  # noqa: E402
 from tpurast_torch.device.scene_cache import load_named_scene  # noqa: E402
 from tpurast_torch.engine import Engine  # noqa: E402
 from tpurast_torch.kernels import _build, geometry, present, probes, raster, resolve, sampler, shade  # noqa: E402
+from tpurast_torch.parallel import make_sharded_renderer  # noqa: E402
 from tpurast_torch.present import Presenter  # noqa: E402
 from tpurast_torch.profiling import STAGES  # noqa: E402
 from tpurast_torch.renderer import Renderer  # noqa: E402
-from tpurast_torch.tools import microbench, microbench_pipeline  # noqa: E402
+from tpurast_torch.tools import (aniso_mode_stats, check_sampler, microbench, microbench_pipeline,  # noqa: E402
+                                 profile_sampler, profile_stages, residual_analysis, sample_stage_probe,
+                                 sampler_plan_stats, sampler_sim)
 from tpurast_torch.tools.microbench import device_ms  # noqa: E402
 
 KERNELS = {
@@ -136,6 +161,9 @@ RASTER_FACE_BYTES = 18 * 4 + 4 * 4
 PROBE_KERNELS = ("vmem_take", "plane_scale")
 FRAMES = 8
 GATHER_FRAMES = 3
+SCAN_FRAMES = 2
+SLAB_SPLIT = 4  # raster and resolve at an offset: the second slab of this many
+SLABS = {"window": (2, 8), "gather": (2,), "deferred": (2,)}  # slab counts per path
 WIDTH, HEIGHT = 1920, 1080
 FLOAT_PLANES = [i for i in range(resolve.A_OUT) if i not in resolve.INT_PLANES]
 # G-buffer planes the functions read: the plan 6, 7, 9-12, 14-17, 20-23; the
@@ -645,9 +673,10 @@ def print_times(label: str, times, r: Renderer, cam) -> None:
           + f" (median {med:.2f}); device busy per frame {fmt_ms(busy)} ms, idle share {idle}")
 
 
-def gather_paths(scene, cams, window_frames) -> None:
+def gather_paths(scene, cams, window_frames) -> dict:
     """The gather and deferred paths on the first GATHER_FRAMES cameras,
-    held against the window path's frames and against each other."""
+    held against the window path's frames and against each other. Returns
+    {label: (its Renderer, its frames)}."""
     n_rendered = GATHER_FRAMES + 1
     track = cams[:GATHER_FRAMES]
     paths = {}
@@ -691,6 +720,179 @@ def gather_paths(scene, cams, window_frames) -> None:
     print(f"microbench shade on the orbit atlas {sd['atlas_shape']} {sd['atlas_dtype']} "
           f"({sd['atlas_mb']:.1f} MB), synthetic 1088x1920 G-buffer: full shade_gbuffer {sd['full_ms']:.3f} ms, "
           f"gather-only (1 row/px) {sd['gather_only_ms']:.3f} ms, trilerp-only {sd['trilerp_only_ms']:.3f} ms")
+    return paths
+
+
+def slab_kernels(r: Renderer, cam, card: str) -> None:
+    """Raster and resolve at a global row offset: the middle slab (the
+    second of four) of frame 0, each against its plain version (raster
+    exact; resolve integer planes exact, float planes kernel_phases' rule)
+    and against the same rows of the kernels' whole frame, bit for bit."""
+    kw = r._frame_kwargs
+    sc = r.scene
+    th, tw, tx = kw["tile_h"], kw["tile_w"], r.tiles_x
+    per = -(-r.tiles_y // SLAB_SPLIT)  # tile rows per slab, padded as parallel.py pads them
+    row0 = per
+    vp, _ = r.frame_uniforms(cam)
+    so = geometry.triangle_setup(geometry.transform_corners(sc["corner_world"], vp), None, sc["n_faces"],
+                                 kw["width"], kw["height"])
+    bins = geometry.bin_pairs(so["aabb"], so["valid"], tx, per, tw, th, ty_base=row0)
+    rkw = dict(tile_h=th, tile_w=tw, tiles_x=tx, tiles_y=per, clear_depth=kw["clear_depth"], tile_row_offset=row0)
+    args = (so["setup"], so["aabb"], bins["pair_faces"], bins["offsets"])
+    vis = raster.rasterize_tiles(*args, **rkw)
+    vis_p = raster.rasterize_tiles_plain(*args, **rkw)
+    full_bins = geometry.bin_pairs(so["aabb"], so["valid"], tx, r.tiles_y, tw, th)
+    full = raster.rasterize_tiles(so["setup"], so["aabb"], full_bins["pair_faces"], full_bins["offsets"],
+                                  **dict(rkw, tiles_y=r.tiles_y, tile_row_offset=0))
+    rows = slice(row0 * th, (row0 + per) * th)
+    torch.cuda.synchronize()
+    bad = int((vis != vis_p).sum())
+    same_rows = bool(torch.equal(vis, full[:, rows]))
+    covered = vis[1] >= 0
+    ms = cuda_ms(lambda: raster.rasterize_tiles(*args, **rkw), 20)
+    print(f"slab kernels: tile rows {row0}-{row0 + per - 1} of {r.tiles_y} (pixel rows {rows.start}-{rows.stop - 1}), "
+          f"{int(bins['offsets'][-1])} pairs, {int(covered.sum())} covered px; raster vs plain: {bad} values "
+          f"differ; equal to the whole frame's rows {same_rows}; {ms:.4f} ms [{card}]")
+    check(bad == 0 and same_rows and int(covered.sum()) > 10000, "raster at a row offset disagrees")
+
+    attrs = resolve.pack_resolve_attrs(so["setup"], sc["corner_world"], sc["corner_normal"], sc["corner_uv"],
+                                       sc["face_tex"], sc["atlas"])
+    ma = kw["max_anisotropy"]
+    g = resolve.resolve_gbuffer(vis, attrs, max_anisotropy=ma, tile_row_offset=row0, tile_h=th)
+    g_p = resolve.resolve_gbuffer_plain(vis, attrs, max_anisotropy=ma, tile_row_offset=row0, tile_h=th)
+    g_full = resolve.resolve_gbuffer(full, attrs, max_anisotropy=ma)
+    torch.cuda.synchronize()
+    flip = (g[19] != g_p[19]) & covered
+    keep = ~flip
+    int_bad = int(sum(((g[i] != g_p[i]) & keep).sum() for i in resolve.INT_PLANES))
+    float_bad = int((~torch.isclose(g[FLOAT_PLANES][:, keep], g_p[FLOAT_PLANES][:, keep], rtol=1e-5,
+                                    atol=1e-6)).sum())
+    same_rows = bool(torch.equal(g, g_full[:, rows]))
+    ms = cuda_ms(lambda: resolve.resolve_gbuffer(vis, attrs, max_anisotropy=ma, tile_row_offset=row0, tile_h=th), 20)
+    print(f"slab kernels: resolve vs plain: l0 flips {int(flip.sum())}, integer-plane values differing {int_bad}, "
+          f"float-plane values outside rtol 1e-5/atol 1e-6 {float_bad}; equal to the whole frame's rows {same_rows}; "
+          f"{ms:.4f} ms [{card}]")
+    check(int(flip.sum()) <= 0.001 * int(covered.sum()) and int_bad == 0 and float_bad == 0 and same_rows,
+          "resolve at a row offset disagrees")
+
+
+def slab_frames(renderers: dict, cam, card: str) -> dict:
+    """make_sharded_renderer against the single Renderer frame of cam: 2
+    and 8 slabs on the window path, 2 on gather and on deferred. Color and
+    depth equal bit for bit, the counters equal, raster (and on the forward
+    paths resolve, on the window path plan and sample) launched once per
+    slab, the counts from zero around each sharded frame. Returns the
+    launches of the last window frame (8 slabs)."""
+    window_launches = {}
+    for label, r in renderers.items():
+        vp, cp = r.frame_uniforms(cam)
+        single = r.render_with_uniforms(vp, cp)
+        single_ms = cuda_ms(lambda: r.render_with_uniforms(vp, cp), 5)
+        for n in SLABS[label]:
+            fn = make_sharded_renderer(r.scene, r.config, n, WIDTH, HEIGHT)
+            K.reset_launches()
+            out = fn(r.scene, vp, cp)
+            torch.cuda.synchronize()
+            launches = dict(K.LAUNCHES)
+            same = {k: bool(torch.equal(out[k], single[k])) for k in ("color", "depth")}
+            counters = [(int(out[k]), int(single[k])) for k in ("bin_overflow", "window_miss_px")]
+            ms = cuda_ms(lambda: fn(r.scene, vp, cp), 5)
+            print(f"slab frame, {label}, {n} slabs ({fn.keywords['tiles_y_per_slab']} tile rows each): equal to the "
+                  f"single frame {same}, bin_overflow / window_miss_px {counters}, launches {launches}; "
+                  f"{ms:.3f} ms a frame vs {single_ms:.3f} ms single [{card}]")
+            check(all(same.values()) and all(a == b for a, b in counters), f"{label}: {n} slabs differ from the frame")
+            want = {"raster": n, "resolve": n if label != "deferred" else 0,
+                    "plan": n if label == "window" else 0, "sample": n if label == "window" else 0}
+            for name in KERNELS:
+                check(launches[name] == want.get(name, 0),
+                      f"{label}, {n} slabs: {name} launched {launches[name]} times, want {want.get(name, 0)}")
+            if label == "window":
+                window_launches = launches
+    return window_launches
+
+
+def scan_path(scene, r: Renderer, cams, window_frames, card: str) -> dict:
+    """binning="scan": a warm-up frame and SCAN_FRAMES track frames equal
+    to the window path's pairs frames bit for bit; frame 0's counts,
+    offsets and per-tile face sets equal bin_pairs'; a pair buffer of half
+    the pairs counts the rest as overflow and the frame renders. Beside
+    it, the binning stage's event ms under each binner. Returns the
+    launches of the scan track."""
+    rs = Renderer(scene, RendererConfig(width=WIDTH, height=HEIGHT, binning="scan"))
+    K.reset_launches()
+    frames, times = run_track(rs, cams[:SCAN_FRAMES])
+    launches = dict(K.LAUNCHES)
+    n_rendered = SCAN_FRAMES + 1
+    print(f"scan path: bin_capacity {rs.bin_capacity}, {n_rendered} frames (1 warm-up), launches {launches}")
+    for name in KERNELS:
+        want = n_rendered if name in RENDER_KERNELS else 0
+        check(launches[name] == want, f"scan: {name} launched {launches[name]} times for {n_rendered} frames")
+    for k, f in enumerate(frames):
+        same = all(bool(torch.equal(f[x], window_frames[k][x])) for x in ("color", "depth"))
+        check(same and int(f["bin_overflow"]) == 0, f"scan frame {k} differs from the pairs frame")
+    print_times("scan", times, rs, cams[0])
+
+    kw = rs._frame_kwargs
+    vp, _ = rs.frame_uniforms(cams[0])
+    sc = rs.scene
+    so = geometry.triangle_setup(geometry.transform_corners(sc["corner_world"], vp), None, sc["n_faces"],
+                                 kw["width"], kw["height"])
+    grid = (so["aabb"], so["valid"], rs.tiles_x, rs.tiles_y, kw["tile_w"], kw["tile_h"])
+    pairs = geometry.bin_pairs(*grid)
+    scan = geometry.bin_triangles(*grid, rs.bin_capacity)
+    n = int(pairs["offsets"][-1])
+    # Per tile the same faces: bin_pairs' (tile, face) keys sorted are the
+    # scan's draw-order lists.
+    keys = torch.sort((pairs["pair_tiles"][:n].long() << geometry.FACE_BITS) | pairs["pair_faces"][:n].long()).values
+    same_sets = bool(torch.equal((keys & ((1 << geometry.FACE_BITS) - 1)).int(), scan["pair_faces"][:n]))
+    same_bins = all(bool(torch.equal(scan[k], pairs[k])) for k in ("counts", "offsets"))
+    cap = n // 2
+    trunc = geometry.bin_triangles(*grid, cap)
+    rt = Renderer(scene, RendererConfig(width=WIDTH, height=HEIGHT, binning="scan", bin_capacity=cap))
+    tf = rt.render(cams[0])
+    torch.cuda.synchronize()
+    t_over, f_over = int(trunc["overflow"]), int(tf["bin_overflow"])
+    cover = float((tf["depth"] > 0).float().mean())
+    pairs_ms = cuda_ms(lambda: geometry.bin_pairs(*grid), 20)
+    scan_ms = cuda_ms(lambda: geometry.bin_triangles(*grid, rs.bin_capacity), 20)
+    print(f"scan frame 0: {n} pairs, counts and offsets equal to bin_pairs' {same_bins}, per-tile face sets equal "
+          f"{same_sets}; capacity {cap}: overflow {t_over} (want {n - cap}); Renderer at bin_capacity "
+          f"{rt.bin_capacity}: bin_overflow {f_over} (want {n - rt.bin_capacity}), coverage {cover:.3f}; binning "
+          f"stage by events: scan {scan_ms:.4f} ms vs pairs {pairs_ms:.4f} ms [{card}]")
+    check(same_bins and same_sets, "scan bins differ from pair bins")
+    # The frame renders: the tiles past the buffer lose their faces (the
+    # floor's lower rows), the first tiles keep theirs.
+    check(t_over == n - cap and f_over == n - rt.bin_capacity and cover > 0.0
+          and bool(torch.isfinite(tf["depth"]).all()), "scan truncation")
+    return launches
+
+
+def tool_phase(scene, seed: int, card: str, device="cuda") -> None:
+    """Each analysis tool once on the scene already built, at small frame
+    counts, its lines printed; the G-buffer dump of residual_analysis and
+    sampler_sim lives in a temporary directory."""
+    def show(name, lines):
+        for line in lines:
+            print(f"tool {name}: {line}")
+
+    t0 = time.perf_counter()
+    dims = dict(width=WIDTH, height=HEIGHT, device=device)
+    show("profile_stages", [json.dumps(profile_stages.profile(scene, frames=2, warmup=1, **dims))])
+    show("sample_stage_probe", [json.dumps({"cum_ms": sample_stage_probe.probe(
+        scene, frames=2, warmup=1, stages=("plan", "sample", "frame"), **dims)})])
+    show("profile_sampler", [json.dumps(profile_sampler.profile(scene, frames=2, warmup=1, **dims))])
+    show("sampler_plan_stats", sampler_plan_stats.stats(scene, frames=2, **dims))
+    lines, worst = check_sampler.check(scene, frames=2, device=device)
+    show("check_sampler", lines)
+    # The tool's own verdict is its 1-LSB budget; the run holds the two
+    # samplers to the 2 LSB of gather_paths (tests/test_sampler.py:76).
+    check(worst <= 2, f"check_sampler: window and gather differ by {worst} LSB")
+    show("aniso_mode_stats", [json.dumps(aniso_mode_stats.stats(scene, **dims))])
+    with tempfile.TemporaryDirectory() as d:
+        show("residual_analysis", residual_analysis.analyse(scene, seed=seed, gbuf_dir=d, **dims))
+        path = residual_analysis.gbuf_path(d, "orbit", seed, WIDTH, HEIGHT, 0.4)
+        show("sampler_sim", sampler_sim.simulate(np.load(path)["gbuf"]))
+    print(f"tools: 8 ran in {time.perf_counter() - t0:.1f} s [{card}]")
 
 
 BENCH_FRAMES, BENCH_WARMUP = 32, 4
@@ -892,16 +1094,24 @@ def main() -> None:
     print(f"microbench path: launches {dict(K.LAUNCHES)}; vmemtake {take['ms']:.4f} ms "
           f"({take['ns_per_row']:.4f} ns/row); pipeline " + json.dumps({k: round(v, 4) for k, v in pipe.items()}))
 
-    gather_paths(scene, cams, frames)
+    paths = gather_paths(scene, cams, frames)
+    card = smi.stdout.strip()
+    slab_kernels(r, cams[0], card)
+    slab_launches = slab_frames({"window": r, "gather": paths["gather"][0], "deferred": paths["deferred"][0]},
+                                cams[0], card)
+    del paths
+    scan_launches = scan_path(scene, r, cams, frames, card)
     runtime_launches = runtime_path(scene, args.seed)
     present_breakdown(r, cams)
+    tool_phase(scene, args.seed, card)
 
     print("device ms per call (torch.profiler), kernel vs plain: " + "; ".join(
         f"{name} {fmt_ms(stats[name]['dev_ms'])} vs {fmt_ms(stats[name]['plain_dev_ms'])}" for name in KERNELS))
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     report = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep, "launches": launches[name],
-         "runtime_launches": runtime_launches[name], **{k: stats[name][k] for k in keys}}
+         "runtime_launches": runtime_launches[name], "slab_launches": slab_launches[name],
+         "scan_launches": scan_launches[name], **{k: stats[name][k] for k in keys}}
         for name, (src, rep) in KERNELS.items()
     ]
     print(json.dumps({"kernels": report}))

@@ -29,7 +29,11 @@ no whole warp or block, indices outside the table, an index array off the
 microbenchmark's three launch geometries and at widths and block widths
 that leave rows off the 16-byte grid. The raster kernel also runs the
 adversarial faces of tests/test_torch_raster.py, among them a tile whose
-bin holds many work units.
+bin holds many work units. Raster and resolve also render slabs of the
+frame (a first global tile row other than 0, as parallel.py gives them):
+each slab equal to its plain version under the same rules, and to the same
+rows of the emulated whole frame bit for bit, also a slab that lies below
+the frame.
 """
 
 import ctypes
@@ -120,33 +124,39 @@ def test_raster_kernel(emu, frame, case, clear_depth, min_covered):
         assert int(bins["counts"][0]) > 8 * raster.UNIT_PAIRS
     vis = raster.rasterize_tiles_plain(so["setup"], so["aabb"], bins["pair_faces"], bins["offsets"],
                                        clear_depth=clear_depth, **args)
-    out = torch.full_like(vis, -7.0)
-    keys = torch.empty(vis.shape[1] * vis.shape[2], dtype=torch.int64)
-    slots = bins["pair_faces"].numel()
-    work = torch.empty(2 * args["tiles_x"] * args["tiles_y"] + 2 + -(-slots // raster.UNIT_PAIRS),
-                       dtype=torch.int32)
-    err = emu.tr_raster(so["setup"].data_ptr(), so["aabb"].data_ptr(), bins["pair_faces"].data_ptr(),
-                        bins["offsets"].data_ptr(), slots, args["tiles_x"], args["tiles_y"], args["tile_h"],
-                        args["tile_w"], clear_depth, keys.data_ptr(), work.data_ptr(), work.numel(),
-                        out.data_ptr(), None)
-    assert err == 0
+    out = _emu_raster(emu, so, bins, args, clear_depth)
     covered = int((vis[1] >= 0).sum())
     assert covered > min_covered if min_covered else covered == 0
     assert torch.equal(out, vis)
 
 
-def test_resolve_kernel(emu, frame):
-    r, kw, sc, _, so, bins = frame
-    vis = raster.rasterize_tiles_plain(so["setup"], so["aabb"], bins["pair_faces"], bins["offsets"], tile_h=kw["tile_h"],
-                                       tile_w=kw["tile_w"], tiles_x=r.tiles_x, tiles_y=r.tiles_y)
-    attrs = resolve.pack_resolve_attrs(so["setup"], sc["corner_world"], sc["corner_normal"], sc["corner_uv"],
-                                       sc["face_tex"], sc["atlas"])
-    g = resolve.resolve_gbuffer_plain(vis, attrs, max_anisotropy=16)
-    out = torch.empty_like(g)
-    err = emu.tr_resolve(vis.data_ptr(), attrs.data_ptr(), attrs.shape[0], g.shape[1], g.shape[2], 16,
-                         out.data_ptr(), None)
+def _emu_raster(emu, so, bins, args, clear_depth=0.0, row0=0):
+    """The emulated raster kernel's (2, Hp, Wp) output."""
+    out = torch.full((2, args["tiles_y"] * args["tile_h"], args["tiles_x"] * args["tile_w"]), -7.0)
+    keys = torch.empty(out.shape[1] * out.shape[2], dtype=torch.int64)
+    slots = bins["pair_faces"].numel()
+    work = torch.empty(2 * args["tiles_x"] * args["tiles_y"] + 2 + -(-slots // raster.UNIT_PAIRS),
+                       dtype=torch.int32)
+    err = emu.tr_raster(so["setup"].data_ptr(), so["aabb"].data_ptr(), bins["pair_faces"].data_ptr(),
+                        bins["offsets"].data_ptr(), slots, args["tiles_x"], args["tiles_y"], args["tile_h"],
+                        args["tile_w"], row0, clear_depth, keys.data_ptr(), work.data_ptr(), work.numel(),
+                        out.data_ptr(), None)
     assert err == 0
-    covered = vis[1] >= 0
+    return out
+
+
+def _emu_resolve(emu, vis, attrs, y_offset=0, max_anisotropy=16):
+    out = torch.full((resolve.A_OUT,) + tuple(vis.shape[1:]), -5.0)
+    err = emu.tr_resolve(vis.data_ptr(), attrs.data_ptr(), attrs.shape[0], vis.shape[1], vis.shape[2], y_offset,
+                         max_anisotropy, out.data_ptr(), None)
+    assert err == 0
+    return out
+
+
+def _assert_resolve_close(out, g, covered):
+    """chip_smoke.py's rule: integer planes exact, float planes within
+    rtol 1e-5 / atol 1e-6, outside at most 0.1% of covered pixels whose l0
+    flipped."""
     flip = (out[19] != g[19]) & covered
     assert int(flip.sum()) <= 0.001 * int(covered.sum())
     keep = ~flip
@@ -155,6 +165,60 @@ def test_resolve_kernel(emu, frame):
             assert torch.equal(out[i][keep], g[i][keep]), f"plane {i}"
         else:
             assert torch.allclose(out[i][keep], g[i][keep], rtol=1e-5, atol=1e-6), f"plane {i}"
+
+
+def _attrs(frame):
+    sc, so = frame[2], frame[4]
+    return resolve.pack_resolve_attrs(so["setup"], sc["corner_world"], sc["corner_normal"], sc["corner_uv"],
+                                      sc["face_tex"], sc["atlas"])
+
+
+def test_resolve_kernel(emu, frame):
+    r, kw, sc, _, so, bins = frame
+    vis = raster.rasterize_tiles_plain(so["setup"], so["aabb"], bins["pair_faces"], bins["offsets"], tile_h=kw["tile_h"],
+                                       tile_w=kw["tile_w"], tiles_x=r.tiles_x, tiles_y=r.tiles_y)
+    attrs = _attrs(frame)
+    g = resolve.resolve_gbuffer_plain(vis, attrs, max_anisotropy=16)
+    _assert_resolve_close(_emu_resolve(emu, vis, attrs), g, vis[1] >= 0)
+
+
+@pytest.fixture(scope="module")
+def emu_frame(emu, frame):
+    """The emulated raster and resolve kernels' whole frame."""
+    r, kw, _, _, so, bins = frame
+    vis = _emu_raster(emu, so, bins, dict(tile_h=kw["tile_h"], tile_w=kw["tile_w"], tiles_x=r.tiles_x,
+                                          tiles_y=r.tiles_y))
+    return vis, _emu_resolve(emu, vis, _attrs(frame))
+
+
+@pytest.mark.parametrize("row0,slab_rows", [(1, 2), (3, 1), (2, 2), (4, 2)],
+                         ids=["middle", "last", "lower_half", "below_the_frame"])
+def test_raster_and_resolve_kernels_on_a_slab(emu, frame, emu_frame, row0, slab_rows):
+    """A slab of slab_rows tile rows from frame tile row row0 (the frame
+    has 4): binned with ty_base = row0, rastered and resolved at the frame's
+    pixel rows. The emulated kernels equal their plain versions (raster
+    exactly, resolve under chip_smoke.py's rule) and the emulated whole
+    frame's rows bit for bit. A slab below the frame bins only faces whose
+    box reaches the frame's last row (those crossing the eye plane)."""
+    r, kw, _, _, so, _ = frame
+    th = kw["tile_h"]
+    args = dict(tile_h=th, tile_w=kw["tile_w"], tiles_x=r.tiles_x, tiles_y=slab_rows)
+    slab = geometry.bin_pairs(so["aabb"], so["valid"], r.tiles_x, slab_rows, kw["tile_w"], th, ty_base=row0)
+    vis = raster.rasterize_tiles_plain(so["setup"], so["aabb"], slab["pair_faces"], slab["offsets"],
+                                       tile_row_offset=row0, **args)
+    out = _emu_raster(emu, so, slab, args, row0=row0)
+    assert torch.equal(out, vis)
+    full, full_g = emu_frame
+    rows = slice(row0 * th, (row0 + slab_rows) * th)
+    if row0 < r.tiles_y:
+        assert int((vis[1] >= 0).sum()) > 500
+        assert torch.equal(out, full[:, rows])
+    attrs = _attrs(frame)
+    g = resolve.resolve_gbuffer_plain(vis, attrs, max_anisotropy=16, tile_row_offset=row0, tile_h=th)
+    got = _emu_resolve(emu, vis, attrs, y_offset=row0 * th)
+    _assert_resolve_close(got, g, vis[1] >= 0)
+    if row0 < r.tiles_y:
+        assert torch.equal(got, full_g[:, rows])
 
 
 def _gbuf(frame):

@@ -6,6 +6,12 @@ seed: small on-screen faces, faces crossing the eye plane, off-screen
 faces and more than HUGE_BUDGET huge faces) go through both. Everything
 must match bit for bit: the port writes the adjugate's cross products as
 the FMAs XLA:CPU compiles them to (tpurast_torch.kernels.geometry._cross).
+
+bin_triangles (binning="scan") is held to the reference's on the whole
+pair_faces array, offsets, counts and overflow, exactly: with room for
+every pair, truncated at half the pairs, with more than HUGE_BUDGET huge
+faces, on a slab (ty_base 2), and with the reference's face chunk below
+the face count.
 """
 
 import jax.numpy as jnp
@@ -109,3 +115,45 @@ def test_bin_pairs_rejects_faces_beyond_the_sort_key():
     aabb = torch.zeros((n, 4))
     with pytest.raises(ValueError, match="sort-key"):
         geometry.bin_pairs(aabb, torch.zeros(n, dtype=torch.bool), 1, 1, TILE_W, TILE_H)
+
+
+# (faces used, pair capacity or None for half the pairs, tiles_y, ty_base, reference face_chunk)
+SCAN_CASES = {
+    "fits": (1400, 16384, TILES_Y, 0, 8192),
+    "truncated": (1400, None, TILES_Y, 0, 8192),
+    "over_huge_budget": (None, 16384, TILES_Y, 0, 8192),
+    "slab": (None, 4096, 3, 2, 8192),
+    "face_chunks": (None, 8192, TILES_Y, 0, 300),
+}
+
+
+@pytest.mark.parametrize("case", list(SCAN_CASES))
+def test_bin_triangles_exact(case):
+    n_faces, cap, tiles_y, ty_base, chunk = SCAN_CASES[case]
+    corners = _random_faces()[:n_faces]
+    n = corners.shape[0]
+    vp = _view_proj()
+    s_r = ref_geometry.triangle_setup(ref_geometry.transform_corners(jnp.asarray(corners), jnp.asarray(vp)),
+                                      None, n, W, H)
+    s_p = geometry.triangle_setup(geometry.transform_corners(torch.from_numpy(corners), torch.from_numpy(vp)),
+                                  None, n, W, H)
+    grid = (TILES_X, tiles_y, TILE_W, TILE_H)
+    if cap is None:  # half of what the pair binner finds
+        cap = int(geometry.bin_pairs(s_p["aabb"], s_p["valid"], *grid)["offsets"][-1]) // 2
+    ref = ref_geometry.bin_triangles(s_r["aabb"], s_r["valid"], *grid, cap, ty_base=ty_base, face_chunk=chunk)
+    port = geometry.bin_triangles(s_p["aabb"], s_p["valid"], *grid, cap, ty_base=ty_base, face_chunk=chunk)
+    assert set(port) == set(ref)
+    for k in ref:
+        np.testing.assert_array_equal(port[k].numpy(), np.asarray(ref[k]), err_msg=k)
+    assert port["pair_faces"].shape == (cap,) and int(port["offsets"][-1]) > 100
+    pairs = geometry.bin_pairs(s_p["aabb"], s_p["valid"], *grid, ty_base=ty_base)
+    truncated = max(int(pairs["offsets"][-1]) - cap, 0)
+    assert int(port["overflow"]) == int(pairs["overflow"]) + truncated
+    assert (truncated > 0) == (case == "truncated")
+    assert (int(pairs["overflow"]) > 0) == (n_faces is None), "more huge faces than HUGE_BUDGET overflow"
+    if not truncated:  # the same tiles and the same face set per tile, in draw order
+        np.testing.assert_array_equal(port["offsets"].numpy(), pairs["offsets"].numpy())
+        for t in range(TILES_X * tiles_y):
+            a, b = (int(x) for x in port["offsets"][t : t + 2])
+            faces = port["pair_faces"][a:b]
+            assert torch.equal(faces, torch.sort(pairs["pair_faces"][a:b]).values)

@@ -69,8 +69,12 @@ assert not loaded, loaded
 print(" ".join(names))
 """
 
-# Modules the runtime slice added; the walk must reach each of them.
-RUNTIME_MODULES = {"cli", "engine", "present", "overlay", "profiling", "device.scene_cache"}
+# Modules the runtime slice added, then slabs, charts and the analysis
+# tools; the walk must reach each of them.
+RUNTIME_MODULES = {"cli", "engine", "present", "overlay", "profiling", "device.scene_cache", "parallel",
+                   "device.charts"} | {f"tools.{t}" for t in (
+                       "profile_stages", "sample_stage_probe", "profile_sampler", "sampler_plan_stats",
+                       "check_sampler", "aniso_mode_stats", "residual_analysis", "sampler_sim")}
 
 
 def test_port_imports_without_the_reference_package():
@@ -80,7 +84,7 @@ def test_port_imports_without_the_reference_package():
     )
     assert proc.returncode == 0, proc.stderr[-3000:]
     walked = set(proc.stdout.split())
-    assert len(walked) >= 31  # every module was walked
+    assert len(walked) >= 42  # every module was walked
     assert {f"tpurast_torch.{m}" for m in RUNTIME_MODULES} <= walked
 
 
@@ -113,7 +117,7 @@ PORT_FILES = sorted(p for p in (REPO / "tpurast_torch").rglob("*.py") if "_build
 
 
 def test_no_file_of_the_port_imports_tpurast_or_jax():
-    assert len(PORT_FILES) >= 31
+    assert len(PORT_FILES) >= 42
     assert {m.replace(".", "/") + ".py" for m in RUNTIME_MODULES} <= {
         str(p.relative_to(REPO / "tpurast_torch")) for p in PORT_FILES[:-1]}
     bad = {str(p.relative_to(REPO)): n for p in PORT_FILES for n in _imports(p) if _forbidden(n) or n == "<computed>"}

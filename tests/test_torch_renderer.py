@@ -23,9 +23,10 @@ gather sampler; the Renderer's sampler, texture dtype and texel format
 chosen as the reference's are, and the atlas rows uploaded only for the
 gather paths. Also the Renderer surface: output="gbuf" and "linear",
 frame_uniforms, render_to_host, the zero-extent recreate_swapchain, and
-the paths left to later work (scan binning, slabs) raising
-NotImplementedError. The runtime (stage= prefixes, Engine, Presenter, the
-bench) is held in tests/test_torch_runtime.py.
+binning="scan": the pairs frame bit for bit, and with a pair buffer that
+truncates, the truncated pairs counted in bin_overflow. The runtime
+(stage= prefixes, Engine, Presenter, the bench) is held in
+tests/test_torch_runtime.py, slabs in tests/test_torch_parallel.py.
 """
 
 import dataclasses
@@ -214,22 +215,30 @@ def test_recreate_swapchain_and_zero_extent_deferral(scene, cam):
     assert torch.equal(out["color"], fresh["color"])
 
 
-@pytest.mark.parametrize("change,item", [(dict(binning="scan"), "scan")])
-def test_unported_config_raises(scene, change, item):
-    with pytest.raises(NotImplementedError, match=item):
-        Renderer(scene, dataclasses.replace(CFG, **change), device="cpu")
+@pytest.mark.parametrize("truncate", [False, True], ids=["fits", "truncated"])
+def test_scan_binning(scene, cam, port, truncate):
+    """binning="scan" (geometry.bin_triangles) renders the pairs frame bit
+    for bit; a pair buffer of half the frame's pairs counts the rest in
+    bin_overflow, and the frame still renders."""
+    from tpurast_torch.kernels import geometry
 
-
-@pytest.mark.parametrize(
-    "change,item",
-    [
-        (dict(tile_row_offset=0), "item 12"),
-        (dict(crop_height=64), "item 12"),
-    ],
-)
-def test_unported_frame_options_raise(port, cam, change, item):
-    with pytest.raises(NotImplementedError, match=item):
-        render_frame(port.scene, *port.frame_uniforms(cam), **dict(port._frame_kwargs, **change))
+    kw = port._frame_kwargs
+    vp, cp = port.frame_uniforms(cam)
+    so = geometry.triangle_setup(geometry.transform_corners(port.scene["corner_world"], vp), None,
+                                 port.scene["n_faces"], kw["width"], kw["height"])
+    n_pairs = int(geometry.bin_pairs(so["aabb"], so["valid"], port.tiles_x, port.tiles_y, kw["tile_w"],
+                                     kw["tile_h"])["offsets"][-1])
+    cap = n_pairs // 2 if truncate else None
+    scan = Renderer(scene, dataclasses.replace(CFG, binning="scan", bin_capacity=cap), device="cpu")
+    want_cap = -(-cap // 128) * 128 if truncate else max(4 * scene.faces.shape[0], 16384)
+    assert scan.binning == "scan" and scan.bin_capacity == want_cap
+    got, want = scan.render(cam), port.render(cam)
+    assert int(got["bin_overflow"]) == (max(n_pairs - scan.bin_capacity, 0) if truncate else 0)
+    if truncate:
+        assert int(got["bin_overflow"]) > 0 and not torch.equal(got["depth"], want["depth"])
+        assert float((got["depth"] > 0).float().mean()) > 0.01
+    else:
+        assert torch.equal(got["color"], want["color"]) and torch.equal(got["depth"], want["depth"])
 
 
 def test_renderer_runs_on_the_card_unless_asked_for_the_cpu():

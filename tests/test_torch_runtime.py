@@ -23,8 +23,9 @@ kernels' plain torch versions):
     cum["frame"], and skips plan / sample on the gather path;
   * cli.main --device cpu --scene orbit at 128x64 (the procedural scene cut
     small): one JSON line with the bench's fields, parity_max_lsb 0 (both
-    sides plain on the CPU), exit 0; without a CUDA device and without
-    --device cpu, and with a missing data directory: non-zero, no line;
+    sides plain on the CPU), exit 0, also with --binning scan; without a
+    CUDA device and without --device cpu, and with a missing data
+    directory: non-zero, no line;
   * load_named_scene("orbit") cached and uncached give equal arrays; the
     loaders that read the reference's data directory skip without it.
 """
@@ -316,7 +317,7 @@ def test_time_groups_times_every_group_and_reports_its_last_result():
 BENCH_FIELDS = {
     "metric", "value", "unit", "p50_frame_ms", "mean_frame_ms", "mtris_per_sec", "triangles", "frames", "wall_s",
     "dropped_pairs", "window_miss_px", "parity_max_lsb", "stage_ms", "present_ms_per_frame", "present_fps",
-    "backend", "device", "power_limit_w",
+    "backend", "device", "power_limit_w", "binning",
 }
 
 
@@ -338,11 +339,18 @@ def test_cli_prints_one_json_line_on_the_cpu(tiny_orbit, capsys):
     assert res["metric"] == "fps_128x64_orbit_scene" and res["unit"] == "frames/sec"
     assert res["parity_max_lsb"] == 0 and res["dropped_pairs"] == 0 and res["window_miss_px"] == 0
     assert res["backend"] == "cpu" and res["device"] == "cpu" and res["power_limit_w"] is None
-    assert res["frames"] == 4 and res["stage_ms"] is None
+    assert res["frames"] == 4 and res["stage_ms"] is None and res["binning"] == "pairs"
     assert res["triangles"] == build_orbit_scene(seed=1, **TINY).n_faces
     assert res["p50_frame_ms"] > 0 and res["present_ms_per_frame"] > 0
     # value is fps rounded to 2 decimals, p50_frame_ms to 4.
     assert res["value"] == pytest.approx(1000.0 / res["p50_frame_ms"], abs=0.0051, rel=1e-4)
+
+
+def test_cli_runs_scan_binning(tiny_orbit, capsys):
+    rc = cli.main(["--device", "cpu", "--scene", "orbit", "--width", "128", "--height", "64", "--frames", "2",
+                   "--warmup", "1", "--seed", "1", "--binning", "scan"])
+    res = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert rc == 0 and res["binning"] == "scan" and res["parity_max_lsb"] == 0 and res["dropped_pairs"] == 0
 
 
 def test_cli_stages_adds_the_sweep(tiny_orbit, capsys, monkeypatch):

@@ -3,10 +3,11 @@
     python -m tpurast_torch.cli --scene orbit [--width 1920 --height 1080]
 
 Prints ONE JSON line with fps / p50 / Mtris plus the present-loop
-(host-visible) frame rate, the dropped-pair counter and the parity gate's
-result. `--stages` adds a per-stage decomposition (stage_ms, from
-profiling.stage_sweep) to the line; `--all` runs every config of
-ALL_CONFIGS in a subprocess of its own and prints one line each.
+(host-visible) frame rate, the dropped-pair counter, the parity gate's
+result and the binning that ran ("pairs" or "scan"). `--stages` adds a
+per-stage decomposition (stage_ms, from profiling.stage_sweep) to the
+line; `--all` runs every config of ALL_CONFIGS in a subprocess of its own
+and prints one line each.
 
 It runs on the card: without a CUDA device it exits non-zero unless
 `--device cpu` asks for the CPU (the kernels' plain torch versions; its
@@ -194,11 +195,7 @@ def main(argv: list[str] | None = None) -> int:
     if args.sampler:
         overrides["sampler"] = args.sampler
     cfg = RendererConfig(width=args.width, height=args.height, **overrides)
-    try:
-        renderer = Renderer(scene, cfg, device=device)
-    except NotImplementedError as e:
-        print(f"tpurast_torch.cli: {e}", file=sys.stderr)
-        return 2
+    renderer = Renderer(scene, cfg, device=device)
 
     n_cams = args.frames + args.warmup
     if args.stages:
@@ -292,6 +289,7 @@ def main(argv: list[str] | None = None) -> int:
         "mean_frame_ms": round(float(times_ms.mean()), 4),
         "mtris_per_sec": round(scene.n_faces * fps / 1e6, 2),
         "triangles": scene.n_faces,
+        "binning": renderer.binning,
         "frames": args.frames,
         "wall_s": round(wall, 2),
         "dropped_pairs": counters["dropped"],

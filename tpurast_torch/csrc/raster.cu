@@ -57,6 +57,12 @@
 // The edge, depth and division expressions are raster.py:151-191 term for
 // term and the library is built with --fmad=false, so depth and face id
 // equal the plain version's bit for bit.
+//
+// Slabs (renderer.render_frame's tile_row_offset, parallel.py): row0 is the
+// slab's first global tile row. Pixel coordinates, and the clamp of the
+// pixel rectangles to the tile, are global (raster.py:353-364), so a slab
+// evaluates the same edge arithmetic as the full frame; the unit table, the
+// shared key buffer and the output rows stay local to the slab.
 
 #include "common.cuh"
 
@@ -127,7 +133,8 @@ __global__ void raster_units_kernel(const int* __restrict__ offsets, int n_tiles
 __global__ void __launch_bounds__(kThreads)
     raster_kernel(const float* __restrict__ setup, const float* __restrict__ aabb,
                   const int* __restrict__ pair_faces, const int* __restrict__ offsets, int* __restrict__ work,
-                  int tiles_x, int n_tiles, int tile_h, int tile_w, unsigned long long* __restrict__ gkeys) {
+                  int tiles_x, int n_tiles, int tile_h, int tile_w, int row0,
+                  unsigned long long* __restrict__ gkeys) {
   __shared__ unsigned long long keys[kMaxTilePx];
   __shared__ float rows[kChunk][kRowFields];
   __shared__ int faces[kChunk];
@@ -163,7 +170,8 @@ __global__ void __launch_bounds__(kThreads)
     const int p0 = unit_p0;
     const int n = unit_n;
     const int gx0 = (t % tiles_x) * tile_w;
-    const int gy0 = (t / tiles_x) * tile_h;
+    const int gy0 = (t / tiles_x) * tile_h;           // the tile's first row in the output
+    const int py0 = (t / tiles_x + row0) * tile_h;    // ... and in the frame (pixel coordinates)
 
     for (int i = threadIdx.x; i < n * kRowFields; i += kThreads) {
       const int j = i / kRowFields;
@@ -174,9 +182,9 @@ __global__ void __launch_bounds__(kThreads)
       faces[threadIdx.x] = f;
       const float* a = aabb + (long long)f * 4;
       const int x0 = tile_first(floorf(a[0]) - 1.0f, gx0, tile_w);
-      const int y0 = tile_first(floorf(a[1]) - 1.0f, gy0, tile_h);
+      const int y0 = tile_first(floorf(a[1]) - 1.0f, py0, tile_h);
       const int x1 = tile_last(floorf(a[2]) + 1.0f, gx0, tile_w);
-      const int y1 = tile_last(floorf(a[3]) + 1.0f, gy0, tile_h);
+      const int y1 = tile_last(floorf(a[3]) + 1.0f, py0, tile_h);
       rect[threadIdx.x][0] = (short)x0;
       rect[threadIdx.x][1] = (short)y0;
       rect[threadIdx.x][2] = (short)x1;
@@ -223,7 +231,7 @@ __global__ void __launch_bounds__(kThreads)
         const int lx = x0 + i % rw;
         const int ly = y0 + i / rw;
         const float pxr = ((float)(gx0 + lx) + 0.5f) - anc_x;
-        const float pyr = ((float)(gy0 + ly) + 0.5f) - anc_y;
+        const float pyr = ((float)(py0 + ly) + 0.5f) - anc_y;
         const float e0 = pxr * a0 + pyr * b0 + c0e;
         const float e1 = pxr * a1 + pyr * b1 + c1e;
         const float e2 = pxr * a2 + pyr * b2 + c2e;
@@ -267,11 +275,12 @@ __global__ void raster_unpack_kernel(const unsigned long long* __restrict__ gkey
 }  // namespace
 
 // pair_slots: the length of pair_faces (the binned pairs are its first
-// offsets[n_tiles]); scratch: (Hp * Wp) 64-bit keys; work: work_len ints,
-// at least n_tiles + 2 + n_tiles + ceil(pair_slots / 128).
+// offsets[n_tiles]); row0: the first global tile row (0 for a whole frame);
+// scratch: (Hp * Wp) 64-bit keys; work: work_len ints, at least
+// n_tiles + 2 + n_tiles + ceil(pair_slots / 128).
 extern "C" int tr_raster(const float* setup, const float* aabb, const int* pair_faces, const int* offsets,
-                         int pair_slots, int tiles_x, int tiles_y, int tile_h, int tile_w, float clear_depth,
-                         void* scratch, int* work, int work_len, float* out, void* stream) {
+                         int pair_slots, int tiles_x, int tiles_y, int tile_h, int tile_w, int row0,
+                         float clear_depth, void* scratch, int* work, int work_len, float* out, void* stream) {
   const int n_tiles = tiles_x * tiles_y;
   if (tile_h * tile_w > kMaxTilePx || work_len < 2 * n_tiles + 2 + (pair_slots + kChunk - 1) / kChunk) {
     return (int)cudaErrorInvalidValue;
@@ -292,7 +301,7 @@ extern "C" int tr_raster(const float* setup, const float* aabb, const int* pair_
   const int grid = sms * (per_sm > 1 ? per_sm : 1);
 #endif
   TR_LAUNCH(raster_kernel, grid, kThreads, stream, setup, aabb, pair_faces, offsets, work, tiles_x, n_tiles,
-            tile_h, tile_w, gkeys);
+            tile_h, tile_w, row0, gkeys);
   unsigned clear_bits;
   memcpy(&clear_bits, &clear_depth, 4);
   const unsigned long long clear_key = (unsigned long long)clear_bits << 32;

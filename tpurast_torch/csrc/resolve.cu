@@ -18,6 +18,11 @@
 // frame included. The ~150 flops and one log2f per pixel are far below the
 // f32 rate. Stores are coalesced: one
 // plane at a time, consecutive threads on consecutive pixels.
+//
+// Slabs: y_offset is the slab's first global pixel row. It is added to the
+// local row as an integer before the float conversion, so a slab's pixel
+// centers are the full frame's (resolve.py:145, :178-179; integers and
+// their halves are exact in f32 at these magnitudes).
 
 #include "common.cuh"
 
@@ -37,7 +42,7 @@ __device__ __forceinline__ float level_pow(float level) {
 }
 
 __global__ void resolve_kernel(const float* __restrict__ vis, const float* __restrict__ attrs,
-                               int n_faces, int height, int width, int max_anisotropy,
+                               int n_faces, int height, int width, int y_offset, int max_anisotropy,
                                float* __restrict__ out) {
   const long long plane = (long long)height * width;
   const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -50,7 +55,7 @@ __global__ void resolve_kernel(const float* __restrict__ vis, const float* __res
   }
   const float* s = attrs + (long long)fid * kAIn;
   const float px = ((float)(p % width) + 0.5f) - s[9];
-  const float py = ((float)(p / width) + 0.5f) - s[10];
+  const float py = ((float)(p / width + y_offset) + 0.5f) - s[10];
 
   const float e0 = s[0] * px + s[1] * py + s[2];
   const float e1 = s[3] * px + s[4] * py + s[5];
@@ -136,10 +141,10 @@ __global__ void resolve_kernel(const float* __restrict__ vis, const float* __res
 }  // namespace
 
 extern "C" int tr_resolve(const float* vis, const float* attrs, int n_faces, int height, int width,
-                          int max_anisotropy, float* out, void* stream) {
+                          int y_offset, int max_anisotropy, float* out, void* stream) {
   const long long n = (long long)height * width;
   const int blocks = (int)((n + kThreads - 1) / kThreads);
-  TR_LAUNCH(resolve_kernel, blocks, kThreads, stream, vis, attrs, n_faces, height, width,
+  TR_LAUNCH(resolve_kernel, blocks, kThreads, stream, vis, attrs, n_faces, height, width, y_offset,
             max_anisotropy, out);
   return (int)cudaGetLastError();
 }

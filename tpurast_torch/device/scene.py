@@ -649,9 +649,10 @@ def orbit_track(n_frames: int = 8, radius: float = 11.5, height: float = 1.5) ->
     the floor reaches in the track's directions): floor triangles crossing
     it would bin as full-screen faces and overflow the binner's huge-face
     budget."""
-    cams = []
-    for k in range(n_frames):
-        a = 2.0 * math.pi * k / n_frames + 0.3
-        pos = np.array([radius * math.sin(a), -height, -radius * math.cos(a)], np.float32)
-        cams.append(Camera.from_target(pos, np.array([0.0, 1.0, 0.0], np.float32)))
-    return cams
+    return [orbit_camera(2.0 * math.pi * k / n_frames + 0.3, radius, height) for k in range(n_frames)]
+
+
+def orbit_camera(angle: float, radius: float = 11.5, height: float = 1.5) -> Camera:
+    """The camera of orbit_track at ``angle`` radians around the scene."""
+    pos = np.array([radius * math.sin(angle), -height, -radius * math.cos(angle)], np.float32)
+    return Camera.from_target(pos, np.array([0.0, 1.0, 0.0], np.float32))

@@ -53,8 +53,8 @@ _L = ctypes.c_longlong
 
 # C signatures (see the extern "C" functions in csrc/*.cu).
 SIGNATURES = {
-    "tr_raster": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _P, _I, _P, _P],
-    "tr_resolve": [_P, _P, _I, _I, _I, _I, _P, _P],
+    "tr_raster": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P, _P, _I, _P, _P],
+    "tr_resolve": [_P, _P, _I, _I, _I, _I, _I, _P, _P],
     "tr_plan": [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
     "tr_sample": [_P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
     "tr_plane_scale": [_P, _I, _I, _I, _I, _I, _I, _P, _P],

@@ -1,8 +1,8 @@
 """Geometry stage as torch ops: corner transform, triangle setup, binning.
 
 Counterpart of tpurast/kernels/geometry.py (transform_corners,
-triangle_setup, _tile_ranges, bin_pairs), same layouts and field
-numbering. These are not kernels on either side: the reference leaves
+triangle_setup, _tile_ranges, bin_pairs, bin_triangles), same layouts and
+field numbering. These are not kernels on either side: the reference leaves
 them to XLA, the port to eager torch.
 
 Every expression keeps the reference's operation order, with one
@@ -157,29 +157,15 @@ def _tile_ranges(aabb, valid, tiles_x, tiles_y, tile_w, tile_h, ty_base=0):
     return tx0, ty0, tx1, ty1, valid & intersects
 
 
-def bin_pairs(
-    aabb,
-    valid,
-    tiles_x,
-    tiles_y,
-    tile_w,
-    tile_h,
-    tiles_per_face: int = TILES_PER_FACE,
-    huge_budget: int = HUGE_BUDGET,
-    ty_base=0,
-) -> dict:
-    """Pair-expansion binning (geometry.py bin_pairs): the j-th overlapped
-    tile of every small face, a dense round for the first huge_budget
-    huge faces (excess huge faces dropped and counted), one sort by
-    (tile, 8-row y-bucket, face), then searchsorted.
-
-    The reference's 2-key lax.sort becomes one stable sort of a single
-    int64 key (tile*YB + ybucket) << 21 | face. Returns pair_faces (P,)
-    i32, pair_tiles (P,) i32, offsets (T+1,) i32, counts (T,) i32 and
-    overflow (the dropped pair count, 0-dim i32)."""
+def _expand_pairs(aabb, valid, tiles_x, tiles_y, tile_w, tile_h, tiles_per_face, huge_budget, ty_base, ybucket):
+    """The (tile, face) pairs both binners sort: the j-th overlapped tile of
+    every small face, every tile of the first huge_budget huge faces in
+    draw order. Returns (keys (N,) i64 sorted, tile * YB + ybucket[face]
+    << FACE_BITS | face, with tile T for slots that hold no pair; the
+    dropped pair count of the huge faces beyond the budget, 0-dim)."""
     f = aabb.shape[0]
     if f >= 1 << FACE_BITS:
-        raise ValueError(f"bin_pairs: {f} faces exceed the 2^{FACE_BITS} sort-key field")
+        raise ValueError(f"binning: {f} faces exceed the 2^{FACE_BITS} sort-key field")
     dev = aabb.device
     t = tiles_x * tiles_y
     tx0, ty0, tx1, ty1, valid = _tile_ranges(aabb, valid, tiles_x, tiles_y, tile_w, tile_h, ty_base)
@@ -188,7 +174,6 @@ def bin_pairs(
     span = torch.where(valid, span_x * span_y, torch.zeros_like(span_x))
     face_ids = torch.arange(f, dtype=torch.int32, device=dev)
     huge = valid & (span > tiles_per_face)
-    ybucket = torch.clamp(torch.floor(aabb[:, 1] * (1.0 / 8.0)), 0, YB - 1).to(torch.int32)
     sentinel = t * YB
 
     # Rounds: (TPF, F) j-th tile of each small face.
@@ -221,20 +206,96 @@ def bin_pairs(
     keys = torch.cat([keys_small, keys_huge]).to(torch.int64)
     vals = torch.cat([vals_small, vals_huge]).to(torch.int64)
     packed, _ = torch.sort((keys << FACE_BITS) | vals, stable=True)
+    dropped = torch.where(huge, span, torch.zeros_like(span)).sum() - torch.where(
+        h_ok_face, span[hl], torch.zeros_like(hidx)
+    ).sum()
+    return packed, dropped.to(torch.int32)
+
+
+def bin_pairs(
+    aabb,
+    valid,
+    tiles_x,
+    tiles_y,
+    tile_w,
+    tile_h,
+    tiles_per_face: int = TILES_PER_FACE,
+    huge_budget: int = HUGE_BUDGET,
+    ty_base=0,
+) -> dict:
+    """Pair-expansion binning (geometry.py bin_pairs): the j-th overlapped
+    tile of every small face, a dense round for the first huge_budget
+    huge faces (excess huge faces dropped and counted), one sort by
+    (tile, 8-row y-bucket, face), then searchsorted.
+
+    The reference's 2-key lax.sort becomes one stable sort of a single
+    int64 key (tile*YB + ybucket) << 21 | face. Returns pair_faces (P,)
+    i32, pair_tiles (P,) i32, offsets (T+1,) i32, counts (T,) i32 and
+    overflow (the dropped pair count, 0-dim i32)."""
+    t = tiles_x * tiles_y
+    ybucket = torch.clamp(torch.floor(aabb[:, 1] * (1.0 / 8.0)), 0, YB - 1).to(torch.int32)
+    packed, dropped = _expand_pairs(aabb, valid, tiles_x, tiles_y, tile_w, tile_h, tiles_per_face, huge_budget,
+                                    ty_base, ybucket)
     pair_keys = packed >> FACE_BITS
     pair_faces = (packed & ((1 << FACE_BITS) - 1)).to(torch.int32)
     pair_tiles = (pair_keys // YB).to(torch.int32)
 
-    bounds = torch.arange(t + 1, dtype=torch.int64, device=dev) * YB
+    bounds = torch.arange(t + 1, dtype=torch.int64, device=aabb.device) * YB
     offsets = torch.searchsorted(pair_keys, bounds).to(torch.int32)
     counts = offsets[1:] - offsets[:-1]
-    dropped = torch.where(huge, span, torch.zeros_like(span)).sum() - torch.where(
-        h_ok_face, span[hl], torch.zeros_like(hidx)
-    ).sum()
     return {
         "pair_faces": pair_faces,
         "pair_tiles": pair_tiles,
         "offsets": offsets,
         "counts": counts,
-        "overflow": dropped.to(torch.int32),
+        "overflow": dropped,
+    }
+
+
+def bin_triangles(
+    aabb,
+    valid,
+    tiles_x,
+    tiles_y,
+    tile_w,
+    tile_h,
+    pair_capacity: int,
+    tiles_per_face: int = TILES_PER_FACE,
+    huge_budget: int = HUGE_BUDGET,
+    ty_base=0,
+    face_chunk: int = 8192,
+) -> dict:
+    """Tiled binning into a compact pair buffer of pair_capacity slots
+    (geometry.py bin_triangles). Its contract, unlike bin_pairs': a tile's
+    faces are in draw order (no y-bucket); pair_faces has exactly
+    pair_capacity slots, those past the binned pairs 0; offsets and counts
+    are clamped to the capacity; overflow is the pairs of the huge faces
+    beyond huge_budget plus the pairs past the capacity.
+
+    The reference ranks faces per tile with a chunked scan over dense
+    (T, face_chunk) overlap masks, which dodges the TPU's sort floor.
+    Here the pairs are bin_pairs' and sort once by tile << FACE_BITS | face:
+    a pair's place in the sorted list is its offsets[tile] + draw-order
+    rank, where the reference scatters it. face_chunk only bounds the
+    reference's memory and is accepted for its signature. Returns
+    pair_faces (pair_capacity,) i32, offsets (T+1,) i32, counts (T,) i32
+    and overflow (0-dim i32); nothing is read back to the host."""
+    del face_chunk
+    t = tiles_x * tiles_y
+    dev = aabb.device
+    packed, dropped = _expand_pairs(aabb, valid, tiles_x, tiles_y, tile_w, tile_h, tiles_per_face, huge_budget,
+                                    ty_base, torch.zeros(aabb.shape[0], dtype=torch.int32, device=dev))
+    pair_tiles = (packed >> FACE_BITS) // YB
+    offsets = torch.searchsorted(pair_tiles, torch.arange(t + 1, dtype=torch.int64, device=dev)).to(torch.int32)
+    n = offsets[-1]
+    keep = min(packed.shape[0], pair_capacity)
+    slots = torch.arange(keep, device=dev)
+    pair_faces = torch.zeros(pair_capacity, dtype=torch.int32, device=dev)
+    pair_faces[:keep] = torch.where(slots < n, packed[:keep] & ((1 << FACE_BITS) - 1), 0).to(torch.int32)
+    clamped = torch.clamp(offsets, max=pair_capacity)
+    return {
+        "pair_faces": pair_faces,
+        "offsets": clamped,
+        "counts": clamped[1:] - clamped[:-1],
+        "overflow": dropped + torch.clamp(n - pair_capacity, min=0),
     }

@@ -23,6 +23,11 @@ columns [floor(xmin) - 1, floor(xmax) + 1] of the face's screen AABB
 (the reference's one-pixel widening of its 8-row groups, raster.py:140-149,
 taken per row and applied to x too). Both versions apply it, the kernel
 by visiting only those pixels, the plain version as a mask.
+
+tile_row_offset renders a slab (renderer.render_frame, parallel.py): tile
+row r of the output is tile row r + tile_row_offset of the frame. Pixel
+coordinates, and so coverage, depth and the rectangles' clamp, are the
+frame's; the output rows are the slab's (raster.py:353-364).
 """
 
 from __future__ import annotations
@@ -85,7 +90,8 @@ def pixel_rects(aabb):
     return torch.cat([lo, hi], dim=1)
 
 
-def rasterize_tiles_plain(setup, aabb, pair_faces, offsets, *, tile_h, tile_w, tiles_x, tiles_y, clear_depth=0.0):
+def rasterize_tiles_plain(setup, aabb, pair_faces, offsets, *, tile_h, tile_w, tiles_x, tiles_y, clear_depth=0.0,
+                          tile_row_offset: int = 0):
     """Plain torch version of the raster kernel, chunked over pairs.
 
     Each (tile, face) pair is evaluated at every pixel of its tile and
@@ -110,9 +116,9 @@ def rasterize_tiles_plain(setup, aabb, pair_faces, offsets, *, tile_h, tile_w, t
         e = min(s + PLAIN_PAIR_CHUNK, n_pairs)
         tiles = pair_tile[s:e][:, None]
         faces = pair_faces[s:e].long()
-        gx = (tiles % tiles_x) * tile_w + loc_x  # (N, P) global pixel x
-        gy = (tiles // tiles_x) * tile_h + loc_y
-        fx, fy = gx.to(torch.float32), gy.to(torch.float32)
+        gx = (tiles % tiles_x) * tile_w + loc_x  # (N, P) pixel x
+        gy = (tiles // tiles_x) * tile_h + loc_y  # output row
+        fx, fy = gx.to(torch.float32), (gy + tile_row_offset * tile_h).to(torch.float32)  # frame row
         covered, z = _fragments(setup[faces], fx + 0.5, fy + 0.5)
         r = rects[faces]
         covered &= (fx >= r[:, 0:1]) & (fy >= r[:, 1:2]) & (fx <= r[:, 2:3]) & (fy <= r[:, 3:4])
@@ -124,18 +130,20 @@ def rasterize_tiles_plain(setup, aabb, pair_faces, offsets, *, tile_h, tile_w, t
     return torch.stack([depth, fid]).reshape(2, hp, wp)
 
 
-def rasterize_tiles(setup, aabb, pair_faces, offsets, *, tile_h, tile_w, tiles_x, tiles_y, clear_depth=0.0):
+def rasterize_tiles(setup, aabb, pair_faces, offsets, *, tile_h, tile_w, tiles_x, tiles_y, clear_depth=0.0,
+                    tile_row_offset: int = 0):
     """Visibility raster over all tiles (raster.py rasterize_tiles).
 
     setup (F, 24) f32 and aabb (F, 4) f32 from triangle_setup;
-    pair_faces (P,) i32 and offsets (T+1,) i32 from bin_pairs. Returns
-    (2, Hp, Wp) f32: plane 0 depth, plane 1 face id (-1 = none),
-    Hp = tiles_y*tile_h, Wp = tiles_x*tile_w. CPU tensors run the plain
-    version; CUDA tensors launch csrc/raster.cu."""
+    pair_faces (P,) i32 and offsets (T+1,) i32 from bin_pairs or
+    bin_triangles. Returns (2, Hp, Wp) f32: plane 0 depth, plane 1 face id
+    (-1 = none), Hp = tiles_y*tile_h, Wp = tiles_x*tile_w; tile_row_offset
+    (a Python int) is the first frame tile row of a slab. CPU tensors run
+    the plain version; CUDA tensors launch csrc/raster.cu."""
     if not _k.use_kernel(setup, aabb, pair_faces, offsets):
         return rasterize_tiles_plain(
             setup, aabb, pair_faces, offsets, tile_h=tile_h, tile_w=tile_w,
-            tiles_x=tiles_x, tiles_y=tiles_y, clear_depth=clear_depth,
+            tiles_x=tiles_x, tiles_y=tiles_y, clear_depth=clear_depth, tile_row_offset=tile_row_offset,
         )
     _k.check(setup, "setup", torch.float32)
     if setup.dim() != 2 or setup.shape[1] != _g.SETUP_WIDTH:
@@ -157,7 +165,7 @@ def rasterize_tiles(setup, aabb, pair_faces, offsets, *, tile_h, tile_w, tiles_x
     work = torch.empty((2 * n_tiles + 2 + -(-slots // UNIT_PAIRS),), dtype=torch.int32, device=setup.device)
     out = torch.empty((2, hp, wp), dtype=torch.float32, device=setup.device)
     _build.call(
-        "tr_raster", setup, aabb, pair_faces, offsets, slots, tiles_x, tiles_y, tile_h, tile_w,
+        "tr_raster", setup, aabb, pair_faces, offsets, slots, tiles_x, tiles_y, tile_h, tile_w, tile_row_offset,
         float(clear_depth) + 0.0, keys, work, work.numel(), out,
     )
     _k.LAUNCHES["raster"] += 1

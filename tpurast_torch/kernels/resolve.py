@@ -159,9 +159,18 @@ def resolve_pixels(s, px, py, max_anisotropy: int) -> list[torch.Tensor]:
     ]
 
 
-def resolve_gbuffer_plain(vis, attrs, *, max_anisotropy: int = 1) -> torch.Tensor:
+def _y_offset(tile_row_offset: int, tile_h: int | None) -> int:
+    """The slab's first frame pixel row."""
+    if tile_row_offset and not tile_h:
+        raise ValueError("tile_row_offset needs tile_h")
+    return tile_row_offset * tile_h if tile_row_offset else 0
+
+
+def resolve_gbuffer_plain(vis, attrs, *, max_anisotropy: int = 1, tile_row_offset: int = 0,
+                          tile_h: int | None = None) -> torch.Tensor:
     """Plain torch version of the resolve kernel: (A_OUT, Hp, Wp) f32,
     all zeros where vis holds no face."""
+    y_offset = _y_offset(tile_row_offset, tile_h)
     _, hp, wp = vis.shape
     fid = vis[1].reshape(-1)
     pix = torch.nonzero(fid >= 0.0)[:, 0]
@@ -169,19 +178,24 @@ def resolve_gbuffer_plain(vis, attrs, *, max_anisotropy: int = 1) -> torch.Tenso
     if pix.numel():
         s = attrs[fid[pix].long()].T  # (A_IN, M)
         gx = (pix % wp).to(torch.float32)
-        gy = (pix // wp).to(torch.float32)
+        gy = (pix // wp + y_offset).to(torch.float32)
         planes = resolve_pixels(s, (gx + 0.5) - s[9], (gy + 0.5) - s[10], max_anisotropy)
         out[:, pix] = torch.stack(planes)
     return out.reshape(A_OUT, hp, wp)
 
 
-def resolve_gbuffer(vis, attrs, *, max_anisotropy: int = 1) -> torch.Tensor:
+def resolve_gbuffer(vis, attrs, *, max_anisotropy: int = 1, tile_row_offset: int = 0,
+                    tile_h: int | None = None) -> torch.Tensor:
     """Per-pixel G-buffer (A_OUT, Hp, Wp) from the raster output vis
     (2, Hp, Wp) and the attribute table attrs (F, A_IN)
-    (resolve.py resolve_gbuffer). CPU tensors run the plain version;
+    (resolve.py resolve_gbuffer). A slab (tile_row_offset, a Python int,
+    its first frame tile row, with tile_h) interpolates at the frame's
+    pixel rows and writes its own. CPU tensors run the plain version;
     CUDA tensors launch csrc/resolve.cu."""
     if not _k.use_kernel(vis, attrs):
-        return resolve_gbuffer_plain(vis, attrs, max_anisotropy=max_anisotropy)
+        return resolve_gbuffer_plain(vis, attrs, max_anisotropy=max_anisotropy, tile_row_offset=tile_row_offset,
+                                     tile_h=tile_h)
+    y_offset = _y_offset(tile_row_offset, tile_h)
     _k.check(vis, "vis", torch.float32)
     if vis.dim() != 3 or vis.shape[0] != 2:
         raise ValueError(f"vis: expected (2, H, W), got {tuple(vis.shape)}")
@@ -190,6 +204,6 @@ def resolve_gbuffer(vis, attrs, *, max_anisotropy: int = 1) -> torch.Tensor:
         raise ValueError(f"attrs: expected (F, {A_IN}), got {tuple(attrs.shape)}")
     _, hp, wp = vis.shape
     out = torch.empty((A_OUT, hp, wp), dtype=torch.float32, device=vis.device)
-    _build.call("tr_resolve", vis, attrs, attrs.shape[0], hp, wp, max_anisotropy, out)
+    _build.call("tr_resolve", vis, attrs, attrs.shape[0], hp, wp, y_offset, max_anisotropy, out)
     _k.LAUNCHES["resolve"] += 1
     return out

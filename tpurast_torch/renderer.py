@@ -22,8 +22,11 @@ for forward shading when the scene has texture pages and the config
 asks for "auto" or "window", the row-atlas gather otherwise.
 render_frame(stage=...) runs a prefix of the frame and returns a scalar
 probe of the stage's outputs (profiling.stage_sweep times the prefixes).
-Scan binning and slabs (tile_row_offset, crop_height) raise
-NotImplementedError naming the ROADMAP item that ports them.
+binning="scan" bins with geometry.bin_triangles (draw order in a buffer
+of bin_capacity pairs) where "pairs" takes geometry.bin_pairs; the two
+give the same frame. render_frame(tile_row_offset=, crop_height=) renders
+a slab of tile rows in the frame's pixel coordinates (parallel.py puts
+slabs together into the same frame, bit for bit).
 """
 
 from __future__ import annotations
@@ -47,8 +50,27 @@ def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported to tpurast_torch yet (ROADMAP queue 1 {item})")
+def frame_binning(cfg: RendererConfig) -> str:
+    """The binner of cfg.binning: "auto" is the pair sort
+    (tpurast/renderer.py:456-464)."""
+    if cfg.binning not in ("auto", "pairs", "scan"):
+        raise ValueError(f"unknown binning {cfg.binning!r}")
+    return "pairs" if cfg.binning == "auto" else cfg.binning
+
+
+def frame_sampler(cfg: RendererConfig, has_pages: bool) -> str:
+    """The window sampler for forward shading when the scene has texture
+    pages and cfg asks for "auto" or "window", the row-atlas gather
+    otherwise (tpurast/renderer.py:440-447)."""
+    return "window" if cfg.shading == "forward" and cfg.sampler in ("auto", "window") and has_pages else "gather"
+
+
+def pair_capacity(cfg: RendererConfig, n_faces_padded: int) -> int:
+    """The scan binner's pair buffer (tpurast/renderer.py:465-473): 4 pairs
+    a face, at least 16384, unless cfg.bin_capacity says otherwise; a
+    multiple of 128. Pairs past it are counted in bin_overflow."""
+    cap = max(4 * n_faces_padded, 16384) if cfg.bin_capacity is None else cfg.bin_capacity
+    return _round_up(max(cap, 128), 128)
 
 
 #: The stage= prefixes of render_frame, in frame order. "segments" is the
@@ -103,10 +125,18 @@ def render_frame(
     sampler="window"); view_proj (4, 4) and camera_position (3,) are f32
     tensors on the scene's device.
 
-    bin_capacity and segment_headroom size the reference's scan binning
-    and segment schedule, which the port does not have; they are accepted
-    and unused. texture_format ("float" or "srgb8") is the texel format of
-    the atlas rows the gather paths read.
+    binning="pairs" bins with geometry.bin_pairs, any other value (the
+    reference's rule) with geometry.bin_triangles into bin_capacity pair
+    slots; segment_headroom sizes the reference's segment schedule,
+    which the port does not have, and is accepted and unused.
+    texture_format ("float" or "srgb8") is the texel format of the atlas
+    rows the gather paths read.
+
+    A slab: tile_row_offset is its first tile row in the frame, tiles_y
+    its tile rows and crop_height (default height) the rows it returns;
+    width and height stay the frame's, and every stage evaluates at the
+    frame's pixel coordinates. Take tile_row_offset as a Python int: a
+    0-dim tensor is accepted and read with int(), one synchronize.
     Returns {"color", "depth", "bin_overflow", "window_miss_px"}, or
     {"gbuf", "depth", "fid"} for output="gbuf" with forward shading.
 
@@ -118,11 +148,9 @@ def render_frame(
     schedule, so "segments" is the binning prefix once more. "resolve"
     needs forward shading, "plan" and "sample" the window sampler: asked of
     another path they raise ValueError, as an unknown name does."""
-    del bin_capacity, segment_headroom
-    if binning != "pairs":
-        raise _not_ported(f"binning={binning!r}", "item 14 (bin_triangles / scan)")
-    if tile_row_offset is not None or crop_height is not None:
-        raise _not_ported("tile_row_offset / crop_height (slabs)", "item 12")
+    del segment_headroom
+    ty_base = 0 if tile_row_offset is None else int(tile_row_offset)
+    out_h = height if crop_height is None else crop_height
     if stage is not None and stage not in STAGE_PREFIXES:
         raise ValueError(f"unknown stage {stage!r}: expected one of {STAGE_PREFIXES}")
     if (stage == "resolve" and shading != "forward") or (
@@ -136,13 +164,17 @@ def render_frame(
     setup_out = geometry.triangle_setup(clip_c, None, scene["n_faces"], width, height)
     if stage == "geometry":
         return _stage_probe(setup_out["setup"], setup_out["valid"], setup_out["aabb"])
-    bins = geometry.bin_pairs(setup_out["aabb"], setup_out["valid"], tiles_x, tiles_y, tile_w, tile_h)
+    grid = (setup_out["aabb"], setup_out["valid"], tiles_x, tiles_y, tile_w, tile_h)
+    if binning == "pairs":
+        bins = geometry.bin_pairs(*grid, ty_base=ty_base)
+    else:
+        bins = geometry.bin_triangles(*grid, bin_capacity, ty_base=ty_base)
     if stage in ("binning", "segments"):
         return _stage_probe(bins["counts"], bins["offsets"], bins["pair_faces"])
     setup = setup_out["setup"]
     vis = raster.rasterize_tiles(
         setup, setup_out["aabb"], bins["pair_faces"], bins["offsets"], tile_h=tile_h, tile_w=tile_w,
-        tiles_x=tiles_x, tiles_y=tiles_y, clear_depth=clear_depth,
+        tiles_x=tiles_x, tiles_y=tiles_y, clear_depth=clear_depth, tile_row_offset=ty_base,
     )
     if stage == "raster":
         return _stage_probe(vis)
@@ -158,12 +190,15 @@ def render_frame(
             setup, scene["corner_world"], scene["corner_normal"], scene["corner_uv"],
             scene["face_tex"], scene["atlas"],
         )
-        gbuf = resolve.resolve_gbuffer(vis, attrs, max_anisotropy=max_anisotropy)
+        gbuf = resolve.resolve_gbuffer(vis, attrs, max_anisotropy=max_anisotropy, tile_row_offset=ty_base,
+                                       tile_h=tile_h)
         if output == "gbuf":
             return {"gbuf": gbuf, "depth": depth, "fid": vis[1].to(torch.int32)}
         if stage == "resolve":
             return _stage_probe(gbuf)
         if sampler == "window":
+            # The plan and the sample read pixel rows only to index the
+            # slab's own G-buffer and tiles: no frame row offset.
             tiles = dict(tiles_x=tiles_x, tiles_y=tiles_y, tile_h=tile_h, tile_w=tile_w)
             plan = ksampler.plan_tiles(gbuf, max_anisotropy=max_anisotropy, **tiles)
             if stage == "plan":
@@ -192,17 +227,17 @@ def render_frame(
         )
         framebuffer = shade.shade_deferred(
             vis[1].to(torch.int32), shade_rows, scene["atlas"]["texels"], camera_position,
-            max_anisotropy=max_anisotropy, texel_format=texture_format, **light,
+            max_anisotropy=max_anisotropy, y_offset=ty_base * tile_h, texel_format=texture_format, **light,
         )
     result = {
-        "depth": present.crop_linear(depth, width, height),
+        "depth": present.crop_linear(depth, width, out_h),
         "bin_overflow": bins["overflow"],
         "window_miss_px": window_miss_px,
     }
     if output == "srgb_u8":
-        result["color"] = present.encode_srgb_u8(framebuffer, width, height)
+        result["color"] = present.encode_srgb_u8(framebuffer, width, out_h)
     else:
-        result["color"] = present.crop_linear(framebuffer, width, height)
+        result["color"] = present.crop_linear(framebuffer, width, out_h)
     return result
 
 
@@ -226,15 +261,8 @@ class Renderer:
         self.device = torch.device(device)
         self.scene_host = scene
         self.output = output
-        if cfg.binning not in ("auto", "pairs"):
-            raise _not_ported(f"binning={cfg.binning!r}", "item 14 (bin_triangles / scan)")
-        self.binning = "pairs"
-        # tpurast/renderer.py:440-447: the window sampler for forward
-        # shading when the scene has pages, the row-atlas gather otherwise.
-        if cfg.shading == "forward" and cfg.sampler in ("auto", "window") and scene.pages is not None:
-            self.sampler = "window"
-        else:
-            self.sampler = "gather"
+        self.binning = frame_binning(cfg)
+        self.sampler = frame_sampler(cfg, scene.pages is not None)
         self.texture_dtype = resolve_texture_dtype(scene, cfg.texture_dtype)
         # Only the gather paths read the atlas rows (shade.py).
         self.scene = upload(scene, self.device, self.texture_dtype if self.sampler == "gather" else None)
@@ -252,6 +280,7 @@ class Renderer:
         self.width, self.height = width, height
         self.tiles_x = _round_up(width, cfg.tile_w) // cfg.tile_w
         self.tiles_y = _round_up(height, cfg.tile_h) // cfg.tile_h
+        self.bin_capacity = pair_capacity(cfg, int(self.scene_host.faces.shape[0]))
         self.projection = math3d.perspective_inverse_depth(cfg.vfov, width / height, cfg.znear)
         self._frame_kwargs = dict(
             width=width,
@@ -260,7 +289,7 @@ class Renderer:
             tile_w=cfg.tile_w,
             tiles_x=self.tiles_x,
             tiles_y=self.tiles_y,
-            bin_capacity=0,
+            bin_capacity=self.bin_capacity,
             segment_headroom=0,
             clear_depth=cfg.clear_depth,
             clear_color=cfg.clear_color,
