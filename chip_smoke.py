@@ -25,29 +25,43 @@ eight generated 1024^2 BC4 textures with full mip chains), and then, at
      grid) and plane_scale on a (24, 1088, 1920) G-buffer in its three
      launch geometries;
   3. the window main path: renders a warm-up frame plus 8 frames of an
-     orbiting camera through tpurast_torch.renderer.Renderer, checks that
-     every render kernel's launch counter rose by one per frame, that
-     nothing overflowed and that 5-95% of the pixels are covered, and
-     renders frame 0 again with every kernel's plain version: color
-     within 1 LSB, depth exact;
+     orbiting camera through tpurast_torch.renderer.Renderer (the warm-up
+     frame renders eagerly and captures the Renderer's CUDA graph, the 8
+     replay it), checks that every render kernel's launch counter rose by
+     one per frame, that nothing overflowed and that 5-95% of the pixels
+     are covered; then the graph frames (graph_frames): each of the 8
+     equal to render_frame's eager frame bit for bit (color, depth,
+     bin_overflow, window_miss_px), two frames held at once (cameras 0
+     and 1, both replayed before either is read) each equal to its eager
+     frame with one launch per kernel a frame, torch.profiler over one
+     replay listing the raster, resolve, plan and sample kernels once
+     each, the debug_gbuf graph equal to the eager G-buffer, 3 frames at
+     1280x720 after recreate_swapchain equal to their eager frames, and
+     the graph's capture ms, pool bytes, frame median against the eager
+     frame's (events), host ms per render call and device idle share;
+     then frame 0 inside plain_kernels(): no kernel launched, color within
+     1 LSB of the graph frame, depth exact;
   4. the microbenchmark path: tools.microbench's vmemtake and
      tools.microbench_pipeline's run, with the probe counters from zero
      (each kernel must launch), and tools.microbench's shade
      decomposition over the orbit scene's f16 atlas rows;
   5. the gather path (sampler="gather"): a warm-up frame plus 3 track
-     frames; raster and resolve launch once per frame, plan and sample
-     never; no overflow; depth equal to the window path's; frame 0 within
-     2 LSB of the window path's frame 0 (the reference's budget between
-     its two samplers, tests/test_sampler.py:76);
-  6. the deferred path (shading="deferred"), the same frames: raster
-     launches once per frame and nothing else; color and depth equal to
-     the gather path's bit for bit;
+     frames (graph replays, each equal to its eager frame bit for bit,
+     with the graph's costs as in 3); raster and resolve launch once per
+     frame, plan and sample never; no overflow; depth equal to the window
+     path's; frame 0 within 2 LSB of the window path's frame 0 (the
+     reference's budget between its two samplers, tests/test_sampler.py:76);
+  6. the deferred path (shading="deferred"), the same frames and graph
+     checks: raster launches once per frame and nothing else; color and
+     depth equal to the gather path's bit for bit;
   7. the runtime path: tpurast_torch.cli.main in-process for --scene orbit
      at 1920x1080, 32 frames after 4 warm-up frames, with --stages. Its JSON
      line is printed and checked: parity_max_lsb <= 1, dropped_pairs 0,
-     backend "cuda", and every render kernel's launch counter equal to the
-     frames the run rendered (gate, warm-up, timed loop, present loop and
-     the stage prefixes that reach the kernel), the probes' at 0. Then an
+     backend "cuda", capture_ms and graph_pool_bytes set, and every render
+     kernel's launch counter equal to the frames the run rendered (gate,
+     warm-up, timed loop, present loop and the stage prefixes that reach
+     the kernel, each prefix a graph), the probes' at 0; its stage_ms is
+     printed beside the window stages' eager device ms. Then an
      Engine at its default 1280x720 over the same scene for 8 ticks under a
      scripted controller: None first, every later image (720, 1280, 4) u8,
      nothing dropped, the camera moved, and the last presented image equal
@@ -59,12 +73,14 @@ eight generated 1024^2 BC4 textures with full mip chains), and then, at
      at a global row offset (the second slab of a 4-slab split of frame
      0) against their plain versions (raster exact; resolve integer planes
      exact, float planes phase 1's rule) and against the same rows of the
-     whole frame, bit for bit; parallel.make_sharded_renderer with 2 and 8
-     slabs on the window path and 2 on gather and on deferred, each frame
-     equal to the single Renderer frame bit for bit with the same
-     counters, raster (resolve, plan, sample where the path has them)
-     launched once per slab; Renderer(binning="scan"): a warm-up and 2
-     track frames equal to the pairs frames, frame 0's counts, offsets and
+     whole frame, bit for bit; parallel.make_sharded_renderer (a CUDA
+     graph) with 2 and 8 slabs on the window path and 2 on gather and on
+     deferred, its eager first frame and its replay each equal to the
+     single Renderer frame bit for bit with the same counters, raster
+     (resolve, plan, sample where the path has them) launched once per slab
+     in the replay; Renderer(binning="scan"): a warm-up and 3 track frames
+     (graph replays, equal to their eager frames) equal to the pairs
+     frames, frame 0's counts, offsets and
      per-tile face sets equal to bin_pairs', and a pair buffer of half the
      pairs counting the rest in overflow while the frame renders; the
      binning stage's event ms under each binner and the slab frames' ms
@@ -78,8 +94,9 @@ eight generated 1024^2 BC4 textures with full mip chains), and then, at
 The run writes nothing but the kernels' build: the scene cache is off
 (TPURAST_TORCH_SCENE_CACHE=0 unless the caller set it), and the tools'
 G-buffer dump lives in a temporary directory. The whole run takes about
-100 s on an H100; should it ever pass 150 s, the tools' frame counts are the
-first to cut, then the gather and deferred phases from 4 frames to 2.
+two minutes on an H100; should it ever pass 150 s, the tools' frame counts
+are the first to cut, then the gather and deferred phases from 4 frames to
+2.
 
 Each path prints its frame times and a per-stage breakdown; the window
 path also prints, per stage, the device operations torch.profiler counts
@@ -110,6 +127,7 @@ import contextlib
 import io
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -127,11 +145,12 @@ from tpurast_torch.config import RendererConfig  # noqa: E402
 from tpurast_torch.device.scene import orbit_track  # noqa: E402
 from tpurast_torch.device.scene_cache import load_named_scene  # noqa: E402
 from tpurast_torch.engine import Engine  # noqa: E402
+from tpurast_torch.graphs import FrameGraph  # noqa: E402
 from tpurast_torch.kernels import _build, geometry, present, probes, raster, resolve, sampler, shade  # noqa: E402
 from tpurast_torch.parallel import make_sharded_renderer  # noqa: E402
 from tpurast_torch.present import Presenter  # noqa: E402
 from tpurast_torch.profiling import STAGES  # noqa: E402
-from tpurast_torch.renderer import Renderer  # noqa: E402
+from tpurast_torch.renderer import Renderer, render_frame  # noqa: E402
 from tpurast_torch.tools import (aniso_mode_stats, check_sampler, microbench, microbench_pipeline,  # noqa: E402
                                  profile_sampler, profile_stages, residual_analysis, sample_stage_probe,
                                  sampler_plan_stats, sampler_sim)
@@ -161,10 +180,11 @@ RASTER_FACE_BYTES = 18 * 4 + 4 * 4
 PROBE_KERNELS = ("vmem_take", "plane_scale")
 FRAMES = 8
 GATHER_FRAMES = 3
-SCAN_FRAMES = 2
+SCAN_FRAMES = 3
 SLAB_SPLIT = 4  # raster and resolve at an offset: the second slab of this many
 SLABS = {"window": (2, 8), "gather": (2,), "deferred": (2,)}  # slab counts per path
 WIDTH, HEIGHT = 1920, 1080
+GRAPH_OUTPUTS = ("color", "depth", "bin_overflow", "window_miss_px")  # compared bit for bit with eager frames
 FLOAT_PLANES = [i for i in range(resolve.A_OUT) if i not in resolve.INT_PLANES]
 # G-buffer planes the functions read: the plan 6, 7, 9-12, 14-17, 20-23; the
 # sample those and 0-5 and 13 (csrc/plan.cu, csrc/sampler.cu).
@@ -673,7 +693,136 @@ def print_times(label: str, times, r: Renderer, cam) -> None:
           + f" (median {med:.2f}); device busy per frame {fmt_ms(busy)} ms, idle share {idle}")
 
 
-def gather_paths(scene, cams, window_frames) -> dict:
+def event_median(fn, reps: int) -> float:
+    """Median milliseconds of reps calls of fn, each between two CUDA events
+    and followed by a synchronize (a frame's latency, its host work
+    included), after one untimed call."""
+    fn()
+    times = []
+    for _ in range(reps):
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        stop.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(stop))
+    return float(np.median(times))
+
+
+def eager_frame(r: Renderer, cam) -> dict:
+    """cam's frame through render_frame itself, eagerly, with r's arguments."""
+    return render_frame(r.scene, *r.frame_uniforms(cam), **r._frame_kwargs)
+
+
+def check_graph_frames(label: str, r: Renderer, cams, frames) -> None:
+    """Each of frames (r.render(cam) after the capture) equal to cams' eager
+    render_frame frame bit for bit: color, depth and the two counters."""
+    check(r.uses_graphs and "frame" in r.graph_info(), f"{label}: the Renderer has no frame graph")
+    same = []
+    for cam, got in zip(cams, frames):
+        want = eager_frame(r, cam)
+        same.append(all(bool(torch.equal(got[k], want[k])) for k in GRAPH_OUTPUTS))
+    print(f"{label} graph frames vs eager render_frame, bit for bit ({', '.join(GRAPH_OUTPUTS)}): {same}")
+    check(all(same), f"{label}: a graph frame differs from the eager frame")
+
+
+def host_ms(fn, n: int = 6) -> list:
+    """Host milliseconds of each of n calls of fn back to back, no
+    synchronize between them (one before and one after)."""
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        out.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return out
+
+
+def graph_costs(label: str, r: Renderer, cam, card: str, reps: int = 6) -> dict:
+    """What r's frame graph cost and what it saves: capture ms and pool
+    bytes; graph and eager frame medians by events (event_median); host ms
+    per r.render call (median of 6 calls back to back), and apart the
+    median host ms of frame_uniforms and of the graph's replay() alone;
+    device busy per graph frame (torch.profiler) and the idle share it
+    leaves of the graph frame; the device ms of the copies out of the
+    graph's outputs that each call makes."""
+    vp, cp = r.frame_uniforms(cam)
+    graph_ms = event_median(lambda: r.render_with_uniforms(vp, cp), reps)
+    eager_ms = event_median(lambda: render_frame(r.scene, vp, cp, **r._frame_kwargs), reps)
+    host = host_ms(lambda: r.render(cam))
+    uniforms_ms = float(np.median(host_ms(lambda: r.frame_uniforms(cam))))
+    graph = r._frame_fn("frame")
+    replay_ms = float(np.median(host_ms(graph._graph.replay)))
+    copies_ms = device_ms(lambda: [v.clone() for v in graph._outputs.values()], 20)
+    busy = device_ms(lambda: r.render_with_uniforms(vp, cp), 3)
+    info = r.graph_info()["frame"]
+    out = dict(capture_ms=info["capture_ms"], pool_bytes=info["pool_bytes"], graph_ms=graph_ms, eager_ms=eager_ms,
+               host_ms=float(np.median(host)), busy_ms=busy, idle=None if busy is None else 1.0 - busy / graph_ms,
+               copies_ms=copies_ms)
+    idle = "not measured" if busy is None else f"{out['idle']:.3f}"
+    print(f"{label} graph: capture {out['capture_ms']:.1f} ms, pool {out['pool_bytes']} B; frame median by events "
+          f"{graph_ms:.3f} ms vs eager {eager_ms:.3f} ms ({graph_ms / eager_ms:.3f}x); host ms per render call "
+          f"{out['host_ms']:.4f} (" + ", ".join(f"{h:.3f}" for h in host)
+          + f"; of it frame_uniforms {uniforms_ms:.4f}, replay() {replay_ms:.4f}); device busy {fmt_ms(busy)} ms, "
+          f"idle share {idle}; the copies out of the outputs {fmt_ms(copies_ms)} device ms [{card}]")
+    return out
+
+
+def graph_frames(r: Renderer, cams, window_frames, card: str) -> dict:
+    """The window graph beyond its track: two frames held at once, the
+    kernels the profiler sees in one replay, one launch per replayed frame,
+    the G-buffer graph, a resize (1280x720) and back, and its costs.
+    Returns the render kernels' device ms in the profiled replay."""
+    check_graph_frames("window", r, cams, window_frames)
+    K.reset_launches()
+    held = [r.render(cams[0]), r.render(cams[1])]  # both replayed before either is read
+    launches = dict(K.LAUNCHES)
+    wants = [eager_frame(r, c) for c in cams[:2]]
+    same = [all(bool(torch.equal(f[k], w[k])) for k in GRAPH_OUTPUTS) for f, w in zip(held, wants)]
+    print(f"two window frames held at once: each equal to its eager frame {same}; launches {launches}")
+    check(all(same), "a held graph frame was overwritten by the next replay")
+    check(all(launches[name] == 2 for name in RENDER_KERNELS), "graph replays: not one launch per kernel a frame")
+
+    from torch.profiler import ProfilerActivity, profile
+
+    vp, cp = r.frame_uniforms(cams[2])
+    r.render_with_uniforms(vp, cp)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        r.render_with_uniforms(vp, cp)
+        torch.cuda.synchronize()
+    ops = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    mine = {name: [e for e in ops if re.search(rf"(?<![A-Za-z0-9_]){name}_kernel\b", e.key)]
+            for name in RENDER_KERNELS}
+    seen = {name: sum(e.count for e in es) for name, es in mine.items()}
+    kernel_ms = {name: sum(e.self_device_time_total for e in es) / 1e3 for name, es in mine.items()}
+    print(f"torch.profiler over one window replay: {sum(e.count for e in ops)} device operations, "
+          f"{sum(e.self_device_time_total for e in ops) / 1e3:.4f} device ms; render kernels seen {seen}, their "
+          "device ms " + ", ".join(f"{k} {v:.4f}" for k, v in kernel_ms.items()))
+    check(all(n == 1 for n in seen.values()), "the profiler does not list each render kernel once in a replay")
+
+    gb = r.debug_gbuf(cams[0], with_fid=True)
+    gb = r.debug_gbuf(cams[0], with_fid=True)  # the replay
+    kw = dict(r._frame_kwargs, output="gbuf", shading="forward")
+    want = render_frame(r.scene, *r.frame_uniforms(cams[0]), **kw)
+    same_gbuf = bool(torch.equal(gb[0], want["gbuf"])) and bool(torch.equal(gb[1], want["fid"]))
+    print(f"debug_gbuf graph: G-buffer and face ids equal to the eager frame's {same_gbuf}; "
+          f"capture {r.graph_info()['gbuf']['capture_ms']:.1f} ms, pool {r.graph_info()['gbuf']['pool_bytes']} B")
+    check(same_gbuf, "the debug_gbuf graph differs from the eager G-buffer")
+
+    r.recreate_swapchain(1280, 720)
+    check(r.graph_info() == {}, "recreate_swapchain kept the graphs")
+    small = [r.render(c) for c in cams[:GATHER_FRAMES + 1]][1:]  # the first captures
+    check(all(tuple(f["color"].shape) == (4, 720, 1280) for f in small), "1280x720: graph frame shape")
+    check_graph_frames("window 1280x720", r, cams[1:GATHER_FRAMES + 1], small)
+    r.recreate_swapchain(WIDTH, HEIGHT)
+    r.render(cams[0])
+    graph_costs("window", r, cams[0], card)
+    return kernel_ms
+
+
+def gather_paths(scene, cams, window_frames, card: str) -> dict:
     """The gather and deferred paths on the first GATHER_FRAMES cameras,
     held against the window path's frames and against each other. Returns
     {label: (its Renderer, its frames)}."""
@@ -696,6 +845,8 @@ def gather_paths(scene, cams, window_frames) -> dict:
             check(launches[name] == want.get(name, 0),
                   f"{label}: {name} launched {launches[name]} times for {n_rendered} frames, want {want.get(name, 0)}")
         check_frames(frames, label)
+        check_graph_frames(label, r, track, frames)
+        graph_costs(label, r, track[0], card, reps=3)
         print_stages(label, stage_breakdown(r, cams[0]))
         paths[label] = (r, frames)
 
@@ -777,12 +928,14 @@ def slab_kernels(r: Renderer, cam, card: str) -> None:
 
 
 def slab_frames(renderers: dict, cam, card: str) -> dict:
-    """make_sharded_renderer against the single Renderer frame of cam: 2
-    and 8 slabs on the window path, 2 on gather and on deferred. Color and
-    depth equal bit for bit, the counters equal, raster (and on the forward
-    paths resolve, on the window path plan and sample) launched once per
-    slab, the counts from zero around each sharded frame. Returns the
-    launches of the last window frame (8 slabs)."""
+    """make_sharded_renderer (a CUDA graph of the slab frame) against the
+    single Renderer frame of cam (a graph replay): 2 and 8 slabs on the
+    window path, 2 on gather and on deferred. The first call renders
+    eagerly and captures, the second replays: each equal to the single
+    frame bit for bit (color, depth, the counters), and raster (and on the
+    forward paths resolve, on the window path plan and sample) launched once
+    per slab in the replay, the counts from zero around it. Returns the
+    launches of the last window replay (8 slabs)."""
     window_launches = {}
     for label, r in renderers.items():
         vp, cp = r.frame_uniforms(cam)
@@ -790,17 +943,21 @@ def slab_frames(renderers: dict, cam, card: str) -> dict:
         single_ms = cuda_ms(lambda: r.render_with_uniforms(vp, cp), 5)
         for n in SLABS[label]:
             fn = make_sharded_renderer(r.scene, r.config, n, WIDTH, HEIGHT)
+            check(isinstance(fn, FrameGraph), "make_sharded_renderer on the card is not a graph")
+            first = fn(r.scene, vp, cp)
             K.reset_launches()
             out = fn(r.scene, vp, cp)
             torch.cuda.synchronize()
             launches = dict(K.LAUNCHES)
-            same = {k: bool(torch.equal(out[k], single[k])) for k in ("color", "depth")}
-            counters = [(int(out[k]), int(single[k])) for k in ("bin_overflow", "window_miss_px")]
+            same = {f"{which} {k}": bool(torch.equal(f[k], single[k]))
+                    for which, f in (("eager", first), ("graph", out)) for k in GRAPH_OUTPUTS}
             ms = cuda_ms(lambda: fn(r.scene, vp, cp), 5)
-            print(f"slab frame, {label}, {n} slabs ({fn.keywords['tiles_y_per_slab']} tile rows each): equal to the "
-                  f"single frame {same}, bin_overflow / window_miss_px {counters}, launches {launches}; "
-                  f"{ms:.3f} ms a frame vs {single_ms:.3f} ms single [{card}]")
-            check(all(same.values()) and all(a == b for a, b in counters), f"{label}: {n} slabs differ from the frame")
+            print(f"slab frame, {label}, {n} slabs ({fn.fn.keywords['tiles_y_per_slab']} tile rows each): equal to "
+                  f"the single frame {same}, launches {launches}; capture {fn.capture_ms:.1f} ms, pool "
+                  f"{fn.pool_bytes} B; graph {ms:.3f} ms a frame vs {single_ms:.3f} ms single "
+                  f"({ms / single_ms:.2f}x) [{card}]")
+            check(all(same.values()), f"{label}: {n} slabs differ from the frame")
+            fn.close()
             want = {"raster": n, "resolve": n if label != "deferred" else 0,
                     "plan": n if label == "window" else 0, "sample": n if label == "window" else 0}
             for name in KERNELS:
@@ -830,6 +987,7 @@ def scan_path(scene, r: Renderer, cams, window_frames, card: str) -> dict:
     for k, f in enumerate(frames):
         same = all(bool(torch.equal(f[x], window_frames[k][x])) for x in ("color", "depth"))
         check(same and int(f["bin_overflow"]) == 0, f"scan frame {k} differs from the pairs frame")
+    check_graph_frames("scan", rs, cams[:SCAN_FRAMES], frames)
     print_times("scan", times, rs, cams[0])
 
     kw = rs._frame_kwargs
@@ -938,9 +1096,11 @@ def present_breakdown(r: Renderer, cams, frames: int = 24) -> None:
           f"{copy_out_ms:.3f} ms of host time, interleave kernel {fmt_ms(interleave_ms)} ms of device time")
 
 
-def runtime_path(scene, seed: int) -> dict:
+def runtime_path(scene, seed: int, window_ops: dict, kernel_ms: dict) -> dict:
     """The bench entry point in-process, then the Engine; returns the render
-    kernels' launches on the bench run."""
+    kernels' launches on the bench run. Its stage_sweep (graphs) is printed
+    beside window_ops (stage_device_ops, eager) and, for the kernel stages,
+    beside kernel_ms (each render kernel's device ms in a graph replay)."""
     argv = ["--scene", "orbit", "--width", str(WIDTH), "--height", str(HEIGHT), "--frames", str(BENCH_FRAMES),
             "--warmup", str(BENCH_WARMUP), "--stages", "--seed", str(seed)]
     K.reset_launches()
@@ -959,23 +1119,37 @@ def runtime_path(scene, seed: int) -> dict:
     check(res["dropped_pairs"] == 0, f"the bench dropped {res['dropped_pairs']} pairs")
     check(res["backend"] == "cuda" and res["device"] == torch.cuda.get_device_name(0), "the bench's device")
     check(res["triangles"] == scene.n_faces and res["frames"] == BENCH_FRAMES, "the bench's scene")
-    # Frames that reach each kernel: the gate's kernel frame, the warm-up,
-    # the timed loop, the present loop, and warm-up + frames of every stage
-    # prefix from the kernel's own stage on ("frame" included).
-    loops = 1 + BENCH_WARMUP + BENCH_FRAMES + min(BENCH_FRAMES, cli.PRESENT_FRAMES)
+    # Frames that reach each kernel: the gate's two kernel frames (the
+    # capture's eager frame and the replay it compares), the warm-up, the
+    # timed loop, the present loop, and warm-up + frames of every stage
+    # prefix from the kernel's own stage on ("frame" included). A capture
+    # launches nothing.
+    loops = 2 + BENCH_WARMUP + BENCH_FRAMES + min(BENCH_FRAMES, cli.PRESENT_FRAMES)
     per_prefix = cli.SWEEP_WARMUP + cli.SWEEP_FRAMES
     prefixes = [s or "frame" for s in STAGES]
     for name in KERNELS:
         want = loops + per_prefix * (len(prefixes) - prefixes.index(name)) if name in RENDER_KERNELS else 0
         check(launches[name] == want, f"runtime path: {name} launched {launches[name]} times, want {want}")
     check(list(res["stage_ms"]) == prefixes, "the bench's stage_ms keys")
+    check(res["capture_ms"] is not None and res["graph_pool_bytes"] > 0, "the bench's graph keys")
     copy_ms, nbytes = readback_ms(HEIGHT, WIDTH)
     print(f"present loop: {res['present_ms_per_frame']:.4f} ms a frame with the double-buffered read-back against "
           f"{res['p50_frame_ms']:.4f} ms a frame without ({res['present_ms_per_frame'] - res['p50_frame_ms']:+.4f}); "
           f"one read-back is {nbytes} B, {copy_ms:.4f} ms alone into pinned memory "
           f"({nbytes / copy_ms / 1e6:.2f} GB/s)")
-    print("stage_sweep (differences of prefix medians, each prefix with its probe's sums) ms: "
+    print("stage_sweep (differences of prefix medians, each prefix a CUDA graph ending in its probe's sums) ms: "
           + ", ".join(f"{k} {v:.3f}" for k, v in res["stage_ms"].items()))
+    # The same stages' device ms from the eager stage_device_ops: a sweep
+    # delta also holds the difference of two prefixes' probe sums.
+    pairs = {"geometry": ("geometry",), "binning": ("binning",), "raster": ("raster",),
+             "resolve": ("pack_attrs", "resolve"), "plan": ("plan",), "sample": ("sample",), "frame": ("encode",)}
+    print("stage_sweep delta vs stage_device_ops device ms: " + ", ".join(
+        f"{k} {res['stage_ms'][k]:.3f} vs {sum(window_ops[o]['dev_ms'] for o in ops):.3f}" for k, ops in pairs.items()))
+    # The resolve prefix adds the attribute pack to the resolve kernel.
+    kernel_stage_ms = dict(kernel_ms, resolve=kernel_ms["resolve"] + window_ops["pack_attrs"]["dev_ms"])
+    print("stage_sweep delta vs the kernel's device ms in a window replay (resolve: with the eager pack's): "
+          + ", ".join(f"{k} {res['stage_ms'][k]:.3f} vs {v:.3f} ({res['stage_ms'][k] - v:+.3f})"
+                      for k, v in kernel_stage_ms.items()))
 
     # The Presenter on CUDA frames whose shape changes between calls: each
     # pinned buffer is allocated anew, and every frame comes back as given.
@@ -1052,13 +1226,16 @@ def main() -> None:
     print(f"scene: {scene.n_faces} triangles, {len(scene.texture_uris)} textures, page "
           f"{tuple(r.scene['atlas']['page'].shape)} bf16; build + upload {time.perf_counter() - t0:.1f} s")
 
+    card = smi.stdout.strip()
     stats = kernel_phases(r, cams[0])
     stats.update(probe_phases(torch.device("cuda")))
     window_stages = stage_breakdown(r, cams[0])
+    window_ops = stage_device_ops(r, cams[0])
     print_stages("window", window_stages)
-    print_stage_ops("window", window_stages, stage_device_ops(r, cams[0]))
+    print_stage_ops("window", window_stages, window_ops)
 
-    # Window main path: a warm-up frame, then the track, with counters from zero.
+    # Window main path: a warm-up frame (it captures the Renderer's CUDA
+    # graph), then the track (graph replays), with counters from zero.
     K.reset_launches()
     frames, times = run_track(r, cams)
     launches = dict(K.LAUNCHES)
@@ -1073,14 +1250,21 @@ def main() -> None:
     print("window_miss_px per frame (pixels of residual tiles, sampled straight from the page): "
           + ", ".join(str(int(f["window_miss_px"])) for f in frames))
 
+    replay_kernel_ms = graph_frames(r, cams, frames, card)
+
+    # Inside plain_kernels() the Renderer renders eagerly with the plain
+    # versions: no kernel launches, and no graph replays.
+    K.reset_launches()
     with K.plain_kernels():
         plain = r.render(cams[0])
     torch.cuda.synchronize()
+    plain_launches = sum(K.LAUNCHES.values())
     lsb = int((plain["color"].int() - frames[0]["color"].int()).abs().max())
     d_eq = bool(torch.equal(plain["depth"], frames[0]["depth"]))
     miss_eq = int(plain["window_miss_px"]) == int(frames[0]["window_miss_px"])
-    print(f"frame 0, kernels vs plain versions: color max LSB diff {lsb}, depth equal {d_eq}, "
-          f"window_miss_px equal {miss_eq}")
+    print(f"frame 0, graph frame vs plain versions (eager, {plain_launches} kernel launches): color max LSB diff "
+          f"{lsb}, depth equal {d_eq}, window_miss_px equal {miss_eq}")
+    check(plain_launches == 0, "a kernel launched inside plain_kernels()")
     check(lsb <= 1 and d_eq and miss_eq, "full frame disagrees with the plain versions")
 
     # Microbenchmark path: the tools' entry points, probe counters from zero.
@@ -1094,14 +1278,13 @@ def main() -> None:
     print(f"microbench path: launches {dict(K.LAUNCHES)}; vmemtake {take['ms']:.4f} ms "
           f"({take['ns_per_row']:.4f} ns/row); pipeline " + json.dumps({k: round(v, 4) for k, v in pipe.items()}))
 
-    paths = gather_paths(scene, cams, frames)
-    card = smi.stdout.strip()
+    paths = gather_paths(scene, cams, frames, card)
     slab_kernels(r, cams[0], card)
     slab_launches = slab_frames({"window": r, "gather": paths["gather"][0], "deferred": paths["deferred"][0]},
                                 cams[0], card)
     del paths
     scan_launches = scan_path(scene, r, cams, frames, card)
-    runtime_launches = runtime_path(scene, args.seed)
+    runtime_launches = runtime_path(scene, args.seed, window_ops, replay_kernel_ms)
     present_breakdown(r, cams)
     tool_phase(scene, args.seed, card)
 

@@ -317,7 +317,7 @@ def test_time_groups_times_every_group_and_reports_its_last_result():
 BENCH_FIELDS = {
     "metric", "value", "unit", "p50_frame_ms", "mean_frame_ms", "mtris_per_sec", "triangles", "frames", "wall_s",
     "dropped_pairs", "window_miss_px", "parity_max_lsb", "stage_ms", "present_ms_per_frame", "present_fps",
-    "backend", "device", "power_limit_w", "binning",
+    "backend", "device", "power_limit_w", "binning", "capture_ms", "graph_pool_bytes",
 }
 
 
@@ -339,6 +339,7 @@ def test_cli_prints_one_json_line_on_the_cpu(tiny_orbit, capsys):
     assert res["metric"] == "fps_128x64_orbit_scene" and res["unit"] == "frames/sec"
     assert res["parity_max_lsb"] == 0 and res["dropped_pairs"] == 0 and res["window_miss_px"] == 0
     assert res["backend"] == "cpu" and res["device"] == "cpu" and res["power_limit_w"] is None
+    assert res["capture_ms"] is None and res["graph_pool_bytes"] is None  # no graph on the CPU
     assert res["frames"] == 4 and res["stage_ms"] is None and res["binning"] == "pairs"
     assert res["triangles"] == build_orbit_scene(seed=1, **TINY).n_faces
     assert res["p50_frame_ms"] > 0 and res["present_ms_per_frame"] > 0

@@ -12,8 +12,9 @@ kernels for the reference tools' Pallas probes. The runtime is here too:
 ``Engine`` (frame loop, fly camera, frame statistics), ``Presenter``
 (double-buffered read-back through pinned memory), ``render_frame``'s
 ``stage=`` prefixes with ``profiling.stage_sweep``, the bench's named
-scenes and ``python -m tpurast_torch.cli``, the benchmark entry point. Scan
-binning and slabs are not ported yet and raise NotImplementedError.
+scenes and ``python -m tpurast_torch.cli``, the benchmark entry point, with
+scan binning and slab frames (``parallel``). On a CUDA device a frame is a
+CUDA graph replay (``graphs.FrameGraph``, the reference's ``jax.jit``).
 
 It imports torch and never jax, and nothing of ``tpurast``: the host-side
 numpy modules it needs are its own copies under the same names (config,

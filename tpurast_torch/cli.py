@@ -26,7 +26,14 @@ read-back into pinned memory) on the host's clock.
 The parity gate renders one 256x128 frame with the CUDA kernels and again
 with every kernel's plain torch version on the same device
 (kernels.plain_kernels); above 1 LSB it prints the failure in place of any
-time and exits 1.
+time and exits 1. On the card its kernel frame is a replay of the gate
+Renderer's CUDA graph (the first frame captures it), and the plain frame
+runs eagerly.
+
+On the card every frame the bench times is a replay of the Renderer's CUDA
+graph (graphs.FrameGraph): the first warm-up frame captures it, and the
+line's capture_ms and graph_pool_bytes say what that took (the reference's
+bench counts its compile in the warm-up too); both are null on the CPU.
 """
 
 from __future__ import annotations
@@ -210,6 +217,8 @@ def main(argv: list[str] | None = None) -> int:
     parity_max_lsb = None
     if not args.skip_parity_gate:
         gate = Renderer(scene, RendererConfig(width=256, height=128, **overrides), device=device)
+        if gate.uses_graphs:
+            gate.render(cams[0])  # captures the graph; the frame below replays it
         fa = gate.render_to_host(cams[0]).astype(np.int32)
         with kernels.plain_kernels():
             fb = gate.render_to_host(cams[0]).astype(np.int32)
@@ -273,6 +282,7 @@ def main(argv: list[str] | None = None) -> int:
     if args.stages:
         _, stage_ms = stage_sweep(renderer, uniforms, frames=SWEEP_FRAMES, group=GROUP, warmup=SWEEP_WARMUP)
 
+    graph = renderer.graph_info().get("frame", {})
     p50 = float(np.percentile(times_ms, 50))
     fps = 1000.0 / p50
 
@@ -298,6 +308,8 @@ def main(argv: list[str] | None = None) -> int:
         "stage_ms": stage_ms,
         "present_ms_per_frame": round(present_ms, 4),
         "present_fps": round(1000.0 / present_ms, 2) if present_ms > 0 else None,
+        "capture_ms": round(graph["capture_ms"], 3) if graph else None,
+        "graph_pool_bytes": graph.get("pool_bytes"),
         "backend": "cuda" if on_card else "cpu",
         "device": torch.cuda.get_device_name(device) if on_card else "cpu",
         "power_limit_w": power_limit_w(device.index or 0) if on_card else None,

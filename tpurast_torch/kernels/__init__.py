@@ -31,7 +31,9 @@ tests), never a frame loop.
 
 Each wrapper adds one to its entry of ``LAUNCHES`` when it launches its
 CUDA kernel, and nowhere else, so a run can show that the main path went
-through the kernels.
+through the kernels. A frame captured into a CUDA graph
+(tpurast_torch.graphs) launches nothing while it is captured: the graph
+takes back the counts of its capture and adds them on every replay.
 """
 
 from __future__ import annotations
@@ -64,6 +66,11 @@ def plain_kernels():
         _plain_depth -= 1
 
 
+def plain_kernels_active() -> bool:
+    """True inside plain_kernels()."""
+    return _plain_depth > 0
+
+
 def use_kernel(*tensors: torch.Tensor) -> bool:
     """True when the tensors live on one CUDA device (launch the kernel),
     False when they all live on the CPU (run the plain version) or, inside
@@ -72,7 +79,7 @@ def use_kernel(*tensors: torch.Tensor) -> bool:
     if {d.type for d in devices} == {"cpu"}:
         return False
     if len(devices) == 1 and next(iter(devices)).type == "cuda":
-        return _plain_depth == 0
+        return not plain_kernels_active()
     raise ValueError(f"kernel inputs must all be on the CPU or all on one CUDA device, got {devices}")
 
 

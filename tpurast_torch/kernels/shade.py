@@ -311,8 +311,11 @@ def shade_deferred(
     f = torch.clamp(fid, min=0).long()
     # Channel-planar (104, H, W) rows: one gather per table column.
     rows = shade_rows.T.contiguous()[:, f]
-    y0 = torch.as_tensor(y_offset, dtype=torch.float32, device=dev)
     px = (torch.arange(w, dtype=torch.float32, device=dev)[None, :] + 0.5) - rows[16]
+    # The row offset as an f32 fill (an integer below 2^24, so exact), not
+    # a tensor built from host data: a frame captured into a CUDA graph
+    # copies nothing from the host.
+    y0 = torch.full((), float(y_offset), dtype=torch.float32, device=dev)
     py = ((torch.arange(h, dtype=torch.float32, device=dev)[:, None] + y0) + 0.5) - rows[17]
     e0 = rows[0] * px + rows[1] * py + rows[2]
     e1 = rows[3] * px + rows[4] * py + rows[5]

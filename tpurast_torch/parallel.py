@@ -12,6 +12,10 @@ them, geometry._tile_ranges; raster, resolve and deferred shading take the
 row offset), so the slabs put together are the single frame bit for bit,
 for both shading modes, both samplers and both binnings.
 
+make_sharded_renderer returns the n-slab frame as one CUDA graph on a CUDA
+device (graphs.FrameGraph: the reference jits it), render_frame_sharded
+stays the eager function.
+
 Tile rows are padded to a multiple of n_slabs, so the last slabs can lie
 wholly below the viewport: they bin nothing but faces whose box reaches
 the frame's last row (faces crossing the eye plane do), and every kernel
@@ -25,6 +29,7 @@ import functools
 
 import torch
 
+from tpurast_torch.graphs import FrameGraph, graph_wanted
 from tpurast_torch.renderer import frame_binning, frame_sampler, pair_capacity, render_frame
 
 
@@ -80,7 +85,10 @@ def make_sharded_renderer(scene_dev, config, n_slabs: int, width: int, height: i
     configured path reads them. Tile rows are padded to divide by n_slabs;
     the pair buffer, the binning and the sampler are chosen by the
     Renderer's own rules, the texel format from the uploaded rows, so the
-    slabs run the default pipeline."""
+    slabs run the default pipeline. On a CUDA scene (outside
+    kernels.plain_kernels()) fn is a graphs.FrameGraph of that function,
+    whose ``fn`` is the partial of render_frame_sharded; on the CPU, the
+    partial itself."""
     if n_slabs < 1:
         raise ValueError(f"n_slabs must be >= 1, got {n_slabs}")
     tiles_x = -(-width // config.tile_w)
@@ -88,7 +96,7 @@ def make_sharded_renderer(scene_dev, config, n_slabs: int, width: int, height: i
     tiles_y = -(-tiles_y // n_slabs) * n_slabs
     atlas = scene_dev["atlas"]
     texels = atlas.get("texels")
-    return functools.partial(
+    fn = functools.partial(
         render_frame_sharded,
         n_slabs=n_slabs,
         width=width,
@@ -114,3 +122,5 @@ def make_sharded_renderer(scene_dev, config, n_slabs: int, width: int, height: i
         binning=frame_binning(config),
         sampler=frame_sampler(config, "page" in atlas),
     )
+    device = scene_dev["corner_world"].device
+    return FrameGraph(fn, name=f"{n_slabs}-slab frame") if graph_wanted(device) else fn

@@ -3,12 +3,14 @@
 Counterpart of tpurast/profiling.py: ``stage_sweep`` times PREFIXES of
 render_frame through its ``stage=`` parameter, so the differences between
 successive prefixes are per-stage costs on the exact production path. A
-prefix runs eagerly (there is nothing to compile) and ends in its probe, a
-sum over the stage's outputs. Frames are timed in groups: on a CUDA device
-a group is bracketed by two CUDA events on the current stream and one
-synchronize, so the time is the device's, launch gaps included; on the CPU
-by time.perf_counter. Used by ``python -m tpurast_torch.cli --stages``
-(stage_ms in the bench line).
+prefix ends in its probe, a sum over the stage's outputs. On a CUDA device
+each prefix is a CUDA graph of its own (graphs.FrameGraph), as the
+reference jit-compiles each one, captured in its first warm-up call and
+dropped once timed; on the CPU it runs eagerly. Frames are timed in
+groups: on a CUDA device a group is bracketed by two CUDA events on the
+current stream and one synchronize, so the time is the device's, launch
+gaps included; on the CPU by time.perf_counter. Used by
+``python -m tpurast_torch.cli --stages`` (stage_ms in the bench line).
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import time
 import numpy as np
 import torch
 
+from tpurast_torch.graphs import FrameGraph, graph_wanted
 from tpurast_torch.renderer import render_frame
 
 #: Prefix order; None = the full frame (shade + sRGB encode).
@@ -95,7 +98,13 @@ def stage_sweep(renderer, uniforms, frames=32, group=16, warmup=4):
     prev = 0.0
     for s in stages:
         fn = functools.partial(render_frame, **kw, stage=s)
-        ms = time_grouped(fn, renderer.scene, uniforms, warmup=warmup, frames=frames, group=group)
+        if graph_wanted(renderer.device):
+            fn = FrameGraph(fn, name=f"stage {s or 'frame'}")
+        try:
+            ms = time_grouped(fn, renderer.scene, uniforms, warmup=warmup, frames=frames, group=group)
+        finally:
+            if isinstance(fn, FrameGraph):
+                fn.close()
         name = s or "frame"
         cum[name] = round(ms, 3)
         delta[name] = round(ms - prev, 3)

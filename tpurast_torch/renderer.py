@@ -15,9 +15,13 @@ keyword arguments and the same output dict. A frame runs
            gather, interpolation, atlas row gathers, lighting; torch ops)
   -> sRGB encode (torch)
 
-eagerly on the device its tensors live on: the kernels launch on a CUDA
-device and take their plain torch versions on the CPU (tpurast_torch.
-kernels). The Renderer picks the sampler as the reference does: window
+on the device its tensors live on: the kernels launch on a CUDA device and
+take their plain torch versions on the CPU (tpurast_torch.kernels).
+render_frame runs eagerly. The Renderer runs it on a CUDA device as a
+CUDA graph per (render target, output), captured on first use and
+replayed after (tpurast_torch.graphs; the reference's jax.jit of the
+frame function), and eagerly on the CPU and inside kernels.plain_kernels().
+The Renderer picks the sampler as the reference does: window
 for forward shading when the scene has texture pages and the config
 asks for "auto" or "window", the row-atlas gather otherwise.
 render_frame(stage=...) runs a prefix of the frame and returns a scalar
@@ -31,6 +35,7 @@ slabs together into the same frame, bit for bit).
 
 from __future__ import annotations
 
+import functools
 import logging
 
 import numpy as np
@@ -41,6 +46,7 @@ from tpurast_torch.camera import Camera
 from tpurast_torch.config import RendererConfig
 from tpurast_torch.device.scene import DeviceScene, upload
 from tpurast_torch.device.textures import resolve_texture_dtype
+from tpurast_torch.graphs import FrameGraph, graph_wanted
 from tpurast_torch.kernels import geometry, present, raster, resolve, sampler as ksampler, shade
 
 log = logging.getLogger("tpurast_torch.renderer")
@@ -241,12 +247,48 @@ def render_frame(
     return result
 
 
+class _PinnedUniforms:
+    """A frame's view_proj (4, 4) and camera position (3,) to the card
+    through a ring of pinned host buffers, one copy a frame into a new
+    device tensor of 19 floats. A copy from pageable memory would wait for
+    the stream, and so for the frame before. A buffer is written again only
+    once the event recorded after its last copy has passed, which waits
+    only when the host runs SLOTS frames ahead of the card."""
+
+    SLOTS = 8
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.host = [torch.empty(19, dtype=torch.float32, pin_memory=True) for _ in range(self.SLOTS)]
+        self.arrays = [h.numpy() for h in self.host]
+        # An event not yet recorded passes synchronize() at once.
+        self.copied = [torch.cuda.Event() for _ in range(self.SLOTS)]
+        self.turn = 0
+
+    def __call__(self, view_proj: np.ndarray, position: np.ndarray):
+        i = self.turn
+        self.turn = (i + 1) % self.SLOTS
+        self.copied[i].synchronize()
+        self.arrays[i][:16] = view_proj.reshape(-1)
+        self.arrays[i][16:] = position
+        dev = torch.empty(19, dtype=torch.float32, device=self.device)
+        dev.copy_(self.host[i], non_blocking=True)
+        self.copied[i].record(torch.cuda.current_stream(self.device))
+        return dev[:16].view(4, 4), dev[16:]
+
+
 class Renderer:
     """Owns the resident scene and the render-target configuration
     (tpurast/renderer.py Renderer). ``device`` is where the scene lives
     and every frame runs: "cuda" (the default) launches the kernels,
     "cpu" runs their plain torch versions. ``scene`` is a DeviceScene of
-    either package: the fields are the same."""
+    either package: the fields are the same.
+
+    On a CUDA device render, render_with_uniforms and debug_gbuf replay a
+    CUDA graph of render_frame (graphs.FrameGraph), one per output, captured
+    at their first call for the current target; recreate_swapchain drops
+    them. On the CPU and inside kernels.plain_kernels() they call
+    render_frame (uses_graphs)."""
 
     def __init__(
         self,
@@ -264,6 +306,8 @@ class Renderer:
         self.binning = frame_binning(cfg)
         self.sampler = frame_sampler(cfg, scene.pages is not None)
         self.texture_dtype = resolve_texture_dtype(scene, cfg.texture_dtype)
+        self._graphs: dict[str, FrameGraph] = {}
+        self._uniforms = _PinnedUniforms(self.device) if self.device.type == "cuda" else None
         # Only the gather paths read the atlas rows (shade.py).
         self.scene = upload(scene, self.device, self.texture_dtype if self.sampler == "gather" else None)
         self._configure_target(cfg.width, cfg.height)
@@ -277,6 +321,9 @@ class Renderer:
     # -- swapchain-equivalent: (re)configure render target ----------------
     def _configure_target(self, width: int, height: int) -> None:
         cfg = self.config
+        for graph in self._graphs.values():
+            graph.close()
+        self._graphs = {}
         self.width, self.height = width, height
         self.tiles_x = _round_up(width, cfg.tile_w) // cfg.tile_w
         self.tiles_y = _round_up(height, cfg.tile_h) // cfg.tile_h
@@ -317,15 +364,42 @@ class Renderer:
         self._configure_target(width, height)
 
     # -- frame -------------------------------------------------------------
+    @property
+    def uses_graphs(self) -> bool:
+        """True where frames replay CUDA graphs: on a CUDA device, outside
+        kernels.plain_kernels()."""
+        return graph_wanted(self.device)
+
+    def _frame_fn(self, key: str, **change):
+        """fn(scene, view_proj, camera_position) for render_frame with the
+        target's arguments and ``change``: the target's graph ``key`` (made
+        on first use) where uses_graphs, render_frame itself elsewhere."""
+        kw = dict(self._frame_kwargs, **change)
+        if not self.uses_graphs:
+            return functools.partial(render_frame, **kw)
+        if key not in self._graphs:
+            name = f"{key} graph at {self.width}x{self.height}"
+            self._graphs[key] = FrameGraph(functools.partial(render_frame, **kw), name=name)
+        return self._graphs[key]
+
+    def graph_info(self) -> dict:
+        """{key: {"capture_ms", "pool_bytes", "launches"}} of the target's
+        captured graphs ("frame", "gbuf")."""
+        return {
+            k: dict(capture_ms=g.capture_ms, pool_bytes=g.pool_bytes, launches=dict(g.launches))
+            for k, g in self._graphs.items()
+        }
+
     def frame_uniforms(self, camera: Camera):
         """(view_proj (4, 4), camera position (3,)) f32 tensors on the
-        renderer's device."""
+        renderer's device; on a CUDA device copied from pinned memory,
+        without waiting for the stream."""
         view = camera.view_matrix()
         view_proj = (self.projection @ view).astype(np.float32)
-        return (
-            torch.from_numpy(view_proj).to(self.device),
-            torch.from_numpy(camera.position.astype(np.float32)).to(self.device),
-        )
+        position = camera.position.astype(np.float32)
+        if self._uniforms is not None:
+            return self._uniforms(view_proj, position)
+        return torch.from_numpy(view_proj), torch.from_numpy(position)
 
     def render(self, camera: Camera) -> dict:
         """Render one frame; returns a dict of tensors on the device."""
@@ -334,13 +408,13 @@ class Renderer:
     def render_with_uniforms(self, view_proj, camera_position) -> dict:
         """Render one frame from precomputed frame uniforms: color, depth,
         bin_overflow, window_miss_px."""
-        return render_frame(self.scene, view_proj, camera_position, **self._frame_kwargs)
+        return self._frame_fn("frame")(self.scene, view_proj, camera_position)
 
     def debug_gbuf(self, camera: Camera, with_fid: bool = False):
         """Forward-path G-buffer (A_OUT, Hp, Wp), whatever the configured
         shading; with_fid=True also returns the visibility face-id image."""
-        kw = dict(self._frame_kwargs, output="gbuf", shading="forward")
-        out = render_frame(self.scene, *self.frame_uniforms(camera), **kw)
+        fn = self._frame_fn("gbuf", output="gbuf", shading="forward")
+        out = fn(self.scene, *self.frame_uniforms(camera))
         return (out["gbuf"], out["fid"]) if with_fid else out["gbuf"]
 
     def render_to_host(self, camera: Camera) -> np.ndarray:
