@@ -84,12 +84,23 @@ eight generated 1024^2 BC4 textures with full mip chains), and then, at
      per-tile face sets equal to bin_pairs', and a pair buffer of half the
      pairs counting the rest in overflow while the frame renders; the
      binning stage's event ms under each binner and the slab frames' ms
-     beside the single frame's, with the card's name and power limit;
+     beside the single frame's, with the card's name and power limit. The
+     slabs of one card run concurrently, each on a stream of its own
+     inside the graph. Then multi_device: make_sharded_renderer over a
+     device list (cuda:0..n-1 where the machine has two cards or more,
+     else 4 entries of cuda:0; the line says which) on the window and
+     deferred paths, its eager first frame and its replay equal to the
+     single frame bit for bit, one launch per slab of each render kernel
+     the path runs, its graph ms beside the single frame's and the
+     sequential 4-slab graph's (the slabs one after another, as before
+     they ran concurrently), capture ms, pool bytes and replica bytes;
   9. the analysis tools (tpurast_torch/tools: profile_stages,
      sample_stage_probe, profile_sampler, sampler_plan_stats,
      check_sampler, aniso_mode_stats, residual_analysis, sampler_sim)
      once each in-process on the scene already built, at 1920x1080
-     (check_sampler at its 256x128) and 2 frames, their lines printed.
+     (check_sampler at its 256x128) and 2 frames, their lines printed
+     (sample_stage_probe and profile_sampler time CUDA graphs, as the
+     reference times jitted functions).
 
 The run writes nothing but the kernels' build: the scene cache is off
 (TPURAST_TORCH_SCENE_CACHE=0 unless the caller set it), and the tools'
@@ -116,8 +127,8 @@ the same. Any failure raises. The last stdout line is {"ok": true,
 "device": ...}; the line before it lists each kernel's launches (on the
 window path for the render kernels, on the microbenchmark path for the
 probes; runtime_launches on the bench run, slab_launches on the 8-slab
-window frame, scan_launches on the scan track), error, times, bound and
-library time.
+window frame, mesh_launches on multi_device's window replay,
+scan_launches on the scan track), error, times, bound and library time.
 """
 
 from __future__ import annotations
@@ -142,7 +153,8 @@ from tpurast_torch import cli  # noqa: E402
 from tpurast_torch import kernels as K  # noqa: E402
 from tpurast_torch.camera import MoveDirection  # noqa: E402
 from tpurast_torch.config import RendererConfig  # noqa: E402
-from tpurast_torch.device.scene import orbit_track  # noqa: E402
+from tpurast_torch import parallel  # noqa: E402
+from tpurast_torch.device.scene import orbit_track, scene_bytes  # noqa: E402
 from tpurast_torch.device.scene_cache import load_named_scene  # noqa: E402
 from tpurast_torch.engine import Engine  # noqa: E402
 from tpurast_torch.graphs import FrameGraph  # noqa: E402
@@ -183,6 +195,7 @@ GATHER_FRAMES = 3
 SCAN_FRAMES = 3
 SLAB_SPLIT = 4  # raster and resolve at an offset: the second slab of this many
 SLABS = {"window": (2, 8), "gather": (2,), "deferred": (2,)}  # slab counts per path
+MESH_SLABS = 4  # multi_device's slabs on a machine with one card
 WIDTH, HEIGHT = 1920, 1080
 GRAPH_OUTPUTS = ("color", "depth", "bin_overflow", "window_miss_px")  # compared bit for bit with eager frames
 FLOAT_PLANES = [i for i in range(resolve.A_OUT) if i not in resolve.INT_PLANES]
@@ -968,6 +981,87 @@ def slab_frames(renderers: dict, cam, card: str) -> dict:
     return window_launches
 
 
+def sequential_slabs(n: int, kw: dict):
+    """The n-slab frame with its slabs one after another (render_slabs of
+    one slab at a time, each joined before the next forks): the slab frame
+    as make_sharded_renderer captured it before its slabs ran
+    concurrently, the yardstick of the concurrent one."""
+    def fn(scene, vp, cp):
+        parts = [parallel.render_slabs(scene, vp, cp, slabs=(i,), **kw) for i in range(n)]
+        return {
+            "color": torch.cat([p["color"] for p in parts], dim=1)[:, :kw["height"], :kw["width"]],
+            "depth": torch.cat([p["depth"] for p in parts], dim=0)[:kw["height"], :kw["width"]],
+            "bin_overflow": torch.stack([p["bin_overflow"] for p in parts]).sum(dtype=torch.int32),
+            "window_miss_px": torch.stack([p["window_miss_px"] for p in parts]).sum(dtype=torch.int32),
+        }
+    return fn
+
+
+def multi_device(renderers: dict, cam, card: str) -> dict:
+    """make_sharded_renderer over a device list, the mesh of the
+    reference's shard_map: cuda:0..n-1 where the machine has two cards or
+    more, else MESH_SLABS entries of cuda:0 (the line says which). On the
+    window and deferred paths the first call renders eagerly and captures
+    the graphs (one per device), the second replays them: both equal the
+    single Renderer frame bit for bit (color, depth, both counters, on
+    cuda:0), and each render kernel of the path launched once per slab in
+    the replay (counts from zero around it). Beside it, by event_median:
+    the single frame and the sequential n-slab graph (sequential_slabs);
+    the device ms of both summed over their streams (torch.profiler); the
+    graphs' capture ms and pool bytes and each device's replica bytes.
+    Returns the window replay's launches."""
+    count = torch.cuda.device_count()
+    devices = [f"cuda:{i}" for i in range(count)] if count >= 2 else ["cuda:0"] * MESH_SLABS
+    n = len(devices)
+    which = f"{count} cards, one slab each" if count >= 2 else f"one card, {n} entries of cuda:0"
+    mesh_launches = {}
+    for label, r in renderers.items():
+        vp, cp = r.frame_uniforms(cam)
+        single = r.render_with_uniforms(vp, cp)
+        fn = make_sharded_renderer(r.scene, r.config, devices, WIDTH, HEIGHT)
+        first = fn(r.scene, vp, cp)
+        K.reset_launches()
+        out = fn(r.scene, vp, cp)
+        for i in range(count):
+            torch.cuda.synchronize(i)
+        launches = dict(K.LAUNCHES)
+        same = {f"{which_call} {k}": bool(torch.equal(f[k], single[k])) and f[k].device == single[k].device
+                for which_call, f in (("eager", first), ("graph", out)) for k in GRAPH_OUTPUTS}
+        graphs = parallel.frame_graphs(fn)
+        replicas = fn.replicas if isinstance(fn, parallel.MeshFrame) else {}
+        replica_bytes = {str(d): 0 if s is r.scene else scene_bytes(s) for d, s in replicas.items()} or {"cuda:0": 0}
+        mesh_ms = event_median(lambda: fn(r.scene, vp, cp), 6)
+        single_ms = event_median(lambda: r.render_with_uniforms(vp, cp), 6)
+        kw = {k: v for k, v in make_sharded_renderer(r.scene, r.config, n, WIDTH, HEIGHT).fn.keywords.items()
+              if k != "n_slabs"}
+        seq = FrameGraph(sequential_slabs(n, kw), name=f"sequential {n}-slab frame")
+        seq_first = seq(r.scene, vp, cp)
+        seq_same = all(bool(torch.equal(seq_first[k], single[k])) for k in GRAPH_OUTPUTS)
+        seq_ms = event_median(lambda: seq(r.scene, vp, cp), 6)
+        # Device time summed over the streams (torch.profiler): above the
+        # frame's ms where the slabs' kernels overlap.
+        busy, seq_busy = (device_ms(lambda f=f: f(r.scene, vp, cp), 3) for f in (fn, seq))
+        print(f"multi_device, {label}, devices {devices} ({which}), {kw['tiles_y_per_slab']} tile rows a slab: equal "
+              f"to the single frame {same}, launches in the replay {launches}; graph {mesh_ms:.3f} ms a frame vs "
+              f"single {single_ms:.3f} ms ({mesh_ms / single_ms:.2f}x) vs the sequential {n}-slab graph {seq_ms:.3f} "
+              f"ms ({mesh_ms / seq_ms:.3f}x; its frame equal {seq_same}); device ms summed over the streams "
+              f"{fmt_ms(busy)} (sequential {fmt_ms(seq_busy)}); capture "
+              f"{[round(g.capture_ms, 1) for g in graphs]} ms (sequential {seq.capture_ms:.1f}), pool "
+              f"{[g.pool_bytes for g in graphs]} B (sequential {seq.pool_bytes}), replica bytes {replica_bytes} "
+              f"[{card}]")
+        check(all(same.values()) and seq_same, f"multi_device, {label}: the mesh frame differs from the frame")
+        want = {"raster": n, "resolve": n if label != "deferred" else 0,
+                "plan": n if label == "window" else 0, "sample": n if label == "window" else 0}
+        for name in KERNELS:
+            check(launches[name] == want.get(name, 0),
+                  f"multi_device, {label}: {name} launched {launches[name]} times, want {want.get(name, 0)}")
+        for g in graphs + [seq]:
+            g.close()
+        if label == "window":
+            mesh_launches = launches
+    return mesh_launches
+
+
 def scan_path(scene, r: Renderer, cams, window_frames, card: str) -> dict:
     """binning="scan": a warm-up frame and SCAN_FRAMES track frames equal
     to the window path's pairs frames bit for bit; frame 0's counts,
@@ -1282,6 +1376,7 @@ def main() -> None:
     slab_kernels(r, cams[0], card)
     slab_launches = slab_frames({"window": r, "gather": paths["gather"][0], "deferred": paths["deferred"][0]},
                                 cams[0], card)
+    mesh_launches = multi_device({"window": r, "deferred": paths["deferred"][0]}, cams[0], card)
     del paths
     scan_launches = scan_path(scene, r, cams, frames, card)
     runtime_launches = runtime_path(scene, args.seed, window_ops, replay_kernel_ms)
@@ -1294,7 +1389,8 @@ def main() -> None:
     report = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep, "launches": launches[name],
          "runtime_launches": runtime_launches[name], "slab_launches": slab_launches[name],
-         "scan_launches": scan_launches[name], **{k: stats[name][k] for k in keys}}
+         "mesh_launches": mesh_launches[name], "scan_launches": scan_launches[name],
+         **{k: stats[name][k] for k in keys}}
         for name, (src, rep) in KERNELS.items()
     ]
     print(json.dumps({"kernels": report}))

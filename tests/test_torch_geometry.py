@@ -7,12 +7,18 @@ faces and more than HUGE_BUDGET huge faces) go through both. Everything
 must match bit for bit: the port writes the adjugate's cross products as
 the FMAs XLA:CPU compiles them to (tpurast_torch.kernels.geometry._cross).
 
+At 2^21 + 320 faces, most of them invalid, both binners equal the
+reference's exactly (the port's one sort key once held 21 bits of face
+id and raised there).
+
 bin_triangles (binning="scan") is held to the reference's on the whole
 pair_faces array, offsets, counts and overflow, exactly: with room for
 every pair, truncated at half the pairs, with more than HUGE_BUDGET huge
 faces, on a slab (ty_base 2), and with the reference's face chunk below
 the face count.
 """
+
+import functools
 
 import jax.numpy as jnp
 import numpy as np
@@ -111,10 +117,70 @@ def test_bin_pairs_tile_lists_exact(both):
 
 
 def test_bin_pairs_rejects_faces_beyond_the_sort_key():
-    n = 1 << geometry.FACE_BITS
-    aabb = torch.zeros((n, 4))
-    with pytest.raises(ValueError, match="sort-key"):
-        geometry.bin_pairs(aabb, torch.zeros(n, dtype=torch.bool), 1, 1, TILE_W, TILE_H)
+    """The face field holds any int32 id; what can overflow is the tile key
+    above it: tiles * YB must stay under 2^TILE_KEY_BITS."""
+    aabb = torch.zeros((1, 4))
+    valid = torch.zeros(1, dtype=torch.bool)
+    tiles = (1 << geometry.TILE_KEY_BITS) // geometry.YB
+    for binner in (geometry.bin_pairs, functools.partial(geometry.bin_triangles, pair_capacity=16)):
+        with pytest.raises(ValueError, match="sort-key"):
+            binner(aabb, valid, tiles // 2, 2, TILE_W, TILE_H)
+        assert int(binner(aabb, valid, tiles // 2, 1, TILE_W, TILE_H)["offsets"][-1]) == 0
+
+
+MANY_FACES = (1 << 21) + 320
+
+
+def _many_faces():
+    """MANY_FACES AABBs (more than the 2^21 ids the port's sort key once
+    held), nearly all invalid; 300 valid faces, all but 30 with ids above
+    2^21, across the grid and past its edges. Every tenth face is huge
+    (more tiles than TILES_PER_FACE), three of them below 2^21, so the
+    huge round's draw order crosses the old field's edge."""
+    rng = np.random.default_rng(21)
+    aabb = np.zeros((MANY_FACES, 4), np.float32)
+    valid = np.zeros(MANY_FACES, bool)
+    high = (1 << 21) + rng.choice(MANY_FACES - (1 << 21), 270, replace=False)
+    low = rng.choice(1 << 21, 30, replace=False)
+    ids = np.concatenate([high, low])
+    x0 = rng.uniform(-20, W, ids.size)
+    y0 = rng.uniform(-10, H, ids.size)
+    size = np.where(np.arange(ids.size) % 10 == 0, rng.uniform(200, 400, ids.size), rng.uniform(1, 90, ids.size))
+    aabb[ids] = np.stack([x0, y0, x0 + size, y0 + size * 0.5], axis=1)
+    valid[ids] = True
+    return aabb, valid
+
+
+@pytest.fixture(scope="module")
+def many_faces_bins():
+    aabb, valid = _many_faces()
+    grid = (TILES_X, TILES_Y, TILE_W, TILE_H)
+    cap = 4096
+    ref = {"pairs": ref_geometry.bin_pairs(jnp.asarray(aabb), jnp.asarray(valid), *grid),
+           "scan": ref_geometry.bin_triangles(jnp.asarray(aabb), jnp.asarray(valid), *grid, cap,
+                                              face_chunk=1 << 18)}
+    port = {"pairs": geometry.bin_pairs(torch.from_numpy(aabb), torch.from_numpy(valid), *grid),
+            "scan": geometry.bin_triangles(torch.from_numpy(aabb), torch.from_numpy(valid), *grid, cap)}
+    return ({k: {f: np.asarray(v) for f, v in d.items()} for k, d in ref.items()},
+            {k: {f: v.numpy() for f, v in d.items()} for k, d in port.items()})
+
+
+@pytest.mark.parametrize("binner", ["pairs", "scan"])
+def test_binning_past_two_to_the_21_faces_matches_reference(many_faces_bins, binner):
+    """Both binners at 2^21 + 320 faces equal the reference's exactly:
+    offsets, counts, the live pair faces (and tiles) and overflow. The
+    port's binners raised here while the face field was 21 bits wide."""
+    ref, port = (side[binner] for side in many_faces_bins)
+    n = int(ref["offsets"][-1])
+    assert n > 300 and (ref["pair_faces"][:n] >= 1 << 21).sum() > n // 2
+    assert int(ref["overflow"]) == 0
+    for k in ("offsets", "counts", "overflow"):
+        np.testing.assert_array_equal(port[k], ref[k], err_msg=k)
+    np.testing.assert_array_equal(port["pair_faces"][:n], ref["pair_faces"][:n])
+    if binner == "pairs":
+        np.testing.assert_array_equal(port["pair_tiles"][:n], ref["pair_tiles"][:n])
+    else:
+        np.testing.assert_array_equal(port["pair_faces"], ref["pair_faces"])
 
 
 # (faces used, pair capacity or None for half the pairs, tiles_y, ty_base, reference face_chunk)

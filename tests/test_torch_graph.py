@@ -11,7 +11,17 @@ without a card.
     float(), bool() and index() of a tensor, torch.nonzero, torch.tensor
     and torch.as_tensor of Python data, and indexing with a Python list or
     a bool tensor. The guarded frame equals the unguarded one bit for bit.
-  * FrameGraph raises on a CPU scene and never calls the frame function.
+  * test_forked_slabs_read_nothing_back: render_slabs' fork and join
+    (parallel._fork_join, taken as on a CUDA device, with fake streams):
+    each slab on a stream of its own that waits for the current stream,
+    the current stream waiting for every slab, each output marked as used
+    by the current stream; the forked frame reads nothing back inside the
+    guard and equals the eager one.
+  * FrameGraph raises on a CPU scene and Graph on CPU inputs, and neither
+    calls its function.
+  * sample_stage_probe and profile_sampler time graphs where graph_wanted
+    holds (faked), profile_sampler's fed their own input buffers, and stay
+    eager where it does not.
   * graph_wanted, Renderer.uses_graphs: eager on the CPU and inside
     kernels.plain_kernels(); a Renderer keeps one graph per output and
     recreate_swapchain drops them; make_sharded_renderer wraps its slab
@@ -37,6 +47,7 @@ from tpurast_torch.device.scene import build_orbit_scene, orbit_track
 from tpurast_torch.kernels import raster, resolve, sampler
 from tpurast_torch.parallel import make_sharded_renderer
 from tpurast_torch.renderer import Renderer, render_frame
+from tpurast_torch.tools import profile_sampler, sample_stage_probe
 from test_torch_runtime import TINY
 from test_torch_scene import numpy_bc_decoders  # noqa: F401  (module-wide autouse)
 
@@ -250,3 +261,142 @@ def test_sharded_renderer_is_a_graph_where_graphs_are_wanted(scene, monkeypatch)
     g = make_sharded_renderer(r.scene, r.config, 2, r.width, r.height)
     assert isinstance(g, graphs.FrameGraph)
     assert g.fn.func is eager.func and g.fn.keywords == eager.keywords
+    # Over several devices ("meta" stands in for a second card): one graph
+    # per device, of its slabs.
+    mesh = make_sharded_renderer(r.scene, r.config, ["cpu", "meta", "cpu"], r.width, r.height)
+    assert isinstance(mesh, parallel_mod.MeshFrame) and parallel_mod.frame_graphs(mesh) == list(mesh.fns.values())
+    assert [g.fn.keywords["slabs"] for g in mesh.fns.values()] == [(0, 2), (1,)]
+    assert all(g.fn.func is parallel_mod.render_slabs for g in mesh.fns.values())
+
+
+class FakeStream:
+    """A stand-in for torch.cuda.Stream that logs waits and entries."""
+
+    def __init__(self, log, name):
+        self.log, self.name = log, name
+
+    def wait_stream(self, other):
+        self.log.append(("wait", self.name, other.name))
+
+    def __repr__(self):
+        return self.name
+
+
+def test_forked_slabs_read_nothing_back(scene, cam, monkeypatch):
+    """render_slabs' fork and join (parallel._fork_join, as on a CUDA
+    device) with fake streams: each slab renders on a stream of its own
+    that waits for the current stream first, the current stream waits for
+    every slab's after, each output is marked as used by the current
+    stream; with the plain kernels swapped in, the forked frame reads
+    nothing back and equals the eager one bit for bit."""
+    r = Renderer(scene, CFG, device="cpu")
+    uniforms = r.frame_uniforms(cam)
+    fn = make_sharded_renderer(r.scene, r.config, 3, r.width, r.height)
+    want = fn(r.scene, *uniforms)
+
+    log = []
+    current = FakeStream(log, "current")
+    made = iter(FakeStream(log, f"slab{i}") for i in range(3))
+
+    @contextlib.contextmanager
+    def on_stream(stream):
+        log.append(("enter", stream.name))
+        yield
+        log.append(("exit", stream.name))
+
+    real_fork_join = parallel_mod._fork_join
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: current)
+    monkeypatch.setattr(torch.cuda, "Stream", lambda device=None: next(made))
+    monkeypatch.setattr(torch.cuda, "stream", on_stream)
+    monkeypatch.setattr(torch.Tensor, "record_stream", lambda t, s: log.append(("record", s.name)))
+    monkeypatch.setattr(parallel_mod, "_fork_join", lambda calls, device: real_fork_join(calls, torch.device("cuda")))
+    guard = Guard()
+    _install(monkeypatch, guard)
+    with guard.on():
+        got = fn(r.scene, *uniforms)
+    monkeypatch.undo()
+    for k in want:
+        assert got[k].dtype == want[k].dtype and torch.equal(got[k], want[k]), k
+    slabs = [f"slab{i}" for i in range(3)]
+    assert log[:9] == [x for s in slabs for x in (("wait", s, "current"), ("enter", s), ("exit", s))]
+    assert log[9:12] == [("wait", "current", s) for s in slabs]
+    assert log[12:] == [("record", "current")] * 12  # 3 slabs x 4 outputs
+
+
+def test_graph_raises_on_cpu_inputs():
+    calls = []
+
+    def fn(*args):
+        calls.append(args)
+        return args[0]
+
+    g = graphs.Graph(fn, name="plan")
+    for args in ((torch.zeros(3),), (torch.zeros(3), torch.zeros(2)), ()):
+        with pytest.raises(ValueError, match="CUDA device"):
+            g(*args)
+        with kernels.plain_kernels(), pytest.raises(ValueError, match="CUDA device"):
+            g(*args)
+    assert calls == [] and g.capture_ms is None and g.inputs is None
+    assert isinstance(graphs.FrameGraph(fn), graphs.Graph)
+
+
+class FakeFrameGraph:
+    """Records what a tool hands a graph, and calls fn eagerly."""
+
+    def __init__(self, fn, name="graph"):
+        self.fn, self.name = fn, name
+        self.calls, self.closed = 0, False
+        MADE.append(self)
+
+    def __call__(self, *args):
+        self.calls += 1
+        return self.fn(*args)
+
+    def close(self):
+        self.closed = True
+
+
+class FakeGraph(FakeFrameGraph):
+    """Its first call's inputs become ``inputs``, as a Graph's static
+    buffers do; a later call must hand them over."""
+
+    inputs = None
+
+    def __call__(self, *args):
+        if self.inputs is None:
+            self.inputs = tuple(a.clone() for a in args)
+        else:
+            assert all(a is b for a, b in zip(args, self.inputs)), f"{self.name}: a call handed other inputs"
+        return super().__call__(*args)
+
+
+MADE: list = []
+SMALL = dict(width=128, height=64, frames=2, warmup=1, device="cpu")
+
+
+@pytest.mark.parametrize("wanted", [True, False])
+def test_tools_time_graphs_where_graphs_are_wanted(scene, monkeypatch, wanted):
+    """sample_stage_probe.probe times a FrameGraph of each prefix and
+    profile_sampler.profile Graphs of plan_tiles and sample_tiles, fed the
+    graphs' own input buffers, where graph_wanted holds (faked); both stay
+    eager where it does not (on the CPU)."""
+    MADE.clear()
+    for mod, name, fake in ((sample_stage_probe, "FrameGraph", FakeFrameGraph), (profile_sampler, "Graph", FakeGraph)):
+        if wanted:
+            monkeypatch.setattr(mod, "graph_wanted", lambda device: True)
+        monkeypatch.setattr(mod, name, fake)
+    probe = sample_stage_probe.probe(scene, stages=("plan", "sample", "frame"), **SMALL)
+    prof = profile_sampler.profile(scene, **SMALL)
+    assert list(probe) == ["plan", "sample", "frame"] and prof["tiles"]["windowed"] > 0
+    if not wanted:
+        assert MADE == []
+        return
+    assert [g.name for g in MADE] == ["stage plan", "stage sample", "stage frame", "plan", "sample"]
+    assert [g.fn.keywords["stage"] for g in MADE[:3]] == ["plan", "sample", None]
+    timed = SMALL["warmup"] + SMALL["frames"]
+    assert [g.calls for g in MADE] == [timed] * 3 + [1 + timed] * 2 and all(g.closed for g in MADE)
+    plan, sample = MADE[3:]
+    r = Renderer(scene, RendererConfig(width=128, height=64), device="cpu")
+    gbuf_shape = (resolve.A_OUT, 64, 128)
+    assert [t.shape for t in plan.inputs] == [gbuf_shape]
+    assert [t.shape for t in sample.inputs] == [gbuf_shape, r.scene["atlas"]["page"].shape, (2, 8, 128), (3,)]

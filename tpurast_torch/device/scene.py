@@ -18,7 +18,8 @@ quad-row atlas texels, which only the gather sampler reads, are added
 in ``texture_dtype`` (device/textures.py) when one is given.
 ``from_numpy(tree, device)`` takes the same state from the reference's
 device() pytree converted leaf by leaf with np.asarray, so tests can
-feed both packages identical state.
+feed both packages identical state. ``replicate(scene_dev, device)``
+copies an uploaded scene to another device (parallel.py's mesh).
 
 ``build_orbit_scene`` / ``orbit_track`` generate the procedural scene that
 chip_smoke.py renders (and the CPU tests at a small size): a textured
@@ -291,6 +292,33 @@ def upload(scene: DeviceScene, device, texture_dtype: str | None = None) -> dict
         page = torch.from_numpy(scene.pages.planes).to(torch.bfloat16)
     texels = None if texture_dtype is None else texels_tensor(scene.atlas.texels, texture_dtype)
     return _tensors(arrays, page, texels, scene.n_faces, device)
+
+
+def replicate(scene_dev: dict, device) -> dict:
+    """A copy of the uploaded scene ``scene_dev`` on ``device`` (device to
+    device copies; the mesh's replicated scene, the reference's
+    in_specs=P()). The page is copied as its interleaved (PH, PW, 4) base
+    and handed out as that copy's (4, PH, PW) view, the layout the sample
+    kernel takes."""
+    dev = torch.device(device)
+    atlas = {}
+    for k, v in scene_dev["atlas"].items():
+        if k == "page":
+            base = v.permute(1, 2, 0)
+            if not base.is_contiguous():
+                raise ValueError(f"replicate: the page is not the view of an interleaved page (strides {v.stride()})")
+            atlas[k] = base.to(dev).permute(2, 0, 1)
+        else:
+            atlas[k] = v.to(dev)
+    out = {k: v.to(dev) if isinstance(v, torch.Tensor) else v for k, v in scene_dev.items() if k != "atlas"}
+    out["atlas"] = atlas
+    return out
+
+
+def scene_bytes(scene_dev: dict) -> int:
+    """Device bytes of an uploaded scene's tensors."""
+    tensors = [v for v in scene_dev.values() if isinstance(v, torch.Tensor)] + list(scene_dev["atlas"].values())
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def _texels_from_numpy(a: np.ndarray) -> torch.Tensor:

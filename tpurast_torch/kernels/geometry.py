@@ -34,8 +34,11 @@ TILES_PER_FACE = 8
 HUGE_BUDGET = 64
 # y-bucket slots per tile key (geometry.py bin_pairs: key = tile*YB + ybucket).
 YB = 1024
-# Face ids ride the low bits of the one int64 sort key.
-FACE_BITS = 21
+# Face ids ride the low FACE_BITS bits of the one int64 sort key: any int32
+# id fits. The tile key (tile * YB + ybucket) rides the 32 bits above them,
+# so tiles * YB must stay under 2^32 (_expand_pairs raises past it).
+FACE_BITS = 31
+TILE_KEY_BITS = 63 - FACE_BITS
 
 
 def _div(a: torch.Tensor, b: float) -> torch.Tensor:
@@ -164,10 +167,11 @@ def _expand_pairs(aabb, valid, tiles_x, tiles_y, tile_w, tile_h, tiles_per_face,
     << FACE_BITS | face, with tile T for slots that hold no pair; the
     dropped pair count of the huge faces beyond the budget, 0-dim)."""
     f = aabb.shape[0]
-    if f >= 1 << FACE_BITS:
-        raise ValueError(f"binning: {f} faces exceed the 2^{FACE_BITS} sort-key field")
-    dev = aabb.device
     t = tiles_x * tiles_y
+    if f > 1 << FACE_BITS or t * YB >= 1 << TILE_KEY_BITS:
+        raise ValueError(f"binning: {f} faces and {t} tiles exceed the sort-key fields (at most 2^{FACE_BITS} "
+                         f"faces, tiles * {YB} under 2^{TILE_KEY_BITS})")
+    dev = aabb.device
     tx0, ty0, tx1, ty1, valid = _tile_ranges(aabb, valid, tiles_x, tiles_y, tile_w, tile_h, ty_base)
     span_x = tx1 - tx0 + 1
     span_y = ty1 - ty0 + 1
@@ -183,7 +187,8 @@ def _expand_pairs(aabb, valid, tiles_x, tiles_y, tile_w, tile_h, tiles_per_face,
     jy = j // sx
     tile_j = (ty0[None, :] + jy) * tiles_x + (tx0[None, :] + jx)
     ok = (valid & ~huge)[None, :] & (j < span[None, :])
-    keys_small = torch.where(ok, tile_j * YB + ybucket[None, :], sentinel).reshape(-1)
+    # Tile keys in int64: tiles * YB may pass 2^31.
+    keys_small = torch.where(ok, tile_j.long() * YB + ybucket[None, :], sentinel).reshape(-1)
     vals_small = face_ids[None, :].expand(tiles_per_face, f).reshape(-1)
 
     # Huge faces: the first huge_budget in draw order. Weights f - id are
@@ -200,10 +205,10 @@ def _expand_pairs(aabb, valid, tiles_x, tiles_y, tile_w, tile_h, tiles_per_face,
     hy = jh // hsx
     h_tile = (ty0[hl][:, None] + hy) * tiles_x + tx0[hl][:, None] + hx
     h_ok = h_ok_face[:, None] & (jh < span[hl][:, None])
-    keys_huge = torch.where(h_ok, h_tile * YB + ybucket[hl][:, None], sentinel).reshape(-1)
+    keys_huge = torch.where(h_ok, h_tile.long() * YB + ybucket[hl][:, None], sentinel).reshape(-1)
     vals_huge = hidx[:, None].expand(hb, t).reshape(-1)
 
-    keys = torch.cat([keys_small, keys_huge]).to(torch.int64)
+    keys = torch.cat([keys_small, keys_huge])
     vals = torch.cat([vals_small, vals_huge]).to(torch.int64)
     packed, _ = torch.sort((keys << FACE_BITS) | vals, stable=True)
     dropped = torch.where(huge, span, torch.zeros_like(span)).sum() - torch.where(
@@ -229,7 +234,7 @@ def bin_pairs(
     (tile, 8-row y-bucket, face), then searchsorted.
 
     The reference's 2-key lax.sort becomes one stable sort of a single
-    int64 key (tile*YB + ybucket) << 21 | face. Returns pair_faces (P,)
+    int64 key (tile*YB + ybucket) << FACE_BITS | face. Returns pair_faces (P,)
     i32, pair_tiles (P,) i32, offsets (T+1,) i32, counts (T,) i32 and
     overflow (the dropped pair count, 0-dim i32)."""
     t = tiles_x * tiles_y

@@ -5,7 +5,11 @@ Counterpart of tools/profile_sampler.py. Uses the renderer's own path
 numbers are the production path's; plan and sample are timed alone on a
 captured G-buffer, then the plan's tile classes, windows and probes are
 summarised. Prints JSON lines as it goes, the last one with every field.
-Times are the host's clock with one synchronize per group of calls.
+Times are the host's clock with one synchronize per group of calls. Where
+the reference jits plan_tiles and sample_tiles, each is a CUDA graph on
+the card (graphs.Graph, fed its own input buffers: a call copies no
+input; its result is a copy of the graph's output); on the CPU and inside
+kernels.plain_kernels() they run eagerly.
 
 Run: python -m tpurast_torch.tools.profile_sampler [--scene orbit] [--max-anisotropy 16]
 """
@@ -13,6 +17,7 @@ Run: python -m tpurast_torch.tools.profile_sampler [--scene orbit] [--max-anisot
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import sys
 import time
@@ -21,6 +26,7 @@ import numpy as np
 
 from tpurast_torch.cli import flythrough
 from tpurast_torch.config import RendererConfig
+from tpurast_torch.graphs import Graph, graph_wanted
 from tpurast_torch.kernels import sampler as ksampler
 from tpurast_torch.renderer import Renderer
 from tpurast_torch.tools import _common
@@ -46,6 +52,18 @@ def time_calls(run, device, n: int = 32, group: int = 16, warmup: int = 4) -> fl
         _common.sync(device)
         times.append((time.perf_counter() - t0) / group)
     return float(np.percentile(np.asarray(times) * 1e3, 50))
+
+
+def compiled(fn, args, device, name: str):
+    """fn over args as the reference's jax.jit of it: (call, args, the
+    first result). Where graphs are wanted, call is a Graph of fn captured
+    on args and the returned args are its own input buffers, so call(*args)
+    replays it and copies no input; elsewhere call is fn."""
+    if not graph_wanted(device):
+        return fn, args, fn(*args)
+    graph = Graph(fn, name=name)
+    first = graph(*args)
+    return graph, graph.inputs, first
 
 
 def _tile_stats(plan, tile_h: int) -> dict:
@@ -91,18 +109,26 @@ def profile(scene, *, scene_name: str = "orbit", width: int = 1920, height: int 
 
     gbuf = rg.render_with_uniforms(*uniforms[8])["gbuf"]
     tiles = dict(tiles_x=r.tiles_x, tiles_y=r.tiles_y, tile_h=cfg.tile_h, tile_w=cfg.tile_w)
-    plan = ksampler.plan_tiles(gbuf, max_anisotropy=cfg.max_anisotropy, **tiles)
-    out["plan"] = timed(lambda i: ksampler.plan_tiles(gbuf, max_anisotropy=cfg.max_anisotropy, **tiles))
+    plan_fn, plan_args, plan = compiled(
+        functools.partial(ksampler.plan_tiles, max_anisotropy=cfg.max_anisotropy, **tiles), (gbuf,), device, "plan")
+    out["plan"] = timed(lambda i: plan_fn(*plan_args))
     emit({"plan": out["plan"]})
 
-    cam = uniforms[8][1]
     light = dict(light_direction=cfg.light_direction, light_color=cfg.light_color,
                  ambient_amount=cfg.ambient_amount, specular_power=cfg.specular_power,
                  clear_color=cfg.clear_color, blend=cfg.blend)
-    page = r.scene["atlas"]["page"]
-    out["sample"] = timed(lambda i: ksampler.sample_tiles(gbuf, page, plan, cam, max_anisotropy=cfg.max_anisotropy,
-                                                          **light, **tiles))
+
+    def sample(g, page, table, cam):  # the sampler reads the plan's table
+        return ksampler.sample_tiles(g, page, {"table": table}, cam, max_anisotropy=cfg.max_anisotropy, **light,
+                                     **tiles)
+
+    sample_fn, sample_args, _ = compiled(
+        sample, (gbuf, r.scene["atlas"]["page"], plan["table"], uniforms[8][1]), device, "sample")
+    out["sample"] = timed(lambda i: sample_fn(*sample_args))
     emit({"sample": out["sample"]})
+    for fn in (plan_fn, sample_fn):
+        if isinstance(fn, Graph):
+            fn.close()
 
     out["tiles"] = _tile_stats(plan, cfg.tile_h)
     out["full"] = timed(lambda i: r.render_with_uniforms(*uniforms[i % 32]))

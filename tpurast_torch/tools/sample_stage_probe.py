@@ -4,7 +4,9 @@ prefixes only.
 Counterpart of tools/sample_stage_probe.py: for each name of --stages
 (default "plan,sample"; "frame" is the whole frame) it times that prefix
 with profiling.time_grouped and prints {name: ms} as it goes, then one
-line {"cum_ms": {...}}.
+line {"cum_ms": {...}}. Where the reference jits each prefix, each is a
+CUDA graph on the card (graphs.FrameGraph); on the CPU and inside
+kernels.plain_kernels() the prefixes run eagerly.
 
 Run: python -m tpurast_torch.tools.sample_stage_probe [--scene orbit] [--stages plan,sample,frame]
 """
@@ -18,6 +20,7 @@ import sys
 
 from tpurast_torch.cli import flythrough
 from tpurast_torch.config import RendererConfig
+from tpurast_torch.graphs import FrameGraph, graph_wanted
 from tpurast_torch.profiling import time_grouped
 from tpurast_torch.renderer import Renderer, render_frame
 from tpurast_torch.tools import _common
@@ -31,7 +34,13 @@ def probe(scene, *, scene_name: str = "orbit", width: int = 1920, height: int = 
     out = {}
     for s in stages:
         fn = functools.partial(render_frame, **r._frame_kwargs, stage=None if s == "frame" else s)
-        out[s] = round(time_grouped(fn, r.scene, uniforms, warmup=warmup, frames=frames), 3)
+        if graph_wanted(r.device):
+            fn = FrameGraph(fn, name=f"stage {s}")
+        try:
+            out[s] = round(time_grouped(fn, r.scene, uniforms, warmup=warmup, frames=frames), 3)
+        finally:
+            if isinstance(fn, FrameGraph):
+                fn.close()
         if emit is not None:
             emit(s, out[s])
     return out
