@@ -100,14 +100,32 @@ eight generated 1024^2 BC4 textures with full mip chains), and then, at
      once each in-process on the scene already built, at 1920x1080
      (check_sampler at its 256x128) and 2 frames, their lines printed
      (sample_stage_probe and profile_sampler time CUDA graphs, as the
-     reference times jitted functions).
+     reference times jitted functions);
+ 10. the pose tools (pose_tools), at frame sizes off the 128-px tile grid:
+     parity_render.render_poses on 3 orbit poses at 1282x721 (the
+     screenshots' size, padded to 1408x736) and 320x180 (padded to
+     384x192), one launch of each render kernel per pose, color within
+     1 LSB of the plain versions, depth equal, no overflow, the
+     side_by_side shape; at each size the padded frame before the crop
+     (debug_gbuf's G-buffer and face ids, then plan and sample on it)
+     against the plain versions, the pixels past the frame counted
+     apart; the 1282x721 graph frame's ms beside the 1280x720 one's
+     (events); then fit_pose.fit for 200 poses at 320x180 toward the
+     coverage mask of orbit_camera(0.7) (centre (0, 1, 0), radii
+     10.5-13, steps 1.0): one launch of each render kernel per pose,
+     the true pose's mask IoU exactly 1.0 after the replays, ms per pose
+     (a replay and the mask's read-back, host clock) and poses per second
+     beside the device's busy time, capture ms; the first 40 iterations
+     with the kernels and inside plain_kernels() giving the same
+     improvement lines, best pose and IoU.
 
 The run writes nothing but the kernels' build: the scene cache is off
 (TPURAST_TORCH_SCENE_CACHE=0 unless the caller set it), and the tools'
 G-buffer dump lives in a temporary directory. The whole run takes about
-two minutes on an H100; should it ever pass 150 s, the tools' frame counts
-are the first to cut, then the gather and deferred phases from 4 frames to
-2.
+two minutes on an H100 (the pose tools about 30 s of it, 11 s of that the
+plain versions' 40 poses); should it ever pass 150 s, the tools' frame
+counts are the first to cut, then the gather and deferred phases from 4
+frames to 2.
 
 Each path prints its frame times and a per-stage breakdown; the window
 path also prints, per stage, the device operations torch.profiler counts
@@ -128,7 +146,8 @@ the same. Any failure raises. The last stdout line is {"ok": true,
 window path for the render kernels, on the microbenchmark path for the
 probes; runtime_launches on the bench run, slab_launches on the 8-slab
 window frame, mesh_launches on multi_device's window replay,
-scan_launches on the scan track), error, times, bound and library time.
+scan_launches on the scan track, pose_launches on the 200-pose search),
+error, times, bound and library time.
 """
 
 from __future__ import annotations
@@ -151,10 +170,10 @@ import torch  # noqa: E402
 
 from tpurast_torch import cli  # noqa: E402
 from tpurast_torch import kernels as K  # noqa: E402
-from tpurast_torch.camera import MoveDirection  # noqa: E402
+from tpurast_torch.camera import Camera, MoveDirection  # noqa: E402
 from tpurast_torch.config import RendererConfig  # noqa: E402
 from tpurast_torch import parallel  # noqa: E402
-from tpurast_torch.device.scene import orbit_track, scene_bytes  # noqa: E402
+from tpurast_torch.device.scene import orbit_camera, orbit_track, scene_bytes  # noqa: E402
 from tpurast_torch.device.scene_cache import load_named_scene  # noqa: E402
 from tpurast_torch.engine import Engine  # noqa: E402
 from tpurast_torch.graphs import FrameGraph  # noqa: E402
@@ -163,9 +182,9 @@ from tpurast_torch.parallel import make_sharded_renderer  # noqa: E402
 from tpurast_torch.present import Presenter  # noqa: E402
 from tpurast_torch.profiling import STAGES  # noqa: E402
 from tpurast_torch.renderer import Renderer, render_frame  # noqa: E402
-from tpurast_torch.tools import (aniso_mode_stats, check_sampler, microbench, microbench_pipeline,  # noqa: E402
-                                 profile_sampler, profile_stages, residual_analysis, sample_stage_probe,
-                                 sampler_plan_stats, sampler_sim)
+from tpurast_torch.tools import (aniso_mode_stats, check_sampler, fit_pose, microbench,  # noqa: E402
+                                 microbench_pipeline, parity_render, profile_sampler, profile_stages,
+                                 residual_analysis, sample_stage_probe, sampler_plan_stats, sampler_sim)
 from tpurast_torch.tools.microbench import device_ms  # noqa: E402
 
 KERNELS = {
@@ -199,6 +218,17 @@ MESH_SLABS = 4  # multi_device's slabs on a machine with one card
 WIDTH, HEIGHT = 1920, 1080
 GRAPH_OUTPUTS = ("color", "depth", "bin_overflow", "window_miss_px")  # compared bit for bit with eager frames
 FLOAT_PLANES = [i for i in range(resolve.A_OUT) if i not in resolve.INT_PLANES]
+POSE_W, POSE_H = 320, 180  # fit_pose's frame: pads to 384x192
+POSE_ITERS, POSE_PLAIN_ITERS = 200, 40
+POSE_TRUE = 0.7  # orbit_camera angle of the pose the search looks for
+# The search on the orbit scene: centred on orbit_camera's target, radii
+# around the track's 11.77 units from it (11.5 out, 2.5 up), steps scaled
+# up from the reference's 0.08 as its radii are.
+POSE_SEARCH = dict(center=(0.0, 1.0, 0.0), rmin=10.5, rmax=13.0, sigma=1.0)
+# The screenshots' client area (pads to 1408x736: the 11th tile column
+# holds 2 frame columns) and fit_pose's frame.
+PARITY_SIZES = ((1282, 721), (POSE_W, POSE_H))
+PARITY_ANGLES = (0.7, 2.1, 4.0)
 # G-buffer planes the functions read: the plan 6, 7, 9-12, 14-17, 20-23; the
 # sample those and 0-5 and 13 (csrc/plan.cu, csrc/sampler.cu).
 PLAN_PLANES = 14
@@ -405,11 +435,7 @@ def kernel_phases(r: Renderer, cam) -> dict:
     print("plan: covered tiles by windows used (0..32): " + " ".join(str(n) for n in hist))
     check(table_bad == 0 and assign_bad == 0, "plan kernel disagrees with its plain version")
 
-    skw = dict(
-        max_anisotropy=ma, light_direction=kw["light_direction"], light_color=kw["light_color"],
-        ambient_amount=kw["ambient_amount"], specular_power=kw["specular_power"],
-        clear_color=kw["clear_color"], blend=kw["blend"], **tiles,
-    )
+    skw = sample_kwargs(kw, tiles)
     page = sc["atlas"]["page"]
     probe_map = torch.where(g[16] > 0, shade.probe_count(g[17], g[14], g[15], g[9], g[10], ma), 0.0)
     n_probe = probe_map[g[16] > 0]
@@ -472,6 +498,13 @@ def kernel_phases(r: Renderer, cam) -> dict:
           f"{direct_ms:.4f} ms vs {st['ms']:.4f} ms")
     check(same, "the sampled frame depends on the plan")
     return out
+
+
+def sample_kwargs(kw: dict, tiles: dict) -> dict:
+    """sample_tiles' keyword arguments from a Renderer's frame arguments."""
+    return dict(max_anisotropy=kw["max_anisotropy"], light_direction=kw["light_direction"],
+                light_color=kw["light_color"], ambient_amount=kw["ambient_amount"],
+                specular_power=kw["specular_power"], clear_color=kw["clear_color"], blend=kw["blend"], **tiles)
 
 
 def touched_page_bytes(g, page, ma) -> int:
@@ -1147,6 +1180,164 @@ def tool_phase(scene, seed: int, card: str, device="cuda") -> None:
     print(f"tools: 8 ran in {time.perf_counter() - t0:.1f} s [{card}]")
 
 
+def padded_kernels(rr: Renderer, cam, card: str) -> None:
+    """At rr's target off the tile grid, before the crop: the G-buffer and
+    face ids of debug_gbuf (a graph replay) against the plain versions'
+    (eager, inside plain_kernels()), face ids exact, integer planes exact,
+    float planes kernel_phases' rule; then the plan and sample kernels on
+    that G-buffer against their plain versions (plan exact, the uncropped
+    sRGB u8 framebuffer within 1 LSB). Each over the whole padded frame,
+    with the pixels past the frame's width or height counted apart."""
+    rr.debug_gbuf(cam, with_fid=True)  # the eager first call, which captures
+    g, fid = rr.debug_gbuf(cam, with_fid=True)
+    with K.plain_kernels():
+        g_p, fid_p = rr.debug_gbuf(cam, with_fid=True)
+    hp, wp = fid.shape
+    past = torch.ones((hp, wp), dtype=torch.bool, device=fid.device)
+    past[:rr.height, :rr.width] = False
+    covered = fid >= 0
+    fid_bad = int((fid != fid_p).sum())
+    flip = (g[19] != g_p[19]) & covered
+    keep = ~flip
+    int_bad = int(sum(((g[i] != g_p[i]) & keep).sum() for i in resolve.INT_PLANES))
+    float_bad = int((~torch.isclose(g[FLOAT_PLANES][:, keep], g_p[FLOAT_PLANES][:, keep], rtol=1e-5,
+                                    atol=1e-6)).sum())
+    kw = rr._frame_kwargs
+    tiles = dict(tiles_x=rr.tiles_x, tiles_y=rr.tiles_y, tile_h=kw["tile_h"], tile_w=kw["tile_w"])
+    ma = kw["max_anisotropy"]
+    plan = sampler.plan_tiles(g, max_anisotropy=ma, **tiles)
+    plan_p = sampler.plan_tiles_plain(g, max_anisotropy=ma, **tiles)
+    plan_bad = int((plan["table"] != plan_p["table"]).sum()) + int((plan["assign"] != plan_p["assign"]).sum())
+    page, (_, cp) = rr.scene["atlas"]["page"], rr.frame_uniforms(cam)
+    skw = sample_kwargs(kw, tiles)
+    fb = sampler.sample_tiles(g, page, plan, cp, **skw)
+    fb_p = sampler.sample_tiles_plain(g, page, plan, cp, **skw)
+    diff = (present.encode_srgb_u8(fb, wp, hp).int() - present.encode_srgb_u8(fb_p, wp, hp).int()).abs().amax(0)
+    lsb, lsb_past = int(diff.max()), int(diff[past].max())
+    print(f"padded frame {rr.width}x{rr.height} -> {wp}x{hp} ({rr.tiles_x}x{rr.tiles_y} tiles; the last tile column "
+          f"holds {rr.width - (rr.tiles_x - 1) * kw['tile_w']} frame columns): covered px {int(covered.sum())}, of "
+          f"them past the frame {int((covered & past).sum())} of {int(past.sum())}; kernels vs plain, whole padded "
+          f"frame: face ids differing {fid_bad} (past the frame {int(((fid != fid_p) & past).sum())}), l0 flips "
+          f"{int(flip.sum())}, integer-plane values {int_bad}, float-plane values outside rtol 1e-5/atol 1e-6 "
+          f"{float_bad}, plan words and assignments {plan_bad}, sampled u8 max {lsb} LSB (past the frame "
+          f"{lsb_past}) [{card}]")
+    check(fid_bad == 0 and int(flip.sum()) <= 0.001 * int(covered.sum()) and int_bad == 0 and float_bad == 0
+          and plan_bad == 0 and lsb <= 1, f"{rr.width}x{rr.height}: a kernel disagrees in the padded frame")
+
+
+def pose_tools(scene, r: Renderer, card: str) -> dict:
+    """fit_pose and parity_render on the orbit scene already built, at
+    frame sizes off the 128-px tile grid. Returns the render kernels'
+    launches over the POSE_ITERS-pose search."""
+    t_phase = time.perf_counter()
+    specs = [{"position": orbit_camera(a).position.tolist(), "target": list(POSE_SEARCH["center"])}
+             for a in PARITY_ANGLES]
+    cams = [orbit_camera(a) for a in PARITY_ANGLES]
+    checkers = {}
+    for w, h in PARITY_SIZES:
+        rr = checkers[w, h] = Renderer(scene, RendererConfig(width=w, height=h))
+        K.reset_launches()
+        images = parity_render.render_poses(scene, specs, width=w, height=h)
+        launches = dict(K.LAUNCHES)
+        got = [rr.render(c) for c in cams]
+        with K.plain_kernels():
+            plain = [rr.render(c) for c in cams]
+            plain_images = [parity_render.render_pose(rr, spec) for spec in specs]
+        lsb = max(int(np.abs(a.astype(np.int32) - b).max()) for a, b in zip(images, plain_images))
+        d_eq = all(bool(torch.equal(a["depth"], b["depth"])) for a, b in zip(got, plain))
+        overflow = [int(f["bin_overflow"]) for f in got + plain]
+        side = parity_render.side_by_side(images[0], images[0])
+        print(f"parity_render.render_poses at {w}x{h}, {len(specs)} orbit poses: images {images[0].shape}, "
+              f"side_by_side {side.shape}, launches {launches}; vs plain: color max {lsb} LSB, depth equal {d_eq}, "
+              f"bin_overflow {overflow}, coverage " + ", ".join(f"{float((f['depth'] > 0).float().mean()):.3f}"
+                                                              for f in got))
+        check(images[0].shape == (h, w, 3) and side.shape == (h, 2 * w + parity_render.BAND_PX, 3),
+              f"{w}x{h}: render_poses' shapes")
+        check(lsb <= 1 and d_eq and not any(overflow), f"{w}x{h}: off-grid frames disagree with the plain versions")
+        check(all(launches[n] == len(specs) for n in RENDER_KERNELS), f"{w}x{h}: not one launch per pose")
+        padded_kernels(rr, cams[0], card)
+
+    # The screenshot-sized graph frame against the 1280x720 one, by events
+    # only: torch.profiler over a replay of this graph crashed the process
+    # inside cudaGraphLaunch (PERF.md, section 7).
+    big = checkers[PARITY_SIZES[0]]
+    off_ms = event_median(lambda: big.render(cams[0]), 6)
+    r.recreate_swapchain(1280, 720)
+    on_ms = event_median(lambda: r.render(cams[0]), 6)  # its first call captures
+    on_tiles = (r.tiles_x, r.tiles_y)
+    r.recreate_swapchain(WIDTH, HEIGHT)
+    print(f"graph frame by events, median of 6: {big.width}x{big.height} ({big.tiles_x}x{big.tiles_y} tiles) "
+          f"{off_ms:.3f} ms vs 1280x720 ({on_tiles[0]}x{on_tiles[1]} tiles) {on_ms:.3f} ms ({off_ms / on_ms:.3f}x) "
+          f"[{card}]")
+
+    # The target: the coverage mask of the orbit camera at POSE_TRUE.
+    true_cam = orbit_camera(POSE_TRUE)
+    target = checkers[POSE_W, POSE_H]
+    mask_ref = (target.render(true_cam)["depth"] > 0).cpu().numpy()
+    check(0.05 <= mask_ref.mean() <= 0.95, f"pose target coverage {mask_ref.mean():.3f}")
+    K.reset_launches()
+    log = []
+    t0 = time.perf_counter()
+    score, pos, tgt, fr = fit_pose.fit(scene, mask_ref, width=POSE_W, height=POSE_H, iters=POSE_ITERS,
+                                       log=log.append, **POSE_SEARCH)
+    search_s = time.perf_counter() - t0
+    pose_launches = dict(K.LAUNCHES)
+    for name in KERNELS:
+        want = POSE_ITERS if name in RENDER_KERNELS else 0
+        check(pose_launches[name] == want, f"fit_pose: {name} launched {pose_launches[name]} times, want {want}")
+    true_iou = fit_pose.iou((fr.render(true_cam)["depth"] > 0).cpu().numpy(), mask_ref)
+    check(true_iou == 1.0, f"fit_pose: the true pose scores IoU {true_iou} after {POSE_ITERS} replays")
+
+    # A pose: one replay and one read-back of its mask, on the host's clock.
+    rng = np.random.default_rng(1)
+    poses = [Camera.from_target(np.asarray(pos + rng.normal(0, 0.5, 3), np.float32),
+                                         np.asarray(tgt, np.float32)) for _ in range(50)]
+    torch.cuda.synchronize()
+    per_pose = []
+    for cam in poses:
+        t0 = time.perf_counter()
+        (fr.render(cam)["depth"] > 0).cpu().numpy()
+        per_pose.append((time.perf_counter() - t0) * 1e3)
+    busy = device_ms(lambda: fr.render(poses[0]), 3)
+    capture = fr.graph_info()["frame"]["capture_ms"]
+    pose_ms = float(np.median(per_pose))
+    print(f"fit_pose at {POSE_W}x{POSE_H}, {POSE_ITERS} poses around {POSE_SEARCH}: best IoU {score:.4f} at pos "
+          f"{pos.round(3).tolist()} tgt {tgt.round(3).tolist()} ({len(log)} improvements); the true pose's mask "
+          f"after the search IoU {true_iou}; launches {pose_launches}; the search {search_s:.2f} s with the "
+          f"Renderer's upload and capture ({capture:.1f} ms); ms per pose (replay + read-back, host clock, median "
+          f"of {len(per_pose)}) {pose_ms:.3f} (mean {np.mean(per_pose):.3f}), {1e3 / pose_ms:.1f} poses/s; device "
+          f"busy per pose {fmt_ms(busy)} ms, host share "
+          f"{'not measured' if busy is None else f'{1.0 - busy / pose_ms:.3f}'} [{card}]")
+
+    # The first POSE_PLAIN_ITERS iterations again, kernels and plain versions.
+    runs = {}
+    for label, ctx in (("kernels", contextlib.nullcontext()), ("plain", K.plain_kernels())):
+        lines = []
+        K.reset_launches()
+        t0 = time.perf_counter()
+        with ctx:
+            res = fit_pose.fit(scene, mask_ref, width=POSE_W, height=POSE_H, iters=POSE_PLAIN_ITERS,
+                               log=lines.append, **POSE_SEARCH)
+        runs[label] = dict(lines=lines, score=res[0], pos=res[1], tgt=res[2], launches=dict(K.LAUNCHES),
+                           s=time.perf_counter() - t0)
+    kr, pr = runs["kernels"], runs["plain"]
+    same = (kr["lines"] == pr["lines"] and kr["score"] == pr["score"] and np.array_equal(kr["pos"], pr["pos"])
+            and np.array_equal(kr["tgt"], pr["tgt"]))
+    print(f"fit_pose, {POSE_PLAIN_ITERS} iterations with the kernels ({kr['s']:.2f} s) and inside plain_kernels() "
+          f"({pr['s']:.2f} s): {len(kr['lines'])} improvement lines, trajectories equal {same}, best IoU "
+          f"{kr['score']:.4f} / {pr['score']:.4f}; launches {kr['launches']} / {pr['launches']}")
+    for a, b in zip(kr["lines"], pr["lines"]):
+        if a != b:
+            print(f"  first difference: {a!r} vs {b!r}")
+            break
+    check(same, "fit_pose: the kernels' search differs from the plain versions'")
+    check(all(kr["launches"][n] == POSE_PLAIN_ITERS for n in RENDER_KERNELS) and not any(pr["launches"].values()),
+          "fit_pose: launches of the 40-pose searches")
+
+    print(f"pose tools: {time.perf_counter() - t_phase:.1f} s [{card}]")
+    return pose_launches
+
+
 BENCH_FRAMES, BENCH_WARMUP = 32, 4
 
 
@@ -1382,6 +1573,7 @@ def main() -> None:
     runtime_launches = runtime_path(scene, args.seed, window_ops, replay_kernel_ms)
     present_breakdown(r, cams)
     tool_phase(scene, args.seed, card)
+    pose_launches = pose_tools(scene, r, card)
 
     print("device ms per call (torch.profiler), kernel vs plain: " + "; ".join(
         f"{name} {fmt_ms(stats[name]['dev_ms'])} vs {fmt_ms(stats[name]['plain_dev_ms'])}" for name in KERNELS))
@@ -1390,6 +1582,7 @@ def main() -> None:
         {"name": name, "route": "cuda", "source": src, "replaces": rep, "launches": launches[name],
          "runtime_launches": runtime_launches[name], "slab_launches": slab_launches[name],
          "mesh_launches": mesh_launches[name], "scan_launches": scan_launches[name],
+         "pose_launches": pose_launches[name],
          **{k: stats[name][k] for k in keys}}
         for name, (src, rep) in KERNELS.items()
     ]

@@ -27,14 +27,23 @@ def add_scene_args(ap: argparse.ArgumentParser) -> None:
     ap.add_argument("--device", default="cuda", help='"cuda" (default), "cuda:N" or "cpu"')
 
 
+def open_device(tool: str, name: str):
+    """torch.device(name), or None after saying on stderr that a CUDA
+    device was asked for and there is none."""
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        print(f"{tool}: no CUDA device (torch.cuda.is_available() is false). Pass --device cpu to run the "
+              "plain torch versions on the host.", file=sys.stderr)
+        return None
+    return device
+
+
 def open_scene(tool: str, args):
     """(scene, device) for a tool's parsed options, or None after saying
     on stderr why not (no CUDA device for --device cuda, a missing data
     directory)."""
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        print(f"{tool}: no CUDA device (torch.cuda.is_available() is false). Pass --device cpu to run the "
-              "plain torch versions on the host.", file=sys.stderr)
+    device = open_device(tool, args.device)
+    if device is None:
         return None
     try:
         if args.scene == "orbit":
