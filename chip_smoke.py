@@ -2,6 +2,8 @@
 """Smoke run of the tpurast_torch paths on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed 0]
+    python3 chip_smoke.py --sanitize-cases   # the case set alone (see 11)
+    python3 chip_smoke.py --multi-device     # phase 8's multi_device alone
 
 Builds the CUDA kernels from tpurast_torch/csrc, builds a procedural scene
 from the seed (a 256x256-quad floor and 64 UV spheres, 258,048 triangles,
@@ -117,15 +119,32 @@ eight generated 1024^2 BC4 textures with full mip chains), and then, at
      (a replay and the mask's read-back, host clock) and poses per second
      beside the device's busy time, capture ms; the first 40 iterations
      with the kernels and inside plain_kernels() giving the same
-     improvement lines, best pose and IoU.
+     improvement lines, best pose and IoU;
+ 11. the sanitizer phase: compute-sanitizer (PATH, else
+     /usr/local/cuda/bin) is first tried on one small torch program under
+     memcheck. Where it attaches, the case set (sanitize_cases: frame 0 at
+     1920x1080, 1282x721 and 320x180, the 2- and 8-slab frames, the scan
+     path, the mesh frame, and the probes at odd shapes, each eagerly and
+     as a graph replay, equal bit for bit) runs in a subprocess under its
+     memcheck (leaks not checked), racecheck and synccheck, each with
+     --error-exitcode 1, and any error fails the run; where it is absent
+     or cannot attach, a line says so and the case set runs once without
+     a tool. One line per run: cases, errors, seconds.
+
+Every kernel-against-plain phase (kernel_phases, probe_phases,
+slab_kernels, padded_kernels) also launches each kernel once more with
+its outputs and scratch as views inside larger buffers whose every byte
+was 0xA5 (guard bands, up to 2^20 elements on each side): the margins must
+still hold 0xA5 afterwards and the views equal the wrapper's outputs bit
+for bit.
 
 The run writes nothing but the kernels' build: the scene cache is off
 (TPURAST_TORCH_SCENE_CACHE=0 unless the caller set it), and the tools'
 G-buffer dump lives in a temporary directory. The whole run takes about
-two minutes on an H100 (the pose tools about 30 s of it, 11 s of that the
-plain versions' 40 poses); should it ever pass 150 s, the tools' frame
-counts are the first to cut, then the gather and deferred phases from 4
-frames to 2.
+three minutes on an H100 (the pose tools about 30 s of it, 11 s of that the
+plain versions' 40 poses; the sanitizer phase about 45 s without a tool);
+should it ever pass 300 s, the tools' frame counts are the first to cut,
+then the gather and deferred phases from 4 frames to 2.
 
 Each path prints its frame times and a per-stage breakdown; the window
 path also prints, per stage, the device operations torch.profiler counts
@@ -154,10 +173,13 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import ctypes
+import functools
 import io
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -176,7 +198,7 @@ from tpurast_torch import parallel  # noqa: E402
 from tpurast_torch.device.scene import orbit_camera, orbit_track, scene_bytes  # noqa: E402
 from tpurast_torch.device.scene_cache import load_named_scene  # noqa: E402
 from tpurast_torch.engine import Engine  # noqa: E402
-from tpurast_torch.graphs import FrameGraph  # noqa: E402
+from tpurast_torch.graphs import FrameGraph, Graph  # noqa: E402
 from tpurast_torch.kernels import _build, geometry, present, probes, raster, resolve, sampler, shade  # noqa: E402
 from tpurast_torch.parallel import make_sharded_renderer  # noqa: E402
 from tpurast_torch.present import Presenter  # noqa: E402
@@ -233,6 +255,10 @@ PARITY_ANGLES = (0.7, 2.1, 4.0)
 # sample those and 0-5 and 13 (csrc/plan.cu, csrc/sampler.cu).
 PLAN_PLANES = 14
 SAMPLE_PLANES = 21
+# Guard bands around a guarded launch's outputs (guarded): elements on each
+# side (a tile row of a 1920-wide frame is 61,440) and the byte they hold.
+GUARD_ELEMS = 1 << 20
+GUARD_BYTE = 0xA5
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -308,8 +334,97 @@ def check(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
-def kernel_phases(r: Renderer, cam) -> dict:
-    """Each kernel against its plain version on frame 0's real inputs."""
+class Out:
+    """An output or scratch argument of a guarded launch: a tensor of this
+    shape and dtype, zeroed first where the kernel adds to it."""
+
+    def __init__(self, shape, dtype=torch.float32, zero: bool = False):
+        self.shape, self.dtype, self.zero = tuple(shape), dtype, zero
+
+
+def guarded(entry: str, *args, want=()) -> dict:
+    """One more launch of C entry point ``entry`` (through _build.call, so
+    no launch is counted) with each Out argument a view inside a larger
+    buffer: GUARD_ELEMS elements (at most; as many as the view holds if
+    fewer, rounded up to a whole 256 B) on each side, every byte of the
+    buffer set to GUARD_BYTE first. Afterwards the margins must still hold
+    GUARD_BYTE (nothing written before or past an output), and the views
+    equal ``want`` (the wrapper's own outputs, in the order of the Out
+    arguments; None where a scratch buffer has no counterpart) bit for
+    bit. Returns {"intact": bool, "same": bool}."""
+    dev = next(a.device for a in args if isinstance(a, torch.Tensor))
+    bufs, conv = [], []
+    for a in args:
+        if not isinstance(a, Out):
+            conv.append(a)
+            continue
+        n = int(np.prod(a.shape))
+        es = torch.empty((), dtype=a.dtype).element_size()
+        per = 256 // es
+        m = -(-min(max(n, 1), GUARD_ELEMS) // per) * per
+        buf = torch.empty((n + 2 * m,), dtype=a.dtype, device=dev)
+        buf.view(torch.uint8).fill_(GUARD_BYTE)
+        view = buf[m:m + n].view(a.shape)
+        if a.zero:
+            view.zero_()
+        bufs.append((buf, m * es, view))
+        conv.append(view)
+    _build.call(entry, *conv)
+    torch.cuda.synchronize()
+    intact = all(bool((b.view(torch.uint8)[:mb] == GUARD_BYTE).all())
+                 and bool((b.view(torch.uint8)[b.numel() * b.element_size() - mb:] == GUARD_BYTE).all())
+                 for b, mb, _ in bufs)
+    same = all(w is None or bool(torch.equal(v, w)) for (_, _, v), w in zip(bufs, want))
+    return dict(intact=intact, same=same)
+
+
+GUARDS: list = []  # (phase, kernel, result of guarded) of the run
+
+
+def guard(phase: str, kernel: str, entry: str, *args, want=()) -> None:
+    """guarded(), recorded in GUARDS and held by check()."""
+    res = guarded(entry, *args, want=want)
+    GUARDS.append((phase, kernel, res))
+    check(res["intact"], f"{phase}: {kernel} wrote into a guard band")
+    check(res["same"], f"{phase}: {kernel} in a guarded buffer differs from the wrapper's output")
+
+
+def guard_raster(phase: str, so, bins, vis, *, tile_h, tile_w, tiles_x, tiles_y, clear_depth, tile_row_offset=0):
+    """The raster kernel into guarded scratch and output, against vis."""
+    hp, wp, slots = tiles_y * tile_h, tiles_x * tile_w, bins["pair_faces"].numel()
+    keys, work, _ = raster.kernel_buffers(hp, wp, tiles_x * tiles_y, slots, "meta")
+    guard(phase, "raster", "tr_raster", so["setup"], so["aabb"], bins["pair_faces"], bins["offsets"], slots,
+          tiles_x, tiles_y, tile_h, tile_w, tile_row_offset, float(clear_depth) + 0.0, Out(keys.shape, torch.int64),
+          Out(work.shape, torch.int32), work.numel(), Out(vis.shape), want=(None, None, vis))
+
+
+def guard_resolve(phase: str, vis, attrs, g, *, max_anisotropy, y_offset=0):
+    _, hp, wp = vis.shape
+    guard(phase, "resolve", "tr_resolve", vis, attrs, attrs.shape[0], hp, wp, y_offset, max_anisotropy,
+          Out(g.shape), want=(g,))
+
+
+def guard_plan(phase: str, g, plan, *, tiles_x, tiles_y, tile_h, tile_w, max_anisotropy):
+    guard(phase, "plan", "tr_plan", g, tiles_x, tiles_y, tile_h, tile_w, sampler.rc_for(tile_h), max_anisotropy,
+          Out(plan["table"].shape, torch.int32), Out(plan["assign"].shape), Out((), torch.int32, zero=True),
+          want=(plan["table"], plan["assign"], plan["residual_px"]))
+
+
+def guard_sample(phase: str, g, page, plan, cp, fb, *, tiles_x, tiles_y, tile_h, tile_w, max_anisotropy, **light):
+    params = (ctypes.c_float * sampler.N_PARAMS)(*sampler.shade_params(**light))
+    guard(phase, "sample", "tr_sample", g, page, page.shape[2], plan["table"], cp, tiles_x, tiles_y, tile_h, tile_w,
+          max_anisotropy, ctypes.addressof(params), Out(fb.shape), want=(fb,))
+
+
+def print_guards(phase: str, card: str) -> None:
+    mine = [(k, r) for p, k, r in GUARDS if p == phase]
+    print(f"guard bands, {phase}: " + ", ".join(f"{k} intact {r['intact']} equal {r['same']}" for k, r in mine)
+          + f" (up to {GUARD_ELEMS} elements of 0x{GUARD_BYTE:02X} bytes on each side of each output) [{card}]")
+
+
+def kernel_phases(r: Renderer, cam, card: str) -> dict:
+    """Each kernel against its plain version on frame 0's real inputs, and
+    once more into guarded outputs (guard)."""
     kw = r._frame_kwargs
     sc = r.scene
     vp, cp = r.frame_uniforms(cam)
@@ -353,6 +468,7 @@ def kernel_phases(r: Renderer, cam) -> dict:
                                                     **rkw), 20)
     print("raster device ms by operation: " + "; ".join(f"{k[:60]} {v:.4f}" for k, v in ops.items()))
     check(fid_bad == 0 and depth_bad == 0, "raster kernel disagrees with its plain version")
+    guard_raster("kernel_phases", so, bins, vis, **rkw)
 
     attrs = resolve.pack_resolve_attrs(
         so["setup"], sc["corner_world"], sc["corner_normal"], sc["corner_uv"], sc["face_tex"], sc["atlas"]
@@ -387,6 +503,7 @@ def kernel_phases(r: Renderer, cam) -> dict:
           f"{out['resolve']['ms']:.3f} ms vs plain {out['resolve']['plain_ms']:.3f} ms")
     check(n_flip <= 0.001 * covered and int_bad == 0 and float_bad == 0,
           "resolve kernel disagrees with its plain version")
+    guard_resolve("kernel_phases", vis, attrs, g, max_anisotropy=ma)
 
     tiles = dict(tiles_x=tx, tiles_y=ty, tile_h=th, tile_w=tw)
     plan = sampler.plan_tiles(g, max_anisotropy=ma, **tiles)
@@ -434,6 +551,7 @@ def kernel_phases(r: Renderer, cam) -> dict:
     hist = torch.bincount(plan["n_used"][cls != sampler.CLS_EMPTY].long(), minlength=sampler.K2 + 1).tolist()
     print("plan: covered tiles by windows used (0..32): " + " ".join(str(n) for n in hist))
     check(table_bad == 0 and assign_bad == 0, "plan kernel disagrees with its plain version")
+    guard_plan("kernel_phases", g, plan, max_anisotropy=ma, **tiles)
 
     skw = sample_kwargs(kw, tiles)
     page = sc["atlas"]["page"]
@@ -478,6 +596,8 @@ def kernel_phases(r: Renderer, cam) -> dict:
           f"{SAMPLE_PLANES} planes at every px: {sample_bound_planes['bound_ms']:.4f} ms; all 24 and the plan, no "
           f"texels, as counted before: {sample_bound_all['bound_ms']:.4f} ms)")
     check(lsb <= 1, "sample kernel disagrees with its plain version")
+    guard_sample("kernel_phases", g, page, plan, cp, fb, **skw)
+    print_guards("kernel_phases", card)
     # A warp runs as many probe rounds as its worst lane needs.
     for ww, wh in ((32, 1), (8, 4)):
         worst = probe_map.reshape(hp // wh, wh, wp // ww, ww).amax(dim=(1, 3))
@@ -526,10 +646,11 @@ def touched_page_bytes(g, page, ma) -> int:
     return int(touched.sum()) * 8
 
 
-def probe_phases(dev) -> dict:
+def probe_phases(dev, card: str) -> dict:
     """vmem_take and the three plane_scale geometries against their plain
     versions at the tools' sizes (tools/microbench.py cmd_vmemtake,
-    tools/microbench_pipeline.py main): bit for bit."""
+    tools/microbench_pipeline.py main): bit for bit; each shape once more
+    into guarded outputs (guard)."""
     out = {}
     n = microbench.N_PX
     table = torch.rand((4096, 16), generator=microbench.generator(dev, 1), device=dev)
@@ -550,6 +671,8 @@ def probe_phases(dev) -> dict:
           f"{out['vmem_take']['max_abs_err']}; {out['vmem_take']['ms']:.4f} ms vs plain "
           f"{out['vmem_take']['plain_ms']:.4f} ms")
     check(bad == 0, "vmem_take kernel disagrees with its plain version")
+    guard("probe_phases", "vmem_take", "tr_vmem_take", table, table.shape[0], idx, idx.numel(), Out(got.shape),
+          want=(got,))
     # Shapes that stress the design: an odd row count, a count of indices
     # that fills no whole warp or block, rows outside the table (clamped),
     # an index array that starts off the 16-byte grid, one row.
@@ -557,9 +680,12 @@ def probe_phases(dev) -> dict:
         tab = torch.rand((rows, 16), generator=microbench.generator(dev, 3), device=dev)
         wild = torch.randint(-3, rows + 3, (n_idx + off,), generator=microbench.generator(dev, 4), device=dev,
                              dtype=torch.int32)[off:]
-        same = bool(torch.equal(probes.vmem_take(tab, wild), probes.vmem_take_plain(tab, wild)))
+        got = probes.vmem_take(tab, wild)
+        same = bool(torch.equal(got, probes.vmem_take_plain(tab, wild)))
         print(f"vmem_take {rows} rows, {n_idx} indices in [-3, {rows + 3}), array offset {off}: equal to plain {same}")
         check(same, f"vmem_take disagrees with its plain version at {rows} rows, {n_idx} indices")
+        guard("probe_phases", f"vmem_take {rows}x{n_idx}+{off}", "tr_vmem_take", tab, rows, wild, n_idx,
+              Out(got.shape), want=(got,))
 
     gbuf = torch.rand((24, 1088, 1920), generator=microbench.generator(dev, 0), device=dev)
     one = gbuf[16:17].clone()
@@ -593,17 +719,22 @@ def probe_phases(dev) -> dict:
               f"{fmt_ms(r['plain_dev_ms'])} ms vs torch.mul {fmt_ms(r['library_dev_ms'])} ms; bound "
               f"{r['bound_ms']:.4f} ms by {r['bound_by']}")
         check(same, f"plane_scale {label} disagrees with its plain version")
+        guard("probe_phases", f"plane_scale {label.split()[0]}", "tr_plane_scale", src, plane, src.shape[1],
+              src.shape[2], bh, bw, 0, Out(got.shape), want=(got,))
     # Rectangles whose rows leave the 16-byte grid take the kernel's scalar
     # head and tail (odd width, blocks narrower than 4, a plane offset of 1
     # mod 4 floats): held to the plain version too, small and untimed.
     off_grid = [((3, 67, 381), 1, 32, 128), ((3, 67, 381), 2, 7, 3), ((3, 15, 23), 1, 5, 2)]
     for k, (shape, plane, bh, bw) in enumerate(off_grid):
         src = torch.rand(shape, generator=microbench.generator(dev, 2 + k), device=dev)
-        same = bool(torch.equal(probes.plane_scale(src, plane, block_h=bh, block_w=bw),
-                                probes.plane_scale_plain(src, plane, block_h=bh, block_w=bw)))
+        got = probes.plane_scale(src, plane, block_h=bh, block_w=bw)
+        same = bool(torch.equal(got, probes.plane_scale_plain(src, plane, block_h=bh, block_w=bw)))
         print(f"plane_scale off the 16-byte grid, {shape} plane {plane}, {bh}x{bw} blocks: equal to plain {same}")
         check(same, f"plane_scale {shape} {bh}x{bw} disagrees with its plain version")
+        guard("probe_phases", f"plane_scale {shape} {bh}x{bw}", "tr_plane_scale", src, plane, shape[1], shape[2], bh,
+              bw, 0, Out(got.shape), want=(got,))
     out["plane_scale"] = dict(rows[0], max_abs_err=max(r["max_abs_err"] for r in rows))
+    print_guards("probe_phases", card)
     return out
 
 
@@ -951,6 +1082,7 @@ def slab_kernels(r: Renderer, cam, card: str) -> None:
           f"{int(bins['offsets'][-1])} pairs, {int(covered.sum())} covered px; raster vs plain: {bad} values "
           f"differ; equal to the whole frame's rows {same_rows}; {ms:.4f} ms [{card}]")
     check(bad == 0 and same_rows and int(covered.sum()) > 10000, "raster at a row offset disagrees")
+    guard_raster("slab_kernels", so, bins, vis, **rkw)
 
     attrs = resolve.pack_resolve_attrs(so["setup"], sc["corner_world"], sc["corner_normal"], sc["corner_uv"],
                                        sc["face_tex"], sc["atlas"])
@@ -971,6 +1103,8 @@ def slab_kernels(r: Renderer, cam, card: str) -> None:
           f"{ms:.4f} ms [{card}]")
     check(int(flip.sum()) <= 0.001 * int(covered.sum()) and int_bad == 0 and float_bad == 0 and same_rows,
           "resolve at a row offset disagrees")
+    guard_resolve("slab_kernels", vis, attrs, g, max_anisotropy=ma, y_offset=row0 * th)
+    print_guards("slab_kernels", card)
 
 
 def slab_frames(renderers: dict, cam, card: str) -> dict:
@@ -1224,6 +1358,25 @@ def padded_kernels(rr: Renderer, cam, card: str) -> None:
     check(fid_bad == 0 and int(flip.sum()) <= 0.001 * int(covered.sum()) and int_bad == 0 and float_bad == 0
           and plan_bad == 0 and lsb <= 1, f"{rr.width}x{rr.height}: a kernel disagrees in the padded frame")
 
+    # Each kernel once more into guarded outputs, raster and resolve on the
+    # frame's own setup and bins (their eager wrappers give the graph's ids).
+    vp, _ = rr.frame_uniforms(cam)
+    sc = rr.scene
+    so = geometry.triangle_setup(geometry.transform_corners(sc["corner_world"], vp), None, sc["n_faces"],
+                                 kw["width"], kw["height"])
+    bins = geometry.bin_pairs(so["aabb"], so["valid"], rr.tiles_x, rr.tiles_y, kw["tile_w"], kw["tile_h"])
+    vis = raster.rasterize_tiles(so["setup"], so["aabb"], bins["pair_faces"], bins["offsets"],
+                                 clear_depth=kw["clear_depth"], **tiles)
+    attrs = resolve.pack_resolve_attrs(so["setup"], sc["corner_world"], sc["corner_normal"], sc["corner_uv"],
+                                       sc["face_tex"], sc["atlas"])
+    check(bool(torch.equal(vis[1], fid)), f"{rr.width}x{rr.height}: the eager raster's face ids differ from the graph's")
+    phase = f"padded_kernels {rr.width}x{rr.height}"
+    guard_raster(phase, so, bins, vis, clear_depth=kw["clear_depth"], **tiles)
+    guard_resolve(phase, vis, attrs, g, max_anisotropy=ma)
+    guard_plan(phase, g, plan, max_anisotropy=ma, **tiles)
+    guard_sample(phase, g, page, plan, cp, fb, **skw)
+    print_guards(phase, card)
+
 
 def pose_tools(scene, r: Renderer, card: str) -> dict:
     """fit_pose and parity_render on the orbit scene already built, at
@@ -1258,8 +1411,11 @@ def pose_tools(scene, r: Renderer, card: str) -> dict:
         padded_kernels(rr, cams[0], card)
 
     # The screenshot-sized graph frame against the 1280x720 one, by events
-    # only: torch.profiler over a replay of this graph crashed the process
-    # inside cudaGraphLaunch (PERF.md, section 7).
+    # only: torch.profiler over a replay of a graph captured before another
+    # graph was destroyed (the searches' Renderers drop theirs) crashes the
+    # process inside cudaGraphLaunch, in CUPTI's callback into libcuda;
+    # tpurast_torch/tools/profiler_graph_crash.py reproduces it with torch
+    # alone (PERF.md, section 7).
     big = checkers[PARITY_SIZES[0]]
     off_ms = event_median(lambda: big.render(cams[0]), 6)
     r.recreate_swapchain(1280, 720)
@@ -1336,6 +1492,115 @@ def pose_tools(scene, r: Renderer, card: str) -> dict:
 
     print(f"pose tools: {time.perf_counter() - t_phase:.1f} s [{card}]")
     return pose_launches
+
+
+def sanitize_cases(seed: int) -> int:
+    """The case set that --sanitize-cases runs (under compute-sanitizer
+    where the card's machine lets it attach): the orbit scene's frame 0 at
+    1920x1080, 1282x721 and 320x180 (off the tile grid), the 2- and 8-slab
+    frames, the scan path and the mesh frame (multi_device's devices), each
+    eagerly (a graph's first call) and then as one graph replay, the two
+    equal bit for bit; and the probes at odd shapes (vmem_take: 4095 rows,
+    1,000,003 indices from an array off the 16-byte grid, some outside the
+    table; plane_scale: plane 1 of a (3, 67, 381) buffer in 32x128, 7x3 and
+    32x381 blocks), each eagerly and as a graph replay. Returns the number
+    of cases."""
+    scene = load_named_scene("orbit", seed=seed)
+    cam = orbit_track(FRAMES)[0]
+    r = Renderer(scene, RendererConfig(width=WIDTH, height=HEIGHT))
+    vp, cp = r.frame_uniforms(cam)
+    count = torch.cuda.device_count()
+    mesh = [f"cuda:{i}" for i in range(count)] if count >= 2 else ["cuda:0"] * MESH_SLABS
+    cases = {}
+    for w, h in ((WIDTH, HEIGHT), *PARITY_SIZES):
+        rr = r if (w, h) == (WIDTH, HEIGHT) else Renderer(scene, RendererConfig(width=w, height=h))
+        cases[f"window {w}x{h}"] = (rr._frame_fn("frame"), rr.scene, *rr.frame_uniforms(cam))
+    for n in SLABS["window"]:
+        cases[f"{n}-slab frame"] = (make_sharded_renderer(r.scene, r.config, n, WIDTH, HEIGHT), r.scene, vp, cp)
+    rs = Renderer(scene, RendererConfig(width=WIDTH, height=HEIGHT, binning="scan"))
+    cases["scan"] = (rs._frame_fn("frame"), r.scene, vp, cp)
+    cases[f"mesh over {mesh}"] = (make_sharded_renderer(r.scene, r.config, mesh, WIDTH, HEIGHT), r.scene, vp, cp)
+    dev = torch.device("cuda")
+    tab = torch.rand((4095, 16), generator=microbench.generator(dev, 3), device=dev)
+    idx = torch.randint(-3, 4098, (1_000_004,), generator=microbench.generator(dev, 4), device=dev,
+                        dtype=torch.int32)
+    # The graph's static copy of idx starts on the grid; the view one int
+    # into it does not.
+    cases["vmem_take 4095 rows, 1000003 indices"] = (Graph(lambda t, i: probes.vmem_take(t, i[1:])), tab, idx)
+    src = torch.rand((3, 67, 381), generator=microbench.generator(dev, 2), device=dev)
+    for bh, bw in ((32, 128), (7, 3), (32, 381)):
+        fn = functools.partial(probes.plane_scale, plane=1, block_h=bh, block_w=bw)
+        cases[f"plane_scale (3, 67, 381) plane 1, {bh}x{bw}"] = (Graph(fn), src)
+    frame = None  # the 1920x1080 frame, which the slab, scan and mesh frames equal too
+    for label, (fn, *args) in cases.items():
+        eager = fn(*args)
+        replay = fn(*args)
+        for i in range(count):
+            torch.cuda.synchronize(i)
+        flat = [eager] if isinstance(eager, torch.Tensor) else list(eager.values())
+        flat_r = [replay] if isinstance(replay, torch.Tensor) else list(replay.values())
+        same = all(bool(torch.equal(a, b)) for a, b in zip(flat, flat_r))
+        if frame is None:
+            frame = eager
+            check_frames([eager], label)
+        elif args[0] is r.scene:
+            same = same and all(bool(torch.equal(eager[k], frame[k])) for k in GRAPH_OUTPUTS)
+        print(f"sanitize case {label}: eager and replay equal {same}"
+              + (" (and equal to the 1920x1080 frame)" if args[0] is r.scene and frame is not eager else ""))
+        check(same, f"sanitize case {label}: the replay differs from the eager call or the frame")
+    print(f"sanitize cases: {len(cases)}")
+    return len(cases)
+
+
+SANITIZERS = ("memcheck", "racecheck", "synccheck")
+
+
+def compute_sanitizer() -> tuple[str | None, str]:
+    """compute-sanitizer's path (None where it is absent or cannot attach
+    to this card) and what a probe under its memcheck said: one small torch
+    program that touches the card."""
+    path = shutil.which("compute-sanitizer") or "/usr/local/cuda/bin/compute-sanitizer"
+    if not os.path.exists(path):
+        return None, "absent (not on PATH, not /usr/local/cuda/bin/compute-sanitizer)"
+    proc = subprocess.run([path, "--tool", "memcheck", "--error-exitcode", "1", sys.executable, "-c",
+                           "import torch; torch.ones(8, device='cuda').sum().item()"],
+                          capture_output=True, text=True, timeout=300)
+    said = [ln.strip("= ").strip() for ln in (proc.stdout + proc.stderr).splitlines() if "Error" in ln]
+    if proc.returncode != 0 or said:
+        return None, f"{path} cannot attach to this card (exit {proc.returncode}: {'; '.join(said[:2])})"
+    return path, f"{path} attaches"
+
+
+def sanitizer_phase(seed: int, card: str) -> float:
+    """--sanitize-cases in a subprocess under compute-sanitizer's memcheck
+    (leaks not checked), racecheck and synccheck, each with
+    --error-exitcode 1: one line per tool with the cases, the errors and
+    the seconds. Where the tool is absent or cannot attach, a line says so
+    and the case set runs once without a tool (the guard bands of the
+    kernel-against-plain phases carry the card-side check). Returns the
+    phase's seconds."""
+    t_phase = time.perf_counter()
+    path, why = compute_sanitizer()
+    case_cmd = [sys.executable, os.path.abspath(__file__), "--sanitize-cases", "--seed", str(seed)]
+    runs = [(tool, [path, "--tool", tool, *(["--leak-check", "no"] if tool == "memcheck" else []),
+                    "--error-exitcode", "1", *case_cmd]) for tool in SANITIZERS] if path else [(None, case_cmd)]
+    if path is None:
+        print(f"compute-sanitizer: {why}; memcheck, racecheck and synccheck not run [{card}]")
+    for tool, cmd in runs:
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+        seconds = time.perf_counter() - t0
+        out = proc.stdout + proc.stderr
+        cases = re.findall(r"^sanitize cases: (\d+)$", out, re.M)
+        summary = re.findall(r"(?:ERROR SUMMARY|RACECHECK SUMMARY): .*", out)
+        errors = sum(int(n) for n in re.findall(r"SUMMARY: (\d+) (?:errors|hazards)", out))
+        label = f"compute-sanitizer --tool {tool}" if tool else "sanitize cases without a tool"
+        print(f"{label}: cases {cases[0] if cases else 0}, errors {errors} ({'; '.join(summary) or 'no summary'}), "
+              f"exit {proc.returncode}, {seconds:.1f} s [{card}]")
+        if proc.returncode != 0 or not cases:
+            print(out[-4000:])
+        check(proc.returncode == 0 and errors == 0 and bool(cases), f"{label}: the case set failed")
+    return time.perf_counter() - t_phase
 
 
 BENCH_FRAMES, BENCH_WARMUP = 32, 4
@@ -1478,11 +1743,19 @@ def runtime_path(scene, seed: int, window_ops: dict, kernel_ms: dict) -> dict:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--sanitize-cases", action="store_true",
+                    help="run only the case set that the normal run hands to compute-sanitizer")
+    ap.add_argument("--multi-device", action="store_true",
+                    help="run only the multi_device phase (for a machine with several cards)")
     args = ap.parse_args()
+    t_run = time.perf_counter()
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this script needs a GPU")
     os.environ.setdefault("TPURAST_TORCH_SCENE_CACHE", "0")
+    if args.sanitize_cases:
+        sanitize_cases(args.seed)
+        return
     smi = subprocess.run(
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
@@ -1512,8 +1785,12 @@ def main() -> None:
           f"{tuple(r.scene['atlas']['page'].shape)} bf16; build + upload {time.perf_counter() - t0:.1f} s")
 
     card = smi.stdout.strip()
-    stats = kernel_phases(r, cams[0])
-    stats.update(probe_phases(torch.device("cuda")))
+    if args.multi_device:
+        deferred = Renderer(scene, RendererConfig(width=WIDTH, height=HEIGHT, shading="deferred"))
+        multi_device({"window": r, "deferred": deferred}, cams[0], card)
+        return
+    stats = kernel_phases(r, cams[0], card)
+    stats.update(probe_phases(torch.device("cuda"), card))
     window_stages = stage_breakdown(r, cams[0])
     window_ops = stage_device_ops(r, cams[0])
     print_stages("window", window_stages)
@@ -1574,6 +1851,11 @@ def main() -> None:
     present_breakdown(r, cams)
     tool_phase(scene, args.seed, card)
     pose_launches = pose_tools(scene, r, card)
+    print(f"guard bands: {len(GUARDS)} guarded launches over "
+          f"{sorted({k.split()[0] for _, k, _ in GUARDS})} in {len({p for p, _, _ in GUARDS})} phases, every band "
+          f"intact {all(g['intact'] for _, _, g in GUARDS)} [{card}]")
+    sanitizer_s = sanitizer_phase(args.seed, card)
+    print(f"chip_smoke: {time.perf_counter() - t_run:.1f} s, of it the sanitizer phase {sanitizer_s:.1f} s [{card}]")
 
     print("device ms per call (torch.profiler), kernel vs plain: " + "; ".join(
         f"{name} {fmt_ms(stats[name]['dev_ms'])} vs {fmt_ms(stats[name]['plain_dev_ms'])}" for name in KERNELS))

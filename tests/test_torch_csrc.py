@@ -15,8 +15,10 @@ covered tile forced residual. The plan kernel also runs tiles that need
 24 windows, more than its 32 slots, and a NaN or an infinity under a
 matched pixel. This checks the kernels'
 indexing, control flow and arithmetic where no GPU exists; only the card
-shows what nvcc makes of them. The emulation models threads, blocks (one-
-and two-dimensional launches), barriers, static shared memory, atomics
+shows what nvcc makes of them (tests/test_torch_memsafety.py runs the same
+emulation under AddressSanitizer). The emulation models threads, blocks
+(one- and two-dimensional launches, the blocks one after another on one
+team of threads), barriers, static shared memory, atomics
 (real ones: a block's threads run concurrently), the warp-wide integer
 reductions and read-only vector loads behind csrc/common.cuh's helpers,
 and float4, int4 and uint2 only; a path that needs more (asynchronous
@@ -48,6 +50,7 @@ from tpurast_torch.config import RendererConfig
 from tpurast_torch.device.scene import build_orbit_scene, orbit_track
 from tpurast_torch.kernels import _build, geometry, present, probes, raster, resolve, sampler
 from tpurast_torch.renderer import Renderer
+from test_torch_memsafety import assert_resolve_close, poisoned_gbuf, texture_grid_gbuf
 from test_torch_raster import ADVERSARIAL, A_TILES_X, A_TILES_Y, AH, AW, adversarial_clip
 from test_torch_scene import numpy_bc_decoders  # noqa: F401  (module-wide autouse)
 
@@ -153,20 +156,6 @@ def _emu_resolve(emu, vis, attrs, y_offset=0, max_anisotropy=16):
     return out
 
 
-def _assert_resolve_close(out, g, covered):
-    """chip_smoke.py's rule: integer planes exact, float planes within
-    rtol 1e-5 / atol 1e-6, outside at most 0.1% of covered pixels whose l0
-    flipped."""
-    flip = (out[19] != g[19]) & covered
-    assert int(flip.sum()) <= 0.001 * int(covered.sum())
-    keep = ~flip
-    for i in range(resolve.A_OUT):
-        if i in resolve.INT_PLANES:
-            assert torch.equal(out[i][keep], g[i][keep]), f"plane {i}"
-        else:
-            assert torch.allclose(out[i][keep], g[i][keep], rtol=1e-5, atol=1e-6), f"plane {i}"
-
-
 def _attrs(frame):
     sc, so = frame[2], frame[4]
     return resolve.pack_resolve_attrs(so["setup"], sc["corner_world"], sc["corner_normal"], sc["corner_uv"],
@@ -179,7 +168,7 @@ def test_resolve_kernel(emu, frame):
                                        tile_w=kw["tile_w"], tiles_x=r.tiles_x, tiles_y=r.tiles_y)
     attrs = _attrs(frame)
     g = resolve.resolve_gbuffer_plain(vis, attrs, max_anisotropy=16)
-    _assert_resolve_close(_emu_resolve(emu, vis, attrs), g, vis[1] >= 0)
+    assert_resolve_close(_emu_resolve(emu, vis, attrs), g, vis[1] >= 0)
 
 
 @pytest.fixture(scope="module")
@@ -216,7 +205,7 @@ def test_raster_and_resolve_kernels_on_a_slab(emu, frame, emu_frame, row0, slab_
     attrs = _attrs(frame)
     g = resolve.resolve_gbuffer_plain(vis, attrs, max_anisotropy=16, tile_row_offset=row0, tile_h=th)
     got = _emu_resolve(emu, vis, attrs, y_offset=row0 * th)
-    _assert_resolve_close(got, g, vis[1] >= 0)
+    assert_resolve_close(got, g, vis[1] >= 0)
     if row0 < r.tiles_y:
         assert torch.equal(got, full_g[:, rows])
 
@@ -259,34 +248,6 @@ def test_plan_kernel(emu, frame):
     assert residual_px == int(plan["residual_px"])
 
 
-def _texture_grid_gbuf(n_tex, cols, seed=11):
-    """One 32x128 tile over a cols-wide grid of n_tex textures, as
-    tests/test_sampler_hard_paths.py's many-texture scenes give the plan:
-    each cell of pixels samples its own 256x64 mip rect of the page (own
-    and parent at the same size; wider than X_WRAP_LIM and shorter than
-    Y_WRAP_LIM, so both anchor rules run, and wider than a plan word's
-    x band and taller than its y band; rects 512 columns and 128 rows
-    apart, so a window holds one), with random uv and a footprint of up
-    to a few probes; one pixel in 11 is unmatched."""
-    rng = np.random.default_rng(seed)
-    h, w = 32, 128
-    rows = -(-n_tex // cols)
-    yy, xx = np.mgrid[0:h, 0:w]
-    tex = np.minimum((yy * rows // h) * cols + xx * cols // w, n_tex - 1)
-    g = np.zeros((resolve.A_OUT, h, w), np.float32)
-    g[6] = rng.uniform(0.0, 1.0, (h, w))
-    g[7] = rng.uniform(0.0, 1.0, (h, w))
-    g[9] = g[11] = 256.0
-    g[10] = g[12] = 64.0
-    g[14] = rng.uniform(-0.04, 0.04, (h, w))
-    g[15] = rng.uniform(-0.04, 0.04, (h, w))
-    g[16] = (rng.integers(0, 11, (h, w)) > 0).astype(np.float32)
-    g[17] = rng.uniform(0.5, 2.0, (h, w))
-    g[20] = g[22] = 8.0 + 128.0 * (tex // 8)
-    g[21] = g[23] = 24.0 + 512.0 * (tex % 8)
-    return torch.from_numpy(g)
-
-
 @pytest.mark.parametrize("n_tex,cols,cls,least_windows", [(24, 6, sampler.CLS_WINDOWED, 24),
                                                           (40, 10, sampler.CLS_RESIDUAL, 32)],
                          ids=["many_windows", "residual"])
@@ -295,7 +256,7 @@ def test_plan_kernel_many_textures(emu, n_tex, cols, cls, least_windows):
     32 slots (each greedy round is two block-wide minima, and the plan
     words of 24 slots are merged by the warps' atomics); 40 do not, and the
     tile goes residual with its 32 windows kept."""
-    g = _texture_grid_gbuf(n_tex, cols)
+    g = texture_grid_gbuf(n_tex, cols)
     tiles = dict(tiles_x=1, tiles_y=1, tile_h=32, tile_w=128)
     plan = sampler.plan_tiles_plain(g, max_anisotropy=16, **tiles)
     assert int(plan["cls"][0]) == cls and int(plan["n_used"][0]) >= least_windows
@@ -320,10 +281,7 @@ def test_plan_kernel_nan_under_a_matched_pixel(emu, planes, value):
     outside the comparison with the reference: it holds the kernel to the
     plain version, and both to the rule. An infinite origin gives an
     infinite anchor, which the fit test lets through (inf - inf is NaN)."""
-    g = torch.cat([_texture_grid_gbuf(6, 3), _texture_grid_gbuf(6, 3, seed=12)], dim=2)
-    g[16, 5, 17] = 1.0
-    for i in planes:
-        g[i, 5, 17] = float(value)
+    g = poisoned_gbuf(planes, value)
     tiles = dict(tiles_x=2, tiles_y=1, tile_h=32, tile_w=128)
     plan = sampler.plan_tiles_plain(g, max_anisotropy=16, **tiles)
     assert plan["cls"].tolist() == [sampler.CLS_RESIDUAL, sampler.CLS_WINDOWED]

@@ -12,8 +12,10 @@ nothing. device/charts.py::face_charts, a copy, equals the reference's on
 a small mesh.
 """
 
+import ast
 import functools
 import json
+import pathlib
 import re
 
 import numpy as np
@@ -151,3 +153,18 @@ def test_face_charts_match_reference():
         assert got.dtype == want.dtype
         np.testing.assert_array_equal(got, want)
     assert face_charts(faces, 21, 44)[:21].max() == 2
+
+
+def test_profiler_graph_crash_without_a_card_exits_2(monkeypatch, capsys):
+    """The crash reproducer needs a card; without one it says so and exits
+    2. It imports torch alone (no module of the port), so that it shows the
+    crash outside the port."""
+    from tpurast_torch.tools import profiler_graph_crash
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert profiler_graph_crash.main(["--kernel", "torch"]) == 2
+    assert "no CUDA device" in capsys.readouterr().err
+    tree = ast.parse(pathlib.Path(profiler_graph_crash.__file__).read_text())
+    imported = {a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names}
+    imported |= {n.module for n in ast.walk(tree) if isinstance(n, ast.ImportFrom)}
+    assert not any(m.startswith("tpurast") for m in imported)

@@ -1,7 +1,7 @@
 // Host emulation of the CUDA subset the tpurast_torch kernels use, so that
 // csrc/*.cu compile with a host C++20 compiler (-x c++ -DTR_HOST_EMU) and
-// run on the CPU: every launch runs its blocks one after another, each
-// block as blockDim.x * blockDim.y std::threads that meet at a
+// run on the CPU: every launch runs its blocks one after another on one
+// team of blockDim.x * blockDim.y std::threads that meet at a
 // std::barrier in __syncthreads(). The atomics are real atomics (std::atomic_ref), since
 // a block's threads run concurrently; float4, int4 and uint2 are plain
 // structs. Every 32 consecutive threads of a block form a warp with a
@@ -87,32 +87,37 @@ inline int __syncthreads_or(int pred) {
   return r;
 }
 
-// Launches of one- and two-dimensional grids and blocks (z stays 1).
+// Launches of one- and two-dimensional grids and blocks (z stays 1). One
+// team of blockDim threads runs the blocks one after another; no thread
+// starts a block before every thread has left the one before (a barrier of
+// its own, apart from __syncthreads', so that a thread that returned early
+// waits there).
 template <class F>
 void tr_emu_launch(dim3 grid, dim3 block, F&& body) {
   const int n = (int)(block.x * block.y);
-  for (unsigned b = 0; b < grid.x * grid.y; ++b) {
-    std::barrier<> bar(n);
-    tr_emu_block_barrier = &bar;
-    std::vector<std::unique_ptr<std::barrier<>>> warp_bars;
-    for (int w = 0; w < n; w += kEmuWarp) warp_bars.push_back(std::make_unique<std::barrier<>>(min(kEmuWarp, n - w)));
-    std::vector<std::thread> threads;
-    threads.reserve(n);
-    for (int t = 0; t < n; ++t) {
-      threads.emplace_back([&, b, t] {
+  std::barrier<> bar(n), done(n);
+  tr_emu_block_barrier = &bar;
+  std::vector<std::unique_ptr<std::barrier<>>> warp_bars;
+  for (int w = 0; w < n; w += kEmuWarp) warp_bars.push_back(std::make_unique<std::barrier<>>(min(kEmuWarp, n - w)));
+  std::vector<std::thread> threads;
+  threads.reserve(n);
+  for (int t = 0; t < n; ++t) {
+    threads.emplace_back([&, t] {
+      threadIdx = dim3(t % block.x, t / block.x);
+      blockDim = block;
+      gridDim = grid;
+      tr_emu_tid = t;
+      tr_emu_warp_base = t / kEmuWarp * kEmuWarp;
+      tr_emu_warp_size = min(kEmuWarp, n - tr_emu_warp_base);
+      tr_emu_warp_barrier = warp_bars[t / kEmuWarp].get();
+      for (unsigned b = 0; b < grid.x * grid.y; ++b) {
         blockIdx = dim3(b % grid.x, b / grid.x);
-        threadIdx = dim3(t % block.x, t / block.x);
-        blockDim = block;
-        gridDim = grid;
-        tr_emu_tid = t;
-        tr_emu_warp_base = t / kEmuWarp * kEmuWarp;
-        tr_emu_warp_size = min(kEmuWarp, n - tr_emu_warp_base);
-        tr_emu_warp_barrier = warp_bars[t / kEmuWarp].get();
         body();
-      });
-    }
-    for (auto& th : threads) th.join();
+        done.arrive_and_wait();
+      }
+    });
   }
+  for (auto& th : threads) th.join();
   tr_emu_block_barrier = nullptr;
 }
 

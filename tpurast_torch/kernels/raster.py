@@ -130,6 +130,18 @@ def rasterize_tiles_plain(setup, aabb, pair_faces, offsets, *, tile_h, tile_w, t
     return torch.stack([depth, fid]).reshape(2, hp, wp)
 
 
+def kernel_buffers(hp: int, wp: int, n_tiles: int, slots: int, device) -> tuple[torch.Tensor, ...]:
+    """The raster kernel's scratch and output for an Hp x Wp frame of
+    n_tiles tiles and a pair list of slots entries: the frame's 64-bit key
+    buffer, the unit table (each tile's first unit, the unit count and
+    counter, each unit's tile), sized by the pair list's length so that the
+    host never reads a count, and the (2, Hp, Wp) output."""
+    keys = torch.empty((hp * wp,), dtype=torch.int64, device=device)
+    work = torch.empty((2 * n_tiles + 2 + -(-slots // UNIT_PAIRS),), dtype=torch.int32, device=device)
+    out = torch.empty((2, hp, wp), dtype=torch.float32, device=device)
+    return keys, work, out
+
+
 def rasterize_tiles(setup, aabb, pair_faces, offsets, *, tile_h, tile_w, tiles_x, tiles_y, clear_depth=0.0,
                     tile_row_offset: int = 0):
     """Visibility raster over all tiles (raster.py rasterize_tiles).
@@ -155,15 +167,8 @@ def rasterize_tiles(setup, aabb, pair_faces, offsets, *, tile_h, tile_w, tiles_x
         raise ValueError(f"the raster kernel takes tiles of at most {MAX_TILE_PX} px")
     if clear_depth < 0.0:
         raise ValueError("clear_depth must be >= 0 (reversed-Z)")
-    hp, wp = tiles_y * tile_h, tiles_x * tile_w
-    n_tiles = tiles_x * tiles_y
     slots = pair_faces.numel()
-    # Scratch: the frame's 64-bit key buffer, and the unit table (each
-    # tile's first unit, the unit count and counter, each unit's tile),
-    # sized by the pair list's length so that the host never reads a count.
-    keys = torch.empty((hp * wp,), dtype=torch.int64, device=setup.device)
-    work = torch.empty((2 * n_tiles + 2 + -(-slots // UNIT_PAIRS),), dtype=torch.int32, device=setup.device)
-    out = torch.empty((2, hp, wp), dtype=torch.float32, device=setup.device)
+    keys, work, out = kernel_buffers(tiles_y * tile_h, tiles_x * tile_w, tiles_x * tiles_y, slots, setup.device)
     _build.call(
         "tr_raster", setup, aabb, pair_faces, offsets, slots, tiles_x, tiles_y, tile_h, tile_w, tile_row_offset,
         float(clear_depth) + 0.0, keys, work, work.numel(), out,

@@ -12,4 +12,7 @@ and sampler_sim; and the pose tools, fit_pose (a camera pose fitted to a
 screenshot by a random mask search) and parity_render (the fitted poses
 rendered beside their screenshots). Each has a function that takes a
 scene already built, for chip_smoke.py and the tests.
+
+profiler_graph_crash reproduces, with torch alone and no code of the port,
+the crash of torch.profiler over a late CUDA graph replay (PERF.md).
 """
