@@ -4,6 +4,7 @@
     python3 chip_smoke.py [--seed 0]
     python3 chip_smoke.py --sanitize-cases   # the case set alone (see 11)
     python3 chip_smoke.py --multi-device     # phase 8's multi_device alone
+    python3 chip_smoke.py --named-scenes     # phase 12 alone
 
 Builds the CUDA kernels from tpurast_torch/csrc, builds a procedural scene
 from the seed (a 256x256-quad floor and 64 UV spheres, 258,048 triangles,
@@ -130,6 +131,23 @@ eight generated 1024^2 BC4 textures with full mip chains), and then, at
      --error-exitcode 1, and any error fails the run; where it is absent
      or cannot attach, a line says so and the case set runs once without
      a tool. One line per run: cases, errors, seconds.
+ 12. the named scenes (named_scenes, before the sanitizer phase): a
+     stand-in for the reference's data directory written at full scale
+     with stored zstd frames into a temporary directory
+     (tpurast_torch.tools.standin_data; not the reference's data), the
+     committed zstd fixtures of tests/data/zstd decoded by the port's
+     decoder against their SHA-256, then demo, porsche_class, hdr and
+     dragons64 loaded through load_named_scene (build seconds, peak host
+     RSS, faces, texels, page and atlas bytes; the window path builds no
+     quad rows) and rendered at their cli.ALL_CONFIGS sizes (3840x2160
+     for dragons64) with each render kernel against its plain version
+     there (phase 1's checks and guard bands) and the graph frame's costs;
+     porsche_class's gather path with texture_dtype "auto" (srgb8; the
+     rows' first read timed) within 2 LSB of the window frame and its
+     deferred path equal to it; hdr's page above 1.0 with "auto" at
+     float16; `python -m tpurast_torch.cli --all --data-dir` on the
+     directory, its five lines printed as stand-ins; and entry(directory)
+     equal to Renderer.render bit for bit.
 
 Every kernel-against-plain phase (kernel_phases, probe_phases,
 slab_kernels, padded_kernels) also launches each kernel once more with
@@ -138,13 +156,16 @@ was 0xA5 (guard bands, up to 2^20 elements on each side): the margins must
 still hold 0xA5 afterwards and the views equal the wrapper's outputs bit
 for bit.
 
-The run writes nothing but the kernels' build: the scene cache is off
+The run writes nothing but the builds under tpurast_torch/_build (the
+kernels, the native BC and zstd decoders): the scene cache is off
 (TPURAST_TORCH_SCENE_CACHE=0 unless the caller set it), and the tools'
-G-buffer dump lives in a temporary directory. The whole run takes about
-three minutes on an H100 (the pose tools about 30 s of it, 11 s of that the
-plain versions' 40 poses; the sanitizer phase about 45 s without a tool);
-should it ever pass 300 s, the tools' frame counts are the first to cut,
-then the gather and deferred phases from 4 frames to 2.
+G-buffer dump and the stand-in data directory live in temporary
+directories that the run removes. The whole run takes about
+five minutes on an H100 (the pose tools about 30 s of it, 11 s of that the
+plain versions' 40 poses; the named scenes about two and a half minutes,
+one of them the bench's five subprocesses; the sanitizer phase about 30 s
+without a tool); should it ever pass 600 s, the tools' frame counts are
+the first to cut, then the gather and deferred phases from 4 frames to 2.
 
 Each path prints its frame times and a per-stage breakdown; the window
 path also prints, per stage, the device operations torch.profiler counts
@@ -175,6 +196,7 @@ import argparse
 import contextlib
 import ctypes
 import functools
+import hashlib
 import io
 import json
 import os
@@ -183,6 +205,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -195,8 +218,10 @@ from tpurast_torch import kernels as K  # noqa: E402
 from tpurast_torch.camera import Camera, MoveDirection  # noqa: E402
 from tpurast_torch.config import RendererConfig  # noqa: E402
 from tpurast_torch import parallel  # noqa: E402
-from tpurast_torch.device.scene import orbit_camera, orbit_track, scene_bytes  # noqa: E402
+from tpurast_torch.assets.gltf import load_glb  # noqa: E402
+from tpurast_torch.device.scene import build_scene, orbit_camera, orbit_track, scene_bytes  # noqa: E402
 from tpurast_torch.device.scene_cache import load_named_scene  # noqa: E402
+from tpurast_torch.device.textures import ROW_WIDTH  # noqa: E402
 from tpurast_torch.engine import Engine  # noqa: E402
 from tpurast_torch.graphs import FrameGraph, Graph  # noqa: E402
 from tpurast_torch.kernels import _build, geometry, present, probes, raster, resolve, sampler, shade  # noqa: E402
@@ -422,9 +447,9 @@ def print_guards(phase: str, card: str) -> None:
           + f" (up to {GUARD_ELEMS} elements of 0x{GUARD_BYTE:02X} bytes on each side of each output) [{card}]")
 
 
-def kernel_phases(r: Renderer, cam, card: str) -> dict:
+def kernel_phases(r: Renderer, cam, card: str, phase: str = "kernel_phases") -> dict:
     """Each kernel against its plain version on frame 0's real inputs, and
-    once more into guarded outputs (guard)."""
+    once more into guarded outputs (guard), recorded under ``phase``."""
     kw = r._frame_kwargs
     sc = r.scene
     vp, cp = r.frame_uniforms(cam)
@@ -445,7 +470,7 @@ def kernel_phases(r: Renderer, cam, card: str) -> dict:
     work = raster_work(so, bins, th, tw, tx)
     hp, wp = vis.shape[1:]
     out["raster"] = dict(
-        max_abs_err=depth_err, library_ms=None,
+        max_abs_err=depth_err, library_ms=None, pairs=work["pairs"], densest=work["densest"],
         # Each input read once: the named faces' rows and AABBs, the pair
         # list and offsets; the (2, Hp, Wp) output written once.
         **bound(work["faces"] * RASTER_FACE_BYTES + work["pairs"] * 4 + (tx * ty + 1) * 4 + 2 * hp * wp * 4,
@@ -468,7 +493,7 @@ def kernel_phases(r: Renderer, cam, card: str) -> dict:
                                                     **rkw), 20)
     print("raster device ms by operation: " + "; ".join(f"{k[:60]} {v:.4f}" for k, v in ops.items()))
     check(fid_bad == 0 and depth_bad == 0, "raster kernel disagrees with its plain version")
-    guard_raster("kernel_phases", so, bins, vis, **rkw)
+    guard_raster(phase, so, bins, vis, **rkw)
 
     attrs = resolve.pack_resolve_attrs(
         so["setup"], sc["corner_world"], sc["corner_normal"], sc["corner_uv"], sc["face_tex"], sc["atlas"]
@@ -503,7 +528,7 @@ def kernel_phases(r: Renderer, cam, card: str) -> dict:
           f"{out['resolve']['ms']:.3f} ms vs plain {out['resolve']['plain_ms']:.3f} ms")
     check(n_flip <= 0.001 * covered and int_bad == 0 and float_bad == 0,
           "resolve kernel disagrees with its plain version")
-    guard_resolve("kernel_phases", vis, attrs, g, max_anisotropy=ma)
+    guard_resolve(phase, vis, attrs, g, max_anisotropy=ma)
 
     tiles = dict(tiles_x=tx, tiles_y=ty, tile_h=th, tile_w=tw)
     plan = sampler.plan_tiles(g, max_anisotropy=ma, **tiles)
@@ -551,7 +576,7 @@ def kernel_phases(r: Renderer, cam, card: str) -> dict:
     hist = torch.bincount(plan["n_used"][cls != sampler.CLS_EMPTY].long(), minlength=sampler.K2 + 1).tolist()
     print("plan: covered tiles by windows used (0..32): " + " ".join(str(n) for n in hist))
     check(table_bad == 0 and assign_bad == 0, "plan kernel disagrees with its plain version")
-    guard_plan("kernel_phases", g, plan, max_anisotropy=ma, **tiles)
+    guard_plan(phase, g, plan, max_anisotropy=ma, **tiles)
 
     skw = sample_kwargs(kw, tiles)
     page = sc["atlas"]["page"]
@@ -596,8 +621,8 @@ def kernel_phases(r: Renderer, cam, card: str) -> dict:
           f"{SAMPLE_PLANES} planes at every px: {sample_bound_planes['bound_ms']:.4f} ms; all 24 and the plan, no "
           f"texels, as counted before: {sample_bound_all['bound_ms']:.4f} ms)")
     check(lsb <= 1, "sample kernel disagrees with its plain version")
-    guard_sample("kernel_phases", g, page, plan, cp, fb, **skw)
-    print_guards("kernel_phases", card)
+    guard_sample(phase, g, page, plan, cp, fb, **skw)
+    print_guards(phase, card)
     # A warp runs as many probe rounds as its worst lane needs.
     for ww, wh in ((32, 1), (8, 4)):
         worst = probe_map.reshape(hp // wh, wh, wp // ww, ww).amax(dim=(1, 3))
@@ -1740,6 +1765,246 @@ def runtime_path(scene, seed: int, window_ops: dict, kernel_ms: dict) -> dict:
     return launches
 
 
+def rss_gb() -> float | None:
+    """This process' resident set (VmRSS of /proc/self/status) in GB, None
+    where it cannot be read."""
+    try:
+        with open("/proc/self/status") as fh:
+            return next(int(line.split()[1]) * 1024 / 1e9 for line in fh if line.startswith("VmRSS"))
+    except (OSError, StopIteration):
+        return None
+
+
+class PeakRss:
+    """The resident set before a block and its peak while the block runs,
+    sampled every 2 ms by a thread (the host CPU's numpy work keeps its
+    large allocations, so a sample sees them)."""
+
+    def __enter__(self):
+        self.before = self.peak = rss_gb()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._sample, daemon=True)
+        self._thread.start()
+        return self
+
+    def _take(self):
+        v = rss_gb()
+        if v is not None and (self.peak is None or v > self.peak):
+            self.peak = v
+
+    def _sample(self):
+        while not self._stop.wait(0.002):
+            self._take()
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self._take()
+        return False
+
+    def __str__(self):
+        if self.peak is None or self.before is None:
+            return "peak host RSS not measured"
+        return f"peak host RSS {self.peak:.3f} GB (from {self.before:.3f} GB before, +{self.peak - self.before:.3f})"
+
+
+def decode_fixtures(card: str) -> None:
+    """The committed zstd fixtures (tests/data/zstd, made with the zstandard
+    package at levels 3 and 19: Huffman and FSE blocks, which a stored frame
+    cannot show) through the port's decoder as this host's g++ built it,
+    each against its SHA-256."""
+    from tpurast_torch.assets import zstd
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data", "zstd")
+    sums = dict(reversed(line.split()) for line in open(os.path.join(root, "SHA256SUMS")).read().splitlines())
+    t0 = time.perf_counter()
+    results = {}
+    for name, digest in sorted(sums.items()):
+        with open(os.path.join(root, name), "rb") as fh:
+            frame = fh.read()
+        out = zstd.decompress(frame, 1 << 20)
+        results[name] = (len(frame), len(out), hashlib.sha256(out).hexdigest() == digest)
+    print("zstd fixtures decoded by the port's decoder (g++ on this host): " + ", ".join(
+        f"{k} {a} -> {b} B sha256 {'equal' if ok else 'DIFFERS'}" for k, (a, b, ok) in results.items())
+        + f"; {(time.perf_counter() - t0) * 1e3:.1f} ms [{card}]")
+    check(all(ok for _, _, ok in results.values()), "a zstd fixture decoded to other bytes")
+
+
+def named_frame(label: str, r: Renderer, cam, card: str) -> dict:
+    """r's frame of cam as a graph: the warm-up frame captures, two more
+    replay; one launch of each kernel the path runs per frame, the replays
+    equal to the eager frame bit for bit (bin_overflow too, printed: the
+    bench's camera for the named scenes, the reference's, stands inside
+    dragons64's grid, so dragons cut by the eye plane bin as full-screen
+    faces past the huge-face budget, in either package); its costs
+    (graph_costs). Returns the last frame, the launches counted over the
+    two replays (from 0) and the costs."""
+    r.render(cam)
+    K.reset_launches()
+    frames = [r.render(cam) for _ in range(2)]
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    check_graph_frames(label, r, [cam, cam], frames)
+    want = {"raster": 2, "resolve": 0 if r.config.shading == "deferred" else 2,
+            "plan": 2 if r.sampler == "window" else 0, "sample": 2 if r.sampler == "window" else 0}
+    check(all(launches[k] == want[k] for k in RENDER_KERNELS), f"{label}: launches {launches}, want {want}")
+    f = frames[-1]
+    depth = f["depth"]
+    check(bool(torch.isfinite(depth).all()), f"{label}: non-finite depth")
+    cov = float((depth > 0).float().mean())
+    check(cov > 0.005, f"{label}: coverage {cov:.4f}")
+    costs = graph_costs(label, r, cam, card, reps=3)
+    print(f"{label}: coverage {cov:.3f}, bin_overflow {int(f['bin_overflow'])}, window_miss_px "
+          f"{int(f['window_miss_px'])}, launches for 2 replays {launches} [{card}]")
+    return dict(frame=f, launches=launches, **costs)
+
+
+def named_scenes(seed: int, card: str) -> dict:
+    """The reference's data path on a stand-in data directory (phase 12).
+
+    tpurast_torch.tools.standin_data writes the directory at full scale
+    with stored zstd frames (this machine has no zstd package): the dragon's
+    19,332 triangles, ten 2048^2 BC7 porsche textures, the crate's and the
+    two BC6H textures, GLB meshes. It is not the reference's data. Then:
+    the committed zstd fixtures decoded here (decode_fixtures); each of
+    demo, porsche_class, hdr and dragons64 loaded through load_named_scene
+    (the scene cache off) with its build seconds, peak host RSS, faces,
+    texels, page and atlas bytes; the window graph frame at the config's
+    size of cli.ALL_CONFIGS (3840x2160 for dragons64) with each render
+    kernel against its plain version there (kernel_phases, guard bands
+    included) and the frame's costs; for porsche_class the gather path
+    with texture_dtype "auto" (srgb8 expected: the f16 rows pass 2 GiB;
+    its rows are built on first read, their seconds and peak RSS are what
+    every build paid before rows were built lazily) within 2 LSB of the
+    window frame, and deferred equal to it bit for bit; for hdr the page
+    above 1.0 and "auto" picking float16; then `python -m
+    tpurast_torch.cli --all --data-dir` on the directory, its five lines
+    marked as stand-ins; then entry(directory)'s fn(*args) against
+    Renderer.render, bit for bit. Returns each render kernel's stats per
+    scene."""
+    from tpurast_torch.device.textures import SRGB8_ABOVE_F16_BYTES, resolve_texture_dtype
+    from tpurast_torch.entry import EYE, TARGET, entry
+    from tpurast_torch.entry import HEIGHT as ENTRY_H
+    from tpurast_torch.entry import WIDTH as ENTRY_W
+    from tpurast_torch.tools import standin_data
+
+    t_phase = time.perf_counter()
+    sizes = {label.rsplit("_", 1)[0]: (int(argv[3]), int(argv[5])) for argv, label in cli.ALL_CONFIGS}
+    tmp = tempfile.mkdtemp(prefix="tpurast_torch_standin_")
+    stats = {}
+    try:
+        t0 = time.perf_counter()
+        record = standin_data.write_standin(tmp, "full", seed=seed, stored=True)
+        print(f"named_scenes: stand-in data directory written in {time.perf_counter() - t0:.1f} s "
+              f"({len(record['files'])} files, {sum(record['files'].values())} B, {record['supercompression']}, "
+              f"seed {seed}): {record['note']}")
+        decode_fixtures(card)
+
+        for name in ("demo", "porsche_class", "hdr", "dragons64"):
+            w, h = sizes[name]
+            with PeakRss() as rss:
+                t0 = time.perf_counter()
+                scene = load_named_scene(name, tmp)
+                build_s = time.perf_counter() - t0
+            atlas = scene.atlas
+            page = scene.pages.planes
+            print(f"named_scenes {name} (stand-in): build {build_s:.2f} s, {rss} "
+                  f"(quad rows built: {atlas.rows_built}); {scene.n_faces} faces, {len(scene.texture_uris)} textures, "
+                  f"{int(page.shape[1]) * int(page.shape[2])} page texels ({page.shape[1]}x{page.shape[2]}, "
+                  f"{page.size * 2} B as bf16), {atlas.texels_nbytes // (ROW_WIDTH * 4)} atlas rows "
+                  f"({atlas.texels_nbytes} B as f32, {atlas.texels_nbytes // 2} B as f16) [{card}]")
+            t0 = time.perf_counter()
+            r = Renderer(scene, RendererConfig(width=w, height=h))
+            torch.cuda.synchronize()
+            print(f"named_scenes {name}: window Renderer {w}x{h} (upload {time.perf_counter() - t0:.2f} s), quad "
+                  f"rows built: {atlas.rows_built}, texels uploaded: {'texels' in r.scene['atlas']}")
+            check(not atlas.rows_built and "texels" not in r.scene["atlas"], f"{name}: the window path built rows")
+            cam = cli.flythrough(name, 1)[0]
+            stats[name] = kernel_phases(r, cam, card, phase=f"named_scenes {name}")
+            win = named_frame(f"named_scenes {name} window {w}x{h}", r, cam, card)
+            for k in RENDER_KERNELS:
+                stats[name][k]["launches"] = win["launches"][k]
+            print(f"named_scenes {name} {w}x{h}: frame {win['graph_ms']:.3f} ms (graph), device busy "
+                  f"{fmt_ms(win['busy_ms'])} ms, idle share "
+                  f"{'not measured' if win['idle'] is None else format(win['idle'], '.3f')}, bin_overflow "
+                  f"{int(win['frame']['bin_overflow'])}, pairs {stats[name]['raster']['pairs']}, densest tile "
+                  f"{stats[name]['raster']['densest']} pairs [{card}]")
+
+            if name == "porsche_class":
+                want_dtype = resolve_texture_dtype(scene, "auto")
+                check(not atlas.rows_built, "resolve_texture_dtype built the rows")
+                with PeakRss() as rows_rss:
+                    t0 = time.perf_counter()
+                    atlas.texels  # noqa: B018  (the first read builds the rows)
+                    rows_s = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                rg = Renderer(scene, RendererConfig(width=w, height=h, sampler="gather", texture_dtype="auto"))
+                torch.cuda.synchronize()
+                up_s = time.perf_counter() - t0
+                tex = rg.scene["atlas"]["texels"]
+                print(f"named_scenes porsche_class gather: texture_dtype auto -> {rg.texture_dtype} (f16 rows "
+                      f"{atlas.texels_nbytes // 2} B against the {SRGB8_ABOVE_F16_BYTES} B threshold, max texel "
+                      f"{atlas.max_value():.4f}); the quad rows built on first read in {rows_s:.2f} s, {rows_rss}; "
+                      f"converted on the card and uploaded in {up_s:.2f} s: texels {tuple(tex.shape)} {tex.dtype} "
+                      f"({tex.numel() * tex.element_size()} B on the card). Every build of this scene paid those "
+                      f"rows before they were built on first read: {build_s:.2f} + {rows_s:.2f} s [{card}]")
+                check(rg.texture_dtype == want_dtype == "srgb8", f"porsche_class: auto chose {rg.texture_dtype}")
+                gather = named_frame(f"named_scenes porsche_class gather {w}x{h}", rg, cam, card)["frame"]
+                rd = Renderer(scene, RendererConfig(width=w, height=h, shading="deferred", texture_dtype="auto"))
+                deferred = named_frame(f"named_scenes porsche_class deferred {w}x{h}", rd, cam, card)["frame"]
+                gw = (gather["color"].int() - win["frame"]["color"].int()).abs()
+                dg = (deferred["color"].int() - gather["color"].int()).abs()
+                same_depth = bool(torch.equal(gather["depth"], win["frame"]["depth"]))
+                print(f"named_scenes porsche_class: gather vs window max {int(gw.max())} LSB "
+                      f"({int((gw.amax(dim=0) > 0).sum())} px above 0, {int((gw.amax(dim=0) > 1).sum())} above 1), "
+                      f"depth equal {same_depth}; deferred vs gather max {int(dg.max())} LSB, depth equal "
+                      f"{bool(torch.equal(deferred['depth'], gather['depth']))} [{card}]")
+                check(int(gw.max()) <= 2 and same_depth, "porsche_class: gather is more than 2 LSB from window")
+                check(int(dg.max()) == 0 and bool(torch.equal(deferred["depth"], gather["depth"])),
+                      "porsche_class: deferred differs from forward + gather")
+                del rg, rd, gather, deferred
+            if name == "hdr":
+                page_max = float(r.scene["atlas"]["page"].float().max())
+                auto = resolve_texture_dtype(scene, "auto")
+                print(f"named_scenes hdr: page max {page_max} (bf16), atlas max texel {atlas.max_value()}, "
+                      f"texture_dtype auto -> {auto}")
+                check(page_max > 1.0 and auto == "float16", "hdr: no texel above 1.0, or auto did not pick float16")
+            del r, scene, win
+            torch.cuda.empty_cache()
+
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "tpurast_torch.cli", "--all", "--data-dir", tmp, "--frames", "64"],
+                              capture_output=True, text=True, cwd=os.path.dirname(os.path.abspath(__file__)),
+                              timeout=900)
+        lines = [json.loads(x) for x in proc.stdout.splitlines() if x.startswith("{")]
+        for line in lines:
+            print(f"bench line (stand-in data directory, not the reference's data): {json.dumps(line)}")
+        print(f"cli --all on the stand-in: exit {proc.returncode}, {len(lines)} lines, "
+              f"{time.perf_counter() - t0:.1f} s [{card}]")
+        check(proc.returncode == 0 and len(lines) == len(cli.ALL_CONFIGS),
+              f"cli --all: exit {proc.returncode}:\n{proc.stderr[-3000:]}")
+        check(all(x["parity_max_lsb"] <= 1 and x["backend"] == "cuda" for x in lines),
+              "cli --all: a line failed its parity gate or ran off the card")
+
+        fn, args = entry(tmp)
+        K.reset_launches()
+        outs = [fn(*args), fn(*args)]  # the first renders eagerly and captures, the second replays
+        launches = dict(K.LAUNCHES)
+        dragon = build_scene([load_glb(os.path.join(tmp, "meshes", "stanford_dragon.glb"))], data_dir=tmp)
+        want = Renderer(dragon, RendererConfig(width=ENTRY_W, height=ENTRY_H)).render(
+            Camera.from_target(list(EYE), list(TARGET)))
+        same = [all(bool(torch.equal(o[k], want[k])) for k in GRAPH_OUTPUTS) for o in outs]
+        cov = float((outs[1]["depth"] > 0).float().mean())
+        print(f"entry(stand-in): fn is a {type(fn).__name__}; fn(*args) equal to Renderer.render bit for bit "
+              f"{same} (eager + capture, replay), coverage {cov:.3f}, launches {launches} [{card}]")
+        check(isinstance(fn, FrameGraph) and all(same), "entry's frame differs from Renderer.render")
+        check(all(launches[k] == 2 for k in RENDER_KERNELS), "entry: not one launch per kernel a frame")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"named_scenes: {time.perf_counter() - t_phase:.1f} s [{card}]")
+    return stats
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1747,6 +2012,7 @@ def main() -> None:
                     help="run only the case set that the normal run hands to compute-sanitizer")
     ap.add_argument("--multi-device", action="store_true",
                     help="run only the multi_device phase (for a machine with several cards)")
+    ap.add_argument("--named-scenes", action="store_true", help="run only the named_scenes phase")
     args = ap.parse_args()
     t_run = time.perf_counter()
 
@@ -1775,6 +2041,10 @@ def main() -> None:
         regs, blocks = _build.kernel_info(name)
         print(f"{name} kernel: {regs} registers per thread, {blocks} resident blocks per SM")
 
+    card = smi.stdout.strip()
+    if args.named_scenes:
+        named_scenes(args.seed, card)
+        return
     t0 = time.perf_counter()
     scene = load_named_scene("orbit", seed=args.seed)
     cams = orbit_track(FRAMES)
@@ -1784,7 +2054,6 @@ def main() -> None:
     print(f"scene: {scene.n_faces} triangles, {len(scene.texture_uris)} textures, page "
           f"{tuple(r.scene['atlas']['page'].shape)} bf16; build + upload {time.perf_counter() - t0:.1f} s")
 
-    card = smi.stdout.strip()
     if args.multi_device:
         deferred = Renderer(scene, RendererConfig(width=WIDTH, height=HEIGHT, shading="deferred"))
         multi_device({"window": r, "deferred": deferred}, cams[0], card)
@@ -1851,6 +2120,7 @@ def main() -> None:
     present_breakdown(r, cams)
     tool_phase(scene, args.seed, card)
     pose_launches = pose_tools(scene, r, card)
+    named = named_scenes(args.seed, card)
     print(f"guard bands: {len(GUARDS)} guarded launches over "
           f"{sorted({k.split()[0] for _, k, _ in GUARDS})} in {len({p for p, _, _ in GUARDS})} phases, every band "
           f"intact {all(g['intact'] for _, _, g in GUARDS)} [{card}]")
@@ -1865,6 +2135,9 @@ def main() -> None:
          "runtime_launches": runtime_launches[name], "slab_launches": slab_launches[name],
          "mesh_launches": mesh_launches[name], "scan_launches": scan_launches[name],
          "pose_launches": pose_launches[name],
+         **({"named_scenes": {s: {k: named[s][name][k] for k in ("launches", "max_abs_err", "ms", "dev_ms", "bound_ms",
+                                                                    "bound_by")} for s in named}}
+            if name in RENDER_KERNELS else {}),
          **{k: stats[name][k] for k in keys}}
         for name, (src, rep) in KERNELS.items()
     ]

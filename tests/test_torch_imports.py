@@ -5,7 +5,9 @@ of the reference's host modules agree with the originals.
     every module of tpurast_torch (pkgutil.walk_packages) and
     chip_smoke.py, and ends with neither tpurast nor jax loaded;
   * no file under tpurast_torch/, nor chip_smoke.py, names tpurast or jax
-    in an import statement or in an importlib / __import__ call (AST);
+    in an import statement or in an importlib / __import__ call (AST), nor
+    zstandard, apart from the writer assets/ktx2_write.py (the port reads
+    supercompressed KTX2 with its own decoder, assets/zstd.py);
   * copy parity, exact: RendererConfig's fields and defaults; every public
     math3d function and Camera.view_matrix on seeded inputs; parse_ktx2
     of generated KTX2 files; the BC4, BC6H (unsigned, signed) and BC7
@@ -54,6 +56,8 @@ from tpurast_torch.kernels import present
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 FORBIDDEN = ("tpurast", "jax")
+# zstandard is the writer's alone: every reader uses the port's decoder.
+ZSTANDARD_ALLOWED = {"tpurast_torch/assets/ktx2_write.py"}
 
 _IMPORT_ALL = r"""
 import importlib, pkgutil, sys
@@ -69,12 +73,13 @@ assert not loaded, loaded
 print(" ".join(names))
 """
 
-# Modules the runtime slice added, then slabs, charts and the analysis
-# tools; the walk must reach each of them.
+# Modules the runtime slice added, then slabs, charts, the analysis tools,
+# and the data path (the decoder, the writers, the stand-in data, entry);
+# the walk must reach each of them.
 RUNTIME_MODULES = {"cli", "engine", "present", "overlay", "profiling", "device.scene_cache", "parallel",
-                   "device.charts"} | {f"tools.{t}" for t in (
+                   "device.charts", "entry", "assets.zstd", "assets.glb_write"} | {f"tools.{t}" for t in (
                        "profile_stages", "sample_stage_probe", "profile_sampler", "sampler_plan_stats",
-                       "check_sampler", "aniso_mode_stats", "residual_analysis", "sampler_sim")}
+                       "check_sampler", "aniso_mode_stats", "residual_analysis", "sampler_sim", "standin_data")}
 
 
 def test_port_imports_without_the_reference_package():
@@ -122,6 +127,8 @@ def test_no_file_of_the_port_imports_tpurast_or_jax():
         str(p.relative_to(REPO / "tpurast_torch")) for p in PORT_FILES[:-1]}
     bad = {str(p.relative_to(REPO)): n for p in PORT_FILES for n in _imports(p) if _forbidden(n) or n == "<computed>"}
     assert not bad, bad
+    zstd_users = {str(p.relative_to(REPO)) for p in PORT_FILES if any(n.split(".")[0] == "zstandard" for n in _imports(p))}
+    assert zstd_users <= ZSTANDARD_ALLOWED, zstd_users
 
 
 def test_the_ast_check_sees_every_form_of_import(tmp_path):

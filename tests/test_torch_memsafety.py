@@ -34,7 +34,12 @@ and warp-synchronous code that leans on lockstep. The ASan shapes:
   * vmem_take at an odd row count, with indices outside the table, and on
     an index array off the 16-byte grid;
   * plane_scale off the 16-byte grid in its three launch geometries
-    (tile-grid and row-band blocks on a 3-plane buffer, one-plane).
+    (tile-grid and row-band blocks on a 3-plane buffer, one-plane);
+  * the port's Zstandard decoder (tpurast_torch/native/zstd.cpp, built
+    into the ASan library beside the kernels) on frames made with the
+    zstandard package at levels 3 and 19 and on 600 truncated and
+    bit-flipped copies of them, each input and output in an allocation
+    of exactly its size, plus an output one byte short.
 
 ThreadSanitizer runs RACE_CASES, each kernel once. Each case is also held
 to its plain version under tests/test_torch_csrc.py's budgets. Planted
@@ -96,7 +101,9 @@ CASES = (
     + ["plan_24_windows", "plan_nan_under_a_matched_pixel", "plan_inf_under_a_matched_pixel"]
     + ["vmem_take_odd_rows", "vmem_take_outside_the_table", "vmem_take_unaligned_idx"]
     + ["plane_scale_tile_grid", "plane_scale_one_plane", "plane_scale_row_band"]
+    + ["zstd_corrupt_and_truncated_frames"]
 )
+ZSTD_SRC = pathlib.Path(__file__).resolve().parent.parent / "tpurast_torch" / "native" / "zstd.cpp"
 # The cases under ThreadSanitizer: each kernel once; the plan (with raster
 # the only kernel that shares memory between threads) on its 24-window tile,
 # its most greedy rounds. All 21 cases take about 80 s under it.
@@ -185,6 +192,8 @@ def sanitized_library(out: pathlib.Path, sanitizer: str) -> pathlib.Path:
     flags = ["-std=c++20", "-O1", "-g", *SANITIZERS[sanitizer]["flags"], "-ffp-contract=off", "-fPIC", "-pthread",
              "-DTR_HOST_EMU", f"-I{_build.CSRC}"]
     srcs = sorted(_build.CSRC.glob("*.cu"))
+    if sanitizer == "address":
+        srcs.append(ZSTD_SRC)
     if sanitizer == "thread":
         srcs.append(out.parent / "planted_race.cu")
         srcs[-1].write_text(PLANTED_RACE_SRC)
@@ -400,6 +409,36 @@ class Cases:
                                            out.data_ptr(), None) == 0
             assert torch.equal(out, want), f"{threads} threads"
 
+    def zstd_frames(self):
+        import zstandard
+
+        rng = np.random.default_rng(7)
+        data = (" ".join(str(int(v)) for v in rng.integers(0, 999, 12000)).encode()
+                + rng.integers(0, 4, 60000, dtype=np.uint8).tobytes())
+        frames = [zstandard.ZstdCompressor(level=lvl, write_checksum=True).compress(data) for lvl in (3, 19)]
+        fn = self.lib.zstd_decompress
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64]
+        fn.restype = ctypes.c_int64
+
+        def run(blob: bytes, cap: int) -> tuple[int, bytes]:
+            src = torch.frombuffer(bytearray(blob), dtype=torch.uint8).clone()
+            dst = torch.empty(cap, dtype=torch.uint8)
+            n = fn(src.data_ptr(), len(blob), dst.data_ptr(), cap)
+            return n, dst[: max(n, 0)].numpy().tobytes()
+
+        for frame in frames:
+            assert run(frame, len(data)) == (len(data), data)
+            assert run(frame, len(data) - 1)[0] < 0
+            for _ in range(300):
+                blob = bytearray(frame)
+                if rng.integers(2):
+                    del blob[int(rng.integers(1, len(blob))):]
+                else:
+                    for _ in range(int(rng.integers(1, 4))):
+                        blob[int(rng.integers(len(blob)))] ^= 1 << int(rng.integers(8))
+                n, out = run(bytes(blob), len(data))
+                assert n < 0 or out == data, n
+
     def planted(self):
         f = self.frame_inputs("grid")
         self.emu_raster(f["so"], f["bins"], f["tiles"], short_rows=f["kw"]["tile_h"])
@@ -429,6 +468,7 @@ class Cases:
             "plane_scale_tile_grid": lambda: self.plane_scale((3, 67, 381), 1, 32, 128),
             "plane_scale_row_band": lambda: self.plane_scale((3, 67, 381), 1, 32, 381),
             "plane_scale_one_plane": lambda: self.plane_scale((1, 15, 23), 0, 5, 2),
+            "zstd_corrupt_and_truncated_frames": self.zstd_frames,
             PLANTED: self.planted,
             PLANTED_RACE: self.planted_race,
         }

@@ -471,12 +471,14 @@ def test_named_scene_errors(tmp_path):
     assert str(scene_cache.cache_dir()).endswith(".scene_cache/tpurast_torch")
 
 
-@pytest.mark.parametrize("name", ["demo", "hdr", "porsche_class", "dragons64"])
-def test_named_scenes_from_the_data_directory(data_dir, name, monkeypatch):
-    """The loaders that read the reference's data against the reference's."""
+def assert_named_scene_matches_reference(name: str, data_dir) -> object:
+    """The port's load_named_scene(name, data_dir) against the reference's
+    loader on the same directory: faces, the per-draw arrays, prim_tex,
+    the atlas (offsets, sizes, mip counts and the quad rows) and the page
+    planes, exactly. Returns the port's scene. The caller turns the scene
+    cache off."""
     from tpurast.device import scene as ref_scene_mod
 
-    monkeypatch.setenv("TPURAST_TORCH_SCENE_CACHE", "0")
     got = scene_cache.load_named_scene(name, str(data_dir))
     want = {
         "demo": ref_scene_mod.load_demo_scene,
@@ -488,3 +490,13 @@ def test_named_scenes_from_the_data_directory(data_dir, name, monkeypatch):
     for f in ("positions", "normals", "uvs", "faces", "face_prim", "models", "normal_mats", "prim_tex"):
         np.testing.assert_array_equal(getattr(got, f), getattr(want, f), err_msg=f)
     np.testing.assert_array_equal(got.pages.planes, want.pages.planes)
+    for f in ("offsets", "sizes", "n_mips", "texels"):
+        np.testing.assert_array_equal(getattr(got.atlas, f), getattr(want.atlas, f), err_msg=f"atlas.{f}")
+    return got
+
+
+@pytest.mark.parametrize("name", ["demo", "hdr", "porsche_class", "dragons64"])
+def test_named_scenes_from_the_data_directory(data_dir, name, monkeypatch):
+    """The loaders that read the reference's data against the reference's."""
+    monkeypatch.setenv("TPURAST_TORCH_SCENE_CACHE", "0")
+    assert_named_scene_matches_reference(name, data_dir)

@@ -3,7 +3,7 @@
   * upload_atlas(atlas, dtype) equals np.asarray of the reference's
     TextureAtlas.device(dtype)["texels"] bit for bit for float32, float16,
     bfloat16 and srgb8, with the same offsets, sizes and mip counts
-    (tolerance: none);
+    (tolerance: none), also converted in chunks of 7 rows;
   * the srgb8 encode refuses HDR content, as the reference's assert does;
   * resolve_texture_dtype follows Renderer._resolve_texture_dtype (float16,
     or srgb8 above a 2 GiB f16 atlas with LDR content), on stub atlases
@@ -57,6 +57,17 @@ def test_upload_atlas_matches_reference(atlas, dtype):
     np.testing.assert_array_equal(got, _bits(ref["texels"]))
     for k in ("offsets", "sizes", "n_mips"):
         np.testing.assert_array_equal(up[k].numpy(), ref[k], err_msg=k)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_upload_atlas_in_chunks_matches_reference(atlas, dtype, monkeypatch):
+    """texels_tensor converts ROW_CHUNK rows at a time (on the card, on the
+    device): chunks of 7 rows, none aligned with a mip, give the same bits."""
+    monkeypatch.setattr(textures, "ROW_CHUNK", 7)
+    ref = jax.tree.map(np.asarray, atlas.device(dtype))["texels"]
+    t = textures.upload_atlas(atlas, dtype, "cpu")["texels"]
+    got = t.view(torch.int16).numpy().view(np.uint16) if dtype == "bfloat16" else _bits(t.numpy())
+    np.testing.assert_array_equal(got, _bits(ref))
 
 
 def test_srgb8_refuses_hdr(atlas):

@@ -5,7 +5,9 @@ First-party replacement for the libktx path the reference uses
 ``textureIterateLoadLevelFaces``): parse the KTX2 header/level index,
 inflate Zstandard-supercompressed level data (every shipped asset uses
 supercompressionScheme=2), and hand per-mip BC-compressed payloads to the
-texture upload path.
+texture upload path. Scheme 2 is decoded by the port's own decoder
+(assets/zstd.py over native/zstd.cpp), not the zstandard package, which
+the GPU machine lacks; scheme 3 (zlib) by the standard library.
 
 Format notes (Khronos KTX 2.0 spec):
   identifier(12) | vkFormat u32 | typeSize u32 | pixelWidth u32 |
@@ -94,9 +96,9 @@ def _inflate(data: bytes, scheme: int, uncompressed_len: int) -> bytes:
     if scheme == SUPERCOMPRESSION_NONE:
         return data
     if scheme == SUPERCOMPRESSION_ZSTD:
-        import zstandard
+        from tpurast_torch.assets import zstd
 
-        out = zstandard.ZstdDecompressor().decompress(data, max_output_size=uncompressed_len)
+        out = zstd.decompress(data, uncompressed_len)
     elif scheme == SUPERCOMPRESSION_ZLIB:
         import zlib
 

@@ -1,14 +1,14 @@
 """ctypes loader for the native BC decoders (tpurast_torch/native/bcdec.cpp).
 
-Compiles the shared library on first use (g++ -O3) into
-tpurast_torch/_build/, named by a hash of the source: the compiler writes
-a temporary file that os.replace then moves into place, so a process that
-loads the library never sees a half-written one, whatever other processes
-build at the same time. Injects the BC7 partition/anchor tables, and exposes
-numpy-in/numpy-out wrappers with the exact signatures of the reference
-implementations in bcdec.py / bc6h.py. Falls back cleanly when no
-compiler is available (``available()`` returns False) — set
-TPURAST_NATIVE=0 to force the numpy path.
+Compiles the shared library on first use (g++ -O3, ``compile_library``,
+which assets/zstd.py shares) into tpurast_torch/_build/, named by a hash of
+the source: the compiler writes a temporary file that os.replace then moves
+into place, so a process that loads the library never sees a half-written
+one, whatever other processes build at the same time. Injects the BC7
+partition/anchor tables, and exposes numpy-in/numpy-out wrappers with the
+exact signatures of the reference implementations in bcdec.py / bc6h.py.
+Falls back cleanly when no compiler is available (``available()`` returns
+False) — set TPURAST_NATIVE=0 to force the numpy path.
 """
 
 from __future__ import annotations
@@ -31,26 +31,46 @@ _lib = None
 _tried = False
 
 
+class BuildError(RuntimeError):
+    """The host compiler failed on one of the port's native sources."""
+
+
+def compile_library(src: pathlib.Path, stem: str) -> pathlib.Path:
+    """Build ``src`` with g++ into _build/lib{stem}_{hash}.so unless it is
+    there already, and return its path. The compiler writes a temporary
+    file that os.replace moves into place. Raises BuildError naming the
+    compiler's error."""
+    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+    lib = _BUILD_DIR / f"lib{stem}_{digest}.so"
+    if lib.exists():
+        return lib
+    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+    try:
+        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        subprocess.run(
+            ["g++", "-O3", "-shared", "-fPIC", "-std=c++17", "-o", str(tmp), str(src)],
+            check=True,
+            capture_output=True,
+            text=True,
+        )
+        os.replace(tmp, lib)
+    except OSError as e:
+        raise BuildError(f"g++ could not build {src.name}: {e}") from e
+    except subprocess.CalledProcessError as e:
+        raise BuildError(f"g++ failed on {src.name}:\n{e.stderr.strip()}") from e
+    finally:
+        tmp.unlink(missing_ok=True)
+    return lib
+
+
 def _build() -> bool:
     global _LIB
     if not _SRC.exists():
         return False
-    digest = hashlib.sha256(_SRC.read_bytes()).hexdigest()[:16]
-    _LIB = _BUILD_DIR / f"libtpurast_torch_bcdec_{digest}.so"
-    if _LIB.exists():
-        return True
-    tmp = _LIB.with_suffix(f".{os.getpid()}.tmp")
     try:
-        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        subprocess.run(
-            ["g++", "-O3", "-shared", "-fPIC", "-std=c++17", "-o", str(tmp), str(_SRC)],
-            check=True,
-            capture_output=True,
-        )
-        os.replace(tmp, _LIB)
+        _LIB = compile_library(_SRC, "tpurast_torch_bcdec")
         return True
-    except (OSError, subprocess.CalledProcessError) as e:
-        tmp.unlink(missing_ok=True)
+    except BuildError as e:
         log.warning("native bcdec build failed (%s); using numpy decoders", e)
         return False
 

@@ -290,7 +290,7 @@ def upload(scene: DeviceScene, device, texture_dtype: str | None = None) -> dict
             page_n_mips=scene.pages.n_mips,
         )
         page = torch.from_numpy(scene.pages.planes).to(torch.bfloat16)
-    texels = None if texture_dtype is None else texels_tensor(scene.atlas.texels, texture_dtype)
+    texels = None if texture_dtype is None else texels_tensor(scene.atlas.texels, texture_dtype, device)
     return _tensors(arrays, page, texels, scene.n_faces, device)
 
 

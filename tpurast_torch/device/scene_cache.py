@@ -27,7 +27,7 @@ import pickle
 
 log = logging.getLogger("tpurast_torch.device")
 
-CACHE_VERSION = 1
+CACHE_VERSION = 2  # 2: the atlas carries its pyramids, its quad rows built on first read
 
 #: The bench's scenes. "orbit" is procedural and needs no data directory.
 SCENES = ("demo", "porsche_class", "hdr", "dragons64", "orbit")

@@ -26,7 +26,9 @@ tensor is row-major already, so nothing here corresponds to that.
 
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
+import os
 
 import numpy as np
 import torch
@@ -37,6 +39,59 @@ MAX_MIPS = 16
 
 
 ROW_WIDTH = 52  # 2x2 own-mip quad (16) + 3x3 parent-mip window (36)
+
+
+class _RowsOnFirstRead:
+    """TextureAtlas.texels: the quad rows, built from the atlas' pyramids
+    (a _RowPlan) the first time something reads them, then kept. Only the
+    gather paths read rows; the window path uploads none, so a scene built
+    for it never holds them (208 B of host RAM per texel)."""
+
+    def __set_name__(self, owner, name):
+        self.slot = "_" + name
+
+    def __get__(self, atlas, owner=None):
+        if atlas is None:
+            raise AttributeError(self.slot)  # the dataclass field has no default
+        rows = atlas.__dict__[self.slot]
+        if isinstance(rows, _RowPlan):
+            rows = atlas.__dict__[self.slot] = rows.build()
+        return rows
+
+    def __set__(self, atlas, rows):
+        atlas.__dict__[self.slot] = rows
+
+
+@dataclasses.dataclass
+class _RowPlan:
+    """Where build_atlas puts each (texture, mip)'s rows: enough to build
+    the rows, and to count them, without holding them."""
+
+    pyramids: list[list[np.ndarray]]
+    allocs: list[tuple[int, int, int]]  # (texture, mip, first row)
+    n_rows: int
+
+    def build(self) -> np.ndarray:
+        rows = np.zeros((max(self.n_rows, 1), ROW_WIDTH), dtype=np.float32)
+
+        def fill(alloc):
+            ti, mi, off = alloc
+            mips = self.pyramids[ti]
+            h, w = mips[mi].shape[:2]
+            parent = mips[mi + 1] if mi + 1 < len(mips) else None
+            _trilerp_rows(mips[mi], parent, out=rows[off : off + h * w])
+
+        # Each (texture, mip) fills its own rows, and numpy's copies release
+        # the GIL: threads fill them side by side, the largest first.
+        order = sorted(self.allocs, key=lambda a: -self.pyramids[a[0]][a[1]].size)
+        with concurrent.futures.ThreadPoolExecutor(min(8, os.cpu_count() or 1)) as pool:
+            list(pool.map(fill, order))
+        return rows
+
+    def max_value(self) -> float:
+        # Every texel of every mip sits in the rows, beside zeros (the
+        # alignment padding and the last mips' parent windows).
+        return float(np.max([0.0] + [m.max() for mips in self.pyramids for m in mips if m.size]))
 
 
 @dataclasses.dataclass
@@ -53,15 +108,33 @@ class TextureAtlas:
     instead of eight point fetches: XLA:TPU gather cost is per row and
     dominated by address generation, so row width is nearly free while
     row count is the wall (~7 ns/row on v5e).
+
+    build_atlas leaves the rows unbuilt: ``texels`` builds them on first
+    read (bit for bit the rows build_atlas once concatenated), while
+    ``texels_nbytes`` and ``max_value`` answer from the pyramids.
     """
 
-    texels: np.ndarray  # (N, 52) f32 linear RGBA trilerp rows
+    texels: np.ndarray = _RowsOnFirstRead()  # (N, 52) f32 linear RGBA trilerp rows
     offsets: np.ndarray  # (T, MAX_MIPS) i32 flat row offset per mip (256-aligned)
     sizes: np.ndarray  # (T, MAX_MIPS, 2) i32 (width, height) per mip
     n_mips: np.ndarray  # (T,) i32
 
+    @property
+    def rows_built(self) -> bool:
+        """Whether the quad rows are held (read once, or given)."""
+        return not isinstance(self.__dict__["_texels"], _RowPlan)
+
+    @property
+    def texels_nbytes(self) -> int:
+        """The f32 rows' bytes, without building them."""
+        rows = self.__dict__["_texels"]
+        return max(rows.n_rows, 1) * ROW_WIDTH * 4 if isinstance(rows, _RowPlan) else rows.nbytes
+
     def max_value(self) -> float:
-        return float(self.texels.max()) if self.texels.size else 0.0
+        rows = self.__dict__["_texels"]
+        if isinstance(rows, _RowPlan):
+            return rows.max_value()
+        return float(rows.max()) if rows.size else 0.0
 
 
 def _to_linear_rgba(img: np.ndarray, srgb: bool) -> np.ndarray:
@@ -140,7 +213,7 @@ def decode_ktx2_texture(tex: ktx2.Ktx2Texture) -> list[np.ndarray]:
     return mips
 
 
-def _trilerp_rows(m: np.ndarray, parent: np.ndarray | None) -> np.ndarray:
+def _trilerp_rows(m: np.ndarray, parent: np.ndarray | None, out: np.ndarray | None = None) -> np.ndarray:
     """(H, W, 4) + parent mip -> (H*W, 52) trilerp rows.
 
     Columns 0:16 are the own-mip quad (2x2 wrapped bilinear footprint);
@@ -149,11 +222,12 @@ def _trilerp_rows(m: np.ndarray, parent: np.ndarray | None) -> np.ndarray:
     (parent None) the window is zero — the sampler's mip fraction is
     exactly 0 there. Writes straight into one preallocated row buffer
     (the concat-of-concats formulation re-copied every chunk and
-    dominated multi-GB atlas builds).
+    dominated multi-GB atlas builds): ``out`` (H*W, 52) where given.
     """
     h, w = m.shape[:2]
     m = np.ascontiguousarray(m, dtype=np.float32)
-    out = np.empty((h * w, ROW_WIDTH), dtype=np.float32)
+    if out is None:
+        out = np.empty((h * w, ROW_WIDTH), dtype=np.float32)
     own = out[:, :16].reshape(h, w, 4, 4)
     own[..., 0, :] = m
     right = np.roll(m, -1, axis=1)
@@ -193,7 +267,7 @@ def build_atlas(textures: list[list[np.ndarray]]) -> TextureAtlas:
     offsets = np.zeros((n_tex, MAX_MIPS), dtype=np.int32)
     sizes = np.ones((n_tex, MAX_MIPS, 2), dtype=np.int32)
     n_mips = np.zeros(n_tex, dtype=np.int32)
-    chunks = []
+    allocs = []
     cursor = 0
 
     def alloc(ti, mi, mips):
@@ -203,14 +277,10 @@ def build_atlas(textures: list[list[np.ndarray]]) -> TextureAtlas:
         # 256-row alignment: the resolve kernel carries offsets through
         # f32 as offset/256, which is exact only when aligned (raw
         # offsets exceed f32's 2^24 integer range on multi-GB atlases).
-        pad = (-cursor) % 256
-        if pad:
-            chunks.append(np.zeros((pad, ROW_WIDTH), dtype=np.float32))
-            cursor += pad
+        cursor += (-cursor) % 256
         offsets[ti, mi] = cursor
         sizes[ti, mi] = (w, h)
-        parent = mips[mi + 1] if mi + 1 < len(mips) else None
-        chunks.append(_trilerp_rows(m, parent))
+        allocs.append((ti, mi, cursor))
         cursor += h * w
 
     for ti, mips in enumerate(textures):
@@ -236,12 +306,8 @@ def build_atlas(textures: list[list[np.ndarray]]) -> TextureAtlas:
         for mi in range(len(mips), MAX_MIPS):
             offsets[ti, mi] = offsets[ti, len(mips) - 1]
             sizes[ti, mi] = sizes[ti, len(mips) - 1]
-    texels = (
-        np.concatenate(chunks, axis=0)
-        if chunks
-        else np.zeros((1, ROW_WIDTH), dtype=np.float32)
-    )
-    return TextureAtlas(texels=texels, offsets=offsets, sizes=sizes, n_mips=n_mips)
+    plan = _RowPlan(pyramids=[list(mips) for mips in textures], allocs=allocs, n_rows=cursor)
+    return TextureAtlas(texels=plan, offsets=offsets, sizes=sizes, n_mips=n_mips)
 
 
 TEXTURE_DTYPES = ("float32", "float16", "bfloat16", "srgb8")
@@ -250,30 +316,49 @@ _TORCH_FLOAT = {"float32": torch.float32, "float16": torch.float16, "bfloat16": 
 SRGB8_ABOVE_F16_BYTES = 2 << 30
 
 
-def srgb8_encode(texels: np.ndarray) -> np.ndarray:
-    """(N, 52) f32 linear rows -> (N, 52) u8: RGB lanes sRGB-encoded,
-    alpha lanes linear (textures.py:79-103). u8 value k is chosen iff
-    x >= EOTF((k - 0.5) / 255), so one searchsorted against the 255
-    boundaries gives the exact encode."""
-    if texels.size and texels.max() > 1.0 + 1e-6:
-        raise ValueError("srgb8 atlas requires LDR content (texel values in [0, 1])")
+# Rows converted per step of texels_tensor: 2^20 rows are 208 MiB of f32.
+ROW_CHUNK = 1 << 20
+
+
+def _srgb8_bounds(device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The 255 decision boundaries of the u8 encode: sRGB-encoded RGB
+    (in linear light) and linear alpha, f32."""
     mid = (np.arange(1, 256, dtype=np.float64) - 0.5) / 255.0
     bounds_srgb = np.where(mid <= 0.04045, mid / 12.92, ((mid + 0.055) / 1.055) ** 2.4).astype(np.float32)
     bounds_lin = ((np.arange(1, 256) - 0.5) / 255.0).astype(np.float32)
-    texels4 = texels.reshape(texels.shape[0], -1, 4)
-    enc = np.empty(texels4.shape, dtype=np.uint8)
-    enc[..., :3] = np.searchsorted(bounds_srgb, np.clip(texels4[..., :3], 0.0, 1.0))
-    enc[..., 3] = np.searchsorted(bounds_lin, np.clip(texels4[..., 3], 0.0, 1.0))
-    return enc.reshape(texels.shape)
+    return torch.from_numpy(bounds_srgb).to(device), torch.from_numpy(bounds_lin).to(device)
 
 
-def texels_tensor(texels: np.ndarray, dtype: str) -> torch.Tensor:
-    """The host rows as a CPU tensor of the texel dtype."""
-    if dtype == "srgb8":
-        return torch.from_numpy(srgb8_encode(texels))
-    if dtype not in _TORCH_FLOAT:
+def _srgb8_encode(rows: torch.Tensor, bounds: tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
+    """(N, 52) f32 linear rows -> (N, 52) u8: RGB lanes sRGB-encoded,
+    alpha lanes linear (textures.py:79-103). u8 value k is chosen iff
+    x >= EOTF((k - 0.5) / 255), so one searchsorted against the 255
+    boundaries gives the exact encode (torch's searchsorted is numpy's
+    side="left", as the reference calls it)."""
+    if rows.numel() and float(rows.max()) > 1.0 + 1e-6:
+        raise ValueError("srgb8 atlas requires LDR content (texel values in [0, 1])")
+    rows4 = rows.reshape(rows.shape[0], -1, 4).clamp(0.0, 1.0)
+    enc = torch.empty(rows4.shape, dtype=torch.uint8, device=rows.device)
+    enc[..., :3] = torch.searchsorted(bounds[0], rows4[..., :3].contiguous()).to(torch.uint8)
+    enc[..., 3] = torch.searchsorted(bounds[1], rows4[..., 3].contiguous()).to(torch.uint8)
+    return enc.reshape(rows.shape)
+
+
+def texels_tensor(texels: np.ndarray, dtype: str, device="cpu") -> torch.Tensor:
+    """The host rows as a contiguous tensor of the texel dtype on
+    ``device``, converted there ROW_CHUNK rows at a time (on the card the
+    conversion runs on the device, and the f32 rows never sit there
+    whole). Bit for bit the reference's host conversion: torch rounds to
+    nearest even on either device."""
+    if dtype != "srgb8" and dtype not in _TORCH_FLOAT:
         raise ValueError(f"unknown texture dtype {dtype!r}; expected one of {TEXTURE_DTYPES}")
-    return torch.from_numpy(np.ascontiguousarray(texels, dtype=np.float32)).to(_TORCH_FLOAT[dtype])
+    dev = torch.device(device)
+    out = torch.empty(texels.shape, dtype=torch.uint8 if dtype == "srgb8" else _TORCH_FLOAT[dtype], device=dev)
+    bounds = _srgb8_bounds(dev) if dtype == "srgb8" else None
+    for a in range(0, texels.shape[0], ROW_CHUNK):
+        rows = torch.from_numpy(np.ascontiguousarray(texels[a : a + ROW_CHUNK], dtype=np.float32)).to(dev)
+        out[a : a + rows.shape[0]] = _srgb8_encode(rows, bounds) if bounds is not None else rows.to(out.dtype)
+    return out
 
 
 def upload_atlas(atlas, dtype: str, device) -> dict:
@@ -281,7 +366,7 @@ def upload_atlas(atlas, dtype: str, device) -> dict:
     {"texels" (N, 52), "offsets" (T, 16), "sizes" (T, 16, 2), "n_mips" (T,)}."""
     dev = torch.device(device)
     return {
-        "texels": texels_tensor(atlas.texels, dtype).contiguous().to(dev),
+        "texels": texels_tensor(atlas.texels, dtype, dev),
         "offsets": torch.from_numpy(np.array(atlas.offsets)).to(dev),
         "sizes": torch.from_numpy(np.array(atlas.sizes)).to(dev),
         "n_mips": torch.from_numpy(np.array(atlas.n_mips)).to(dev),
@@ -292,10 +377,14 @@ def resolve_texture_dtype(scene, requested: str) -> str:
     """texture_dtype="auto": float16, or srgb8 when the f16 atlas would
     exceed 2 GiB and the content is LDR (tpurast/renderer.py:420-432;
     the threshold was set for the TPU's gather and has not been measured
-    on the H100). Any other value is returned as it is."""
+    on the H100). Any other value is returned as it is. Decided from the
+    row count and the pyramids: the rows are not built."""
     if requested != "auto":
         return requested
-    f16_bytes = scene.atlas.texels.nbytes // 2
-    if f16_bytes > SRGB8_ABOVE_F16_BYTES and scene.atlas.max_value() <= 1.0 + 1e-6:
+    atlas = scene.atlas
+    # The Renderer takes a scene of either package: the reference's atlas
+    # holds its rows, the port's counts them without building them.
+    f16_bytes = (atlas.texels_nbytes if isinstance(atlas, TextureAtlas) else atlas.texels.nbytes) // 2
+    if f16_bytes > SRGB8_ABOVE_F16_BYTES and atlas.max_value() <= 1.0 + 1e-6:
         return "srgb8"
     return "float16"

@@ -67,9 +67,12 @@ def cuda_ms(fn, n: int = 20) -> float:
 
 def device_ms(fn, n: int = 20) -> float | None:
     """Device milliseconds per call of fn: the time torch.profiler records
-    in CUDA kernels (and copies) over n calls after one warm-up call,
-    divided by n; host time between launches is left out. None when the
-    profiler records no device time."""
+    in CUDA kernels (and copies) over n calls after one warm-up call, per
+    call; host time between launches is left out. torch.profiler now and
+    then drops a launch's record, so each operation counts its mean
+    recorded time once for each launch a call makes (its records over n,
+    rounded up) rather than its total over n. None when the profiler
+    records no device time."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -78,8 +81,9 @@ def device_ms(fn, n: int = 20) -> float | None:
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    total_us = sum(e.self_device_time_total for e in prof.key_averages())
-    return total_us / 1e3 / n if total_us > 0 else None
+    ops = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    total_us = sum(e.self_device_time_total / e.count * -(-e.count // n) for e in ops)
+    return total_us / 1e3 if total_us > 0 else None
 
 
 def generator(device, seed: int) -> torch.Generator:
