@@ -5,6 +5,7 @@
     python3 chip_smoke.py --sanitize-cases   # the case set alone (see 11)
     python3 chip_smoke.py --multi-device     # phase 8's multi_device alone
     python3 chip_smoke.py --named-scenes     # phase 12 alone
+    python3 chip_smoke.py --config-matrix    # phases 1 and 1b alone
 
 Builds the CUDA kernels from tpurast_torch/csrc, builds a procedural scene
 from the seed (a 256x256-quad floor and 64 UV spheres, 258,048 triangles,
@@ -21,6 +22,28 @@ eight generated 1024^2 BC4 textures with full mip chains), and then, at
      an all-residual plan equal to the one under the real plan (the plan
      decides nothing but the empty-tile skip); the sample kernel's other
      page layout and warp shapes are timed beside the shipped one;
+ 1b. config_matrix: every tile shape and RendererConfig option the
+     reference renders that the card had not run, each through a Renderer
+     at 1920x1080 on camera 0 (MATRIX): tiles 8x128, 40x128 (8-row chunks),
+     16x256, 64x128 and 32x256 (8,192 px), 112x128 (7 chunks), 16x1024 and
+     112x896 (100,352 px) on the orbit scene, 112x1920 and 112x3840 on a
+     small orbit scene (MATRIX_SMALL_SCENE: the plain raster evaluates every
+     pixel of a pair's tile, and the orbit scene's ~190k pairs do not shrink
+     with the frame); max_anisotropy 1, 2, 4 and 8; blend "opaque"; output
+     "linear" and "gbuf"; gather on float32 and bfloat16 atlas rows;
+     binning "scan" at 64x128; deferred at 64x128, equal to gather at 64x128
+     bit for bit. Each renders as a graph frame (its median ms over 5
+     replays, one launch per kernel of its path a replay) and eagerly inside
+     plain_kernels(): color within 1 LSB (linear after the encode; a
+     G-buffer under phase 1's resolve rule, face ids exact), depth and the
+     counters equal; at 64x128 and 112x128 also as 2 slabs
+     (parallel.make_sharded_renderer), equal to the frame bit for bit; each render kernel of its path against its plain
+     version (phase 1's budgets) and into guarded outputs, its device ms
+     (one torch.profiler session) and for raster and plan its bound. One
+     line per configuration with the card's name and power limit. Then
+     python -m tpurast_torch.cli --scene orbit --tile-h 112 --tile-w 128
+     in-process, 16 frames: parity within 1 LSB, no dropped pairs, every
+     render kernel launched;
   2. runs the microbenchmark probes at the tools' sizes against their
      plain versions, bit for bit: vmem_take (4096x16 f32 table, 2,073,600
      indices; then an odd row count, a count of indices that fills no whole
@@ -149,7 +172,7 @@ eight generated 1024^2 BC4 textures with full mip chains), and then, at
      directory, its five lines printed as stand-ins; and entry(directory)
      equal to Renderer.render bit for bit.
 
-Every kernel-against-plain phase (kernel_phases, probe_phases,
+Every kernel-against-plain phase (kernel_phases, config_matrix, probe_phases,
 slab_kernels, padded_kernels) also launches each kernel once more with
 its outputs and scratch as views inside larger buffers whose every byte
 was 0xA5 (guard bands, up to 2^20 elements on each side): the margins must
@@ -161,11 +184,12 @@ kernels, the native BC and zstd decoders): the scene cache is off
 (TPURAST_TORCH_SCENE_CACHE=0 unless the caller set it), and the tools'
 G-buffer dump and the stand-in data directory live in temporary
 directories that the run removes. The whole run takes about
-five minutes on an H100 (the pose tools about 30 s of it, 11 s of that the
-plain versions' 40 poses; the named scenes about two and a half minutes,
-one of them the bench's five subprocesses; the sanitizer phase about 30 s
-without a tool); should it ever pass 600 s, the tools' frame counts are
-the first to cut, then the gather and deferred phases from 4 frames to 2.
+six minutes on an H100 (config_matrix about 50 s of it; the pose tools
+about 30 s, 11 s of that the plain versions' 40 poses; the named scenes
+about two and a half minutes, one of them the bench's five subprocesses;
+the sanitizer phase about 30 s without a tool); should it ever pass 600 s,
+the tools' frame counts are the first to cut, then the gather and deferred
+phases from 4 frames to 2.
 
 Each path prints its frame times and a per-stage breakdown; the window
 path also prints, per stage, the device operations torch.profiler counts
@@ -219,7 +243,8 @@ from tpurast_torch.camera import Camera, MoveDirection  # noqa: E402
 from tpurast_torch.config import RendererConfig  # noqa: E402
 from tpurast_torch import parallel  # noqa: E402
 from tpurast_torch.assets.gltf import load_glb  # noqa: E402
-from tpurast_torch.device.scene import build_scene, orbit_camera, orbit_track, scene_bytes  # noqa: E402
+from tpurast_torch.device.scene import (build_orbit_scene, build_scene, orbit_camera, orbit_track,  # noqa: E402
+                                       scene_bytes)
 from tpurast_torch.device.scene_cache import load_named_scene  # noqa: E402
 from tpurast_torch.device.textures import ROW_WIDTH  # noqa: E402
 from tpurast_torch.engine import Engine  # noqa: E402
@@ -339,19 +364,51 @@ def raster_work(so, bins, th, tw, tx) -> dict:
     """Pairs, the distinct faces they name, the densest tile's pair count,
     the (pair, pixel) evaluations the raster kernel makes (each pair's
     pixel rectangle, raster.pixel_rects, clamped to its tile) and its work
-    units (tile, chunk of pairs)."""
+    units (tile, sub-rectangle, chunk of pairs)."""
     n = int(bins["offsets"][-1])
     faces = bins["pair_faces"][:n].long()
-    tiles = bins["pair_tiles"][:n].long()
+    tiles = torch.searchsorted(bins["offsets"][1:].long(), torch.arange(n, device=faces.device), right=True)
     r = raster.pixel_rects(so["aabb"])[faces]
     gx0 = ((tiles % tx) * tw).float()
     gy0 = ((tiles // tx) * th).float()
     w = torch.minimum(r[:, 2], gx0 + (tw - 1)) - torch.maximum(r[:, 0], gx0) + 1
     h = torch.minimum(r[:, 3], gy0 + (th - 1)) - torch.maximum(r[:, 1], gy0) + 1
     evals = int((w.clamp(min=0).double() * h.clamp(min=0).double()).sum())
-    units = int(((bins["counts"] + raster.UNIT_PAIRS - 1) // raster.UNIT_PAIRS).sum())
+    _, _, nx, ny = raster.tile_subs(th, tw)
+    units = nx * ny * int(((bins["counts"] + raster.UNIT_PAIRS - 1) // raster.UNIT_PAIRS).sum())
     return dict(pairs=n, faces=int(torch.unique(faces).numel()), densest=int(bins["counts"].max()), evals=evals,
                 units=units)
+
+
+def raster_bound(work: dict, n_tiles: int, hp: int, wp: int) -> dict:
+    """The raster kernel's bound: each input read once (the named faces'
+    rows and AABBs, the pair list and offsets), the (2, Hp, Wp) output
+    written once; RASTER_FLOPS_PER_EVAL per evaluated (pair, pixel)."""
+    return bound(work["faces"] * RASTER_FACE_BYTES + work["pairs"] * 4 + (n_tiles + 1) * 4 + 2 * hp * wp * 4,
+                 work["evals"] * RASTER_FLOPS_PER_EVAL)
+
+
+def plan_bound(hp: int, wp: int, n_matched: int, plan: dict) -> dict:
+    """The plan kernel's bound for what a frame needs: the match plane read
+    at every pixel, the other PLAN_PLANES - 1 planes at the matched pixels,
+    the table and assignment written; its reductions are a few operations
+    per pixel and round."""
+    out_bytes = plan["table"].numel() * 4 + plan["assign"].numel() * 4
+    return bound(hp * wp * 4 + (PLAN_PLANES - 1) * n_matched * 4 + out_bytes, hp * wp * 100)
+
+
+def resolve_disagreement(g, g_p, covered) -> tuple[int, int, int]:
+    """The resolve kernel's G-buffer g against its plain version's g_p:
+    (covered pixels whose mip level l0 flipped, integer-plane values that
+    differ and float-plane values outside rtol 1e-5 / atol 1e-6, both away
+    from the flipped pixels). The budget: flips at most 0.1% of the covered
+    pixels, the other two 0."""
+    flip = (g[19] != g_p[19]) & covered
+    keep = ~flip
+    int_bad = int(sum(((g[i] != g_p[i]) & keep).sum() for i in resolve.INT_PLANES))
+    float_bad = int((~torch.isclose(g[FLOAT_PLANES][:, keep], g_p[FLOAT_PLANES][:, keep], rtol=1e-5,
+                                    atol=1e-6)).sum())
+    return int(flip.sum()), int_bad, float_bad
 
 
 def check(cond: bool, what: str) -> None:
@@ -416,8 +473,8 @@ def guard(phase: str, kernel: str, entry: str, *args, want=()) -> None:
 
 def guard_raster(phase: str, so, bins, vis, *, tile_h, tile_w, tiles_x, tiles_y, clear_depth, tile_row_offset=0):
     """The raster kernel into guarded scratch and output, against vis."""
-    hp, wp, slots = tiles_y * tile_h, tiles_x * tile_w, bins["pair_faces"].numel()
-    keys, work, _ = raster.kernel_buffers(hp, wp, tiles_x * tiles_y, slots, "meta")
+    slots = bins["pair_faces"].numel()
+    keys, work, _ = raster.kernel_buffers(tile_h, tile_w, tiles_x, tiles_y, slots, "meta")
     guard(phase, "raster", "tr_raster", so["setup"], so["aabb"], bins["pair_faces"], bins["offsets"], slots,
           tiles_x, tiles_y, tile_h, tile_w, tile_row_offset, float(clear_depth) + 0.0, Out(keys.shape, torch.int64),
           Out(work.shape, torch.int32), work.numel(), Out(vis.shape), want=(None, None, vis))
@@ -430,9 +487,11 @@ def guard_resolve(phase: str, vis, attrs, g, *, max_anisotropy, y_offset=0):
 
 
 def guard_plan(phase: str, g, plan, *, tiles_x, tiles_y, tile_h, tile_w, max_anisotropy):
+    scratch = sampler.plan_scratch(tile_h, tile_w, g.shape[1], g.shape[2], "meta")
     guard(phase, "plan", "tr_plan", g, tiles_x, tiles_y, tile_h, tile_w, sampler.rc_for(tile_h), max_anisotropy,
           Out(plan["table"].shape, torch.int32), Out(plan["assign"].shape), Out((), torch.int32, zero=True),
-          want=(plan["table"], plan["assign"], plan["residual_px"]))
+          None if scratch is None else Out(scratch.shape, torch.int32),
+          want=(plan["table"], plan["assign"], plan["residual_px"], None))
 
 
 def guard_sample(phase: str, g, page, plan, cp, fb, *, tiles_x, tiles_y, tile_h, tile_w, max_anisotropy, **light):
@@ -471,10 +530,7 @@ def kernel_phases(r: Renderer, cam, card: str, phase: str = "kernel_phases") -> 
     hp, wp = vis.shape[1:]
     out["raster"] = dict(
         max_abs_err=depth_err, library_ms=None, pairs=work["pairs"], densest=work["densest"],
-        # Each input read once: the named faces' rows and AABBs, the pair
-        # list and offsets; the (2, Hp, Wp) output written once.
-        **bound(work["faces"] * RASTER_FACE_BYTES + work["pairs"] * 4 + (tx * ty + 1) * 4 + 2 * hp * wp * 4,
-                work["evals"] * RASTER_FLOPS_PER_EVAL),
+        **raster_bound(work, tx * ty, hp, wp),
         **timed(
             lambda: raster.rasterize_tiles(so["setup"], so["aabb"], bins["pair_faces"], bins["offsets"], **rkw),
             lambda: raster.rasterize_tiles_plain(so["setup"], so["aabb"], bins["pair_faces"], bins["offsets"], **rkw),
@@ -542,11 +598,7 @@ def kernel_phases(r: Renderer, cam, card: str, phase: str = "kernel_phases") -> 
     plan_bound_planes = bound(PLAN_PLANES * hp * wp * 4 + plan_out_bytes, hp * wp * 100)
     out["plan"] = dict(
         max_abs_err=float((plan["assign"] - plan_p["assign"]).abs().max()), library_ms=None,
-        # What this frame needs: the match plane read at every pixel, the
-        # other PLAN_PLANES - 1 planes at the matched pixels, the table and
-        # assignment written; its reductions are a few operations per pixel
-        # and round.
-        **bound(hp * wp * 4 + (PLAN_PLANES - 1) * n_matched * 4 + plan_out_bytes, hp * wp * 100),
+        **plan_bound(hp, wp, n_matched, plan),
         **timed(
             lambda: sampler.plan_tiles(g, max_anisotropy=ma, **tiles),
             lambda: sampler.plan_tiles_plain(g, max_anisotropy=ma, **tiles),
@@ -642,6 +694,274 @@ def kernel_phases(r: Renderer, cam, card: str, phase: str = "kernel_phases") -> 
     print(f"sample under an all-residual plan: frame equal to the one under the real plan {same}; "
           f"{direct_ms:.4f} ms vs {st['ms']:.4f} ms")
     check(same, "the sampled frame depends on the plan")
+    return out
+
+
+# config_matrix's configurations: (label, RendererConfig fields, output,
+# scene). The tile shapes the reference takes past the default 32x128
+# (8-row chunks at 8 and 40 rows, 8,192 px at 64x128 and 32x256, 7 chunks
+# at 112x128, a tile wider than 1024 px, and one of at least 100k px), the
+# options the card had not run, gather on the float32 and bfloat16 atlas
+# rows, scan binning and deferred shading at 64x128. "small" is the small
+# orbit scene (MATRIX_SMALL_SCENE), where the plain raster's pairs x tile
+# pixels stay small at the widest tiles.
+MATRIX = (
+    ("8x128", dict(tile_h=8), "srgb_u8", "orbit"),
+    ("40x128", dict(tile_h=40), "srgb_u8", "orbit"),
+    ("16x256", dict(tile_h=16, tile_w=256), "srgb_u8", "orbit"),
+    ("64x128", dict(tile_h=64), "srgb_u8", "orbit"),
+    ("32x256", dict(tile_w=256), "srgb_u8", "orbit"),
+    ("112x128", dict(tile_h=112), "srgb_u8", "orbit"),
+    ("16x1024", dict(tile_h=16, tile_w=1024), "srgb_u8", "orbit"),
+    ("112x896", dict(tile_h=112, tile_w=896), "srgb_u8", "orbit"),
+    ("112x1920 small", dict(tile_h=112, tile_w=1920), "srgb_u8", "small"),
+    ("112x3840 small", dict(tile_h=112, tile_w=3840), "srgb_u8", "small"),
+    ("anisotropy 1", dict(max_anisotropy=1), "srgb_u8", "orbit"),
+    ("anisotropy 2", dict(max_anisotropy=2), "srgb_u8", "orbit"),
+    ("anisotropy 4", dict(max_anisotropy=4), "srgb_u8", "orbit"),
+    ("anisotropy 8", dict(max_anisotropy=8), "srgb_u8", "orbit"),
+    ("opaque", dict(blend="opaque"), "srgb_u8", "orbit"),
+    ("linear", {}, "linear", "orbit"),
+    ("gbuf", {}, "gbuf", "orbit"),
+    ("gather float32", dict(sampler="gather", texture_dtype="float32"), "srgb_u8", "orbit"),
+    ("gather bfloat16", dict(sampler="gather", texture_dtype="bfloat16"), "srgb_u8", "orbit"),
+    ("scan 64x128", dict(binning="scan", tile_h=64), "srgb_u8", "orbit"),
+    ("gather 64x128", dict(sampler="gather", tile_h=64), "srgb_u8", "orbit"),
+    ("deferred 64x128", dict(shading="deferred", tile_h=64), "srgb_u8", "orbit"),
+)
+MATRIX_SMALL_SCENE = dict(floor_quads=32, spheres=2, rings=12, segments=12, tex_size=64, n_textures=2)
+MATRIX_REPLAYS = 5
+MATRIX_SLABS = {"64x128": 2, "112x128": 2}  # configurations also rendered as slabs, and how many
+# Tile shapes past 4096 px in the sanitizer's case set (sanitize_cases).
+SANITIZE_TILES = ((64, 128), (16, 1024))
+MATRIX_BENCH_FRAMES = 16
+
+
+@contextlib.contextmanager
+def plain_raster_memo():
+    """Within the context raster.rasterize_tiles_plain, called again with
+    inputs equal (torch.equal, same keyword arguments) to its last call's,
+    returns a copy of that call's result instead of evaluating again:
+    config_matrix's kernel check and its eager plain frame raster the same
+    pairs, and the plain raster costs pairs x tile pixels (2 x 1.9e10
+    evaluations at 112x896)."""
+    plain = raster.rasterize_tiles_plain
+    last = {}
+
+    def cached(*args, **kw):
+        hit = last.get("args")
+        if (hit is not None and last["kw"] == kw and len(hit) == len(args)
+                and all(a.shape == b.shape and bool(torch.equal(a, b)) for a, b in zip(hit, args))):
+            return last["out"].clone()
+        out = plain(*args, **kw)
+        last.update(args=args, kw=kw, out=out.clone())
+        return out
+
+    raster.rasterize_tiles_plain = cached
+    try:
+        yield
+    finally:
+        raster.rasterize_tiles_plain = plain
+
+
+def matrix_device_ms(fns: dict, reps: int = 5) -> dict:
+    """Device ms per call of each kernel wrapper in fns ({name: fn}), from
+    one torch.profiler session: each operation's mean recorded time once
+    per launch a call makes (microbench.device_ms's rule), attributed by
+    the CUDA kernel's name; the raster's key-buffer memset and the plan's
+    zero fill count with their kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for fn in fns.values():
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for fn in fns.values():
+            for _ in range(reps):
+                fn()
+        torch.cuda.synchronize()
+    owner = {"raster": ("raster", "Memset"), "resolve": ("resolve_kernel",), "plan": ("plan_kernel", "Fill"),
+             "sample": ("sample_kernel",)}
+    out = {name: 0.0 for name in fns}
+    for e in prof.key_averages():
+        if e.self_device_time_total <= 0:
+            continue
+        for name in fns:
+            if any(k in e.key for k in owner[name]):
+                out[name] += e.self_device_time_total / e.count * -(-e.count // reps) / 1e3
+                break
+    return {k: (v if v > 0 else None) for k, v in out.items()}
+
+
+def matrix_kernels(r: Renderer, cam, phase: str) -> dict:
+    """Each render kernel of r's path against its plain version on cam's
+    frame inputs (raster and plan exact, resolve's integer planes exact and
+    its float planes kernel_phases' rule, sample within 1 LSB) and once more
+    into guarded outputs (guard), with its device ms."""
+    kw = r._frame_kwargs
+    sc = r.scene
+    vp, cp = r.frame_uniforms(cam)
+    th, tw, tx, ty = kw["tile_h"], kw["tile_w"], r.tiles_x, r.tiles_y
+    tiles = dict(tiles_x=tx, tiles_y=ty, tile_h=th, tile_w=tw)
+    clip = geometry.transform_corners(sc["corner_world"], vp)
+    so = geometry.triangle_setup(clip, None, sc["n_faces"], kw["width"], kw["height"])
+    grid = (so["aabb"], so["valid"], tx, ty, tw, th)
+    bins = geometry.bin_pairs(*grid) if r.binning == "pairs" else geometry.bin_triangles(*grid, kw["bin_capacity"])
+    # render_frame's raster arguments, so that plain_raster_memo's key matches the frame's call
+    rkw = dict(tiles, clear_depth=kw["clear_depth"], tile_row_offset=0)
+    args = (so["setup"], so["aabb"], bins["pair_faces"], bins["offsets"])
+    res, fns = {}, {}
+    vis = raster.rasterize_tiles(*args, **rkw)
+    vis_p = raster.rasterize_tiles_plain(*args, **rkw)
+    hp, wp = vis.shape[1:]
+    work = raster_work(so, bins, th, tw, tx)
+    bounds = {"raster": raster_bound(work, tx * ty, hp, wp)}
+    res["raster"] = (f"{'exact' if torch.equal(vis, vis_p) else 'DIFFERS'}, {work['units']} units, "
+                     f"{work['evals']} evaluations")
+    check(torch.equal(vis, vis_p), f"{phase}: raster kernel disagrees with its plain version")
+    guard_raster(phase, so, bins, vis, **rkw)
+    fns["raster"] = lambda: raster.rasterize_tiles(*args, **rkw)
+    if kw["shading"] == "forward":
+        ma = kw["max_anisotropy"]
+        attrs = resolve.pack_resolve_attrs(so["setup"], sc["corner_world"], sc["corner_normal"], sc["corner_uv"],
+                                           sc["face_tex"], sc["atlas"])
+        g = resolve.resolve_gbuffer(vis, attrs, max_anisotropy=ma)
+        g_p = resolve.resolve_gbuffer_plain(vis, attrs, max_anisotropy=ma)
+        n_flip, int_bad, float_bad = resolve_disagreement(g, g_p, vis[1] >= 0)
+        res["resolve"] = f"integer planes {'exact' if int_bad == 0 else f'{int_bad} off'}, float off {float_bad}, " \
+                         f"l0 flips {n_flip}"
+        check(n_flip <= 0.001 * int((vis[1] >= 0).sum()) and int_bad == 0 and float_bad == 0,
+              f"{phase}: resolve kernel disagrees with its plain version")
+        guard_resolve(phase, vis, attrs, g, max_anisotropy=ma)
+        fns["resolve"] = lambda: resolve.resolve_gbuffer(vis, attrs, max_anisotropy=ma)
+        if kw["sampler"] == "window" and kw["output"] != "gbuf":
+            plan = sampler.plan_tiles(g, max_anisotropy=ma, **tiles)
+            plan_p = sampler.plan_tiles_plain(g, max_anisotropy=ma, **tiles)
+            same = all(bool(torch.equal(plan[k], plan_p[k])) for k in ("table", "assign", "residual_px"))
+            res["plan"] = "exact" if same else "DIFFERS"
+            bounds["plan"] = plan_bound(hp, wp, int((g[16] > 0).sum()), plan)
+            check(same, f"{phase}: plan kernel disagrees with its plain version")
+            guard_plan(phase, g, plan, max_anisotropy=ma, **tiles)
+            fns["plan"] = lambda: sampler.plan_tiles(g, max_anisotropy=ma, **tiles)
+            skw = sample_kwargs(kw, tiles)
+            page = sc["atlas"]["page"]
+            fb = sampler.sample_tiles(g, page, plan, cp, **skw)
+            fb_p = sampler.sample_tiles_plain(g, page, plan, cp, **skw)
+            w, h = kw["width"], kw["height"]
+            lsb = int((present.encode_srgb_u8(fb, w, h).int() - present.encode_srgb_u8(fb_p, w, h).int()).abs().max())
+            res["sample"] = f"{lsb} LSB"
+            check(lsb <= 1, f"{phase}: sample kernel disagrees with its plain version")
+            guard_sample(phase, g, page, plan, cp, fb, **skw)
+            fns["sample"] = lambda: sampler.sample_tiles(g, page, plan, cp, **skw)
+    torch.cuda.synchronize()
+    dev = matrix_device_ms(fns)
+    return {k: (dev[k], res[k], bounds.get(k)) for k in res}
+
+
+def matrix_frames_agree(label: str, out: str, got: dict, plain: dict) -> str:
+    """The graph frame against the eager plain frame: color within 1 LSB
+    (a linear frame after the sRGB encode; a G-buffer by kernel_phases'
+    resolve rule, face ids exact), depth and the counters equal."""
+    depth_eq = bool(torch.equal(got["depth"], plain["depth"]))
+    if out == "gbuf":
+        g, g_p = got["gbuf"], plain["gbuf"]
+        covered = plain["fid"] >= 0
+        n_flip, int_bad, float_bad = resolve_disagreement(g, g_p, covered)
+        fid_eq = bool(torch.equal(got["fid"], plain["fid"]))
+        check(depth_eq and fid_eq and int_bad == 0 and float_bad == 0 and n_flip <= 0.001 * int(covered.sum()),
+              f"config_matrix {label}: G-buffer frame disagrees with the plain versions")
+        return (f"G-buffer integer planes {int_bad} off, float planes {float_bad} off, l0 flips {n_flip}, "
+                f"face ids equal {fid_eq}, depth equal {depth_eq}")
+    c, c_p = got["color"], plain["color"]
+    if out == "linear":
+        h, w = c.shape[1:]
+        lin_err = float((c - c_p).abs().max())
+        c, c_p = present.encode_srgb_u8(c, w, h), present.encode_srgb_u8(c_p, w, h)
+    diff = (c.int() - c_p.int()).abs()
+    lsb, px = int(diff.max()), int((diff.amax(dim=0) > 0).sum())
+    counters = all(int(got[k]) == int(plain[k]) for k in ("bin_overflow", "window_miss_px"))
+    check(lsb <= 1 and depth_eq and counters, f"config_matrix {label}: frame disagrees with the plain versions")
+    return (f"color max {lsb} LSB ({px} px off){f', linear max abs {lin_err:.3g}' if out == 'linear' else ''}, "
+            f"depth equal {depth_eq}, bin_overflow {int(got['bin_overflow'])} = {int(plain['bin_overflow'])}, "
+            f"window_miss_px {int(got['window_miss_px'])} = {int(plain['window_miss_px'])}")
+
+
+def config_matrix(scene, cam, card: str, seed: int) -> dict:
+    """Every MATRIX configuration through Renderer at 1920x1080 on cam: the
+    graph frame (captured by the first render; MATRIX_REPLAYS replays timed by
+    events, their median) against the frame rendered eagerly inside
+    plain_kernels(), and each render kernel of the path against its plain
+    version with a guard band (matrix_kernels); deferred 64x128 equal to
+    gather 64x128 bit for bit. One line per configuration with the card's
+    name and power limit. Returns {label: line fields}."""
+    t0 = time.perf_counter()
+    small = None
+    out, frames = {}, {}
+    for label, fields, output, which in MATRIX:
+        t_cfg = time.perf_counter()
+        if which == "small" and small is None:
+            small = build_orbit_scene(seed=seed, **MATRIX_SMALL_SCENE)
+        sc = scene if which == "orbit" else small
+        cfg = RendererConfig(width=WIDTH, height=HEIGHT, **fields)
+        r = Renderer(sc, cfg, output=output)
+        phase = f"config_matrix {label}"
+        K.reset_launches()
+        got = r.render(cam)
+        torch.cuda.synchronize()
+        K.reset_launches()
+        ms = event_median(lambda: r.render(cam), MATRIX_REPLAYS)
+        launches = {k: v // (MATRIX_REPLAYS + 1) for k, v in K.LAUNCHES.items() if v}
+        with plain_raster_memo():
+            kernels = matrix_kernels(r, cam, phase)
+            with K.plain_kernels():
+                plain = r.render(cam)
+            torch.cuda.synchronize()
+        agree = matrix_frames_agree(label, output, got, plain)
+        if label in MATRIX_SLABS:  # parallel.py's slab rows at this tile height
+            fn = make_sharded_renderer(r.scene, r.config, MATRIX_SLABS[label], WIDTH, HEIGHT)
+            uniforms = r.frame_uniforms(cam)
+            fn(r.scene, *uniforms)
+            slabs = fn(r.scene, *uniforms)
+            same = all(bool(torch.equal(slabs[k], got[k])) for k in GRAPH_OUTPUTS)
+            fn.close()
+            check(same, f"{phase}: the {MATRIX_SLABS[label]}-slab frame differs from the frame")
+            agree += f"; {MATRIX_SLABS[label]}-slab graph frame equal to it {same}"
+        if label.startswith(("gather 64x128", "deferred 64x128")):
+            frames[label.split()[0]] = got
+        print_guards(phase, card)
+        intact = all(g["intact"] and g["same"] for p, _, g in GUARDS if p == phase)
+        check(intact, f"{phase}: a guard band was touched")
+        kern = "; ".join(f"{k} device {fmt_ms(v[0])} ms"
+                         + (f" (bound {v[2]['bound_ms']:.4f} ms by {v[2]['bound_by']})" if v[2] else "") + f" {v[1]}"
+                         for k, v in kernels.items())
+        print(f"config_matrix {label}: {WIDTH}x{HEIGHT} tile {cfg.tile_h}x{cfg.tile_w} ({r.tiles_x}x{r.tiles_y} tiles), "
+              f"sampler {r.sampler}, binning {r.binning}, shading {cfg.shading}, output {output}, anisotropy "
+              f"{cfg.max_anisotropy}, blend {cfg.blend}, texels {r.texture_dtype if r.sampler == 'gather' else '-'}; "
+              f"graph frame median {ms:.4f} ms over {MATRIX_REPLAYS} replays, launches per replay {launches}; vs eager "
+              f"plain frame: {agree}; kernels vs plain: {kern}; guard bands intact {intact}; "
+              f"{time.perf_counter() - t_cfg:.1f} s [{card}]")
+        out[label] = dict(ms=ms, launches=launches, kernels={k: v[0] for k, v in kernels.items()})
+        del r, got, plain
+    same = all(bool(torch.equal(frames["gather"][k], frames["deferred"][k])) for k in GRAPH_OUTPUTS)
+    print(f"config_matrix: deferred 64x128 equal to forward + gather 64x128 bit for bit ({', '.join(GRAPH_OUTPUTS)}): "
+          f"{same} [{card}]")
+    check(same, "config_matrix: deferred 64x128 differs from gather 64x128")
+    # The bench at the tallest tile the reference takes, as a user calls it.
+    argv = ["--scene", "orbit", "--tile-h", "112", "--tile-w", "128", "--frames", str(MATRIX_BENCH_FRAMES),
+            "--warmup", "2", "--seed", str(seed)]
+    K.reset_launches()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    lines = buf.getvalue().strip().splitlines()
+    print(f"config_matrix: python -m tpurast_torch.cli {' '.join(argv)} -> exit {rc}, launches {dict(K.LAUNCHES)}")
+    check(rc == 0 and len(lines) == 1, f"config_matrix: the bench at 112x128 exited {rc} with {len(lines)} lines")
+    print(lines[0])
+    res = json.loads(lines[0])
+    check(res["parity_max_lsb"] is not None and res["parity_max_lsb"] <= 1 and res["dropped_pairs"] == 0,
+          "config_matrix: the bench at 112x128 failed its parity gate or dropped pairs")
+    check(all(K.LAUNCHES[k] > 0 for k in RENDER_KERNELS), "config_matrix: the bench at 112x128 skipped a kernel")
+    print(f"config_matrix: {len(MATRIX)} configurations and the bench in {time.perf_counter() - t0:.1f} s [{card}]")
     return out
 
 
@@ -1522,7 +1842,9 @@ def pose_tools(scene, r: Renderer, card: str) -> dict:
 def sanitize_cases(seed: int) -> int:
     """The case set that --sanitize-cases runs (under compute-sanitizer
     where the card's machine lets it attach): the orbit scene's frame 0 at
-    1920x1080, 1282x721 and 320x180 (off the tile grid), the 2- and 8-slab
+    1920x1080, 1282x721 and 320x180 (off the tile grid), at 1920x1080 with
+    64x128 and 16x1024 tiles (the raster's sub-rectangle units, the plan's
+    groups of 4096 px in scratch), the 2- and 8-slab
     frames, the scan path and the mesh frame (multi_device's devices), each
     eagerly (a graph's first call) and then as one graph replay, the two
     equal bit for bit; and the probes at odd shapes (vmem_take: 4095 rows,
@@ -1540,6 +1862,10 @@ def sanitize_cases(seed: int) -> int:
     for w, h in ((WIDTH, HEIGHT), *PARITY_SIZES):
         rr = r if (w, h) == (WIDTH, HEIGHT) else Renderer(scene, RendererConfig(width=w, height=h))
         cases[f"window {w}x{h}"] = (rr._frame_fn("frame"), rr.scene, *rr.frame_uniforms(cam))
+    for th, tw in SANITIZE_TILES:
+        rt = Renderer(scene, RendererConfig(width=WIDTH, height=HEIGHT, tile_h=th, tile_w=tw))
+        cases[f"window {WIDTH}x{HEIGHT} at {th}x{tw} tiles"] = (rt._frame_fn("frame"), rt.scene,
+                                                                *rt.frame_uniforms(cam))
     for n in SLABS["window"]:
         cases[f"{n}-slab frame"] = (make_sharded_renderer(r.scene, r.config, n, WIDTH, HEIGHT), r.scene, vp, cp)
     rs = Renderer(scene, RendererConfig(width=WIDTH, height=HEIGHT, binning="scan"))
@@ -2013,6 +2339,7 @@ def main() -> None:
     ap.add_argument("--multi-device", action="store_true",
                     help="run only the multi_device phase (for a machine with several cards)")
     ap.add_argument("--named-scenes", action="store_true", help="run only the named_scenes phase")
+    ap.add_argument("--config-matrix", action="store_true", help="run only kernel_phases and config_matrix")
     args = ap.parse_args()
     t_run = time.perf_counter()
 
@@ -2037,7 +2364,7 @@ def main() -> None:
         if any(k in line for k in ("entry function", "registers", "spill", "error")):
             print("  nvcc:", line.strip())
     _build.library()
-    for name in ("plan", "sample", "vmem_take"):
+    for name in ("raster", "plan", "plan_large", "sample", "vmem_take"):
         regs, blocks = _build.kernel_info(name)
         print(f"{name} kernel: {regs} registers per thread, {blocks} resident blocks per SM")
 
@@ -2059,6 +2386,9 @@ def main() -> None:
         multi_device({"window": r, "deferred": deferred}, cams[0], card)
         return
     stats = kernel_phases(r, cams[0], card)
+    config_matrix(scene, cams[0], card, args.seed)
+    if args.config_matrix:
+        return
     stats.update(probe_phases(torch.device("cuda"), card))
     window_stages = stage_breakdown(r, cams[0])
     window_ops = stage_device_ops(r, cams[0])

@@ -31,6 +31,9 @@ and warp-synchronous code that leans on lockstep. The ASan shapes:
     resolve at the slab's row offset;
   * the plan kernel's tile of 24 windows, and a NaN and an infinity under
     a matched pixel;
+  * tiles past 4096 px: raster and plan at 16x1024 on the 256x128 frame
+    and at 64x128 on the 130x49 frame (the raster's sub-rectangle units,
+    the plan's groups of 4096 px and their scratch planes, exact-size);
   * vmem_take at an odd row count, with indices outside the table, and on
     an index array off the 16-byte grid;
   * plane_scale off the 16-byte grid in its three launch geometries
@@ -48,9 +51,9 @@ short must abort with ASan's heap-buffer-overflow, and a small kernel that
 reads its neighbour's shared word without a barrier must end with
 ThreadSanitizer's data race.
 
-Time on one worker: about 35 s (the two builds side by side, then the
-four subprocesses side by side: the ThreadSanitizer cases take about 33 s,
-the ASan cases about 20 s, the planted ones about 5 s each).
+Time on one worker: about 50 s (the two builds side by side, then the
+four subprocesses side by side: the ThreadSanitizer cases take about 45 s,
+the ASan cases about 30 s, the planted ones about 5 s each).
 
 Run the cases by hand: python tests/test_torch_memsafety.py LIB OUT.json
 CASE... with LD_PRELOAD=$(g++ -print-file-name=libasan.so) (or libtsan.so
@@ -95,6 +98,10 @@ SCENE = dict(floor_quads=32, spheres=2, rings=12, segments=12, tex_size=64, n_te
 SIZES = {"grid": (256, 128), "off_grid": (130, 49)}
 CAMERA = 2  # of orbit_track(8): at 130x49 faces reach into the padded tile column and row
 SLABS = {"slab_middle": (1, 2), "slab_below_the_frame": (4, 2)}  # (first tile row, tile rows) of the 4-row frame
+# Tile shapes past the kernels' 4096-px units, at a size: the raster
+# kernel's sub-rectangle units (16x1024: 4 of 16x256; 64x128: 2 of 32x128)
+# and the plan kernel's groups of 4096 px with their scratch planes.
+LARGE_TILES = (("16x1024", "grid"), ("64x128", "off_grid"))
 CASES = (
     [f"{k}_{s}" for s in SIZES for k in ("raster", "resolve", "plan", "sample")]
     + [f"{k}_{s}" for s in SLABS for k in ("raster", "resolve")]
@@ -102,13 +109,16 @@ CASES = (
     + ["vmem_take_odd_rows", "vmem_take_outside_the_table", "vmem_take_unaligned_idx"]
     + ["plane_scale_tile_grid", "plane_scale_one_plane", "plane_scale_row_band"]
     + ["zstd_corrupt_and_truncated_frames"]
+    + [f"{k}_{t}_{s}" for t, s in LARGE_TILES for k in ("raster", "plan")]
 )
 ZSTD_SRC = pathlib.Path(__file__).resolve().parent.parent / "tpurast_torch" / "native" / "zstd.cpp"
 # The cases under ThreadSanitizer: each kernel once; the plan (with raster
 # the only kernel that shares memory between threads) on its 24-window tile,
-# its most greedy rounds. All 21 cases take about 80 s under it.
+# its most greedy rounds; both again at 64x128 off the tile grid, where
+# the raster's units cover sub-rectangles and the plan's block-wide minima
+# and plan words run over groups of 4096 px.
 RACE_CASES = ["raster_grid", "resolve_grid", "sample_grid", "plan_24_windows", "vmem_take_odd_rows",
-              "plane_scale_tile_grid"]
+              "plane_scale_tile_grid", "raster_64x128_off_grid", "plan_64x128_off_grid"]
 PLANTED = "raster_output_one_tile_row_short"
 PLANTED_RACE = "planted_race"
 # A block whose threads read their neighbour's shared-memory word without
@@ -242,11 +252,12 @@ class Cases:
 
     # -- a frame's inputs, through the plain versions
 
-    def frame_inputs(self, size: str) -> dict:
-        """The frame's setup and bins."""
-        if size not in self._frames:
+    def frame_inputs(self, size: str, tile: str = "32x128") -> dict:
+        """The frame's setup and bins at a tile shape ("HxW")."""
+        if (size, tile) not in self._frames:
             w, h = SIZES[size]
-            r = Renderer(self.scene, RendererConfig(width=w, height=h), device="cpu")
+            th, tw = map(int, tile.split("x"))
+            r = Renderer(self.scene, RendererConfig(width=w, height=h, tile_h=th, tile_w=tw), device="cpu")
             kw, sc = r._frame_kwargs, r.scene
             vp, cp = r.frame_uniforms(orbit_track(8)[CAMERA])
             so = geometry.triangle_setup(geometry.transform_corners(sc["corner_world"], vp), None, sc["n_faces"],
@@ -256,14 +267,14 @@ class Cases:
             light = dict(light_direction=kw["light_direction"], light_color=kw["light_color"],
                          ambient_amount=kw["ambient_amount"], specular_power=kw["specular_power"],
                          clear_color=kw["clear_color"], blend=kw["blend"])
-            self._frames[size] = dict(kw=kw, sc=sc, cp=cp, so=so, bins=bins, tiles=tiles, ma=kw["max_anisotropy"],
-                                      light=light)
-        return self._frames[size]
+            self._frames[size, tile] = dict(kw=kw, sc=sc, cp=cp, so=so, bins=bins, tiles=tiles,
+                                            ma=kw["max_anisotropy"], light=light)
+        return self._frames[size, tile]
 
-    def frame(self, size: str) -> dict:
+    def frame(self, size: str, tile: str = "32x128") -> dict:
         """frame_inputs and the plain versions' face ids, attributes and
         G-buffer."""
-        f = self.frame_inputs(size)
+        f = self.frame_inputs(size, tile)
         if "g" not in f:
             so, sc = f["so"], f["sc"]
             f["vis"] = raster.rasterize_tiles_plain(so["setup"], so["aabb"], f["bins"]["pair_faces"],
@@ -281,7 +292,7 @@ class Cases:
         takes that many rows off the output's allocation (the planted
         case)."""
         hp, wp = tiles["tiles_y"] * tiles["tile_h"], tiles["tiles_x"] * tiles["tile_w"]
-        keys, work, out = raster.kernel_buffers(hp, wp, tiles["tiles_x"] * tiles["tiles_y"],
+        keys, work, out = raster.kernel_buffers(tiles["tile_h"], tiles["tile_w"], tiles["tiles_x"], tiles["tiles_y"],
                                                 bins["pair_faces"].numel(), torch.device("cpu"))
         if short_rows:
             out = torch.empty(2 * hp * wp - short_rows * wp)
@@ -305,9 +316,10 @@ class Cases:
         table = torch.empty((tiles["tiles_x"] * tiles["tiles_y"], 8, 128), dtype=torch.int32)
         assign = torch.empty((2,) + tuple(g.shape[1:]))
         residual_px = torch.zeros((), dtype=torch.int32)
+        scratch = sampler.plan_scratch(tiles["tile_h"], tiles["tile_w"], g.shape[1], g.shape[2], "cpu")
         err = self.lib.tr_plan(g.data_ptr(), tiles["tiles_x"], tiles["tiles_y"], tiles["tile_h"], tiles["tile_w"],
                                sampler.rc_for(tiles["tile_h"]), max_anisotropy, table.data_ptr(), assign.data_ptr(),
-                               residual_px.data_ptr(), None)
+                               residual_px.data_ptr(), None if scratch is None else scratch.data_ptr(), None)
         assert err == 0
         return table, assign, int(residual_px)
 
@@ -321,8 +333,8 @@ class Cases:
 
     # -- the cases
 
-    def raster(self, size):
-        f = self.frame(size)
+    def raster(self, size, tile="32x128"):
+        f = self.frame(size, tile)
         out = self.emu_raster(f["so"], f["bins"], f["tiles"], f["kw"]["clear_depth"])
         assert torch.equal(out, f["vis"])
         w, h = SIZES[size]
@@ -334,8 +346,8 @@ class Cases:
         f = self.frame(size)
         assert_resolve_close(self.emu_resolve(f["vis"], f["attrs"], max_anisotropy=f["ma"]), f["g"], f["vis"][1] >= 0)
 
-    def plan(self, size):
-        f = self.frame(size)
+    def plan(self, size, tile="32x128"):
+        f = self.frame(size, tile)
         plan = self.check_plan(f["g"], f["tiles"], f["ma"])
         assert int((plan["cls"] == sampler.CLS_WINDOWED).sum()) >= (4 if size == "grid" else 1)
 
@@ -455,6 +467,9 @@ class Cases:
             for s in SLABS:
                 if case == f"{k}_{s}":
                     return self.slab(s, k)
+            for t, s in LARGE_TILES:
+                if case == f"{k}_{t}_{s}":
+                    return getattr(self, k)(s, t)
         table = {
             "plan_24_windows": self.plan_24_windows,
             "plan_nan_under_a_matched_pixel": lambda: self.plan_poisoned((6, 7, 14, 15, 17), "nan"),

@@ -75,6 +75,18 @@ __device__ __forceinline__ int warp_add_i(int v) {
 #endif
 }
 
+// The lanes of the calling warp whose pred holds, as bits (bit i: lane i).
+// All 32 lanes must call. vote.sync on the card; in the host emulation the
+// warp's threads meet at their own barrier (host_emu.h).
+__device__ __forceinline__ unsigned warp_ballot(bool pred) {
+#ifdef TR_HOST_EMU
+  return (unsigned)tr_emu_warp_reduce(pred ? (int)(1u << (tr_emu_tid - tr_emu_warp_base)) : 0,
+                                      [](int a, int b) { return a | b; });
+#else
+  return __ballot_sync(0xffffffffu, pred);
+#endif
+}
+
 // 8-byte load through the read-only data path (ld.global.nc); p is 8-byte
 // aligned.
 __device__ __forceinline__ uint2 ldg_u2(const uint2* p) {

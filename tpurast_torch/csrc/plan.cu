@@ -4,10 +4,16 @@
 // plan_tiles). Plain torch version:
 // tpurast_torch/kernels/sampler.py::plan_tiles_plain.
 //
-// One block per framebuffer tile, 1024 threads x 4 pixels (tiles of at most
-// 4096 px). Each pixel's page-coordinate anchor range (bilinear texel plus
-// the probe train's extremes, own and parent mip) is computed once, in the
-// reference's f32 arithmetic, and held in registers as integers. A greedy
+// One block per framebuffer tile, 1024 threads x 4 pixels. Each pixel's
+// page-coordinate anchor range (bilinear texel plus the probe train's
+// extremes, own and parent mip) is computed once, in the reference's f32
+// arithmetic, and held in registers as integers. A tile of more than 4096
+// px (plan_kernel<true>) goes over its pixels in groups of 4096 at every
+// step instead, each pixel's anchors, slots and flags written once to a
+// global scratch buffer and read back by the thread that owns the pixel:
+// the same covering and the same block-wide minima, so the same table and
+// assignment, at the cost of two passes over the tile's scratch a round
+// (the shipped 4096-px instantiation keeps everything in registers). A greedy
 // banded covering then places up to K2 = 32 windows of WH x WW texels: each
 // round seeds at the smallest uncovered anchor row, opens an ALIGN_Y-aligned
 // band there, takes the smallest anchor column inside the band, and assigns
@@ -31,7 +37,10 @@
 // lane merges them into shared memory with atomicMin / atomicMax, which are
 // order-free, so the table is deterministic. Plane 16 is read first and a
 // tile without a matched pixel leaves after one barrier. 64 registers a
-// thread keep the 1024-thread block resident on an SM.
+// thread keep the 1024-thread block resident on an SM. The large path is
+// latency-bound too, and more so: each round reads its groups' flags and
+// anchors from L2 twice (the groups where the thread has nothing left to
+// assign are skipped), so a large tile costs more per pixel.
 //
 // Integers are exact here: a role that can be assigned (it fits a window)
 // has anchors that are either small integral floats (a wrapped texel below
@@ -44,12 +53,15 @@
 // integers, both versions here make the whole tile RESIDUAL with no window
 // and no assignment, and a NaN probe count counts as 1 in the chunk's lane.
 
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
 
 constexpr int kThreads = 1024;
 constexpr int kPPT = 4;  // pixels per thread
+constexpr int kGroupPx = kThreads * kPPT;  // pixels a block holds in registers at once
 constexpr int kWarps = kThreads / 32;
 constexpr int kWH = 96, kWW = 384, kAlignY = 8, kAlignX = 128;
 constexpr int kK2 = 32, kYB = 48, kXB = 128, kNXB = kWW / kXB;
@@ -118,10 +130,75 @@ __device__ __forceinline__ int own_slot(int packed) { return (packed & 0xFF) - 1
 __device__ __forceinline__ int par_slot(int packed) { return ((packed >> 8) & 0xFF) - 1; }
 __device__ __forceinline__ int probes(int packed) { return packed >> 16; }
 
+// A thread's pixels of one group of kGroupPx: pixel q = group * kGroupPx +
+// tid + k * kThreads of the tile (row-major), k < kPPT.
+struct Group {
+  int pix[kPPT];      // offset in a plane (tr_plan refuses planes of 2^31 pixels or more)
+  int anch[kPPT][8];  // own y lo, y hi, x lo, x hi; parent the same
+  int slots[kPPT];    // own slot + 1 | (parent slot + 1) << 8 | probe count << 16
+  unsigned matched, todo_o, todo_p, share;  // bit k: pixel k
+};
+
+// Large tiles: a group's state in the scratch planes (anchors 0-7, slots 8,
+// flags 9: matched, todo_o, todo_p, share), written for every pixel of the
+// tile by the anchor pass and then by the rounds that assign its roles.
+// Each pixel is read and written by the one thread that owns it, so no
+// barrier guards them. A pass loads only the planes it reads (kPlanes, bit
+// i: plane i), all at once, whatever the flags say.
+constexpr int kFlagMatched = 1, kFlagTodoO = 2, kFlagTodoP = 4, kFlagShare = 8;
+constexpr unsigned kSlotsPlane = 1u << 8, kAllPlanes = 0x1FFu;
+
+template <unsigned kPlanes>
+__device__ __forceinline__ void load_group(Group& s, const int* __restrict__ scratch, long long plane, int base,
+                                           int tpx) {
+  int f[kPPT];
+#pragma unroll
+  for (int k = 0; k < kPPT; ++k) {
+    const bool in = base + k * kThreads < tpx;
+    f[k] = in ? scratch[9 * plane + s.pix[k]] : 0;
+    s.slots[k] = (kPlanes & kSlotsPlane) && in ? scratch[8 * plane + s.pix[k]] : 1 << 16;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      if (kPlanes >> i & 1) s.anch[k][i] = in ? scratch[i * plane + s.pix[k]] : 0;
+    }
+  }
+  s.matched = s.todo_o = s.todo_p = s.share = 0;
+#pragma unroll
+  for (int k = 0; k < kPPT; ++k) {
+    if (f[k] & kFlagMatched) s.matched |= 1u << k;
+    if (f[k] & kFlagTodoO) s.todo_o |= 1u << k;
+    if (f[k] & kFlagTodoP) s.todo_p |= 1u << k;
+    if (f[k] & kFlagShare) s.share |= 1u << k;
+  }
+}
+
+// The group's planes of kPlanes and its flags, for its pixels in the tile.
+template <unsigned kPlanes>
+__device__ __forceinline__ void store_group(const Group& s, int* __restrict__ scratch, long long plane, int base,
+                                            int tpx) {
+#pragma unroll
+  for (int k = 0; k < kPPT; ++k) {
+    if (base + k * kThreads >= tpx) continue;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      if (kPlanes >> i & 1) scratch[i * plane + s.pix[k]] = s.anch[k][i];
+    }
+    if (kPlanes & kSlotsPlane) scratch[8 * plane + s.pix[k]] = s.slots[k];
+    scratch[9 * plane + s.pix[k]] = (s.matched >> k & 1 ? kFlagMatched : 0) | (s.todo_o >> k & 1 ? kFlagTodoO : 0) |
+                                    (s.todo_p >> k & 1 ? kFlagTodoP : 0) | (s.share >> k & 1 ? kFlagShare : 0);
+  }
+}
+
+// One block per tile. kLarge = false: tiles of at most kGroupPx pixels, the
+// state in registers (one group). kLarge = true: any tile, the pixels in
+// groups of kGroupPx whose state lives in scratch between passes; every
+// block-wide minimum runs over all groups, so the covering, the plan words
+// and the assignment are the small path's.
+template <bool kLarge>
 __global__ void __launch_bounds__(kThreads, 1)
     plan_kernel(const float* __restrict__ gbuf, int tiles_x, int tiles_y, int tile_h, int tile_w, int rc,
                 int max_anisotropy, int* __restrict__ table, float* __restrict__ assign,
-                int* __restrict__ residual_px) {
+                int* __restrict__ residual_px, int* __restrict__ scratch) {
   __shared__ int part[2][kWarps];
   __shared__ __align__(16) int rows[kRows * kLanes];
   __shared__ int words[kMaxChunks * kK2][5];  // per (chunk, slot): y lo, y hi, x lo, x hi, probes
@@ -136,6 +213,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int y0 = (t / tiles_x) * tile_h, x0 = (t % tiles_x) * tile_w;
   const int nc = tile_h / rc;
   const int cpx = rc * tile_w;
+  const int n_groups = kLarge ? (tpx + kGroupPx - 1) / kGroupPx : 1;
 
   rows[tid] = 0;
   if (tid < kMaxChunks * kK2) {
@@ -148,165 +226,250 @@ __global__ void __launch_bounds__(kThreads, 1)
   if (tid < kMaxChunks) chunk_np[tid] = 1;
   if (tid == 0) n_matched = 0;
 
-  int pix[kPPT];  // offset in a plane (tr_plan refuses planes of 2^31 pixels or more)
-  unsigned matched = 0;
+  Group s;
+  // Pixel offsets of group grp; the small path computes them once.
+  auto locate = [&](int grp) {
 #pragma unroll
-  for (int k = 0; k < kPPT; ++k) {
-    const int q = tid + k * kThreads;
-    pix[k] = (y0 + q / tile_w) * wp + x0 + q % tile_w;
-    if (q < tpx && gbuf[16 * plane + pix[k]] > 0.0f) matched |= 1u << k;
-  }
+    for (int k = 0; k < kPPT; ++k) {
+      const int q = grp * kGroupPx + tid + k * kThreads;
+      s.pix[k] = (y0 + q / tile_w) * wp + x0 + q % tile_w;
+    }
+  };
+  auto match = [&](int grp) {
+    s.matched = 0;
+#pragma unroll
+    for (int k = 0; k < kPPT; ++k) {
+      if (grp * kGroupPx + tid + k * kThreads < tpx && gbuf[16 * plane + s.pix[k]] > 0.0f) s.matched |= 1u << k;
+    }
+  };
+  // A group's planes kPlanes from scratch (the large path; the small one
+  // holds its only group in registers).
+  auto load = [&](int grp, auto planes) {
+    if (kLarge) {
+      locate(grp);
+      load_group<decltype(planes)::value>(s, scratch, plane, grp * kGroupPx + tid, tpx);
+    }
+  };
+  using RoundB = std::integral_constant<unsigned, 0x66u>;   // y hi, x lo (own and parent)
+  using RoundC = std::integral_constant<unsigned, 0x1BBu>;  // y lo, y hi, x hi, slots
+  using Words = std::integral_constant<unsigned, kAllPlanes>;
 
-  int slots[kPPT];  // own slot + 1 | (parent slot + 1) << 8 | probe count << 16
+  unsigned any_matched = 0;
+  for (int grp = 0; grp < n_groups; ++grp) {
+    locate(grp);
+    match(grp);
+    any_matched |= s.matched;
+  }
 #pragma unroll
-  for (int k = 0; k < kPPT; ++k) slots[k] = 1 << 16;
+  for (int k = 0; k < kPPT; ++k) s.slots[k] = 1 << 16;
   int n_used = 0;
   int cls = kClsEmpty;
 
-  if (__syncthreads_or(matched)) {  // else an empty tile: the table and assignment below are all it needs
-    int anch[kPPT][8];  // own y lo, y hi, x lo, x hi; parent the same
-    unsigned todo_o = 0, todo_p = 0, share = 0;
-    bool leftover = false, poison = false;
+  if (__syncthreads_or(any_matched)) {  // else an empty tile: the table and assignment below are all it needs
+    bool leftover = false, poison = false, pending = false;
+    int matched_px = 0;
+    // Large path: the groups below 64 where this thread still has roles to
+    // assign (the rounds pass over no other); later groups always.
+    unsigned long long live = 0;
+    auto skip = [&](int grp) { return kLarge && grp < 64 && !(live >> grp & 1); };
+    // Large path: the smallest row anchor still to assign, found by the
+    // pass before each round (the anchor pass, then each round's
+    // assignment pass), so a round makes two passes over the groups.
+    int m_next = kNone;
+    auto fold_next = [&]() {
 #pragma unroll
-    for (int k = 0; k < kPPT; ++k) {
-#pragma unroll
-      for (int i = 0; i < 8; ++i) anch[k][i] = 0;
-      if (!(matched >> k & 1)) continue;
-      const float* g = gbuf + pix[k];
-      const float u = g[6 * plane], v = g[7 * plane];
-      const float tw0 = g[9 * plane], th0 = g[10 * plane], tw1 = g[11 * plane], th1 = g[12 * plane];
-      const float maj_du = g[14 * plane], maj_dv = g[15 * plane], span = g[17 * plane];
-      float n_px = 1.0f;
-      if (max_anisotropy > 1) {
-        // shade.probe_count
-        const float ext = max_nan(fabsf(maj_du) * tw0, fabsf(maj_dv) * th0) * span;
-        n_px = min_nan(max_nan(ceilf(ext - 1e-4f), 1.0f), (float)max_anisotropy);
+      for (int k = 0; k < kPPT; ++k) {
+        if (s.todo_o >> k & 1) m_next = min(m_next, s.anch[k][0]);
+        if (s.todo_p >> k & 1) m_next = min(m_next, s.anch[k][4]);
       }
-      slots[k] = (n_px == n_px ? (int)n_px : 1) << 16;
-      const float fo_ext = (0.5f - 0.5f / n_px) * span;
-      const float du_ext = fabsf(maj_du) * fo_ext;
-      const float dv_ext = fabsf(maj_dv) * fo_ext;
-      float a[8];
-      anchor(v, th0, dv_ext, 87.0f, &a[0], &a[1]);   // Y_WRAP_LIM
-      anchor(u, tw0, du_ext, 255.0f, &a[2], &a[3]);  // X_WRAP_LIM
-      anchor(v, th1, dv_ext, 87.0f, &a[4], &a[5]);
-      anchor(u, tw1, du_ext, 255.0f, &a[6], &a[7]);
-      const float by0 = g[20 * plane], bx0 = g[21 * plane], by1 = g[22 * plane], bx1 = g[23 * plane];
-      a[0] = a[0] + by0;
-      a[1] = a[1] + by0;
-      a[2] = a[2] + bx0;
-      a[3] = a[3] + bx0;
-      a[4] = a[4] + by1;
-      a[5] = a[5] + by1;
-      a[6] = a[6] + bx1;
-      a[7] = a[7] + bx1;
-      const bool unfit_o = (a[1] - a[0] > (float)(kWH - kAlignY - 2)) || (a[3] - a[2] > (float)(kWW - kAlignX - 2));
-      const bool unfit_p = (a[5] - a[4] > (float)(kWH - kAlignY - 2)) || (a[7] - a[6] > (float)(kWW - kAlignX - 2));
-      const bool nan_o = !finite4(a), nan_p = !finite4(a + 4);
-      leftover = leftover || unfit_o || unfit_p;
-      poison = poison || (!unfit_o && nan_o) || (!unfit_p && nan_p);
-      if (!unfit_o && !nan_o) {
-        todo_o |= 1u << k;
-#pragma unroll
-        for (int i = 0; i < 4; ++i) anch[k][i] = (int)a[i];
+    };
+    for (int grp = 0; grp < n_groups; ++grp) {
+      if (kLarge) {
+        locate(grp);
+        match(grp);
       }
-      if (!unfit_p && !nan_p) {
-        todo_p |= 1u << k;
+      s.todo_o = s.todo_p = s.share = 0;
 #pragma unroll
-        for (int i = 4; i < 8; ++i) anch[k][i] = (int)a[i];
+      for (int k = 0; k < kPPT; ++k) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) s.anch[k][i] = 0;
+        s.slots[k] = 1 << 16;
+        if (!(s.matched >> k & 1)) continue;
+        const float* g = gbuf + s.pix[k];
+        const float u = g[6 * plane], v = g[7 * plane];
+        const float tw0 = g[9 * plane], th0 = g[10 * plane], tw1 = g[11 * plane], th1 = g[12 * plane];
+        const float maj_du = g[14 * plane], maj_dv = g[15 * plane], span = g[17 * plane];
+        float n_px = 1.0f;
+        if (max_anisotropy > 1) {
+          // shade.probe_count
+          const float ext = max_nan(fabsf(maj_du) * tw0, fabsf(maj_dv) * th0) * span;
+          n_px = min_nan(max_nan(ceilf(ext - 1e-4f), 1.0f), (float)max_anisotropy);
+        }
+        s.slots[k] = (n_px == n_px ? (int)n_px : 1) << 16;
+        const float fo_ext = (0.5f - 0.5f / n_px) * span;
+        const float du_ext = fabsf(maj_du) * fo_ext;
+        const float dv_ext = fabsf(maj_dv) * fo_ext;
+        float a[8];
+        anchor(v, th0, dv_ext, 87.0f, &a[0], &a[1]);   // Y_WRAP_LIM
+        anchor(u, tw0, du_ext, 255.0f, &a[2], &a[3]);  // X_WRAP_LIM
+        anchor(v, th1, dv_ext, 87.0f, &a[4], &a[5]);
+        anchor(u, tw1, du_ext, 255.0f, &a[6], &a[7]);
+        const float by0 = g[20 * plane], bx0 = g[21 * plane], by1 = g[22 * plane], bx1 = g[23 * plane];
+        a[0] = a[0] + by0;
+        a[1] = a[1] + by0;
+        a[2] = a[2] + bx0;
+        a[3] = a[3] + bx0;
+        a[4] = a[4] + by1;
+        a[5] = a[5] + by1;
+        a[6] = a[6] + bx1;
+        a[7] = a[7] + bx1;
+        const bool unfit_o = (a[1] - a[0] > (float)(kWH - kAlignY - 2)) || (a[3] - a[2] > (float)(kWW - kAlignX - 2));
+        const bool unfit_p = (a[5] - a[4] > (float)(kWH - kAlignY - 2)) || (a[7] - a[6] > (float)(kWW - kAlignX - 2));
+        const bool nan_o = !finite4(a), nan_p = !finite4(a + 4);
+        leftover = leftover || unfit_o || unfit_p;
+        poison = poison || (!unfit_o && nan_o) || (!unfit_p && nan_p);
+        if (!unfit_o && !nan_o) {
+          s.todo_o |= 1u << k;
+#pragma unroll
+          for (int i = 0; i < 4; ++i) s.anch[k][i] = (int)a[i];
+        }
+        if (!unfit_p && !nan_p) {
+          s.todo_p |= 1u << k;
+#pragma unroll
+          for (int i = 4; i < 8; ++i) s.anch[k][i] = (int)a[i];
+        }
+        if (tw1 == tw0 && th1 == th0) s.share |= 1u << k;
       }
-      if (tw1 == tw0 && th1 == th0) share |= 1u << k;
+      matched_px += __popc(s.matched);
+      if (kLarge) {
+        store_group<kAllPlanes>(s, scratch, plane, grp * kGroupPx + tid, tpx);
+        if ((s.todo_o | s.todo_p) && grp < 64) live |= 1ull << grp;
+        fold_next();
+      }
     }
-    if (__syncthreads_or(poison)) {
-      todo_o = todo_p = 0;
+    // A poisoned tile plans no window: with nothing to do, the first
+    // round's minimum is kNone.
+    poison = __syncthreads_or(poison);
+    if (poison) {
+      s.todo_o = s.todo_p = 0;
       leftover = true;
     }
 
     // Greedy banded covering (sampler.py:286-341).
     int turn = 0;
-    for (int s = 0; s < kK2; ++s) {
+    for (int sl = 0; sl < kK2 && !(kLarge && poison); ++sl) {
       int m = kNone;
+      if (kLarge) {
+        m = m_next;
+      } else {
 #pragma unroll
-      for (int k = 0; k < kPPT; ++k) {
-        if (todo_o >> k & 1) m = min(m, anch[k][0]);
-        if (todo_p >> k & 1) m = min(m, anch[k][4]);
+        for (int k = 0; k < kPPT; ++k) {
+          if (s.todo_o >> k & 1) m = min(m, s.anch[k][0]);
+          if (s.todo_p >> k & 1) m = min(m, s.anch[k][4]);
+        }
       }
       const int ymin = block_min(m, part, turn);
       if (ymin == kNone) break;  // covered
       const int oy = ymin - floor_mod_i(ymin, kAlignY);
       const int lim_y = oy + (kWH - 2);
       unsigned band_o = 0, band_p = 0;
-      m = kNone;
+      auto band = [&]() {
+        band_o = band_p = 0;
 #pragma unroll
-      for (int k = 0; k < kPPT; ++k) {
-        if ((todo_o >> k & 1) && anch[k][1] < lim_y) {
-          band_o |= 1u << k;
-          m = min(m, anch[k][2]);
+        for (int k = 0; k < kPPT; ++k) {
+          if ((s.todo_o >> k & 1) && s.anch[k][1] < lim_y) band_o |= 1u << k;
+          if ((s.todo_p >> k & 1) && s.anch[k][5] < lim_y) band_p |= 1u << k;
         }
-        if ((todo_p >> k & 1) && anch[k][5] < lim_y) {
-          band_p |= 1u << k;
-          m = min(m, anch[k][6]);
+      };
+      m = kNone;
+      for (int grp = 0; grp < n_groups; ++grp) {
+        if (skip(grp)) continue;
+        load(grp, RoundB{});
+        band();
+#pragma unroll
+        for (int k = 0; k < kPPT; ++k) {
+          if (band_o >> k & 1) m = min(m, s.anch[k][2]);
+          if (band_p >> k & 1) m = min(m, s.anch[k][6]);
         }
       }
       const int xmin = block_min(m, part, turn);
       const int ox = xmin - floor_mod_i(xmin, kAlignX);
       const int lim_x = ox + (kWW - 2);
-#pragma unroll
-      for (int k = 0; k < kPPT; ++k) {
-        const bool win_o = (band_o >> k & 1) && anch[k][3] < lim_x;
-        const bool win_p = (band_p >> k & 1) && anch[k][7] < lim_x && (!win_o || (share >> k & 1));
-        if (win_o) {
-          slots[k] |= s + 1;
-          todo_o &= ~(1u << k);
+      pending = false;
+      m_next = kNone;
+      for (int grp = 0; grp < n_groups; ++grp) {
+        if (skip(grp)) continue;
+        if (kLarge) {
+          load(grp, RoundC{});
+          band();
         }
-        if (win_p) {
-          slots[k] |= (s + 1) << 8;
-          todo_p &= ~(1u << k);
+#pragma unroll
+        for (int k = 0; k < kPPT; ++k) {
+          const bool win_o = (band_o >> k & 1) && s.anch[k][3] < lim_x;
+          const bool win_p = (band_p >> k & 1) && s.anch[k][7] < lim_x && (!win_o || (s.share >> k & 1));
+          if (win_o) {
+            s.slots[k] |= sl + 1;
+            s.todo_o &= ~(1u << k);
+          }
+          if (win_p) {
+            s.slots[k] |= (sl + 1) << 8;
+            s.todo_p &= ~(1u << k);
+          }
+        }
+        pending = pending || s.todo_o || s.todo_p;
+        if (kLarge) fold_next();
+        if (kLarge && (band_o || band_p)) {
+          store_group<kSlotsPlane>(s, scratch, plane, grp * kGroupPx + tid, tpx);
+          if (!(s.todo_o | s.todo_p) && grp < 64) live &= ~(1ull << grp);
         }
       }
       if (tid == 0) {
-        sl_oy[s] = oy;
-        sl_ox[s] = ox;
+        sl_oy[sl] = oy;
+        sl_ox[sl] = ox;
       }
       ++n_used;
     }
+    if (!kLarge) pending = s.todo_o || s.todo_p;
     // Also publishes sl_oy / sl_ox and the initial words.
-    cls = __syncthreads_or(leftover || todo_o || todo_p) ? kClsResidual : kClsWindowed;
+    cls = __syncthreads_or(leftover || pending) ? kClsResidual : kClsWindowed;
     if (cls == kClsResidual) {
       // Integer sums: the frame's count does not depend on the order.
-      const int n = warp_add_i(__popc(matched));
+      const int n = warp_add_i(matched_px);
       if ((tid & 31) == 0) atomicAdd(&n_matched, n);
     }
 
     // Per (chunk, slot): the anchors' extremes and the worst probe count
     // over the roles assigned to the slot (sampler.py:362-445), and per
     // chunk the worst probe count of its matched pixels.
+    for (int grp = 0; grp < n_groups; ++grp) {
+      load(grp, Words{});
 #pragma unroll
-    for (int k = 0; k < kPPT; ++k) {
-      const int q = tid + k * kThreads;
-      const int ci = q / cpx;
-      const int np = probes(slots[k]);
-      warp_by_key((matched >> k & 1) ? ci : -1, [&](int chunk, bool mine) {
-        const int worst = warp_max_i(mine ? np : 1);
-        if ((tid & 31) == 0) atomicMax(&chunk_np[chunk], worst);
-      });
-#pragma unroll
-      for (int role = 0; role < 2; ++role) {
-        const int slot = role == 0 ? own_slot(slots[k]) : par_slot(slots[k]);
-        const int a0 = anch[k][4 * role], a1 = anch[k][4 * role + 1];
-        const int a2 = anch[k][4 * role + 2], a3 = anch[k][4 * role + 3];
-        warp_by_key(slot >= 0 ? ci * kK2 + slot : -1, [&](int word, bool mine) {
-          const int ylo = warp_min_i(mine ? a0 : kNone), yhi = warp_max_i(mine ? a1 : -kNone);
-          const int xlo = warp_min_i(mine ? a2 : kNone), xhi = warp_max_i(mine ? a3 : -kNone);
-          const int worst = warp_max_i(mine ? np : 0);
-          if ((tid & 31) == 0) {
-            atomicMin(&words[word][0], ylo);
-            atomicMax(&words[word][1], yhi);
-            atomicMin(&words[word][2], xlo);
-            atomicMax(&words[word][3], xhi);
-            atomicMax(&words[word][4], worst);
-          }
+      for (int k = 0; k < kPPT; ++k) {
+        const int q = grp * kGroupPx + tid + k * kThreads;
+        const int ci = q / cpx;
+        const int np = probes(s.slots[k]);
+        warp_by_key((s.matched >> k & 1) ? ci : -1, [&](int chunk, bool mine) {
+          const int worst = warp_max_i(mine ? np : 1);
+          if ((tid & 31) == 0) atomicMax(&chunk_np[chunk], worst);
         });
+#pragma unroll
+        for (int role = 0; role < 2; ++role) {
+          const int slot = role == 0 ? own_slot(s.slots[k]) : par_slot(s.slots[k]);
+          const int a0 = s.anch[k][4 * role], a1 = s.anch[k][4 * role + 1];
+          const int a2 = s.anch[k][4 * role + 2], a3 = s.anch[k][4 * role + 3];
+          warp_by_key(slot >= 0 ? ci * kK2 + slot : -1, [&](int word, bool mine) {
+            const int ylo = warp_min_i(mine ? a0 : kNone), yhi = warp_max_i(mine ? a1 : -kNone);
+            const int xlo = warp_min_i(mine ? a2 : kNone), xhi = warp_max_i(mine ? a3 : -kNone);
+            const int worst = warp_max_i(mine ? np : 0);
+            if ((tid & 31) == 0) {
+              atomicMin(&words[word][0], ylo);
+              atomicMax(&words[word][1], yhi);
+              atomicMin(&words[word][2], xlo);
+              atomicMax(&words[word][3], xhi);
+              atomicMax(&words[word][4], worst);
+            }
+          });
+        }
       }
     }
     __syncthreads();
@@ -339,33 +502,55 @@ __global__ void __launch_bounds__(kThreads, 1)
   __syncthreads();
   if (tid < kRows * kLanes / 4)
     reinterpret_cast<int4*>(table + (long long)t * kRows * kLanes)[tid] = reinterpret_cast<const int4*>(rows)[tid];
+  for (int grp = 0; grp < n_groups; ++grp) {
+    if (kLarge) {
+      locate(grp);
+      if (cls != kClsEmpty) load_group<kSlotsPlane>(s, scratch, plane, grp * kGroupPx + tid, tpx);
+    }
 #pragma unroll
-  for (int k = 0; k < kPPT; ++k) {
-    if (tid + k * kThreads >= tpx) continue;
-    assign[pix[k]] = (float)own_slot(slots[k]);
-    assign[plane + pix[k]] = (float)par_slot(slots[k]);
+    for (int k = 0; k < kPPT; ++k) {
+      if (grp * kGroupPx + tid + k * kThreads >= tpx) continue;
+      assign[s.pix[k]] = (float)own_slot(s.slots[k]);
+      assign[plane + s.pix[k]] = (float)par_slot(s.slots[k]);
+    }
   }
 }
 
 }  // namespace
 
+// scratch: 10 (Hp, Wp) int planes for tiles of more than kGroupPx pixels
+// (kernels/sampler.py plan_scratch), else unused (may be null).
 extern "C" int tr_plan(const float* gbuf, int tiles_x, int tiles_y, int tile_h, int tile_w, int rc,
-                       int max_anisotropy, int* table, float* assign, int* residual_px, void* stream) {
-  if (tile_h * tile_w > kThreads * kPPT || tile_h % rc != 0 || tile_h / rc > kMaxChunks ||
-      (long long)tiles_x * tile_w * tiles_y * tile_h > kNone)
+                       int max_anisotropy, int* table, float* assign, int* residual_px, int* scratch, void* stream) {
+  const bool large = tile_h * tile_w > kGroupPx;
+  if (tile_h < 1 || tile_w < 1 || rc < 1 || tile_h % rc != 0 || tile_h / rc > kMaxChunks ||
+      (long long)tiles_x * tile_w * tiles_y * tile_h > kNone || (large && scratch == nullptr))
     return (int)cudaErrorInvalidValue;
-  TR_LAUNCH(plan_kernel, tiles_x * tiles_y, kThreads, stream, gbuf, tiles_x, tiles_y, tile_h, tile_w, rc,
-            max_anisotropy, table, assign, residual_px);
+  if (large) {
+    TR_LAUNCH(plan_kernel<true>, tiles_x * tiles_y, kThreads, stream, gbuf, tiles_x, tiles_y, tile_h, tile_w, rc,
+              max_anisotropy, table, assign, residual_px, scratch);
+  } else {
+    TR_LAUNCH(plan_kernel<false>, tiles_x * tiles_y, kThreads, stream, gbuf, tiles_x, tiles_y, tile_h, tile_w, rc,
+              max_anisotropy, table, assign, residual_px, scratch);
+  }
   return (int)cudaGetLastError();
 }
 
 #ifndef TR_HOST_EMU
-// The plan kernel's registers per thread and resident blocks per SM.
-extern "C" int tr_plan_info(int* registers, int* blocks_per_sm) {
+// The plan kernel's registers per thread and resident blocks per SM (the
+// path of tiles of at most kGroupPx pixels; tr_plan_large_info: the other).
+template <bool kLarge>
+int plan_info(int* registers, int* blocks_per_sm) {
   cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, plan_kernel);
+  cudaError_t err = cudaFuncGetAttributes(&attr, plan_kernel<kLarge>);
   if (err != cudaSuccess) return (int)err;
   *registers = attr.numRegs;
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, plan_kernel, kThreads, 0);
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, plan_kernel<kLarge>, kThreads, 0);
+}
+
+extern "C" int tr_plan_info(int* registers, int* blocks_per_sm) { return plan_info<false>(registers, blocks_per_sm); }
+
+extern "C" int tr_plan_large_info(int* registers, int* blocks_per_sm) {
+  return plan_info<true>(registers, blocks_per_sm);
 }
 #endif

@@ -55,11 +55,15 @@ _L = ctypes.c_longlong
 SIGNATURES = {
     "tr_raster": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P, _P, _I, _P, _P],
     "tr_resolve": [_P, _P, _I, _I, _I, _I, _I, _P, _P],
-    "tr_plan": [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
+    "tr_plan": [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     "tr_sample": [_P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
     "tr_plane_scale": [_P, _I, _I, _I, _I, _I, _I, _P, _P],
     "tr_vmem_take": [_P, _I, _P, _L, _P, _P],
 }
+
+
+# Kernels with a tr_<name>_info entry point (registers, blocks per SM).
+INFO = ("tr_raster_info", "tr_plan_info", "tr_plan_large_info", "tr_sample_info", "tr_vmem_take_info")
 
 
 def nvcc_path() -> str:
@@ -125,7 +129,7 @@ def library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-    for name in ("tr_plan_info", "tr_sample_info", "tr_vmem_take_info"):
+    for name in INFO:
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
         fn.restype = ctypes.c_int
@@ -135,8 +139,9 @@ def library() -> ctypes.CDLL:
 
 
 def kernel_info(name: str) -> tuple[int, int]:
-    """(registers per thread, resident blocks per SM) of the "plan",
-    "sample" or "vmem_take" kernel as built, from the CUDA runtime."""
+    """(registers per thread, resident blocks per SM) of a kernel of INFO
+    ("raster", "plan", "plan_large", "sample", "vmem_take") as built, from
+    the CUDA runtime."""
     regs, blocks = ctypes.c_int(), ctypes.c_int()
     err = getattr(library(), f"tr_{name}_info")(ctypes.byref(regs), ctypes.byref(blocks))
     if err != 0:

@@ -38,10 +38,14 @@ from tpurast_torch import kernels as _k
 from tpurast_torch.kernels import _build
 from tpurast_torch.kernels import geometry as _g
 
-# Pairs evaluated per step of the plain version (times tile pixels each).
-PLAIN_PAIR_CHUNK = 2048
-# Pixels of a tile's key buffer in a raster block's shared memory (csrc/raster.cu).
-MAX_TILE_PX = 4096
+# (pair, pixel) evaluations per step of the plain version: 2048 pairs of a
+# 4096-px tile, fewer pairs of a larger tile.
+PLAIN_STEP_EVALS = 2048 * 4096
+# Pixels of a raster work unit's key buffer in a block's shared memory, and
+# the sub-rectangle a taller tile is cut into (csrc/raster.cu kMaxTilePx,
+# kSubW x kSubH).
+MAX_UNIT_PX = 4096
+SUB_W, SUB_H = 128, 32
 # Pairs per raster work unit (csrc/raster.cu kChunk).
 UNIT_PAIRS = 128
 
@@ -112,8 +116,9 @@ def rasterize_tiles_plain(setup, aabb, pair_faces, offsets, *, tile_h, tile_w, t
     loc_x = (lin % tile_w)[None, :]
     loc_y = (lin // tile_w)[None, :]
     pair_tile = torch.searchsorted(offsets[1:].long(), torch.arange(n_pairs, device=dev), right=True)
-    for s in range(0, n_pairs, PLAIN_PAIR_CHUNK):
-        e = min(s + PLAIN_PAIR_CHUNK, n_pairs)
+    step = max(1, PLAIN_STEP_EVALS // (tile_h * tile_w))
+    for s in range(0, n_pairs, step):
+        e = min(s + step, n_pairs)
         tiles = pair_tile[s:e][:, None]
         faces = pair_faces[s:e].long()
         gx = (tiles % tiles_x) * tile_w + loc_x  # (N, P) pixel x
@@ -130,14 +135,34 @@ def rasterize_tiles_plain(setup, aabb, pair_faces, offsets, *, tile_h, tile_w, t
     return torch.stack([depth, fid]).reshape(2, hp, wp)
 
 
-def kernel_buffers(hp: int, wp: int, n_tiles: int, slots: int, device) -> tuple[torch.Tensor, ...]:
-    """The raster kernel's scratch and output for an Hp x Wp frame of
-    n_tiles tiles and a pair list of slots entries: the frame's 64-bit key
-    buffer, the unit table (each tile's first unit, the unit count and
-    counter, each unit's tile), sized by the pair list's length so that the
-    host never reads a count, and the (2, Hp, Wp) output."""
+def tile_subs(tile_h: int, tile_w: int) -> tuple[int, int, int, int]:
+    """(w, h, nx, ny): the sub-rectangles of at most MAX_UNIT_PX pixels that
+    the raster kernel cuts a tile into (csrc/raster.cu tile_subs), nx x ny
+    of w x h pixels, the last column and row of them narrower or shorter.
+    A tile of at most MAX_UNIT_PX pixels is one; a larger tile is cut into
+    the tile's rows over as many whole SUB_W-column strips as fit, or
+    SUB_W x SUB_H where not even one fits (tiles taller than SUB_H rows)."""
+    if tile_h * tile_w <= MAX_UNIT_PX:
+        w, h = tile_w, tile_h
+    else:
+        w = min(tile_w, max(SUB_W, MAX_UNIT_PX // tile_h // SUB_W * SUB_W))
+        h = min(tile_h, MAX_UNIT_PX // w)
+    return w, h, -(-tile_w // w), -(-tile_h // h)
+
+
+def kernel_buffers(tile_h: int, tile_w: int, tiles_x: int, tiles_y: int, slots: int,
+                   device) -> tuple[torch.Tensor, ...]:
+    """The raster kernel's scratch and output for tiles_x x tiles_y tiles
+    of tile_h x tile_w and a pair list of slots entries: the frame's 64-bit
+    key buffer, the unit table (each tile's first unit, the unit count and
+    counter, each unit's tile; n_subs units per chunk of UNIT_PAIRS pairs),
+    sized by the pair list's length so that the host never reads a count,
+    and the (2, Hp, Wp) output."""
+    hp, wp, n_tiles = tiles_y * tile_h, tiles_x * tile_w, tiles_x * tiles_y
+    _, _, nx, ny = tile_subs(tile_h, tile_w)
     keys = torch.empty((hp * wp,), dtype=torch.int64, device=device)
-    work = torch.empty((2 * n_tiles + 2 + -(-slots // UNIT_PAIRS),), dtype=torch.int32, device=device)
+    work = torch.empty((n_tiles + 2 + nx * ny * (n_tiles + -(-slots // UNIT_PAIRS)),), dtype=torch.int32,
+                       device=device)
     out = torch.empty((2, hp, wp), dtype=torch.float32, device=device)
     return keys, work, out
 
@@ -163,12 +188,12 @@ def rasterize_tiles(setup, aabb, pair_faces, offsets, *, tile_h, tile_w, tiles_x
     _k.check(aabb, "aabb", torch.float32, (setup.shape[0], 4))
     _k.check(pair_faces, "pair_faces", torch.int32)
     _k.check(offsets, "offsets", torch.int32, (tiles_x * tiles_y + 1,))
-    if tile_h * tile_w > MAX_TILE_PX:
-        raise ValueError(f"the raster kernel takes tiles of at most {MAX_TILE_PX} px")
+    if tile_h < 1 or tile_w < 1:
+        raise ValueError(f"tile_h and tile_w must be positive, got {tile_h} x {tile_w}")
     if clear_depth < 0.0:
         raise ValueError("clear_depth must be >= 0 (reversed-Z)")
     slots = pair_faces.numel()
-    keys, work, out = kernel_buffers(tiles_y * tile_h, tiles_x * tile_w, tiles_x * tiles_y, slots, setup.device)
+    keys, work, out = kernel_buffers(tile_h, tile_w, tiles_x, tiles_y, slots, setup.device)
     _build.call(
         "tr_raster", setup, aabb, pair_faces, offsets, slots, tiles_x, tiles_y, tile_h, tile_w, tile_row_offset,
         float(clear_depth) + 0.0, keys, work, work.numel(), out,

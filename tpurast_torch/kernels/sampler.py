@@ -82,8 +82,11 @@ CLS_WINDOWED = 0
 CLS_EMPTY = 2
 CLS_RESIDUAL = 3
 CHUNK_NP_LANE = 120
-# Pixels per tile the plan kernel holds (1024 threads x 4, csrc/plan.cu).
-MAX_TILE_PX = 4096
+# Pixels the plan kernel holds in registers (1024 threads x 4, csrc/plan.cu
+# kGroupPx); a larger tile keeps its pixels' state in PLAN_SCRATCH_PLANES
+# int planes of the frame (anchors, slots, flags).
+PLAN_GROUP_PX = 4096
+PLAN_SCRATCH_PLANES = 10
 
 # Shading parameters passed to csrc/sampler.cu, in this order.
 N_PARAMS = 13
@@ -390,6 +393,15 @@ def _plan_dict(table, assign, residual_px):
     }
 
 
+def plan_scratch(tile_h: int, tile_w: int, hp: int, wp: int, device):
+    """The plan kernel's scratch for tiles of more than PLAN_GROUP_PX
+    pixels: (PLAN_SCRATCH_PLANES, Hp, Wp) int32; None (a null pointer) for
+    smaller tiles, whose state stays in registers."""
+    if tile_h * tile_w <= PLAN_GROUP_PX:
+        return None
+    return torch.empty((PLAN_SCRATCH_PLANES, hp, wp), dtype=torch.int32, device=device)
+
+
 def plan_tiles(gbuf, *, tiles_x, tiles_y, tile_h, tile_w, max_anisotropy=1):
     """Per-tile window plan (sampler.py plan_tiles) of the G-buffer
     (A_OUT, Hp, Wp). Returns a dict: "table" (T, 8, 128) i32 (row 0: class,
@@ -406,13 +418,15 @@ def plan_tiles(gbuf, *, tiles_x, tiles_y, tile_h, tile_w, max_anisotropy=1):
             max_anisotropy=max_anisotropy,
         )
     _k.check(gbuf, "gbuf", torch.float32, (A_OUT, tiles_y * tile_h, tiles_x * tile_w))
-    if tile_h * tile_w > MAX_TILE_PX or tile_h // rc > 7:
-        raise ValueError(f"the plan kernel takes tiles of at most {MAX_TILE_PX} px and 7 chunks")
+    if tile_h // rc > 7:
+        raise ValueError(f"the plan table holds at most 7 chunks of {rc} rows, got tile_h {tile_h}")
     t_total = tiles_x * tiles_y
     table = torch.empty((t_total, 8, 128), dtype=torch.int32, device=gbuf.device)
     assign = torch.empty((2,) + tuple(gbuf.shape[1:]), dtype=torch.float32, device=gbuf.device)
     residual_px = torch.zeros((), dtype=torch.int32, device=gbuf.device)  # the kernel adds to it
-    _build.call("tr_plan", gbuf, tiles_x, tiles_y, tile_h, tile_w, rc, max_anisotropy, table, assign, residual_px)
+    scratch = plan_scratch(tile_h, tile_w, gbuf.shape[1], gbuf.shape[2], gbuf.device)
+    _build.call("tr_plan", gbuf, tiles_x, tiles_y, tile_h, tile_w, rc, max_anisotropy, table, assign, residual_px,
+                scratch)
     _k.LAUNCHES["plan"] += 1
     return _plan_dict(table, assign, residual_px)
 

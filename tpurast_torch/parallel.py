@@ -58,7 +58,7 @@ from tpurast_torch.config import RendererConfig
 from tpurast_torch.device.scene import orbit_track, replicate, scene_bytes
 from tpurast_torch.device.scene_cache import load_named_scene
 from tpurast_torch.graphs import FrameGraph, graph_wanted
-from tpurast_torch.renderer import Renderer, frame_binning, frame_sampler, pair_capacity, render_frame
+from tpurast_torch.renderer import Renderer, check_tiles, frame_binning, frame_sampler, pair_capacity, render_frame
 
 
 def render_slabs(scene, view_proj, camera_position, *, slabs, width: int, height: int, tiles_y_per_slab: int,
@@ -204,6 +204,7 @@ def make_sharded_renderer(scene_dev, config, devices, width: int, height: int):
     render_frame_sharded, or on a CUDA device (outside
     kernels.plain_kernels()) a graphs.FrameGraph of it, whose ``fn`` is
     that partial. Otherwise fn is a MeshFrame over the devices."""
+    check_tiles(config.tile_h, config.tile_w)
     home = scene_dev["corner_world"].device
     devices = [home] * devices if isinstance(devices, int) else [_device(d) for d in devices]
     n_slabs = len(devices)

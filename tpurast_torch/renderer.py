@@ -56,6 +56,26 @@ def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
+def check_tiles(tile_h: int, tile_w: int) -> None:
+    """Raise ValueError where the reference refuses a tile shape, naming
+    the rule: tile_w a multiple of the 128-lane width
+    (tpurast/kernels/raster.py:359), tile_h a multiple of 8
+    (kernels/sampler.py rc_for) and at most 7 chunks of rc_for(tile_h) rows
+    (the plan table's rows, sampler.py:471). The reference takes tile_h in
+    {8, 16, ..., 64, 80, 96, 112} with any multiple of 128 as tile_w; so
+    does the port, on the CPU and on the card."""
+    if tile_h < 1 or tile_w < 1:
+        raise ValueError(f"tile {tile_h}x{tile_w}: tile_h and tile_w must be positive")
+    if tile_w % 128 != 0:
+        raise ValueError(f"tile {tile_h}x{tile_w}: tile_w must be a multiple of the lane width 128")
+    if tile_h % 8 != 0:
+        raise ValueError(f"tile {tile_h}x{tile_w}: tile_h must be a multiple of 8")
+    rc = ksampler.rc_for(tile_h)
+    if tile_h // rc > 7:
+        raise ValueError(f"tile {tile_h}x{tile_w}: tile_h must be at most 7 chunks of {rc} rows "
+                         f"(the plan table's rows), got {tile_h // rc}")
+
+
 def frame_binning(cfg: RendererConfig) -> str:
     """The binner of cfg.binning: "auto" is the pair sort
     (tpurast/renderer.py:456-464)."""
@@ -155,6 +175,7 @@ def render_frame(
     needs forward shading, "plan" and "sample" the window sampler: asked of
     another path they raise ValueError, as an unknown name does."""
     del segment_headroom
+    check_tiles(tile_h, tile_w)
     ty_base = 0 if tile_row_offset is None else int(tile_row_offset)
     out_h = height if crop_height is None else crop_height
     if stage is not None and stage not in STAGE_PREFIXES:
@@ -300,6 +321,7 @@ class Renderer:
     ):
         self.config = config or RendererConfig()
         cfg = self.config
+        check_tiles(cfg.tile_h, cfg.tile_w)
         self.device = torch.device(device)
         self.scene_host = scene
         self.output = output
