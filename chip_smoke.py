@@ -43,7 +43,19 @@ eight generated 1024^2 BC4 textures with full mip chains), and then, at
      line per configuration with the card's name and power limit. Then
      python -m tpurast_torch.cli --scene orbit --tile-h 112 --tile-w 128
      in-process, 16 frames: parity within 1 LSB, no dropped pairs, every
-     render kernel launched;
+     render kernel launched. Every kernel of a configuration's path must
+     launch once per frame, and a gather or deferred configuration holds
+     its shade kernel to its plain version (as 1c);
+ 1c. shade_kernels: the gather and deferred kernels (csrc/shade.cu) on
+     frame 0's inputs against their plain versions with the atlas rows in
+     each texel dtype (float32, float16, bfloat16, srgb8) at anisotropy 16
+     and float16 at 1: within 1 LSB after the sRGB u8 encode, the clear
+     color exact, the pixels that differ in f32 and those at 1 LSB
+     counted; the deferred kernel equal bit for bit to the gather kernel on
+     the resolve kernel's G-buffer; the middle slab's (the second of four,
+     at its y_offset) frames equal to the frame's rows; each into guarded
+     outputs; their ms and device ms beside the plain versions' and their
+     bound, registers and blocks per SM;
   2. runs the microbenchmark probes at the tools' sizes against their
      plain versions, bit for bit: vmem_take (4096x16 f32 table, 2,073,600
      indices; then an odd row count, a count of indices that fills no whole
@@ -73,13 +85,13 @@ eight generated 1024^2 BC4 textures with full mip chains), and then, at
      decomposition over the orbit scene's f16 atlas rows;
   5. the gather path (sampler="gather"): a warm-up frame plus 3 track
      frames (graph replays, each equal to its eager frame bit for bit,
-     with the graph's costs as in 3); raster and resolve launch once per
-     frame, plan and sample never; no overflow; depth equal to the window
-     path's; frame 0 within 2 LSB of the window path's frame 0 (the
+     with the graph's costs as in 3); raster, resolve and gather launch
+     once per frame, plan, sample and deferred never; no overflow; depth
+     equal to the window path's; frame 0 within 2 LSB of the window path's frame 0 (the
      reference's budget between its two samplers, tests/test_sampler.py:76);
   6. the deferred path (shading="deferred"), the same frames and graph
-     checks: raster launches once per frame and nothing else; color and
-     depth equal to the gather path's bit for bit;
+     checks: raster and deferred launch once per frame and nothing else;
+     color and depth equal to the gather path's bit for bit;
   7. the runtime path: tpurast_torch.cli.main in-process for --scene orbit
      at 1920x1080, 32 frames after 4 warm-up frames, with --stages. Its JSON
      line is printed and checked: parity_max_lsb <= 1, dropped_pairs 0,
@@ -103,8 +115,8 @@ eight generated 1024^2 BC4 textures with full mip chains), and then, at
      graph) with 2 and 8 slabs on the window path and 2 on gather and on
      deferred, its eager first frame and its replay each equal to the
      single Renderer frame bit for bit with the same counters, raster
-     (resolve, plan, sample where the path has them) launched once per slab
-     in the replay; Renderer(binning="scan"): a warm-up and 3 track frames
+     (resolve, plan, sample, gather, deferred where the path has them)
+     launched once per slab in the replay; Renderer(binning="scan"): a warm-up and 3 track frames
      (graph replays, equal to their eager frames) equal to the pairs
      frames, frame 0's counts, offsets and
      per-tile face sets equal to bin_pairs', and a pair buffer of half the
@@ -114,8 +126,8 @@ eight generated 1024^2 BC4 textures with full mip chains), and then, at
      slabs of one card run concurrently, each on a stream of its own
      inside the graph. Then multi_device: make_sharded_renderer over a
      device list (cuda:0..n-1 where the machine has two cards or more,
-     else 4 entries of cuda:0; the line says which) on the window and
-     deferred paths, its eager first frame and its replay equal to the
+     else 4 entries of cuda:0; the line says which) on the window,
+     gather and deferred paths, its eager first frame and its replay equal to the
      single frame bit for bit, one launch per slab of each render kernel
      the path runs, its graph ms beside the single frame's and the
      sequential 4-slab graph's (the slabs one after another, as before
@@ -167,14 +179,16 @@ eight generated 1024^2 BC4 textures with full mip chains), and then, at
      there (phase 1's checks and guard bands) and the graph frame's costs;
      porsche_class's gather path with texture_dtype "auto" (srgb8; the
      rows' first read timed) within 2 LSB of the window frame and its
-     deferred path equal to it; hdr's page above 1.0 with "auto" at
+     deferred path equal to it, both shade kernels on its srgb8 rows
+     against their plain versions (1c's checks); hdr's page above 1.0 with "auto" at
      float16; `python -m tpurast_torch.cli --all --data-dir` on the
      directory, its five lines printed as stand-ins; and entry(directory)
      equal to Renderer.render bit for bit.
 
-Every kernel-against-plain phase (kernel_phases, config_matrix, probe_phases,
-slab_kernels, padded_kernels) also launches each kernel once more with
-its outputs and scratch as views inside larger buffers whose every byte
+Every kernel-against-plain phase (kernel_phases, shade_kernels,
+config_matrix, probe_phases, slab_kernels, padded_kernels, named_scenes)
+also launches each kernel once more with its outputs and scratch as views
+inside larger buffers whose every byte
 was 0xA5 (guard bands, up to 2^20 elements on each side): the margins must
 still hold 0xA5 afterwards and the views equal the wrapper's outputs bit
 for bit.
@@ -184,7 +198,7 @@ kernels, the native BC and zstd decoders): the scene cache is off
 (TPURAST_TORCH_SCENE_CACHE=0 unless the caller set it), and the tools'
 G-buffer dump and the stand-in data directory live in temporary
 directories that the run removes. The whole run takes about
-six minutes on an H100 (config_matrix about 50 s of it; the pose tools
+five minutes on an H100 (config_matrix about 50 s of it; the pose tools
 about 30 s, 11 s of that the plain versions' 40 poses; the named scenes
 about two and a half minutes, one of them the bench's five subprocesses;
 the sanitizer phase about 30 s without a tool); should it ever pass 600 s,
@@ -194,22 +208,25 @@ phases from 4 frames to 2.
 Each path prints its frame times and a per-stage breakdown; the window
 path also prints, per stage, the device operations torch.profiler counts
 and their device time beside the stage's event time. Earlier lines give
-the plan, sample and vmem_take kernels' registers and resident blocks per SM, the
-plan's windows-per-tile histogram and the probes a warp runs (its worst
+the plan, sample, shade and vmem_take kernels' registers and resident
+blocks per SM, the plan's windows-per-tile histogram and the probes a warp runs (its worst
 lane's) beside the mean per pixel. Each kernel
 also gets its bound: the larger of the bytes it must move over the card's
 memory rate and its f32 operations over the f32 peak (HBM_BYTES_PER_S,
 F32_FLOPS), from this run's inputs (plan and sample: the planes the
 function needs, not all 24, and for sample the distinct page texels its
-probes touch; the earlier count is printed beside it); the raster line adds the densest
+probes touch; the earlier count is printed beside it; the shade kernels:
+one atlas row per probe the covered pixels run); the raster line adds the densest
 tile's pair count, the (pair, pixel) evaluations of the pairs' pixel
 rectangles and the kernel's device time by operation, and plane_scale is
 timed beside torch.mul(gbuf[plane], 2), the one PyTorch call that computes
 the same. Any failure raises. The last stdout line is {"ok": true,
 "device": ...}; the line before it lists each kernel's launches (on the
-window path for the render kernels, on the microbenchmark path for the
-probes; runtime_launches on the bench run, slab_launches on the 8-slab
-window frame, mesh_launches on multi_device's window replay,
+window path for the render kernels, on the gather or deferred path for
+the shade kernels, on the microbenchmark path for the probes;
+runtime_launches on the bench run, slab_launches on the 8-slab window
+frame (a shade kernel: its path's 2-slab frame), mesh_launches on
+multi_device's window replay (a shade kernel: its path's replay),
 scan_launches on the scan track, pose_launches on the 200-pose search),
 error, times, bound and library time.
 """
@@ -246,7 +263,7 @@ from tpurast_torch.assets.gltf import load_glb  # noqa: E402
 from tpurast_torch.device.scene import (build_orbit_scene, build_scene, orbit_camera, orbit_track,  # noqa: E402
                                        scene_bytes)
 from tpurast_torch.device.scene_cache import load_named_scene  # noqa: E402
-from tpurast_torch.device.textures import ROW_WIDTH  # noqa: E402
+from tpurast_torch.device.textures import ROW_WIDTH, texels_tensor  # noqa: E402
 from tpurast_torch.engine import Engine  # noqa: E402
 from tpurast_torch.graphs import FrameGraph, Graph  # noqa: E402
 from tpurast_torch.kernels import _build, geometry, present, probes, raster, resolve, sampler, shade  # noqa: E402
@@ -264,10 +281,16 @@ KERNELS = {
     "resolve": ("tpurast_torch/csrc/resolve.cu", "tpurast/kernels/resolve.py:126"),
     "plan": ("tpurast_torch/csrc/plan.cu", "tpurast/kernels/sampler.py:230"),
     "sample": ("tpurast_torch/csrc/sampler.cu", "tpurast/kernels/sampler.py:650"),
+    # No pallas_call: the reference leaves these two to XLA.
+    "gather": ("tpurast_torch/csrc/shade.cu", "tpurast/kernels/shade.py:463"),
+    "deferred": ("tpurast_torch/csrc/shade.cu", "tpurast/kernels/shade.py:316"),
     "vmem_take": ("tpurast_torch/csrc/probes.cu", "tools/microbench.py:262"),
     "plane_scale": ("tpurast_torch/csrc/probes.cu", "tools/microbench_pipeline.py:35"),
 }
 RENDER_KERNELS = ("raster", "resolve", "plan", "sample")
+SHADE_KERNELS = ("gather", "deferred")
+# The kernels each frame path launches once per frame (or slab).
+PATH_KERNELS = {"window": RENDER_KERNELS, "gather": ("raster", "resolve", "gather"), "deferred": ("raster", "deferred")}
 # The card's published peaks (H100 SXM at 700 W): device memory bytes/s
 # and f32 FLOP/s outside the tensor cores. A kernel's bound is the larger of its bytes and its operations
 # over these.
@@ -281,6 +304,15 @@ RASTER_FLOPS_PER_EVAL = 40
 # z, w, face id, anchor; kRowFields in csrc/raster.cu) and its AABB.
 RASTER_FACE_BYTES = 18 * 4 + 4 * 4
 PROBE_KERNELS = ("vmem_take", "plane_scale")
+# The shade kernels (csrc/shade.cu): f32 operations of one probe (a
+# trilerp: the 13 texels' weighted sums, the weights and the addressing)
+# and of a covered pixel's lighting; deferred adds the edge functions,
+# interpolation, derivatives and footprint of a covered pixel.
+SHADE_FLOPS_PER_PROBE = 160
+SHADE_FLOPS_PER_PIXEL = 80
+DEFERRED_FLOPS_PER_PIXEL = 150
+GATHER_PLANES = 18  # G-buffer planes 0-17 the gather kernel reads
+SHADE_DTYPES = ("float32", "float16", "bfloat16", "srgb8")  # the atlas row formats
 FRAMES = 8
 GATHER_FRAMES = 3
 SCAN_FRAMES = 3
@@ -495,7 +527,7 @@ def guard_plan(phase: str, g, plan, *, tiles_x, tiles_y, tile_h, tile_w, max_ani
 
 
 def guard_sample(phase: str, g, page, plan, cp, fb, *, tiles_x, tiles_y, tile_h, tile_w, max_anisotropy, **light):
-    params = (ctypes.c_float * sampler.N_PARAMS)(*sampler.shade_params(**light))
+    params = (ctypes.c_float * shade.N_PARAMS)(*shade.shade_params(**light))
     guard(phase, "sample", "tr_sample", g, page, page.shape[2], plan["table"], cp, tiles_x, tiles_y, tile_h, tile_w,
           max_anisotropy, ctypes.addressof(params), Out(fb.shape), want=(fb,))
 
@@ -504,6 +536,166 @@ def print_guards(phase: str, card: str) -> None:
     mine = [(k, r) for p, k, r in GUARDS if p == phase]
     print(f"guard bands, {phase}: " + ", ".join(f"{k} intact {r['intact']} equal {r['same']}" for k, r in mine)
           + f" (up to {GUARD_ELEMS} elements of 0x{GUARD_BYTE:02X} bytes on each side of each output) [{card}]")
+
+
+def path_want(label: str, n: int) -> dict:
+    """Each kernel's launches for n frames (or slabs) of a frame path."""
+    return {name: n if name in PATH_KERNELS[label] else 0 for name in KERNELS}
+
+
+def path_of(r: Renderer) -> str:
+    """r's frame path: "window", "gather" or "deferred"."""
+    return "deferred" if r.config.shading == "deferred" else r.sampler
+
+
+def light_kwargs(kw: dict) -> dict:
+    """The lighting and blend arguments of a Renderer's frame arguments."""
+    return dict(light_direction=kw["light_direction"], light_color=kw["light_color"],
+                ambient_amount=kw["ambient_amount"], specular_power=kw["specular_power"],
+                clear_color=kw["clear_color"], blend=kw["blend"])
+
+
+def shade_rows_touched(g, n_rows: int, ma: int) -> tuple[int, int]:
+    """The probes the covered pixels of G-buffer g run (shade.probe_count)
+    and the distinct atlas rows they read: each probe's row index, clamped
+    into the table's n_rows, by the plain _trilerp's addressing. The
+    deferred kernel recomputes the same fields bit for bit (deferred =
+    forward + gather), so both kernels read these rows."""
+    c = g[:, g[16] > 0]
+    off0, tw0, th0 = c[8].to(torch.int32) * 256, c[9].to(torch.int32), c[10].to(torch.int32)
+    npx = shade.probe_count(c[17], c[14], c[15], c[9], c[10], ma) if ma > 1 else torch.ones_like(c[6])
+    idx = []
+    for i in range(max(ma, 1)):
+        live = npx > float(i)
+        fo = (shade.fdiv(i + 0.5, npx) - 0.5) * c[17] if ma > 1 else torch.zeros_like(c[6])
+        x0 = torch.floor((c[6] + c[14] * fo) * tw0.to(torch.float32) - 0.5)
+        y0 = torch.floor((c[7] + c[15] * fo) * th0.to(torch.float32) - 0.5)
+        x0i = torch.remainder(x0.to(torch.int32), torch.clamp(tw0, min=1))
+        y0i = torch.remainder(y0.to(torch.int32), torch.clamp(th0, min=1))
+        idx.append(torch.clamp(off0 + y0i * tw0 + x0i, 0, n_rows - 1)[live])
+    return int(npx.sum()), int(torch.unique(torch.cat(idx)).numel())
+
+
+def shade_bound(kind: str, g, fid, texels, ma: int) -> dict:
+    """The gather or deferred kernel's bound for what this frame needs:
+    gather reads the match plane at every pixel and the other
+    GATHER_PLANES - 1 planes at a covered one, deferred the face id at
+    every pixel and each distinct face's 104-float row once; both each
+    distinct 52-channel atlas row the probes read once (shade_rows_touched)
+    and the srgb8 decode table, and write the 4 output planes; per probe
+    SHADE_FLOPS_PER_PROBE, per covered pixel its lighting (and for deferred
+    its interpolation). Adds the probe and distinct row counts."""
+    hp, wp = fid.shape
+    covered = int((fid >= 0).sum())
+    probes, rows = shade_rows_touched(g, texels.shape[0], ma)
+    row_bytes = rows * texels.shape[1] * texels.element_size() + (256 * 4 if texels.dtype == torch.uint8 else 0)
+    if kind == "gather":
+        nbytes = hp * wp * 4 + (GATHER_PLANES - 1) * covered * 4
+        flops = covered * SHADE_FLOPS_PER_PIXEL
+    else:
+        nbytes = hp * wp * 4 + int(torch.unique(fid[fid >= 0]).numel()) * shade.SHADE_ROW_WIDTH * 4
+        flops = covered * (SHADE_FLOPS_PER_PIXEL + DEFERRED_FLOPS_PER_PIXEL)
+    return dict(probes=probes, rows=rows,
+                **bound(nbytes + row_bytes + 4 * hp * wp * 4, flops + probes * SHADE_FLOPS_PER_PROBE))
+
+
+def shade_compare(out, want, covered) -> dict:
+    """A shade kernel's framebuffer against its plain version's: linear max
+    abs error, pixels whose f32 planes differ, max LSB after the sRGB u8
+    encode and pixels at 1 LSB, and whether the uncovered pixels hold the
+    same clear color."""
+    h, w = out.shape[1:]
+    lsb = (present.encode_srgb_u8(out, w, h).int() - present.encode_srgb_u8(want, w, h).int()).abs().amax(dim=0)
+    return dict(max_abs_err=float((out - want).abs().max()), px_differ=int((out != want).any(dim=0).sum()),
+                lsb=int(lsb.max()), px_at_1=int((lsb == 1).sum()),
+                clear_equal=bool(torch.equal(out[:, ~covered], want[:, ~covered])))
+
+
+def fmt_compare(c: dict) -> str:
+    return (f"max abs {c['max_abs_err']:.3g}, {c['px_differ']} px differ in f32, max {c['lsb']} LSB "
+            f"({c['px_at_1']} px at 1), clear color equal {c['clear_equal']}")
+
+
+def guard_shade(phase: str, kind: str, fb, texels, texel_format: str, lut, cp, ma: int, light: dict, *, g=None,
+                fid=None, rows=None, y_offset: int = 0) -> None:
+    """tr_shade_gbuffer (G-buffer g) or tr_shade_deferred (fid, rows) into
+    a guarded output, against the wrapper's fb."""
+    code, lut = shade._check_rows(texels, texel_format, lut)
+    params = (ctypes.c_float * shade.N_PARAMS)(*shade.shade_params(**light))
+    h, w = fb.shape[1:]
+    if kind == "gather":
+        guard(phase, kind, "tr_shade_gbuffer", g, texels, texels.shape[0], code, lut, cp, h, w, ma,
+              ctypes.addressof(params), Out(fb.shape), want=(fb,))
+    else:
+        guard(phase, kind, "tr_shade_deferred", fid, rows, rows.shape[0], texels, texels.shape[0], code, lut, cp, h,
+              w, y_offset, ma, ctypes.addressof(params), Out(fb.shape), want=(fb,))
+
+
+def shade_pair(phase: str, vis, attrs, rows, texels, texel_format: str, lut, cp, ma: int, light: dict, *,
+               tile_row_offset: int = 0, tile_h: int | None = None) -> dict:
+    """Both shade kernels on one frame's (or slab's) raster output vis
+    against their plain versions: within 1 LSB after the sRGB u8 encode,
+    the clear color exact (shade_compare); the deferred kernel equal bit
+    for bit to the gather kernel on the resolve kernel's G-buffer (deferred
+    = forward + gather); each launched once more into a guarded output.
+    lut is the srgb8 rows' decode table (shade.srgb_table), else None.
+    Returns the G-buffer, face ids, both frames and the comparisons."""
+    y_offset = tile_row_offset * tile_h if tile_row_offset else 0
+    g = resolve.resolve_gbuffer(vis, attrs, max_anisotropy=ma, tile_row_offset=tile_row_offset, tile_h=tile_h)
+    fid = vis[1].to(torch.int32)
+    covered = fid >= 0
+    kw = dict(max_anisotropy=ma, texel_format=texel_format, **light)
+    fb = shade.shade_gbuffer(g, texels, cp, srgb_lut=lut, **kw)
+    d = shade.shade_deferred(fid, rows, texels, cp, y_offset=y_offset, srgb_lut=lut, **kw)
+    cmp = {"gather": shade_compare(fb, shade.shade_gbuffer_plain(g, texels, cp, **kw), covered),
+           "deferred": shade_compare(d, shade.shade_deferred_plain(fid, rows, texels, cp, y_offset=y_offset, **kw),
+                                     covered)}
+    same = bool(torch.equal(d, fb))
+    for kind, c in cmp.items():
+        check(c["lsb"] <= 1 and c["clear_equal"], f"{phase}: the {kind} kernel disagrees with its plain version")
+    check(same, f"{phase}: the deferred kernel differs from the gather kernel on the resolve kernel's G-buffer")
+    guard_shade(phase, "gather", fb, texels, texel_format, lut, cp, ma, light, g=g)
+    guard_shade(phase, "deferred", d, texels, texel_format, lut, cp, ma, light, fid=fid, rows=rows, y_offset=y_offset)
+    return dict(g=g, fid=fid, gather=fb, deferred=d, cmp=cmp, same=same)
+
+
+def frame_inputs(r: Renderer, cam) -> dict:
+    """cam's frame through r's geometry, binning (pairs or scan) and the
+    raster kernel, with the raster's arguments and the attribute and
+    shade-row tables."""
+    kw, sc = r._frame_kwargs, r.scene
+    vp, cp = r.frame_uniforms(cam)
+    so = geometry.triangle_setup(geometry.transform_corners(sc["corner_world"], vp), None, sc["n_faces"],
+                                 kw["width"], kw["height"])
+    grid = (so["aabb"], so["valid"], r.tiles_x, r.tiles_y, kw["tile_w"], kw["tile_h"])
+    bins = geometry.bin_pairs(*grid) if r.binning == "pairs" else geometry.bin_triangles(*grid, kw["bin_capacity"])
+    # render_frame's raster arguments, so that plain_raster_memo's key matches the frame's call
+    rkw = dict(tiles_x=r.tiles_x, tiles_y=r.tiles_y, tile_h=kw["tile_h"], tile_w=kw["tile_w"],
+               clear_depth=kw["clear_depth"], tile_row_offset=0)
+    args = (so["setup"], so["aabb"], bins["pair_faces"], bins["offsets"])
+    corners = (so["setup"], sc["corner_world"], sc["corner_normal"], sc["corner_uv"], sc["face_tex"], sc["atlas"])
+    return dict(so=so, bins=bins, args=args, rkw=rkw, vis=raster.rasterize_tiles(*args, **rkw), cp=cp,
+                attrs=resolve.pack_resolve_attrs(*corners), rows=shade.pack_shade_rows(*corners))
+
+
+def shade_times(res: dict, texels, texel_format: str, lut, cp, ma: int, light: dict, rows) -> dict:
+    """Both shade kernels' stats on shade_pair's inputs: bound (shade_bound),
+    ms and device ms beside their plain versions' (timed), error."""
+    kw = dict(max_anisotropy=ma, texel_format=texel_format, **light)
+    g, fid = res["g"], res["fid"]
+    fns = {"gather": (lambda: shade.shade_gbuffer(g, texels, cp, srgb_lut=lut, **kw),
+                      lambda: shade.shade_gbuffer_plain(g, texels, cp, **kw)),
+           "deferred": (lambda: shade.shade_deferred(fid, rows, texels, cp, srgb_lut=lut, **kw),
+                        lambda: shade.shade_deferred_plain(fid, rows, texels, cp, **kw))}
+    return {kind: dict(max_abs_err=res["cmp"][kind]["max_abs_err"], library_ms=None,
+                       **shade_bound(kind, g, fid, texels, ma), **timed(*fns[kind], 20, 2))
+            for kind in SHADE_KERNELS}
+
+
+def fmt_times(kind: str, st: dict) -> str:
+    return (f"{kind} {st['ms']:.4f} ms (device {fmt_ms(st['dev_ms'])}) vs plain {st['plain_ms']:.3f} ms (device "
+            f"{fmt_ms(st['plain_dev_ms'])}); bound {st['bound_ms']:.4f} ms by {st['bound_by']} ({st['probes']} "
+            f"probes reading {st['rows']} distinct atlas rows), {st['bound_ms'] / st['ms']:.3f} of it")
 
 
 def kernel_phases(r: Renderer, cam, card: str, phase: str = "kernel_phases") -> dict:
@@ -697,6 +889,64 @@ def kernel_phases(r: Renderer, cam, card: str, phase: str = "kernel_phases") -> 
     return out
 
 
+def shade_kernels(scene, r: Renderer, cam, card: str, phase: str = "shade_kernels") -> dict:
+    """Phase 1c: the gather and deferred kernels (csrc/shade.cu) on frame
+    0's real inputs at 1920x1080 against their plain versions (shade_pair)
+    with the atlas rows in each texel dtype at max_anisotropy 16, float16
+    at 1 too, and on the middle slab (the second of SLAB_SPLIT, float16):
+    the slab's frames equal the whole frame's rows bit for bit. Each
+    configuration's ms, device ms and bound beside the plain versions';
+    the kernels' registers and blocks per SM. Returns the stats at the
+    gather path's rows (float16) and r's anisotropy."""
+    kw = r._frame_kwargs
+    ma_main = kw["max_anisotropy"]
+    light = light_kwargs(kw)
+    f = frame_inputs(r, cam)
+    vis, cp, attrs, rows = f["vis"], f["cp"], f["attrs"], f["rows"]
+    for name in ("shade_gbuffer", "shade_deferred"):
+        regs, blocks = _build.kernel_info(name)
+        print(f"{name} kernel: {regs} registers per thread, {blocks} resident blocks per SM (float16 rows)")
+    out = {}
+    full16 = None
+    for dtype in SHADE_DTYPES:
+        t0 = time.perf_counter()
+        texels = texels_tensor(scene.atlas.texels, dtype, vis.device)
+        torch.cuda.synchronize()
+        up_s = time.perf_counter() - t0
+        fmt = "srgb8" if dtype == "srgb8" else "float"
+        lut = shade.srgb_table(vis.device) if dtype == "srgb8" else None  # as the scene upload makes it
+        for ma in (ma_main, 1) if dtype == "float16" else (ma_main,):
+            res = shade_pair(phase, vis, attrs, rows, texels, fmt, lut, cp, ma, light)
+            times = shade_times(res, texels, fmt, lut, cp, ma, light, rows)
+            print(f"shade kernels, {dtype} rows {tuple(texels.shape)} ({texels.numel() * texels.element_size()} B, "
+                  f"uploaded in {up_s:.2f} s), anisotropy {ma}: " + "; ".join(
+                      f"{k} vs plain: {fmt_compare(c)}" for k, c in res["cmp"].items())
+                  + f"; deferred equal to gather on the resolve kernel's G-buffer {res['same']}; "
+                  + "; ".join(fmt_times(k, times[k]) for k in SHADE_KERNELS) + f" [{card}]")
+            if dtype == "float16" and ma == ma_main:
+                out, full16 = times, res
+        if dtype == "float16":
+            th = kw["tile_h"]
+            per = -(-r.tiles_y // SLAB_SPLIT)  # tile rows per slab, padded as parallel.py pads them
+            so = f["so"]
+            sbins = geometry.bin_pairs(so["aabb"], so["valid"], r.tiles_x, per, kw["tile_w"], th, ty_base=per)
+            svis = raster.rasterize_tiles(so["setup"], so["aabb"], sbins["pair_faces"], sbins["offsets"], tile_h=th,
+                                          tile_w=kw["tile_w"], tiles_x=r.tiles_x, tiles_y=per,
+                                          clear_depth=kw["clear_depth"], tile_row_offset=per)
+            res = shade_pair(phase, svis, attrs, rows, texels, fmt, lut, cp, ma_main, light, tile_row_offset=per,
+                             tile_h=th)
+            px = slice(per * th, 2 * per * th)
+            same = {k: bool(torch.equal(res[k], full16[k][:, px])) for k in SHADE_KERNELS}
+            print(f"shade kernels, middle slab (tile rows {per}-{2 * per - 1}, y_offset {per * th}), float16: "
+                  + "; ".join(f"{k} vs plain: {fmt_compare(c)}" for k, c in res["cmp"].items())
+                  + f"; equal to the whole frame's rows {same} [{card}]")
+            check(all(same.values()), f"{phase}: a slab's shaded rows differ from the frame's")
+        del texels
+        torch.cuda.empty_cache()
+    print_guards(phase, card)
+    return out
+
+
 # config_matrix's configurations: (label, RendererConfig fields, output,
 # scene). The tile shapes the reference takes past the default 32x128
 # (8-row chunks at 8 and 40 rows, 8,192 px at 64x128 and 32x256, 7 chunks
@@ -781,7 +1031,7 @@ def matrix_device_ms(fns: dict, reps: int = 5) -> dict:
                 fn()
         torch.cuda.synchronize()
     owner = {"raster": ("raster", "Memset"), "resolve": ("resolve_kernel",), "plan": ("plan_kernel", "Fill"),
-             "sample": ("sample_kernel",)}
+             "sample": ("sample_kernel",), "gather": ("shade_gbuffer_kernel",), "deferred": ("shade_deferred_kernel",)}
     out = {name: 0.0 for name in fns}
     for e in prof.key_averages():
         if e.self_device_time_total <= 0:
@@ -796,22 +1046,16 @@ def matrix_device_ms(fns: dict, reps: int = 5) -> dict:
 def matrix_kernels(r: Renderer, cam, phase: str) -> dict:
     """Each render kernel of r's path against its plain version on cam's
     frame inputs (raster and plan exact, resolve's integer planes exact and
-    its float planes kernel_phases' rule, sample within 1 LSB) and once more
-    into guarded outputs (guard), with its device ms."""
+    its float planes kernel_phases' rule, sample within 1 LSB, the shade
+    kernels by shade_pair) and once more into guarded outputs (guard), with
+    its device ms."""
     kw = r._frame_kwargs
     sc = r.scene
-    vp, cp = r.frame_uniforms(cam)
+    fi = frame_inputs(r, cam)
+    so, bins, args, rkw, vis, cp, attrs = (fi[k] for k in ("so", "bins", "args", "rkw", "vis", "cp", "attrs"))
     th, tw, tx, ty = kw["tile_h"], kw["tile_w"], r.tiles_x, r.tiles_y
     tiles = dict(tiles_x=tx, tiles_y=ty, tile_h=th, tile_w=tw)
-    clip = geometry.transform_corners(sc["corner_world"], vp)
-    so = geometry.triangle_setup(clip, None, sc["n_faces"], kw["width"], kw["height"])
-    grid = (so["aabb"], so["valid"], tx, ty, tw, th)
-    bins = geometry.bin_pairs(*grid) if r.binning == "pairs" else geometry.bin_triangles(*grid, kw["bin_capacity"])
-    # render_frame's raster arguments, so that plain_raster_memo's key matches the frame's call
-    rkw = dict(tiles, clear_depth=kw["clear_depth"], tile_row_offset=0)
-    args = (so["setup"], so["aabb"], bins["pair_faces"], bins["offsets"])
     res, fns = {}, {}
-    vis = raster.rasterize_tiles(*args, **rkw)
     vis_p = raster.rasterize_tiles_plain(*args, **rkw)
     hp, wp = vis.shape[1:]
     work = raster_work(so, bins, th, tw, tx)
@@ -823,8 +1067,6 @@ def matrix_kernels(r: Renderer, cam, phase: str) -> dict:
     fns["raster"] = lambda: raster.rasterize_tiles(*args, **rkw)
     if kw["shading"] == "forward":
         ma = kw["max_anisotropy"]
-        attrs = resolve.pack_resolve_attrs(so["setup"], sc["corner_world"], sc["corner_normal"], sc["corner_uv"],
-                                           sc["face_tex"], sc["atlas"])
         g = resolve.resolve_gbuffer(vis, attrs, max_anisotropy=ma)
         g_p = resolve.resolve_gbuffer_plain(vis, attrs, max_anisotropy=ma)
         n_flip, int_bad, float_bad = resolve_disagreement(g, g_p, vis[1] >= 0)
@@ -853,6 +1095,18 @@ def matrix_kernels(r: Renderer, cam, phase: str) -> dict:
             check(lsb <= 1, f"{phase}: sample kernel disagrees with its plain version")
             guard_sample(phase, g, page, plan, cp, fb, **skw)
             fns["sample"] = lambda: sampler.sample_tiles(g, page, plan, cp, **skw)
+    if path_of(r) != "window" and kw["output"] != "gbuf":
+        # The shade kernel of the path (shade_pair runs both on these inputs).
+        kind = path_of(r)
+        texels, fmt, lut, light = sc["atlas"]["texels"], kw["texture_format"], sc["atlas"].get("srgb_lut"), \
+            light_kwargs(kw)
+        rows = fi["rows"]
+        sp = shade_pair(phase, vis, attrs, rows, texels, fmt, lut, cp, kw["max_anisotropy"], light)
+        res[kind] = f"{fmt_compare(sp['cmp'][kind])}, deferred = gather {sp['same']}"
+        bounds[kind] = shade_bound(kind, sp["g"], sp["fid"], texels, kw["max_anisotropy"])
+        skw = dict(max_anisotropy=kw["max_anisotropy"], texel_format=fmt, srgb_lut=lut, **light)
+        fns[kind] = ((lambda: shade.shade_gbuffer(sp["g"], texels, cp, **skw)) if kind == "gather"
+                     else (lambda: shade.shade_deferred(sp["fid"], rows, texels, cp, **skw)))
     torch.cuda.synchronize()
     dev = matrix_device_ms(fns)
     return {k: (dev[k], res[k], bounds.get(k)) for k in res}
@@ -911,6 +1165,11 @@ def config_matrix(scene, cam, card: str, seed: int) -> dict:
         K.reset_launches()
         ms = event_median(lambda: r.render(cam), MATRIX_REPLAYS)
         launches = {k: v // (MATRIX_REPLAYS + 1) for k, v in K.LAUNCHES.items() if v}
+        want = path_want(path_of(r), MATRIX_REPLAYS + 1)
+        if output == "gbuf":
+            want = {k: v if k in ("raster", "resolve") else 0 for k, v in want.items()}
+        check(all(K.LAUNCHES[k] == want[k] for k in KERNELS),
+              f"{phase}: launches {dict(K.LAUNCHES)} over {MATRIX_REPLAYS + 1} frames, want {want}")
         with plain_raster_memo():
             kernels = matrix_kernels(r, cam, phase)
             with K.plain_kernels():
@@ -1114,13 +1373,13 @@ def frame_stages(r: Renderer, vp, cp):
             yield "sample"
         else:
             fb = shade.shade_gbuffer(g, sc["atlas"]["texels"], cp, max_anisotropy=ma,
-                                     texel_format=kw["texture_format"], **light)
+                                     texel_format=kw["texture_format"], srgb_lut=sc["atlas"].get("srgb_lut"), **light)
             yield "shade_gbuffer"
     else:
         rows = shade.pack_shade_rows(*corners)
         yield "pack_shade_rows"
         fb = shade.shade_deferred(vis[1].to(torch.int32), rows, sc["atlas"]["texels"], cp, max_anisotropy=ma,
-                                  texel_format=kw["texture_format"], **light)
+                                  texel_format=kw["texture_format"], srgb_lut=sc["atlas"].get("srgb_lut"), **light)
         yield "shade_deferred"
     present.encode_srgb_u8(fb, kw["width"], kw["height"])
     yield "encode"
@@ -1347,7 +1606,7 @@ def graph_frames(r: Renderer, cams, window_frames, card: str) -> dict:
 def gather_paths(scene, cams, window_frames, card: str) -> dict:
     """The gather and deferred paths on the first GATHER_FRAMES cameras,
     held against the window path's frames and against each other. Returns
-    {label: (its Renderer, its frames)}."""
+    {label: (its Renderer, its frames, the launches of its track)}."""
     n_rendered = GATHER_FRAMES + 1
     track = cams[:GATHER_FRAMES]
     paths = {}
@@ -1362,7 +1621,7 @@ def gather_paths(scene, cams, window_frames, card: str) -> dict:
         launches = dict(K.LAUNCHES)
         print(f"{label} path: {n_rendered} frames (1 warm-up), launches {launches}")
         print_times(label, times, r, track[0])
-        want = {"raster": n_rendered, "resolve": n_rendered if label == "gather" else 0}
+        want = path_want(label, n_rendered)
         for name in KERNELS:
             check(launches[name] == want.get(name, 0),
                   f"{label}: {name} launched {launches[name]} times for {n_rendered} frames, want {want.get(name, 0)}")
@@ -1370,10 +1629,10 @@ def gather_paths(scene, cams, window_frames, card: str) -> dict:
         check_graph_frames(label, r, track, frames)
         graph_costs(label, r, track[0], card, reps=3)
         print_stages(label, stage_breakdown(r, cams[0]))
-        paths[label] = (r, frames)
+        paths[label] = (r, frames, launches)
 
-    r_g, gather = paths["gather"]
-    _, deferred = paths["deferred"]
+    r_g, gather, _ = paths["gather"]
+    _, deferred, _ = paths["deferred"]
     for k in range(GATHER_FRAMES):
         check(bool(torch.equal(gather[k]["depth"], window_frames[k]["depth"])), f"gather frame {k}: depth differs "
               "from the window path's")
@@ -1391,7 +1650,8 @@ def gather_paths(scene, cams, window_frames, card: str) -> dict:
 
     sd = microbench.shade(r_g.scene["atlas"]["texels"], torch.device("cuda"))
     print(f"microbench shade on the orbit atlas {sd['atlas_shape']} {sd['atlas_dtype']} "
-          f"({sd['atlas_mb']:.1f} MB), synthetic 1088x1920 G-buffer: full shade_gbuffer {sd['full_ms']:.3f} ms, "
+          f"({sd['atlas_mb']:.1f} MB), synthetic 1088x1920 G-buffer: shade_gbuffer kernel {sd['kernel_ms']:.4f} ms, "
+          f"plain shade_gbuffer {sd['full_ms']:.3f} ms, "
           f"gather-only (1 row/px) {sd['gather_only_ms']:.3f} ms, trilerp-only {sd['trilerp_only_ms']:.3f} ms")
     return paths
 
@@ -1458,10 +1718,11 @@ def slab_frames(renderers: dict, cam, card: str) -> dict:
     window path, 2 on gather and on deferred. The first call renders
     eagerly and captures, the second replays: each equal to the single
     frame bit for bit (color, depth, the counters), and raster (and on the
-    forward paths resolve, on the window path plan and sample) launched once
-    per slab in the replay, the counts from zero around it. Returns the
-    launches of the last window replay (8 slabs)."""
-    window_launches = {}
+    forward paths resolve, on the window path plan and sample, gather or
+    deferred on theirs) launched once per slab in the replay, the counts
+    from zero around it. Returns each path's launches of its last replay
+    (the window path's 8 slabs)."""
+    slab_launches = {}
     for label, r in renderers.items():
         vp, cp = r.frame_uniforms(cam)
         single = r.render_with_uniforms(vp, cp)
@@ -1483,14 +1744,12 @@ def slab_frames(renderers: dict, cam, card: str) -> dict:
                   f"({ms / single_ms:.2f}x) [{card}]")
             check(all(same.values()), f"{label}: {n} slabs differ from the frame")
             fn.close()
-            want = {"raster": n, "resolve": n if label != "deferred" else 0,
-                    "plan": n if label == "window" else 0, "sample": n if label == "window" else 0}
+            want = path_want(label, n)
             for name in KERNELS:
-                check(launches[name] == want.get(name, 0),
-                      f"{label}, {n} slabs: {name} launched {launches[name]} times, want {want.get(name, 0)}")
-            if label == "window":
-                window_launches = launches
-    return window_launches
+                check(launches[name] == want[name],
+                      f"{label}, {n} slabs: {name} launched {launches[name]} times, want {want[name]}")
+            slab_launches[label] = launches
+    return slab_launches
 
 
 def sequential_slabs(n: int, kw: dict):
@@ -1513,7 +1772,7 @@ def multi_device(renderers: dict, cam, card: str) -> dict:
     """make_sharded_renderer over a device list, the mesh of the
     reference's shard_map: cuda:0..n-1 where the machine has two cards or
     more, else MESH_SLABS entries of cuda:0 (the line says which). On the
-    window and deferred paths the first call renders eagerly and captures
+    window, gather and deferred paths the first call renders eagerly and captures
     the graphs (one per device), the second replays them: both equal the
     single Renderer frame bit for bit (color, depth, both counters, on
     cuda:0), and each render kernel of the path launched once per slab in
@@ -1521,7 +1780,7 @@ def multi_device(renderers: dict, cam, card: str) -> dict:
     the single frame and the sequential n-slab graph (sequential_slabs);
     the device ms of both summed over their streams (torch.profiler); the
     graphs' capture ms and pool bytes and each device's replica bytes.
-    Returns the window replay's launches."""
+    Returns each path's launches in its replay."""
     count = torch.cuda.device_count()
     devices = [f"cuda:{i}" for i in range(count)] if count >= 2 else ["cuda:0"] * MESH_SLABS
     n = len(devices)
@@ -1562,15 +1821,13 @@ def multi_device(renderers: dict, cam, card: str) -> dict:
               f"{[g.pool_bytes for g in graphs]} B (sequential {seq.pool_bytes}), replica bytes {replica_bytes} "
               f"[{card}]")
         check(all(same.values()) and seq_same, f"multi_device, {label}: the mesh frame differs from the frame")
-        want = {"raster": n, "resolve": n if label != "deferred" else 0,
-                "plan": n if label == "window" else 0, "sample": n if label == "window" else 0}
+        want = path_want(label, n)
         for name in KERNELS:
-            check(launches[name] == want.get(name, 0),
-                  f"multi_device, {label}: {name} launched {launches[name]} times, want {want.get(name, 0)}")
+            check(launches[name] == want[name],
+                  f"multi_device, {label}: {name} launched {launches[name]} times, want {want[name]}")
         for g in graphs + [seq]:
             g.close()
-        if label == "window":
-            mesh_launches = launches
+        mesh_launches[label] = launches
     return mesh_launches
 
 
@@ -1844,8 +2101,10 @@ def sanitize_cases(seed: int) -> int:
     where the card's machine lets it attach): the orbit scene's frame 0 at
     1920x1080, 1282x721 and 320x180 (off the tile grid), at 1920x1080 with
     64x128 and 16x1024 tiles (the raster's sub-rectangle units, the plan's
-    groups of 4096 px in scratch), the 2- and 8-slab
-    frames, the scan path and the mesh frame (multi_device's devices), each
+    groups of 4096 px in scratch), the gather path on float16 rows at
+    1920x1080 and on srgb8 rows at 320x180, the deferred path at 1282x721,
+    the 2- and 8-slab frames, the scan path and the mesh frame
+    (multi_device's devices), each
     eagerly (a graph's first call) and then as one graph replay, the two
     equal bit for bit; and the probes at odd shapes (vmem_take: 4095 rows,
     1,000,003 indices from an array off the 16-byte grid, some outside the
@@ -1866,6 +2125,12 @@ def sanitize_cases(seed: int) -> int:
         rt = Renderer(scene, RendererConfig(width=WIDTH, height=HEIGHT, tile_h=th, tile_w=tw))
         cases[f"window {WIDTH}x{HEIGHT} at {th}x{tw} tiles"] = (rt._frame_fn("frame"), rt.scene,
                                                                 *rt.frame_uniforms(cam))
+    # The shade kernels: gather on float16 rows at 1920x1080, deferred on
+    # float16 rows off the tile grid, gather on srgb8 rows at 320x180.
+    for (w, h), change in (((WIDTH, HEIGHT), dict(sampler="gather")), (PARITY_SIZES[0], dict(shading="deferred")),
+                           (PARITY_SIZES[1], dict(sampler="gather", texture_dtype="srgb8"))):
+        rg = Renderer(scene, RendererConfig(width=w, height=h, **change))
+        cases[f"{path_of(rg)} {rg.texture_dtype} {w}x{h}"] = (rg._frame_fn("frame"), rg.scene, *rg.frame_uniforms(cam))
     for n in SLABS["window"]:
         cases[f"{n}-slab frame"] = (make_sharded_renderer(r.scene, r.config, n, WIDTH, HEIGHT), r.scene, vp, cp)
     rs = Renderer(scene, RendererConfig(width=WIDTH, height=HEIGHT, binning="scan"))
@@ -2171,9 +2436,8 @@ def named_frame(label: str, r: Renderer, cam, card: str) -> dict:
     torch.cuda.synchronize()
     launches = dict(K.LAUNCHES)
     check_graph_frames(label, r, [cam, cam], frames)
-    want = {"raster": 2, "resolve": 0 if r.config.shading == "deferred" else 2,
-            "plan": 2 if r.sampler == "window" else 0, "sample": 2 if r.sampler == "window" else 0}
-    check(all(launches[k] == want[k] for k in RENDER_KERNELS), f"{label}: launches {launches}, want {want}")
+    want = path_want(path_of(r), 2)
+    check(all(launches[k] == want[k] for k in KERNELS), f"{label}: launches {launches}, want {want}")
     f = frames[-1]
     depth = f["depth"]
     check(bool(torch.isfinite(depth).all()), f"{label}: non-finite depth")
@@ -2275,9 +2539,27 @@ def named_scenes(seed: int, card: str) -> dict:
                       f"({tex.numel() * tex.element_size()} B on the card). Every build of this scene paid those "
                       f"rows before they were built on first read: {build_s:.2f} + {rows_s:.2f} s [{card}]")
                 check(rg.texture_dtype == want_dtype == "srgb8", f"porsche_class: auto chose {rg.texture_dtype}")
-                gather = named_frame(f"named_scenes porsche_class gather {w}x{h}", rg, cam, card)["frame"]
+                # Both shade kernels on the srgb8 rows against their plain versions.
+                kph = "named_scenes porsche_class shade kernels"
+                fi = frame_inputs(rg, cam)
+                fmt, ma, light = rg._frame_kwargs["texture_format"], rg.config.max_anisotropy, light_kwargs(
+                    rg._frame_kwargs)
+                lut = rg.scene["atlas"]["srgb_lut"]
+                sp = shade_pair(kph, fi["vis"], fi["attrs"], fi["rows"], tex, fmt, lut, fi["cp"], ma, light)
+                shade_stats = shade_times(sp, tex, fmt, lut, fi["cp"], ma, light, fi["rows"])
+                print(f"{kph} ({fmt} rows, anisotropy {ma}): " + "; ".join(
+                    f"{k} vs plain: {fmt_compare(c)}" for k, c in sp["cmp"].items())
+                    + f"; deferred equal to gather on the resolve kernel's G-buffer {sp['same']}; "
+                    + "; ".join(fmt_times(k, shade_stats[k]) for k in SHADE_KERNELS) + f" [{card}]")
+                print_guards(kph, card)
+                del fi, sp
+                gnf = named_frame(f"named_scenes porsche_class gather {w}x{h}", rg, cam, card)
                 rd = Renderer(scene, RendererConfig(width=w, height=h, shading="deferred", texture_dtype="auto"))
-                deferred = named_frame(f"named_scenes porsche_class deferred {w}x{h}", rd, cam, card)["frame"]
+                dnf = named_frame(f"named_scenes porsche_class deferred {w}x{h}", rd, cam, card)
+                gather, deferred = gnf["frame"], dnf["frame"]
+                shade_stats["gather"]["launches"] = gnf["launches"]["gather"]
+                shade_stats["deferred"]["launches"] = dnf["launches"]["deferred"]
+                stats[name].update(shade_stats)
                 gw = (gather["color"].int() - win["frame"]["color"].int()).abs()
                 dg = (deferred["color"].int() - gather["color"].int()).abs()
                 same_depth = bool(torch.equal(gather["depth"], win["frame"]["depth"]))
@@ -2288,7 +2570,7 @@ def named_scenes(seed: int, card: str) -> dict:
                 check(int(gw.max()) <= 2 and same_depth, "porsche_class: gather is more than 2 LSB from window")
                 check(int(dg.max()) == 0 and bool(torch.equal(deferred["depth"], gather["depth"])),
                       "porsche_class: deferred differs from forward + gather")
-                del rg, rd, gather, deferred
+                del rg, rd, gather, deferred, gnf, dnf
             if name == "hdr":
                 page_max = float(r.scene["atlas"]["page"].float().max())
                 auto = resolve_texture_dtype(scene, "auto")
@@ -2364,7 +2646,7 @@ def main() -> None:
         if any(k in line for k in ("entry function", "registers", "spill", "error")):
             print("  nvcc:", line.strip())
     _build.library()
-    for name in ("raster", "plan", "plan_large", "sample", "vmem_take"):
+    for name in ("raster", "plan", "plan_large", "sample", "shade_gbuffer", "shade_deferred", "vmem_take"):
         regs, blocks = _build.kernel_info(name)
         print(f"{name} kernel: {regs} registers per thread, {blocks} resident blocks per SM")
 
@@ -2383,9 +2665,11 @@ def main() -> None:
 
     if args.multi_device:
         deferred = Renderer(scene, RendererConfig(width=WIDTH, height=HEIGHT, shading="deferred"))
-        multi_device({"window": r, "deferred": deferred}, cams[0], card)
+        gather = Renderer(scene, RendererConfig(width=WIDTH, height=HEIGHT, sampler="gather"))
+        multi_device({"window": r, "gather": gather, "deferred": deferred}, cams[0], card)
         return
     stats = kernel_phases(r, cams[0], card)
+    stats.update(shade_kernels(scene, r, cams[0], card))
     config_matrix(scene, cams[0], card, args.seed)
     if args.config_matrix:
         return
@@ -2440,11 +2724,17 @@ def main() -> None:
           f"({take['ns_per_row']:.4f} ns/row); pipeline " + json.dumps({k: round(v, 4) for k, v in pipe.items()}))
 
     paths = gather_paths(scene, cams, frames, card)
+    for name in SHADE_KERNELS:  # each on its own path's track, the counts from zero around it
+        launches[name] = paths[name][2][name]
     slab_kernels(r, cams[0], card)
-    slab_launches = slab_frames({"window": r, "gather": paths["gather"][0], "deferred": paths["deferred"][0]},
-                                cams[0], card)
-    mesh_launches = multi_device({"window": r, "deferred": paths["deferred"][0]}, cams[0], card)
+    slabs = slab_frames({"window": r, "gather": paths["gather"][0], "deferred": paths["deferred"][0]}, cams[0], card)
+    mesh = multi_device({"window": r, "gather": paths["gather"][0], "deferred": paths["deferred"][0]}, cams[0], card)
     del paths
+    # slab_launches and mesh_launches: a kernel's own path (the window path
+    # for raster and resolve: 8 slabs, the mesh's window replay).
+    home = {name: "window" if name not in SHADE_KERNELS else name for name in KERNELS}
+    slab_launches = {name: slabs[home[name]][name] for name in KERNELS}
+    mesh_launches = {name: mesh[home[name]][name] for name in KERNELS}
     scan_launches = scan_path(scene, r, cams, frames, card)
     runtime_launches = runtime_path(scene, args.seed, window_ops, replay_kernel_ms)
     present_breakdown(r, cams)
@@ -2466,8 +2756,8 @@ def main() -> None:
          "mesh_launches": mesh_launches[name], "scan_launches": scan_launches[name],
          "pose_launches": pose_launches[name],
          **({"named_scenes": {s: {k: named[s][name][k] for k in ("launches", "max_abs_err", "ms", "dev_ms", "bound_ms",
-                                                                    "bound_by")} for s in named}}
-            if name in RENDER_KERNELS else {}),
+                                                                    "bound_by")} for s in named if name in named[s]}}
+            if name in RENDER_KERNELS + SHADE_KERNELS else {}),
          **{k: stats[name][k] for k in keys}}
         for name, (src, rep) in KERNELS.items()
     ]

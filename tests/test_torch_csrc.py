@@ -35,13 +35,27 @@ bin holds many work units. Raster and resolve also render slabs of the
 frame (a first global tile row other than 0, as parallel.py gives them):
 each slab equal to its plain version under the same rules, and to the same
 rows of the emulated whole frame bit for bit, also a slab that lies below
-the frame. Raster, plan and sample also run at tiles past 4096 px
-(LARGE_TILES: the raster's sub-rectangle units, the plan's groups of 4096
-px in scratch, partial sub-rectangles, a frame off the tile grid), and the
-plan on stacked many-texture tiles of 64x128.
+the frame. tests/test_torch_csrc_tiles.py runs raster, plan and sample at
+tiles past 4096 px.
+
+The shade kernels (csrc/shade.cu: tr_shade_gbuffer, tr_shade_deferred)
+run on the small scene at 128x64 against shade_gbuffer_plain and
+shade_deferred_plain: the four texel formats (float32, float16, bfloat16,
+srgb8) at max_anisotropy 16, float16 and srgb8 at 1, alpha and opaque
+blend, background pixels, a slab's y_offset, mip sizes of 0 and rows
+clamped into the table (assert_shade_close: bit for bit but where torch's
+CPU pow or log2 rounds unlike glibc's, then within 1 LSB), the deferred
+kernel equal to the gather kernel on the emulated resolve kernel's
+G-buffer bit for bit, and rows off their load width refused.
+
+Time on one worker: about 45 s (the shade cases about a third of it: the
+plain gather runs 16 probes over every pixel).
 """
 
 import ctypes
+import fcntl
+import hashlib
+import os
 import shutil
 import subprocess
 
@@ -51,28 +65,47 @@ import torch
 
 from tpurast_torch.config import RendererConfig
 from tpurast_torch.device.scene import build_orbit_scene, orbit_track
-from tpurast_torch.kernels import _build, geometry, present, probes, raster, resolve, sampler
+from tpurast_torch.device.textures import TEXTURE_DTYPES, texels_tensor
+from tpurast_torch.kernels import _build, geometry, present, probes, raster, resolve, sampler, shade
 from tpurast_torch.renderer import Renderer
-from test_torch_memsafety import SCENE as SMALL_SCENE, assert_resolve_close, poisoned_gbuf, texture_grid_gbuf
+from test_torch_memsafety import (SCENE as SMALL_SCENE, assert_resolve_close, assert_shade_close, poisoned_gbuf,
+                                  texture_grid_gbuf)
 from test_torch_raster import ADVERSARIAL, A_TILES_X, A_TILES_Y, AH, AW, adversarial_clip
 from test_torch_scene import numpy_bc_decoders  # noqa: F401  (module-wide autouse)
 
-@pytest.fixture(scope="module")
-def emu(tmp_path_factory):
+def emu_library(tmp_path_factory) -> ctypes.CDLL:
+    """csrc/*.cu built for the host emulation with g++, one build per
+    source text a test run: the library lands in the directory all of the
+    run's pytest workers share, named by a hash of the sources, under a
+    file lock, so the modules that load it (this one,
+    tests/test_torch_csrc_tiles.py) build it once between them."""
     cxx = shutil.which("g++")
     if cxx is None:
         pytest.skip("no host C++ compiler (g++) to build the emulated kernels")
-    out = tmp_path_factory.mktemp("emu") / "libtpurast_torch_emu.so"
-    srcs = [str(p) for p in sorted(_build.CSRC.glob("*.cu"))]
-    cmd = [cxx, "-std=c++20", "-O1", "-ffp-contract=off", "-shared", "-fPIC", "-pthread",
-           "-DTR_HOST_EMU", "-x", "c++", *srcs, "-o", str(out)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    assert proc.returncode == 0, proc.stderr
+    base = tmp_path_factory.getbasetemp()
+    shared = base.parent if os.environ.get("PYTEST_XDIST_WORKER") else base
+    srcs = sorted(p for p in _build.CSRC.iterdir() if p.suffix in (".cu", ".cuh", ".h"))
+    digest = hashlib.sha256(b"".join(p.name.encode() + p.read_bytes() for p in srcs)).hexdigest()[:16]
+    out = shared / f"libtpurast_torch_emu_{digest}.so"
+    with open(shared / "emu.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not out.exists():
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [cxx, "-std=c++20", "-O1", "-ffp-contract=off", "-shared", "-fPIC", "-pthread",
+                   "-DTR_HOST_EMU", "-x", "c++", *(str(p) for p in srcs if p.suffix == ".cu"), "-o", str(tmp)]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            assert proc.returncode == 0, proc.stderr
+            os.replace(tmp, out)
     lib = ctypes.CDLL(str(out))
     for name, argtypes in _build.SIGNATURES.items():
         getattr(lib, name).argtypes = argtypes
         getattr(lib, name).restype = ctypes.c_int
     return lib
+
+
+@pytest.fixture(scope="module")
+def emu(tmp_path_factory):
+    return emu_library(tmp_path_factory)
 
 
 @pytest.fixture(scope="module")
@@ -297,102 +330,9 @@ def test_plan_kernel_nan_under_a_matched_pixel(emu, planes, value):
     assert residual_px == int(plan["residual_px"])
 
 
-# Tile shapes past the kernels' 4096-px units, on tests/test_torch_memsafety.py's
-# small orbit scene (the plain raster evaluates every pixel of a pair's
-# tile): (frame size, tile_h, tile_w).
-# The raster kernel cuts such a tile into sub-rectangles (raster.tile_subs)
-# and the plan kernel goes over it in groups of 4096 px with its state in
-# scratch (sampler.plan_scratch). 112x384 is 7 chunks of 16 rows over 11
-# groups and 12 sub-rectangles, the last row of them 16 rows short; 8x1920
-# is 4 sub-rectangles of 8x512, the last 384 columns wide; 64x128 at 130x49
-# lies off the tile grid (one tile row and two columns of padding).
-LARGE_TILES = {"64x128": ((256, 128), 64, 128), "16x1024": ((256, 128), 16, 1024),
-               "112x384": ((256, 128), 112, 384), "8x1920": ((256, 128), 8, 1920),
-               "64x128_off_grid": ((130, 49), 64, 128)}
-
-
-@pytest.fixture(scope="module")
-def small_scene():
-    return build_orbit_scene(seed=2, **SMALL_SCENE)
-
-
-@pytest.fixture(scope="module", params=list(LARGE_TILES))
-def large_tiles(request, small_scene):
-    """The small scene, camera 5, at a LARGE_TILES shape: (tiles, setup,
-    bins, plain raster output, plain G-buffer, the Renderer's scene and
-    camera position)."""
-    (w, h), th, tw = LARGE_TILES[request.param]
-    r = Renderer(small_scene, RendererConfig(width=w, height=h, tile_h=th, tile_w=tw), device="cpu")
-    vp, cp = r.frame_uniforms(orbit_track(8)[5])
-    sc = r.scene
-    so = geometry.triangle_setup(geometry.transform_corners(sc["corner_world"], vp), None, sc["n_faces"], w, h)
-    tiles = dict(tile_h=th, tile_w=tw, tiles_x=r.tiles_x, tiles_y=r.tiles_y)
-    bins = geometry.bin_pairs(so["aabb"], so["valid"], r.tiles_x, r.tiles_y, tw, th)
-    vis = raster.rasterize_tiles_plain(so["setup"], so["aabb"], bins["pair_faces"], bins["offsets"], **tiles)
-    attrs = resolve.pack_resolve_attrs(so["setup"], sc["corner_world"], sc["corner_normal"], sc["corner_uv"],
-                                       sc["face_tex"], sc["atlas"])
-    g = resolve.resolve_gbuffer_plain(vis, attrs, max_anisotropy=16)
-    return tiles, so, bins, vis, g, sc, cp
-
-
-def test_raster_kernel_large_tiles(emu, large_tiles):
-    """Units of (tile, sub-rectangle, chunk): depth and face id equal the
-    plain version's bit for bit."""
-    tiles, so, bins, vis, _, _, _ = large_tiles
-    _, _, nx, ny = raster.tile_subs(tiles["tile_h"], tiles["tile_w"])
-    assert nx * ny > 1
-    assert int((vis[1] >= 0).sum()) > 1000
-    assert torch.equal(_emu_raster(emu, so, bins, tiles), vis)
-
-
-def test_plan_kernel_large_tiles(emu, large_tiles):
-    """The plan's groups of 4096 px: table, assignment and residual pixels
-    equal the plain version's."""
-    tiles, _, _, _, g, _, _ = large_tiles
-    plan = sampler.plan_tiles_plain(g, max_anisotropy=16, **tiles)
-    assert (plan["cls"] == sampler.CLS_WINDOWED).sum() >= 1
-    table, assign, residual_px = _emu_plan(emu, g, tiles)
-    assert torch.equal(table, plan["table"])
-    assert torch.equal(assign, plan["assign"])
-    assert residual_px == int(plan["residual_px"])
-
-
-def test_sample_kernel_large_tiles(emu, large_tiles):
-    """The sample kernel reads each pixel's tile class at any tile shape:
-    within 1 LSB of the plain version, the clear color where unmatched."""
-    tiles, _, _, _, g, sc, cp = large_tiles
-    kw = RendererConfig()
-    light = dict(light_direction=kw.light_direction, light_color=kw.light_color, ambient_amount=kw.ambient_amount,
-                 specular_power=kw.specular_power, clear_color=kw.clear_color, blend="alpha")
-    plan = sampler.plan_tiles_plain(g, max_anisotropy=16, **tiles)
-    page = sc["atlas"]["page"]
-    fb = sampler.sample_tiles_plain(g, page, plan, cp, max_anisotropy=16, **tiles, **light)
-    out = _emu_sample(emu, g, page, plan, cp, tiles, light, 16)
-    hp, wp = g.shape[1:]
-    lsb = (present.encode_srgb_u8(out, wp, hp).int() - present.encode_srgb_u8(fb, wp, hp).int()).abs().max()
-    assert int(lsb) <= 1
-    assert torch.equal(out[:, g[16] == 0], fb[:, g[16] == 0])
-
-
-@pytest.mark.parametrize("n_tex,cols,cls,least_windows", [(24, 6, sampler.CLS_WINDOWED, 24),
-                                                          (40, 10, sampler.CLS_RESIDUAL, 32)],
-                         ids=["many_windows", "residual"])
-def test_plan_kernel_many_textures_large_tile(emu, n_tex, cols, cls, least_windows):
-    """test_plan_kernel_many_textures' tiles, two of them stacked into one
-    64x128 tile (the large path's groups): 24 windows fit, 40 do not."""
-    g = torch.cat([texture_grid_gbuf(n_tex, cols), texture_grid_gbuf(n_tex, cols, seed=12)], dim=1)
-    tiles = dict(tiles_x=1, tiles_y=1, tile_h=64, tile_w=128)
-    plan = sampler.plan_tiles_plain(g, max_anisotropy=16, **tiles)
-    assert int(plan["cls"][0]) == cls and int(plan["n_used"][0]) >= least_windows
-    table, assign, residual_px = _emu_plan(emu, g, tiles)
-    assert torch.equal(table, plan["table"])
-    assert torch.equal(assign, plan["assign"])
-    assert residual_px == int(plan["residual_px"])
-
-
 def _emu_sample(emu, g, page, plan, cp, tiles, light, max_anisotropy):
     out = torch.full((4,) + tuple(g.shape[1:]), -3.0)
-    params = (ctypes.c_float * sampler.N_PARAMS)(*sampler.shade_params(**light))
+    params = (ctypes.c_float * shade.N_PARAMS)(*shade.shade_params(**light))
     err = emu.tr_sample(g.data_ptr(), page.data_ptr(), page.shape[2], plan["table"].data_ptr(), cp.data_ptr(),
                         tiles["tiles_x"], tiles["tiles_y"], tiles["tile_h"], tiles["tile_w"], max_anisotropy,
                         ctypes.addressof(params), out.data_ptr(), None)
@@ -478,3 +418,164 @@ def test_vmem_take_kernel(emu, rows, n, offset):
     assert torch.equal(out, probes.vmem_take_plain(table, idx))
     assert emu.tr_vmem_take(table.data_ptr() + 4, rows, idx.data_ptr(), n, out.data_ptr(), None) != 0
     assert emu.tr_vmem_take(table.data_ptr(), 0, idx.data_ptr(), n, out.data_ptr(), None) != 0
+
+
+@pytest.fixture(scope="module")
+def small_scene():
+    return build_orbit_scene(seed=2, **SMALL_SCENE)
+
+
+# shade.cu's kernels on the small scene at SHADE_SIZE (camera 2 of
+# orbit_track(8)): the plain gather at max_anisotropy 16 runs every probe
+# over every pixel, so the frame is kept small.
+SHADE_SIZE = (128, 64)
+
+
+@pytest.fixture(scope="module")
+def shade_frame(small_scene):
+    """Face ids, attribute and shade-row tables, the atlas rows in each
+    texel dtype, camera position, light, page and tiles of the small
+    scene's frame."""
+    w, h = SHADE_SIZE
+    r = Renderer(small_scene, RendererConfig(width=w, height=h), device="cpu")
+    kw, sc = r._frame_kwargs, r.scene
+    vp, cp = r.frame_uniforms(orbit_track(8)[2])
+    so = geometry.triangle_setup(geometry.transform_corners(sc["corner_world"], vp), None, sc["n_faces"], w, h)
+    bins = geometry.bin_pairs(so["aabb"], so["valid"], r.tiles_x, r.tiles_y, kw["tile_w"], kw["tile_h"])
+    vis = raster.rasterize_tiles_plain(so["setup"], so["aabb"], bins["pair_faces"], bins["offsets"],
+                                       tile_h=kw["tile_h"], tile_w=kw["tile_w"], tiles_x=r.tiles_x,
+                                       tiles_y=r.tiles_y)
+    corners = (so["setup"], sc["corner_world"], sc["corner_normal"], sc["corner_uv"], sc["face_tex"], sc["atlas"])
+    light = dict(light_direction=kw["light_direction"], light_color=kw["light_color"],
+                 ambient_amount=kw["ambient_amount"], specular_power=kw["specular_power"],
+                 clear_color=kw["clear_color"])
+    return dict(vis=vis, fid=vis[1].to(torch.int32), attrs=resolve.pack_resolve_attrs(*corners),
+                rows=shade.pack_shade_rows(*corners), cp=cp, light=light, page=sc["atlas"]["page"],
+                tiles=dict(tiles_x=r.tiles_x, tiles_y=r.tiles_y, tile_h=kw["tile_h"], tile_w=kw["tile_w"]),
+                texels={dt: texels_tensor(small_scene.atlas.texels, dt, "cpu") for dt in TEXTURE_DTYPES})
+
+
+def _texel_format(dtype: str) -> str:
+    return "srgb8" if dtype == "srgb8" else "float"
+
+
+def _emu_shade(emu, kernel, texels, texel_format, cp, light, max_anisotropy, *, gbuf=None, fid=None, rows=None,
+               y_offset=0):
+    """The emulated tr_shade_gbuffer (gbuf) or tr_shade_deferred (fid,
+    rows) launch's (4, H, W) framebuffer, through the wrapper's row check."""
+    code, lut = shade._check_rows(texels, texel_format, shade.srgb_table("cpu"))
+    lut_ptr = None if lut is None else lut.data_ptr()
+    params = (ctypes.c_float * shade.N_PARAMS)(*shade.shade_params(**light))
+    h, w = (gbuf.shape[1:] if kernel == "gather" else fid.shape)
+    out = torch.full((4, h, w), -3.0)
+    if kernel == "gather":
+        err = emu.tr_shade_gbuffer(gbuf.data_ptr(), texels.data_ptr(), texels.shape[0], code, lut_ptr, cp.data_ptr(),
+                                   h, w, max_anisotropy, ctypes.addressof(params), out.data_ptr(), None)
+    else:
+        err = emu.tr_shade_deferred(fid.data_ptr(), rows.data_ptr(), rows.shape[0], texels.data_ptr(),
+                                    texels.shape[0], code, lut_ptr, cp.data_ptr(), h, w, y_offset, max_anisotropy,
+                                    ctypes.addressof(params), out.data_ptr(), None)
+    assert err == 0
+    return out
+
+
+# (texel dtype, max_anisotropy, blend): the four texel formats at 16
+# probes, float16 and srgb8 at 1, float16 opaque.
+SHADE_CASES = ([(dt, 16, "alpha") for dt in TEXTURE_DTYPES] + [("float16", 1, "alpha"), ("srgb8", 1, "alpha"),
+                                                               ("float16", 16, "opaque")])
+
+
+@pytest.mark.parametrize("dtype,max_anisotropy,blend", SHADE_CASES,
+                         ids=[f"{dt}_aniso{ma}_{b}" for dt, ma, b in SHADE_CASES])
+def test_shade_kernels(emu, shade_frame, dtype, max_anisotropy, blend):
+    """tr_shade_gbuffer on the plain G-buffer and tr_shade_deferred on the
+    face ids against shade_gbuffer_plain / shade_deferred_plain
+    (assert_shade_close; at this frame 0-3 pixels differ in f32 and none
+    by 1 LSB), background pixels included; and the deferred kernel equal
+    bit for bit to the gather kernel on the emulated resolve kernel's
+    G-buffer, as deferred equals forward + gather on the card."""
+    f = shade_frame
+    tex, fmt = f["texels"][dtype], _texel_format(dtype)
+    light = dict(f["light"], blend=blend)
+    vis, cp, covered = f["vis"], f["cp"], f["fid"] >= 0
+    assert int(covered.sum()) > 1000 and int((~covered).sum()) > 1000
+    g = resolve.resolve_gbuffer_plain(vis, f["attrs"], max_anisotropy=max_anisotropy)
+    want = shade.shade_gbuffer_plain(g, tex, cp, max_anisotropy=max_anisotropy, texel_format=fmt, **light)
+    out = _emu_shade(emu, "gather", tex, fmt, cp, light, max_anisotropy, gbuf=g)
+    assert_shade_close(out, want, covered)
+    want = shade.shade_deferred_plain(f["fid"], f["rows"], tex, cp, max_anisotropy=max_anisotropy,
+                                      texel_format=fmt, **light)
+    deferred = _emu_shade(emu, "deferred", tex, fmt, cp, light, max_anisotropy, fid=f["fid"], rows=f["rows"])
+    assert_shade_close(deferred, want, covered)
+    g_emu = _emu_resolve(emu, vis, f["attrs"], max_anisotropy=max_anisotropy)
+    assert torch.equal(deferred, _emu_shade(emu, "gather", tex, fmt, cp, light, max_anisotropy, gbuf=g_emu))
+
+
+def test_shade_deferred_kernel_on_a_slab(emu, shade_frame):
+    """The frame's lower 32 rows as a slab (y_offset 32): equal to the
+    emulated whole frame's rows bit for bit and close to the plain slab."""
+    f = shade_frame
+    tex, light = f["texels"]["float16"], dict(f["light"], blend="alpha")
+    full = _emu_shade(emu, "deferred", tex, "float", f["cp"], light, 16, fid=f["fid"], rows=f["rows"])
+    fid = f["fid"][32:].contiguous()
+    slab = _emu_shade(emu, "deferred", tex, "float", f["cp"], light, 16, fid=fid, rows=f["rows"], y_offset=32)
+    assert int((fid >= 0).sum()) > 500
+    assert torch.equal(slab, full[:, 32:])
+    want = shade.shade_deferred_plain(fid, f["rows"], tex, f["cp"], max_anisotropy=16, y_offset=32, **light)
+    assert_shade_close(slab, want, fid >= 0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "srgb8"])
+def test_shade_kernels_width_0_and_rows_outside_the_table(emu, shade_frame, dtype):
+    """Textures the plain versions survive only by their two guards: a mip
+    width and height of 0 (the modulus taken at 1) and atlas offsets past
+    either end of the table (the row index clamped to row 0 or the last
+    row), on a third of the covered pixels each (gather: the G-buffer's
+    planes 8-12; deferred: faces' texture info in the shade rows)."""
+    f = shade_frame
+    tex, fmt = f["texels"][dtype], _texel_format(dtype)
+    light, cp, covered = dict(f["light"], blend="alpha"), f["cp"], f["fid"] >= 0
+    n = tex.shape[0]
+    g = resolve.resolve_gbuffer_plain(f["vis"], f["attrs"], max_anisotropy=16)
+    third = torch.remainder(torch.arange(g[0].numel()).view(g.shape[1:]), 3)
+    g[9:13, third == 0] = 0.0
+    g[8, third == 1] = float(n // 256 + 8)
+    g[8, third == 2] = -8.0
+    want = shade.shade_gbuffer_plain(g, tex, cp, max_anisotropy=16, texel_format=fmt, **light)
+    assert_shade_close(_emu_shade(emu, "gather", tex, fmt, cp, light, 16, gbuf=g), want, covered)
+
+    rows = f["rows"].clone()
+    info = rows[:, shade.ROW_TEXINFO:shade.ROW_TEXINFO + shade.TEX_ROW_WIDTH].view(torch.int32)
+    face = torch.remainder(torch.arange(rows.shape[0]), 3)
+    info[face == 0, 16:48] = 0
+    info[face == 1, 0:16] += n
+    info[face == 2, 0:16] -= n
+    want = shade.shade_deferred_plain(f["fid"], rows, tex, cp, max_anisotropy=16, texel_format=fmt, **light)
+    assert_shade_close(_emu_shade(emu, "deferred", tex, fmt, cp, light, 16, fid=f["fid"], rows=rows), want, covered)
+
+
+def test_shade_kernels_refuse_misaligned_rows(emu, shade_frame):
+    """Each format's rows load at their own width (16, 8 or 4 bytes): rows
+    that start off that grid are refused (cudaErrorInvalidValue) before the
+    launch. A vector load off its alignment inside a launch, a fault on the
+    card, is an error of the launch under the emulation: the sample kernel
+    handed a page 2 bytes off its 8-byte grid returns
+    cudaErrorMisalignedAddress."""
+    f = shade_frame
+    light = dict(f["light"], blend="alpha")
+    g = resolve.resolve_gbuffer_plain(f["vis"], f["attrs"], max_anisotropy=16)
+    params = (ctypes.c_float * shade.N_PARAMS)(*shade.shade_params(**light))
+    out = torch.empty((4,) + tuple(g.shape[1:]))
+    lut = shade.srgb_table("cpu")
+    for dtype, code, shift in (("float32", 0, 8), ("float16", 1, 4), ("bfloat16", 2, 2), ("srgb8", 3, 1)):
+        tex = f["texels"][dtype]
+        err = emu.tr_shade_gbuffer(g.data_ptr(), tex.data_ptr() + shift, tex.shape[0] - 1, code, lut.data_ptr(),
+                                   f["cp"].data_ptr(), g.shape[1], g.shape[2], 16, ctypes.addressof(params),
+                                   out.data_ptr(), None)
+        assert err == 1, dtype
+    tiles, page = f["tiles"], f["page"]
+    plan = sampler.plan_tiles_plain(g, max_anisotropy=16, **tiles)
+    err = emu.tr_sample(g.data_ptr(), page.data_ptr() + 2, page.shape[2], plan["table"].data_ptr(),
+                        f["cp"].data_ptr(), tiles["tiles_x"], tiles["tiles_y"], tiles["tile_h"], tiles["tile_w"], 16,
+                        ctypes.addressof(params), out.data_ptr(), None)
+    assert err == 716

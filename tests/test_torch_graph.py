@@ -11,6 +11,11 @@ without a card.
     float(), bool() and index() of a tensor, torch.nonzero, torch.tensor
     and torch.as_tensor of Python data, and indexing with a Python list or
     a bool tensor. The guarded frame equals the unguarded one bit for bit.
+    The gather and deferred wrappers (csrc/shade.cu) take their plain
+    versions here, which run inside the guard.
+  * test_shade_wrappers_read_nothing_back_before_the_launch: what those two
+    wrappers do on a CUDA device before the launch (the row check, the
+    srgb8 decode table) reads nothing back inside the guard.
   * test_forked_slabs_read_nothing_back: render_slabs' fork and join
     (parallel._fork_join, taken as on a CUDA device, with fake streams):
     each slab on a stream of its own that waits for the current stream,
@@ -30,6 +35,8 @@ without a card.
 The graphs themselves (capture, replay, fresh outputs, launch counts, equal
 to eager frames bit for bit) are checked on the card by chip_smoke.py's
 graph_frames phase.
+
+Time on one worker: about 7 s.
 """
 
 import contextlib
@@ -166,6 +173,26 @@ def test_frame_reads_nothing_back(scene, cam, path, monkeypatch):
     assert float((want["depth"] > 0).float().mean()) > 0.1
     for k in want:
         assert got[k].dtype == want[k].dtype and torch.equal(got[k], want[k]), k
+
+
+@pytest.mark.parametrize("dtype", ["float16", "srgb8"])
+def test_shade_wrappers_read_nothing_back_before_the_launch(scene, dtype, monkeypatch):
+    """shade._check_rows (with the srgb8 decode table, made before, as the
+    scene upload makes it) inside the guard, on the CPU."""
+    from tpurast_torch.device.textures import texels_tensor
+    from tpurast_torch.kernels import shade
+
+    rows = texels_tensor(scene.atlas.texels[:64], dtype, "cpu")
+    fmt = "srgb8" if dtype == "srgb8" else "float"
+    table = shade.srgb_table("cpu")
+    want = shade._check_rows(rows, fmt, table)
+    guard = Guard()
+    _install(monkeypatch, guard)
+    with guard.on():
+        code, lut = shade._check_rows(rows, fmt, table)
+    monkeypatch.undo()
+    assert code == want[0] and (lut is None) == (want[1] is None)
+    assert lut is None or lut is table
 
 
 def test_guard_catches_each_read_back(monkeypatch):

@@ -34,6 +34,10 @@ and warp-synchronous code that leans on lockstep. The ASan shapes:
   * tiles past 4096 px: raster and plan at 16x1024 on the 256x128 frame
     and at 64x128 on the 130x49 frame (the raster's sub-rectangle units,
     the plan's groups of 4096 px and their scratch planes, exact-size);
+  * the shade kernels (csrc/shade.cu) on the 130x49 frame's padded G-buffer
+    and face ids: gather on float16 rows, deferred on srgb8 rows with the
+    256-entry decode table, a third of the atlas offsets moved to the
+    table's end, so that rows past it clamp to its last row;
   * vmem_take at an odd row count, with indices outside the table, and on
     an index array off the 16-byte grid;
   * plane_scale off the 16-byte grid in its three launch geometries
@@ -51,9 +55,9 @@ short must abort with ASan's heap-buffer-overflow, and a small kernel that
 reads its neighbour's shared word without a barrier must end with
 ThreadSanitizer's data race.
 
-Time on one worker: about 50 s (the two builds side by side, then the
+Time on one worker: about 65 s (the two builds side by side, then the
 four subprocesses side by side: the ThreadSanitizer cases take about 45 s,
-the ASan cases about 30 s, the planted ones about 5 s each).
+the ASan cases about 40 s, the planted ones about 5 s each).
 
 Run the cases by hand: python tests/test_torch_memsafety.py LIB OUT.json
 CASE... with LD_PRELOAD=$(g++ -print-file-name=libasan.so) (or libtsan.so
@@ -79,7 +83,8 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
 from tpurast_torch.config import RendererConfig  # noqa: E402
 from tpurast_torch.device.scene import build_orbit_scene, orbit_track  # noqa: E402
-from tpurast_torch.kernels import _build, geometry, present, probes, raster, resolve, sampler  # noqa: E402
+from tpurast_torch.device.textures import texels_tensor  # noqa: E402
+from tpurast_torch.kernels import _build, geometry, present, probes, raster, resolve, sampler, shade  # noqa: E402
 from tpurast_torch.renderer import Renderer  # noqa: E402
 
 # Per sanitizer: the g++ flag, the runtime to preload and its options.
@@ -109,6 +114,7 @@ CASES = (
     + ["vmem_take_odd_rows", "vmem_take_outside_the_table", "vmem_take_unaligned_idx"]
     + ["plane_scale_tile_grid", "plane_scale_one_plane", "plane_scale_row_band"]
     + ["zstd_corrupt_and_truncated_frames"]
+    + ["shade_gather_off_grid", "shade_deferred_off_grid"]
     + [f"{k}_{t}_{s}" for t, s in LARGE_TILES for k in ("raster", "plan")]
 )
 ZSTD_SRC = pathlib.Path(__file__).resolve().parent.parent / "tpurast_torch" / "native" / "zstd.cpp"
@@ -154,6 +160,23 @@ def assert_resolve_close(out, g, covered):
             assert torch.equal(out[i][keep], g[i][keep]), f"plane {i}"
         else:
             assert torch.allclose(out[i][keep], g[i][keep], rtol=1e-5, atol=1e-6), f"plane {i}"
+
+
+def assert_shade_close(out, want, covered):
+    """The shade kernels' budget against their plain versions on the CPU:
+    the same order of operations, so the f32 planes agree bit for bit
+    except where torch's CPU pow (specular term, srgb8 decode table) or
+    log2 (the deferred mip level) rounds unlike glibc's, at most 0.5% of
+    the covered pixels; those stay within 1 LSB after the sRGB u8 encode.
+    Uncovered pixels hold the clear color exactly. Returns the pixels at 1
+    LSB."""
+    h, w = out.shape[1:]
+    assert torch.equal(out[:, ~covered], want[:, ~covered])
+    differ = (out != want).any(dim=0)
+    assert int(differ.sum()) <= 0.005 * int(covered.sum()), f"{int(differ.sum())} pixels differ"
+    lsb = (present.encode_srgb_u8(out, w, h).int() - present.encode_srgb_u8(want, w, h).int()).abs().amax(dim=0)
+    assert int(lsb.max()) <= 1
+    return int((lsb == 1).sum())
 
 
 def texture_grid_gbuf(n_tex, cols, seed=11):
@@ -359,7 +382,7 @@ class Cases:
         sampler._check_page(page)
         want = sampler.sample_tiles_plain(g, page, plan, f["cp"], max_anisotropy=ma, **tiles, **light)
         args = [exact(g), page, exact(plan["table"]), exact(f["cp"]),
-                torch.tensor(sampler.shade_params(**light), dtype=torch.float32)]
+                torch.tensor(shade.shade_params(**light), dtype=torch.float32)]
         out = torch.empty((4,) + tuple(g.shape[1:]))
         err = self.lib.tr_sample(args[0].data_ptr(), page.data_ptr(), page.shape[2], args[2].data_ptr(),
                                  args[3].data_ptr(), tiles["tiles_x"], tiles["tiles_y"], tiles["tile_h"],
@@ -392,6 +415,49 @@ class Cases:
             assert int((vis[1] >= 0).sum()) > (500 if inside else -1)
         else:
             assert_resolve_close(self.emu_resolve(vis, f["attrs"], y_offset=row0 * th), g, vis[1] >= 0)
+
+    def shade(self, kernel, size):
+        """tr_shade_gbuffer on float16 rows or tr_shade_deferred on srgb8
+        rows (with its decode table) over the frame's padded tiles, the
+        atlas offsets of a third of the pixels (gather: the last multiple
+        of 256 below the row count) or faces (deferred: the last row) moved
+        to the table's end, so that their rows run past it and clamp to its
+        last row; unclamped, the first rows past the end fall in ASan's
+        redzone."""
+        f = self.frame(size)
+        dtype = "float16" if kernel == "gather" else "srgb8"
+        fmt = "srgb8" if dtype == "srgb8" else "float"
+        texels = exact(texels_tensor(self.scene.atlas.texels, dtype, "cpu"))
+        n = texels.shape[0]
+        code, lut = shade._check_rows(texels, fmt, shade.srgb_table("cpu"))
+        light, cp, ma = f["light"], exact(f["cp"]), f["ma"]
+        params = torch.tensor(shade.shade_params(**light), dtype=torch.float32)
+        fid = exact(f["vis"][1].to(torch.int32))
+        out = torch.empty((4,) + tuple(fid.shape))
+        lut = None if lut is None else exact(lut)
+        lut_ptr = None if lut is None else lut.data_ptr()
+        if kernel == "gather":
+            g = f["g"].clone()
+            g[8, torch.remainder(fid, 3) == 1] = float(n // 256)
+            want = shade.shade_gbuffer_plain(g, texels, cp, max_anisotropy=ma, texel_format=fmt, **light)
+            g = exact(g)
+            err = self.lib.tr_shade_gbuffer(g.data_ptr(), texels.data_ptr(), n, code, lut_ptr, cp.data_ptr(),
+                                            fid.shape[0], fid.shape[1], ma, params.data_ptr(), out.data_ptr(), None)
+        else:
+            so, sc = f["so"], f["sc"]
+            rows = shade.pack_shade_rows(so["setup"], sc["corner_world"], sc["corner_normal"], sc["corner_uv"],
+                                         sc["face_tex"], sc["atlas"])
+            rows[1::3, shade.ROW_TEXINFO:shade.ROW_TEXINFO + 16].view(torch.int32).fill_(n - 1)
+            want = shade.shade_deferred_plain(fid, rows, texels, cp, max_anisotropy=ma, texel_format=fmt, **light)
+            rows = exact(rows)
+            err = self.lib.tr_shade_deferred(fid.data_ptr(), rows.data_ptr(), rows.shape[0], texels.data_ptr(), n,
+                                             code, lut_ptr, cp.data_ptr(), fid.shape[0], fid.shape[1], 0, ma,
+                                             params.data_ptr(), out.data_ptr(), None)
+        assert err == 0
+        w, h = SIZES[size]
+        covered = fid >= 0
+        assert int(covered[h:].sum() + covered[:h, w:].sum()) > 0 if size == "off_grid" else True
+        assert_shade_close(out, want, covered)
 
     def plan_24_windows(self):
         plan = self.check_plan(texture_grid_gbuf(24, 6), dict(tiles_x=1, tiles_y=1, tile_h=32, tile_w=128))
@@ -484,6 +550,8 @@ class Cases:
             "plane_scale_row_band": lambda: self.plane_scale((3, 67, 381), 1, 32, 381),
             "plane_scale_one_plane": lambda: self.plane_scale((1, 15, 23), 0, 5, 2),
             "zstd_corrupt_and_truncated_frames": self.zstd_frames,
+            "shade_gather_off_grid": lambda: self.shade("gather", "off_grid"),
+            "shade_deferred_off_grid": lambda: self.shade("deferred", "off_grid"),
             PLANTED: self.planted,
             PLANTED_RACE: self.planted_race,
         }

@@ -15,6 +15,8 @@
     run at a tiny size with a timer that calls once, and the helpers they
     time agree with numpy (gather sums, the stable sort, the scatter);
   * timing without a CUDA device fails instead of falling back.
+
+Time on one worker: about 5 s.
 """
 
 import jax
@@ -205,6 +207,7 @@ def test_microbench_shade_on_the_demo_scene_without_data(tmp_path):
     texels = upload_atlas(scene.atlas, "float16", CPU)["texels"]
     res = mb.shade(texels, CPU, height=16, width=32, timer=once)
     assert res["atlas_shape"] == tuple(texels.shape) and res["atlas_dtype"] == "float16"
+    assert {"kernel_ms", "full_ms", "gather_only_ms", "trilerp_only_ms"} <= set(res)
     gb, _ = mb.shade_inputs(CPU, height=16, width=32)
     assert torch.isfinite(mb.trilerp_only(gb, texels)).all()
     assert torch.isfinite(mb.gather_only(gb, texels)).all()

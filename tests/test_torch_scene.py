@@ -10,6 +10,9 @@
     reference package blocked imports tpurast_torch, builds a procedural
     scene and renders a frame;
   * the kernel build and dispatch fail loudly instead of falling back.
+
+Every test_torch_* module imports this one; it sets torch's threads per
+pytest-xdist worker (below). Time on one worker: about 6 s.
 """
 
 import dataclasses
@@ -29,6 +32,16 @@ from tpurast_torch.device import pages, scene
 from tpurast_torch.kernels import _build
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+# torch's CPU operations get each pytest-xdist worker's share of the cores
+# (one thread where 6 workers share 8 cores; all of them in a single
+# process). With every worker's OpenMP team as wide as the machine, each
+# operation's barrier waits for threads that the other workers have
+# descheduled: on 8 cores with 6 workers the tier-1 command (ROADMAP.md)
+# took 1,271 s with torch's default threads and 407 s with this. Every
+# worker imports this module when it collects the suite.
+_WORKERS = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
+torch.set_num_threads(max(1, len(os.sched_getaffinity(0)) // _WORKERS))
 
 
 @pytest.fixture(scope="module", autouse=True)

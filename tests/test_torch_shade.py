@@ -14,7 +14,13 @@ tpurast_torch.kernels.shade with the same atlas rows, float32 and srgb8:
   * shade_gbuffer and shade_deferred: within 1 LSB per channel after the
     sRGB u8 encode, the same pixels covered;
   * shade_deferred with y_offset shades a band of rows exactly as the
-    full frame does, and an uncovered G-buffer shades to the clear color.
+    full frame does, and an uncovered G-buffer shades to the clear color;
+  * the wrappers on CPU tensors are the plain versions and count no
+    launch, hold no fallback, and check the atlas rows as csrc/shade.cu
+    takes them (dtype with texel format, shape, each format's alignment,
+    srgb8 rows' decode table), which the scene upload makes once.
+
+Time on one worker: about 20 s.
 """
 
 import dataclasses
@@ -178,3 +184,85 @@ def test_uncovered_gbuffer_shades_to_clear_color(texels):
                               **_light(CFG))
     want = torch.tensor(CFG.clear_color, dtype=torch.float32)[:, None, None].expand(4, 8, 16)
     assert torch.equal(out, want)
+
+
+def test_wrappers_take_the_plain_versions_on_the_cpu(frame, texels):
+    """shade_gbuffer and shade_deferred on CPU tensors are their plain
+    versions, value for value, and count no launch; tensors of a device
+    that is neither the CPU nor CUDA raise instead of falling back."""
+    from tpurast_torch import kernels
+
+    _, port_tex = texels["srgb8"]
+    cfg = frame["cfg"]
+    kw = dict(_light(cfg), max_anisotropy=cfg.max_anisotropy, texel_format="srgb8")
+    g, fid, rows, cp = _t(frame["gbuf"]), _t(frame["fid"]), _t(np.asarray(frame["rows"])), _t(frame["cp"])
+    kernels.reset_launches()
+    assert torch.equal(shade.shade_gbuffer(g, port_tex, cp, **kw), shade.shade_gbuffer_plain(g, port_tex, cp, **kw))
+    assert torch.equal(shade.shade_deferred(fid, rows, port_tex, cp, y_offset=3, **kw),
+                       shade.shade_deferred_plain(fid, rows, port_tex, cp, y_offset=3, **kw))
+    assert kernels.LAUNCHES["gather"] == kernels.LAUNCHES["deferred"] == 0
+    with pytest.raises(ValueError, match="CUDA device"):
+        shade.shade_gbuffer(g.to("meta"), port_tex.to("meta"), cp.to("meta"), **kw)
+    with pytest.raises(ValueError, match="CUDA device"):
+        shade.shade_deferred(fid.to("meta"), rows.to("meta"), port_tex.to("meta"), cp.to("meta"), **kw)
+
+
+def test_wrappers_have_no_fallback():
+    """The kernel wrappers hold no try: a CUDA tensor launches the kernel
+    or raises (chip_smoke.py holds the launch on the card)."""
+    import ast
+    import inspect
+
+    for fn in (shade.shade_gbuffer, shade.shade_deferred):
+        tree = ast.parse(inspect.getsource(fn))
+        assert not any(isinstance(n, ast.Try) for n in ast.walk(tree)), fn.__name__
+
+
+def test_row_check_takes_each_texel_dtype_at_its_alignment(texels):
+    """csrc/shade.cu's row check: each dtype with its texel format, (N, 52)
+    rows, contiguous, starting on the grid of the format's loads (16 bytes
+    for float32, 8 for float16 and bfloat16, 4 for srgb8); srgb8 rows with
+    their (256,) f32 decode table on their device, _srgb_texel of 0..255,
+    float rows with none."""
+    rows32 = torch.rand((9, 52))
+    table = shade.srgb_table("cpu")
+    for dtype, code in shade.ROW_FORMATS.items():
+        fmt = "srgb8" if dtype == torch.uint8 else "float"
+        t = (rows32 * 255).to(dtype) if dtype == torch.uint8 else rows32.to(dtype)
+        got, lut = shade._check_rows(t, fmt, table)
+        assert got == code and (lut is None if fmt == "float" else lut is table)
+        with pytest.raises(TypeError):
+            shade._check_rows(t, "float" if fmt == "srgb8" else "srgb8", table)
+        with pytest.raises(ValueError):
+            shade._check_rows(t[:, :51], fmt, table)
+        off = torch.empty(9 * 52 + 1, dtype=dtype)[1:].view(9, 52)  # one element off the row grid
+        with pytest.raises(ValueError, match="boundary"):
+            shade._check_rows(off, fmt, table)
+    u8 = (rows32 * 255).to(torch.uint8)
+    with pytest.raises(ValueError, match="srgb_lut"):
+        shade._check_rows(u8, "srgb8", None)
+    with pytest.raises(ValueError, match="srgb_lut"):
+        shade._check_rows(u8, "srgb8", table[:255])
+    with pytest.raises(TypeError, match="srgb_lut"):
+        shade._check_rows(u8, "srgb8", table.double())
+    with pytest.raises(ValueError, match="texel format"):
+        shade._check_rows(rows32, "linear", table)
+    c8 = torch.arange(256, dtype=torch.uint8)
+    assert torch.equal(table, shade._srgb_texel(c8)) and table.shape == (256,)
+
+
+@pytest.mark.parametrize("texture_dtype", ["srgb8", "float16"])
+def test_upload_makes_the_srgb8_table_once(scene, texture_dtype):
+    """The scene upload makes srgb8 rows' decode table beside them, once
+    (no frame builds it): srgb_table on the rows' device; float rows get
+    none. A replica carries its own copy."""
+    from tpurast_torch.device import scene as scene_mod
+
+    up = scene_mod.upload(scene, "cpu", texture_dtype=texture_dtype)
+    if texture_dtype == "float16":
+        assert "srgb_lut" not in up["atlas"]
+        return
+    lut = up["atlas"]["srgb_lut"]
+    assert lut.device == up["atlas"]["texels"].device and torch.equal(lut, shade.srgb_table("cpu"))
+    rep = scene_mod.replicate(up, "cpu")
+    assert torch.equal(rep["atlas"]["srgb_lut"], lut)

@@ -1,5 +1,5 @@
 // Shared helpers of the tpurast_torch CUDA kernels (raster.cu, resolve.cu,
-// plan.cu, sampler.cu, probes.cu).
+// plan.cu, sampler.cu, shade.cu, probes.cu).
 //
 // The kernels are built with --fmad=false and without fast math, so every
 // a*b+c below rounds twice and every division and sqrtf is correctly
@@ -18,6 +18,7 @@
   tr_emu_launch((grid), (block), [&] { kernel(__VA_ARGS__); })
 #else
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -87,10 +88,22 @@ __device__ __forceinline__ unsigned warp_ballot(bool pred) {
 #endif
 }
 
-// 8-byte load through the read-only data path (ld.global.nc); p is 8-byte
-// aligned.
+// Vector loads through the read-only data path (ld.global.nc): 4, 8 and
+// 16 bytes, p aligned to as many. The card faults on a misaligned vector
+// load; the host emulation records it and the launch returns
+// cudaErrorMisalignedAddress (host_emu.h).
+__device__ __forceinline__ unsigned ldg_u32(const unsigned* p) {
+#ifdef TR_HOST_EMU
+  tr_emu_check_aligned(p, 4);
+  return *p;
+#else
+  return __ldg(p);
+#endif
+}
+
 __device__ __forceinline__ uint2 ldg_u2(const uint2* p) {
 #ifdef TR_HOST_EMU
+  tr_emu_check_aligned(p, 8);
   return *p;
 #else
   return __ldg(p);
@@ -126,10 +139,9 @@ __device__ __forceinline__ float warp_shfl_up_f(float v, int delta) {
 #endif
 }
 
-// 16-byte load through the read-only data path (ld.global.nc), for data
-// that many threads read again; p is 16-byte aligned.
 __device__ __forceinline__ float4 ldg_f4(const float4* p) {
 #ifdef TR_HOST_EMU
+  tr_emu_check_aligned(p, 16);
   return *p;
 #else
   return __ldg(p);
@@ -157,3 +169,12 @@ __device__ __forceinline__ void st_stream_f(float* p, float v) {
 
 // The float a bfloat16's 16 bits stand for.
 __device__ __forceinline__ float bf16_bits(unsigned bits) { return __uint_as_float(bits << 16); }
+
+// The float an IEEE half's 16 bits stand for (exact).
+__device__ __forceinline__ float f16_bits(unsigned bits) {
+#ifdef TR_HOST_EMU
+  return tr_emu_half_to_float(bits & 0xFFFFu);
+#else
+  return __half2float(__ushort_as_half((unsigned short)bits));
+#endif
+}

@@ -121,8 +121,24 @@ void tr_emu_launch(dim3 grid, dim3 block, F&& body) {
   tr_emu_block_barrier = nullptr;
 }
 
-enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
-inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaErrorMisalignedAddress = 716 };
+// The error of the last launch: a vector load off its alignment
+// (tr_emu_check_aligned), where the card would fault.
+inline std::atomic<int> tr_emu_error{0};
+inline cudaError_t cudaGetLastError() { return (cudaError_t)tr_emu_error.exchange(0); }
+
+inline void tr_emu_check_aligned(const void* p, uintptr_t bytes) {
+  if ((uintptr_t)p % bytes != 0) tr_emu_error.store(cudaErrorMisalignedAddress);
+}
+
+// An IEEE half's 16 bits as a float (exact; NaN payloads are not kept).
+inline float tr_emu_half_to_float(unsigned h) {
+  const unsigned e = (h >> 10) & 31u, m = h & 1023u;
+  const float f = e == 0 ? ldexpf((float)m, -24)
+                  : e == 31 ? (m ? NAN : INFINITY)
+                            : ldexpf((float)(m | 1024u), (int)e - 25);
+  return (h >> 15) ? -f : f;
+}
 inline cudaError_t cudaMemsetAsync(void* p, int value, size_t bytes, void*) {
   std::memset(p, value, bytes);
   return cudaSuccess;
@@ -177,7 +193,9 @@ struct int4 {
 struct uint2 {
   unsigned x, y;
 };
-inline const char* cudaGetErrorString(cudaError_t e) { return e == cudaSuccess ? "no error" : "invalid value"; }
+inline const char* cudaGetErrorString(cudaError_t e) {
+  return e == cudaSuccess ? "no error" : e == cudaErrorMisalignedAddress ? "misaligned address" : "invalid value";
+}
 
 struct __nv_bfloat16 {
   uint16_t bits;

@@ -41,7 +41,7 @@
 // runs to its worst lane's probe count (chip_smoke.py prints the mean of
 // that beside the mean per pixel).
 
-#include "common.cuh"
+#include "shading.cuh"
 
 namespace {
 
@@ -50,15 +50,6 @@ constexpr int kBlockW = 32, kBlockH = kThreads / kBlockW;  // pixels of a block
 constexpr int kWarpW = 32, kWarpH = 32 / kWarpW;  // pixels of a warp
 constexpr int kClsEmpty = 2;
 static_assert(kBlockW % kWarpW == 0 && kBlockH % kWarpH == 0, "the warps tile the block");
-
-struct ShadeParams {
-  float light_direction[3];
-  float light_color[3];
-  float ambient;
-  float specular_power;
-  float clear[4];
-  float opaque;
-};
 
 // The (PH, PW, 4) bf16 page; page(py, px, t) reads the four channels of
 // the texel at page row py, column px.
@@ -104,12 +95,8 @@ __device__ __forceinline__ void tap(const Page& page, float u, float v, float ma
   }
 }
 
-__device__ __forceinline__ float rnorm3(float x, float y, float z) {
-  return 1.0f / sqrtf(max_nan(x * x + y * y + z * z, 1e-20f));
-}
-
-// Mip blend, probe normalisation, lighting and blend of one matched pixel
-// (sampler.py:867-880 and shade_out).
+// Mip blend and probe normalisation of one matched pixel
+// (sampler.py:867-880), then shading.cuh's lighting and blend.
 __device__ void shade_store(const float* __restrict__ gbuf, long long plane, long long p, const float s_own[4],
                             const float s_par[4], float n_px, const float* __restrict__ cam,
                             const ShadeParams& prm, float* __restrict__ out) {
@@ -119,39 +106,7 @@ __device__ void shade_store(const float* __restrict__ gbuf, long long plane, lon
   const float t_i = 1.0f - tfrac;
   float albedo[4];
   for (int c = 0; c < 4; ++c) albedo[c] = (s_own[c] * t_i + s_par[c] * tfrac) / n_px;
-
-  // shade._light_planes (basic.frag:15-38)
-  const float ldx = prm.light_direction[0], ldy = prm.light_direction[1],
-              ldz = prm.light_direction[2];
-  const float rn = rnorm3(g[3], g[4], g[5]);
-  const float nx = g[3] * rn, ny = g[4] * rn, nz = g[5] * rn;
-  float vx = cam[0] - g[0], vy = cam[1] - g[1], vz = cam[2] - g[2];
-  const float rv = rnorm3(vx, vy, vz);
-  vx = vx * rv;
-  vy = vy * rv;
-  vz = vz * rv;
-  const float n_dot_l = nx * ldx + ny * ldy + nz * ldz;
-  const float diffuse = max_nan(n_dot_l, 0.0f);
-  const float rx = 2.0f * n_dot_l * nx - ldx;
-  const float ry = 2.0f * n_dot_l * ny - ldy;
-  const float rz = 2.0f * n_dot_l * nz - ldz;
-  const float v_dot_r = max_nan(vx * rx + vy * ry + vz * rz, 0.0f);
-  const float spec = albedo[3] * powf(v_dot_r, prm.specular_power);
-  const float k = prm.ambient + diffuse;
-  for (int c = 0; c < 3; ++c) {
-    const float rgb = (k * prm.light_color[c]) * albedo[c] + spec * prm.light_color[c];
-    // shade.blend_planes with source alpha 1: rgb * 1 + clear * 0.
-    out[c * plane + p] = prm.opaque != 0.0f ? rgb : rgb * 1.0f + 0.0f;
-  }
-  out[3 * plane + p] = prm.opaque != 0.0f ? 1.0f : prm.clear[3];
-}
-
-// shade.probe_count
-__device__ __forceinline__ float probe_count(float maj_du, float maj_dv, float tw0, float th0, float span,
-                                             int max_anisotropy) {
-  if (max_anisotropy <= 1) return 1.0f;
-  const float ext = max_nan(fabsf(maj_du) * tw0, fabsf(maj_dv) * th0) * span;
-  return min_nan(max_nan(ceilf(ext - 1e-4f), 1.0f), (float)max_anisotropy);
+  light_store(g, albedo, cam, prm, plane, p, out);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -167,8 +122,7 @@ __global__ void __launch_bounds__(kThreads)
   const long long p = (long long)y * wp + x;
   const int cls = table[((long long)(y / tile_h) * tiles_x + x / tile_w) * 8 * 128];
   if (cls == kClsEmpty || !(gbuf[16 * plane + p] > 0.0f)) {
-#pragma unroll
-    for (int c = 0; c < 4; ++c) out[c * plane + p] = prm.clear[c];
+    store_clear(prm, plane, p, out);
     return;
   }
   const float u = gbuf[6 * plane + p], v = gbuf[7 * plane + p];
@@ -195,14 +149,7 @@ __global__ void __launch_bounds__(kThreads)
 extern "C" int tr_sample(const float* gbuf, const void* page, int page_w, const int* table, const float* cam,
                          int tiles_x, int tiles_y, int tile_h, int tile_w, int max_anisotropy, const float* params,
                          float* out, void* stream) {
-  ShadeParams prm;
-  const float* q = params;
-  for (int i = 0; i < 3; ++i) prm.light_direction[i] = *q++;
-  for (int i = 0; i < 3; ++i) prm.light_color[i] = *q++;
-  prm.ambient = *q++;
-  prm.specular_power = *q++;
-  for (int i = 0; i < 4; ++i) prm.clear[i] = *q++;
-  prm.opaque = *q++;
+  const ShadeParams prm = read_shade_params(params);
   const int hp = tiles_y * tile_h, wp = tiles_x * tile_w;
   const dim3 grid((wp + kBlockW - 1) / kBlockW, (hp + kBlockH - 1) / kBlockH);
   if (grid.y > 65535) return (int)cudaErrorInvalidValue;

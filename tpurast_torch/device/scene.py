@@ -46,6 +46,7 @@ from tpurast_torch.device import textures as tex_mod
 from tpurast_torch.device.pages import build_pages
 from tpurast_torch.device.textures import texels_tensor
 from tpurast_torch.kernels.sampler import interleave_page
+from tpurast_torch.kernels.shade import srgb_table
 
 log = logging.getLogger("tpurast_torch.device")
 
@@ -249,6 +250,9 @@ def _tensors(arrays: dict, page, texels, n_faces: int, device) -> dict:
             atlas[k] = t(arrays[k])
     if texels is not None:
         atlas["texels"] = texels.contiguous().to(dev)
+        if texels.dtype == torch.uint8:
+            # srgb8 rows: the shade kernels' RGB decode table, made once here.
+            atlas["srgb_lut"] = srgb_table(dev)
     return {
         "corner_world": t(arrays["corner_world"]),
         "corner_normal": t(arrays["corner_normal"]),
@@ -267,8 +271,9 @@ def upload(scene: DeviceScene, device, texture_dtype: str | None = None) -> dict
     channel-interleaved (PH, PW, 4) array; atlas["page"] is its
     (4, PH, PW) view, which indexes like the reference's planar page. With
     texture_dtype ("float32", "float16", "bfloat16" or "srgb8") the atlas
-    also carries the quad-row texels in that dtype; without it, it does
-    not. A scene without pages uploads no page."""
+    also carries the quad-row texels in that dtype (srgb8 rows with
+    atlas["srgb_lut"], their decode table, kernels/shade.py::srgb_table);
+    without it, it does not. A scene without pages uploads no page."""
     cw, cn, cu = scene.corner_tables()
     face_tex = (
         scene.face_tex if scene.face_tex is not None else scene.prim_tex[scene.face_prim]

@@ -9,7 +9,7 @@ Stages of one frame (tpurast_torch.renderer.render_frame):
                 trilinear texturing from the page + lighting (CUDA kernel)
   shade.py    — the lighting / footprint formulas shared by the plain
                 paths, and the row-atlas gather and deferred shading
-                (torch ops)
+                (CUDA kernels tr_shade_gbuffer, tr_shade_deferred)
   present.py  — sRGB encode and crops (torch ops)
 
 and, for the device microbenchmarks (tpurast_torch/tools):
@@ -43,7 +43,8 @@ import contextlib
 import torch
 
 #: CUDA launches per kernel since the last reset_launches().
-LAUNCHES = {"raster": 0, "resolve": 0, "plan": 0, "sample": 0, "vmem_take": 0, "plane_scale": 0}
+LAUNCHES = {"raster": 0, "resolve": 0, "plan": 0, "sample": 0, "gather": 0, "deferred": 0, "vmem_take": 0,
+            "plane_scale": 0}
 
 
 def reset_launches() -> None:

@@ -57,13 +57,16 @@ SIGNATURES = {
     "tr_resolve": [_P, _P, _I, _I, _I, _I, _I, _P, _P],
     "tr_plan": [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     "tr_sample": [_P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
+    "tr_shade_gbuffer": [_P, _P, _L, _I, _P, _P, _I, _I, _I, _P, _P, _P],
+    "tr_shade_deferred": [_P, _P, _I, _P, _L, _I, _P, _P, _I, _I, _I, _I, _P, _P, _P],
     "tr_plane_scale": [_P, _I, _I, _I, _I, _I, _I, _P, _P],
     "tr_vmem_take": [_P, _I, _P, _L, _P, _P],
 }
 
 
 # Kernels with a tr_<name>_info entry point (registers, blocks per SM).
-INFO = ("tr_raster_info", "tr_plan_info", "tr_plan_large_info", "tr_sample_info", "tr_vmem_take_info")
+INFO = ("tr_raster_info", "tr_plan_info", "tr_plan_large_info", "tr_sample_info", "tr_shade_gbuffer_info",
+        "tr_shade_deferred_info", "tr_vmem_take_info")
 
 
 def nvcc_path() -> str:
@@ -140,8 +143,8 @@ def library() -> ctypes.CDLL:
 
 def kernel_info(name: str) -> tuple[int, int]:
     """(registers per thread, resident blocks per SM) of a kernel of INFO
-    ("raster", "plan", "plan_large", "sample", "vmem_take") as built, from
-    the CUDA runtime."""
+    ("raster", "plan", "plan_large", "sample", "shade_gbuffer",
+    "shade_deferred", "vmem_take") as built, from the CUDA runtime."""
     regs, blocks = ctypes.c_int(), ctypes.c_int()
     err = getattr(library(), f"tr_{name}_info")(ctypes.byref(regs), ctypes.byref(blocks))
     if err != 0:

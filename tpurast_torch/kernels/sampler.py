@@ -88,9 +88,6 @@ CHUNK_NP_LANE = 120
 PLAN_GROUP_PX = 4096
 PLAN_SCRATCH_PLANES = 10
 
-# Shading parameters passed to csrc/sampler.cu, in this order.
-N_PARAMS = 13
-
 
 def rc_for(tile_h: int) -> int:
     """Chunk row height for a tile height (sampler.py rc_for)."""
@@ -371,18 +368,6 @@ def sample_tiles_plain(gbuf, page, plan, camera_position, *, tiles_x, tiles_y, t
     return out.reshape(4, hp, wp)
 
 
-def shade_params(*, light_direction, light_color, ambient_amount, specular_power, clear_color, blend):
-    """The N_PARAMS floats csrc/sampler.cu takes: light direction (3),
-    light color (3), ambient, specular power, clear color (4), opaque flag."""
-    if blend not in ("alpha", "opaque"):
-        raise ValueError(f"unknown blend mode {blend!r}")
-    vals = [*light_direction, *light_color, ambient_amount, specular_power, *clear_color,
-            1.0 if blend == "opaque" else 0.0]
-    if len(vals) != N_PARAMS:
-        raise ValueError("light_direction/light_color need 3 entries, clear_color 4")
-    return vals
-
-
 def _plan_dict(table, assign, residual_px):
     return {
         "table": table,
@@ -476,7 +461,7 @@ def sample_tiles(gbuf, page, plan, camera_position, *, tiles_x, tiles_y, tile_h,
     _check_page(page)
     _k.check(table, "plan table", torch.int32, (tiles_x * tiles_y, 8, 128))
     _k.check(camera_position, "camera_position", torch.float32, (3,))
-    params = (ctypes.c_float * N_PARAMS)(*shade_params(**kw))
+    params = (ctypes.c_float * _shade.N_PARAMS)(*_shade.shade_params(**kw))
     out = torch.empty((4, hp, wp), dtype=torch.float32, device=gbuf.device)
     _build.call(
         "tr_sample", gbuf, page, page.shape[2], table, camera_position,

@@ -1,19 +1,24 @@
-"""Shading as torch ops: lighting, blend, footprint, and the row-atlas
-gather paths.
+"""Shading: lighting, blend, footprint, and the row-atlas gather paths.
 
 Counterpart of tpurast/kernels/shade.py, same names, same operation
 order. The lighting, blend and footprint formulas (_rnorm3,
 _light_planes, blend_planes, aniso_footprint, probe_count) are shared by
-the plain versions of the resolve and sample kernels; csrc/resolve.cu
-and csrc/sampler.cu repeat them term for term.
+the plain versions of the resolve and sample kernels; csrc/resolve.cu,
+csrc/sampler.cu and csrc/shade.cu repeat them term for term
+(csrc/shading.cuh holds the lighting and blend they share).
 
 The gather sampler (shade_gbuffer, the forward path's shading tail) and
-deferred shading (pack_shade_rows + shade_deferred, the per-pixel
-fat-row path) read the quad-row atlas (device/textures.py): one (N, 52)
-row per trilinear sample holds the own-mip 2x2 quad and the parent mip's
-3x3 window (_trilerp). They stay torch ops, as the reference leaves them
-to XLA. Both paths run the same _trilerp on the same values, so a
-forward+gather frame equals the deferred frame bit for bit.
+deferred shading (pack_shade_rows + shade_deferred) read the quad-row
+atlas (device/textures.py): one (N, 52) row per trilinear sample holds
+the own-mip 2x2 quad and the parent mip's 3x3 window (_trilerp). The
+reference leaves both to XLA (shade.py:316, :463); here each is a CUDA
+kernel of csrc/shade.cu (tr_shade_gbuffer, tr_shade_deferred): one
+thread per pixel that runs only its own probes. The plain versions
+(shade_gbuffer_plain, shade_deferred_plain) keep the reference's form,
+every probe of max_anisotropy over every pixel, masked, and are what CPU
+tensors and plain_kernels() take. Kernel and plain version run the same
+_trilerp on the same values, so a forward+gather frame equals the
+deferred frame bit for bit on either.
 
 Two places differ from jnp by necessity, on pixels whose color the blend
 discards: an integer modulus by a texture width of 0 (an uncovered
@@ -29,8 +34,12 @@ the true division the kernels (and the reference) compute.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
+from tpurast_torch import kernels as _k
+from tpurast_torch.kernels import _build
 from tpurast_torch.kernels.geometry import SETUP_WIDTH as _SETUP_WIDTH
 
 # Fat-row layout of the per-face shading table (pack_shade_rows):
@@ -43,6 +52,12 @@ SHADE_ROW_WIDTH = 104
 # Texture-info row (int32): [offsets(16) | widths(16) | heights(16) | n_mips]
 TEX_ROW_WIDTH = 49
 MAX_MIPS = 16
+# Shading parameters the kernels take (csrc/shading.cuh ShadeParams), in
+# shade_params' order.
+N_PARAMS = 13
+# csrc/shade.cu's code of each atlas row dtype (device/textures.py
+# texels_tensor), and the texel_format it goes with.
+ROW_FORMATS = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2, torch.uint8: 3}
 
 
 def fdiv(a, b) -> torch.Tensor:
@@ -112,6 +127,19 @@ def blend_planes(rgb, src_alpha: float, mask, clear, mode: str = "alpha"):
         for i in range(3)
     ]
     return planes + [torch.full_like(rgb[0], clear[3])]
+
+
+def shade_params(*, light_direction, light_color, ambient_amount, specular_power, clear_color, blend):
+    """The N_PARAMS floats the sample and shade kernels take: light
+    direction (3), light color (3), ambient, specular power, clear color
+    (4), opaque flag."""
+    if blend not in ("alpha", "opaque"):
+        raise ValueError(f"unknown blend mode {blend!r}")
+    vals = [*light_direction, *light_color, ambient_amount, specular_power, *clear_color,
+            1.0 if blend == "opaque" else 0.0]
+    if len(vals) != N_PARAMS:
+        raise ValueError("light_direction/light_color need 3 entries, clear_color 4")
+    return vals
 
 
 def aniso_footprint(rho2_x, rho2_y, du_dx, du_dy, dv_dx, dv_dy, n: int):
@@ -282,7 +310,7 @@ def _light_and_blend(albedo, world, normal, mask, camera_position, *, light_dire
     return torch.stack(blend_planes(rgb, 1.0, mask, clear_color, blend), dim=0)
 
 
-def shade_deferred(
+def shade_deferred_plain(
     fid,
     shade_rows,
     texels,
@@ -396,7 +424,7 @@ def shade_deferred(
     return _light_and_blend(albedo, world, normal, mask, camera_position, **light)
 
 
-def shade_gbuffer(
+def shade_gbuffer_plain(
     gbuf,
     texels,
     camera_position,
@@ -443,3 +471,94 @@ def shade_gbuffer(
         light_color=light_color, ambient_amount=ambient_amount, specular_power=specular_power,
         clear_color=clear_color, blend=blend,
     )
+
+
+def srgb_table(device) -> torch.Tensor:
+    """(256,) f32: _srgb_texel of every u8 value, made on ``device`` by the
+    plain version's own ops. csrc/shade.cu decodes srgb8 rows through it;
+    the scene upload makes it once, beside the rows (device/scene.py,
+    atlas["srgb_lut"])."""
+    return _srgb_texel(torch.arange(256, dtype=torch.uint8, device=device))
+
+
+def _check_rows(texels, texel_format: str, srgb_lut):
+    """The atlas rows, texel format and srgb8 decode table as csrc/shade.cu
+    takes them: (the rows' format code, the table or None)."""
+    if texel_format not in ("float", "srgb8"):
+        raise ValueError(f"unknown texel format {texel_format!r}")
+    code = ROW_FORMATS.get(texels.dtype)
+    if code is None or (code == ROW_FORMATS[torch.uint8]) != (texel_format == "srgb8"):
+        raise TypeError(f"texels: {texels.dtype} rows do not go with texel_format={texel_format!r}")
+    if texels.dim() != 2 or texels.shape[1] != 52 or texels.shape[0] < 1:
+        raise ValueError(f"texels: expected (N >= 1, 52), got {tuple(texels.shape)}")
+    if not texels.is_contiguous():
+        raise ValueError("texels: must be contiguous")
+    align = 16 if code == 0 else 4 if code == 3 else 8
+    if texels.data_ptr() % align:
+        raise ValueError(f"texels: {texels.dtype} rows must start on a {align}-byte boundary")
+    if code == 3:
+        if srgb_lut is None:
+            raise ValueError("srgb8 rows need srgb_lut, srgb_table's (256,) f32 table on their device")
+        _k.check(srgb_lut, "srgb_lut", torch.float32, (256,))
+        if srgb_lut.device != texels.device:
+            raise ValueError(f"srgb_lut: on {srgb_lut.device}, the rows on {texels.device}")
+        return code, srgb_lut
+    return code, None
+
+
+def shade_gbuffer(gbuf, texels, camera_position, *, light_direction, light_color, ambient_amount: float,
+                  specular_power: float, clear_color, max_anisotropy: int = 1, blend: str = "alpha",
+                  texel_format: str = "float", srgb_lut=None):
+    """The forward path's gather shading tail (shade.py shade_gbuffer) of
+    the (A_OUT, H, W) G-buffer gbuf from the (N, 52) atlas rows texels:
+    (4, H, W) f32 linear planes. CPU tensors run shade_gbuffer_plain;
+    CUDA tensors launch csrc/shade.cu's tr_shade_gbuffer, which decodes
+    srgb8 rows through srgb_lut (srgb_table's)."""
+    light = dict(light_direction=light_direction, light_color=light_color, ambient_amount=ambient_amount,
+                 specular_power=specular_power, clear_color=clear_color, blend=blend)
+    if not _k.use_kernel(gbuf, texels, camera_position):
+        return shade_gbuffer_plain(gbuf, texels, camera_position, max_anisotropy=max_anisotropy,
+                                   texel_format=texel_format, **light)
+    _k.check(gbuf, "gbuf", torch.float32)
+    if gbuf.dim() != 3 or gbuf.shape[0] < 18:
+        raise ValueError(f"gbuf: expected (>= 18, H, W), got {tuple(gbuf.shape)}")
+    _k.check(camera_position, "camera_position", torch.float32, (3,))
+    code, lut = _check_rows(texels, texel_format, srgb_lut)
+    _, h, w = gbuf.shape
+    params = (ctypes.c_float * N_PARAMS)(*shade_params(**light))
+    out = torch.empty((4, h, w), dtype=torch.float32, device=gbuf.device)
+    _build.call("tr_shade_gbuffer", gbuf, texels, texels.shape[0], code, lut, camera_position, h, w,
+                int(max_anisotropy), ctypes.addressof(params), out)
+    _k.LAUNCHES["gather"] += 1
+    return out
+
+
+def shade_deferred(fid, shade_rows, texels, camera_position, *, light_direction, light_color,
+                   ambient_amount: float, specular_power: float, clear_color, max_anisotropy: int = 1,
+                   y_offset=0, blend: str = "alpha", texel_format: str = "float", srgb_lut=None):
+    """Deferred shading (shade.py shade_deferred) of the (H, W) int32 face
+    ids fid (-1 background) from the (F, 104) pack_shade_rows table and the
+    (N, 52) atlas rows, pixel rows offset by y_offset (a slab's first frame
+    row, a Python int): (4, H, W) f32 linear planes. CPU tensors run
+    shade_deferred_plain; CUDA tensors launch csrc/shade.cu's
+    tr_shade_deferred (srgb_lut as shade_gbuffer's)."""
+    light = dict(light_direction=light_direction, light_color=light_color, ambient_amount=ambient_amount,
+                 specular_power=specular_power, clear_color=clear_color, blend=blend)
+    if not _k.use_kernel(fid, shade_rows, texels, camera_position):
+        return shade_deferred_plain(fid, shade_rows, texels, camera_position, max_anisotropy=max_anisotropy,
+                                    y_offset=y_offset, texel_format=texel_format, **light)
+    _k.check(fid, "fid", torch.int32)
+    if fid.dim() != 2:
+        raise ValueError(f"fid: expected (H, W), got {tuple(fid.shape)}")
+    _k.check(shade_rows, "shade_rows", torch.float32)
+    if shade_rows.dim() != 2 or shade_rows.shape[1] != SHADE_ROW_WIDTH:
+        raise ValueError(f"shade_rows: expected (F, {SHADE_ROW_WIDTH}), got {tuple(shade_rows.shape)}")
+    _k.check(camera_position, "camera_position", torch.float32, (3,))
+    code, lut = _check_rows(texels, texel_format, srgb_lut)
+    h, w = fid.shape
+    params = (ctypes.c_float * N_PARAMS)(*shade_params(**light))
+    out = torch.empty((4, h, w), dtype=torch.float32, device=fid.device)
+    _build.call("tr_shade_deferred", fid, shade_rows, shade_rows.shape[0], texels, texels.shape[0], code,
+                lut, camera_position, h, w, int(y_offset), int(max_anisotropy), ctypes.addressof(params), out)
+    _k.LAUNCHES["deferred"] += 1
+    return out

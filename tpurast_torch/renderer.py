@@ -10,9 +10,11 @@ keyword arguments and the same output dict. A frame runs
               the residual pixel count) -> sample kernel (texturing from
               the page + lighting + blend)
        forward + gather: attribute pack -> resolve kernel
-           -> shade_gbuffer (atlas row gathers + lighting, torch ops)
-       deferred: shade-row pack -> shade_deferred (per-pixel fat-row
-           gather, interpolation, atlas row gathers, lighting; torch ops)
+           -> gather kernel (shade_gbuffer: each pixel's own probes from
+              the atlas rows + lighting + blend)
+       deferred: shade-row pack (torch) -> deferred kernel
+           (shade_deferred: the pixel's face row, interpolation, its own
+           probes from the atlas rows, lighting, blend)
   -> sRGB encode (torch)
 
 on the device its tensors live on: the kernels launch on a CUDA device and
@@ -245,7 +247,7 @@ def render_frame(
         else:
             framebuffer = shade.shade_gbuffer(
                 gbuf, scene["atlas"]["texels"], camera_position, max_anisotropy=max_anisotropy,
-                texel_format=texture_format, **light,
+                texel_format=texture_format, srgb_lut=scene["atlas"].get("srgb_lut"), **light,
             )
     else:
         shade_rows = shade.pack_shade_rows(
@@ -254,7 +256,8 @@ def render_frame(
         )
         framebuffer = shade.shade_deferred(
             vis[1].to(torch.int32), shade_rows, scene["atlas"]["texels"], camera_position,
-            max_anisotropy=max_anisotropy, y_offset=ty_base * tile_h, texel_format=texture_format, **light,
+            max_anisotropy=max_anisotropy, y_offset=ty_base * tile_h, texel_format=texture_format,
+            srgb_lut=scene["atlas"].get("srgb_lut"), **light,
         )
     result = {
         "depth": present.crop_linear(depth, width, out_h),

@@ -9,7 +9,8 @@ chooses the plane_scale kernel's block size:
   surface    ns/row over a (rows x width) grid (row count vs width bound)
   sort       stable sort of int32 tile keys + payload (pair-sort binning)
   scatter    scatter-write cost (pair expansion alternative)
-  shade      shade_gbuffer decomposed: gather vs trilerp vs the whole
+  shade      shade_gbuffer: the kernel (csrc/shade.cu) beside its torch
+             decomposition (gather vs trilerp vs the whole plain version)
   vmemtake   row sums of an on-chip table (CUDA kernel vmem_take)
   planescale the plane_scale kernel's three launch geometries at 128-1024
              threads per block, beside torch.mul (device time too)
@@ -239,8 +240,9 @@ def trilerp_only(gb, texels) -> torch.Tensor:
 
 def shade(texels, device, *, height: int = 1088, width: int = 1920, timer=cuda_ms) -> dict:
     """shade_gbuffer on the synthetic G-buffer (trilinear, the
-    RendererConfig lighting) against its gather and its trilerp alone,
-    over the (N, 52) atlas rows texels."""
+    RendererConfig lighting): the wrapper (the kernel on a card), its plain
+    torch version, and the plain version's gather and trilerp alone, over
+    the (N, 52) atlas rows texels."""
     cfg = RendererConfig(width=1920, height=1080)
     gb, cam = shade_inputs(device, height=height, width=width)
     kw = dict(light_direction=cfg.light_direction, light_color=cfg.light_color,
@@ -250,7 +252,8 @@ def shade(texels, device, *, height: int = 1088, width: int = 1920, timer=cuda_m
         "atlas_shape": tuple(texels.shape),
         "atlas_dtype": str(texels.dtype).removeprefix("torch."),
         "atlas_mb": texels.numel() * texels.element_size() / 1e6,
-        "full_ms": timer(lambda: kshade.shade_gbuffer(gb, texels, cam, **kw)),
+        "kernel_ms": timer(lambda: kshade.shade_gbuffer(gb, texels, cam, **kw)),
+        "full_ms": timer(lambda: kshade.shade_gbuffer_plain(gb, texels, cam, **kw)),
         "gather_only_ms": timer(lambda: gather_only(gb, texels)),
         "trilerp_only_ms": timer(lambda: trilerp_only(gb, texels)),
     }
@@ -351,7 +354,8 @@ def cmd_shade(args, dev):
     texels = upload_atlas(load_demo_scene(args.data_dir).atlas, "float16", dev)["texels"]
     r = shade(texels, dev)
     print(f"atlas: {r['atlas_shape']} {r['atlas_dtype']} = {r['atlas_mb']:.1f} MB")
-    print(f"full shade_gbuffer: {r['full_ms']:7.2f} ms")
+    print(f"shade_gbuffer kernel: {r['kernel_ms']:7.3f} ms")
+    print(f"full shade_gbuffer (plain torch): {r['full_ms']:7.2f} ms")
     print(f"gather-only (1 row/px): {r['gather_only_ms']:7.2f} ms")
     print(f"trilerp-only: {r['trilerp_only_ms']:7.2f} ms")
 
