@@ -6,6 +6,7 @@
     python3 chip_smoke.py --multi-device     # phase 8's multi_device alone
     python3 chip_smoke.py --named-scenes     # phase 12 alone
     python3 chip_smoke.py --config-matrix    # phases 1 and 1b alone
+    python3 chip_smoke.py --shade-kernels    # phase 1c alone
 
 Builds the CUDA kernels from tpurast_torch/csrc, builds a procedural scene
 from the seed (a 256x256-quad floor and 64 UV spheres, 258,048 triangles,
@@ -54,8 +55,12 @@ eight generated 1024^2 BC4 textures with full mip chains), and then, at
      counted; the deferred kernel equal bit for bit to the gather kernel on
      the resolve kernel's G-buffer; the middle slab's (the second of four,
      at its y_offset) frames equal to the frame's rows; each into guarded
-     outputs; their ms and device ms beside the plain versions' and their
-     bound, registers and blocks per SM;
+     outputs; their ms and device ms (profiled again, up to four profiles
+     in all, where torch.profiler drops the record) beside the plain
+     versions' and their bound, the L1 requests of their row reads
+     (shade_warp_lines: the kernels' loads beside one load a texel, and for
+     deferred its face rows), and each instance's registers, blocks per SM,
+     threads and shared memory per block;
   2. runs the microbenchmark probes at the tools' sizes against their
      plain versions, bit for bit: vmem_take (4096x16 f32 table, 2,073,600
      indices; then an odd row count, a count of indices that fills no whole
@@ -312,6 +317,15 @@ SHADE_FLOPS_PER_PROBE = 160
 SHADE_FLOPS_PER_PIXEL = 80
 DEFERRED_FLOPS_PER_PIXEL = 150
 GATHER_PLANES = 18  # G-buffer planes 0-17 the gather kernel reads
+# shade_warp_lines: the bytes of an L1 line (one request per distinct line
+# a warp-wide load touches); the deferred kernel's loads of its face row
+# per covered pixel: one a field (fields 0-8, 16, 17, world, normal and uv,
+# widths, heights and mip count at level 0, and five fields at the pixel's
+# levels l0 and l1), or csrc/shade.cu's 13 16-byte loads and the five level
+# fields.
+L1_LINE = 128
+FIELD_FACE_LOADS = 43
+FACE_LOADS = 18
 SHADE_DTYPES = ("float32", "float16", "bfloat16", "srgb8")  # the atlas row formats
 FRAMES = 8
 GATHER_FRAMES = 3
@@ -371,13 +385,23 @@ def device_ops(fn, reps: int) -> dict:
     return {e.key: e.self_device_time_total / 1e3 / reps for e in prof.key_averages() if e.self_device_time_total > 0}
 
 
+def device_ms_retried(fn, reps: int, tries: int = 4) -> float | None:
+    """microbench.device_ms, profiled again (up to tries profiles in all)
+    while torch.profiler records no device time for fn."""
+    for _ in range(tries):
+        ms = device_ms(fn, reps)
+        if ms is not None:
+            return ms
+    return None
+
+
 def timed(kernel_fn, plain_fn, reps: int, plain_reps: int) -> dict:
     """A kernel's and its plain version's ms per call by CUDA events (ms,
     plain_ms: what a caller waits, launch overhead included) and by the
-    profiler's device time (dev_ms, plain_dev_ms)."""
+    profiler's device time (dev_ms, plain_dev_ms; device_ms_retried)."""
     return dict(
         ms=cuda_ms(kernel_fn, reps), plain_ms=cuda_ms(plain_fn, plain_reps),
-        dev_ms=device_ms(kernel_fn, reps), plain_dev_ms=device_ms(plain_fn, plain_reps),
+        dev_ms=device_ms_retried(kernel_fn, reps), plain_dev_ms=device_ms_retried(plain_fn, plain_reps),
     )
 
 
@@ -557,14 +581,24 @@ def light_kwargs(kw: dict) -> dict:
 
 def shade_rows_touched(g, n_rows: int, ma: int) -> tuple[int, int]:
     """The probes the covered pixels of G-buffer g run (shade.probe_count)
-    and the distinct atlas rows they read: each probe's row index, clamped
-    into the table's n_rows, by the plain _trilerp's addressing. The
-    deferred kernel recomputes the same fields bit for bit (deferred =
-    forward + gather), so both kernels read these rows."""
-    c = g[:, g[16] > 0]
+    and the distinct atlas rows they read (shade_items). The deferred
+    kernel recomputes the same fields bit for bit (deferred = forward +
+    gather), so both kernels read these rows."""
+    _, _, r = shade_items(g, n_rows, ma)
+    return r.numel(), int(torch.unique(r).numel())
+
+
+def shade_items(g, n_rows: int, ma: int) -> tuple:
+    """The probes the covered pixels of G-buffer g run (the plain version's
+    trip count: probes i < max_anisotropy with i < n_px) as (pixel of the
+    flattened frame, probe index, row) tensors, each probe's row by the
+    plain _trilerp's clamped addressing."""
+    hw = g.shape[1] * g.shape[2]
+    pix = torch.nonzero(g[16].reshape(-1) > 0)[:, 0]
+    c = g.reshape(g.shape[0], hw)[:, pix]
     off0, tw0, th0 = c[8].to(torch.int32) * 256, c[9].to(torch.int32), c[10].to(torch.int32)
     npx = shade.probe_count(c[17], c[14], c[15], c[9], c[10], ma) if ma > 1 else torch.ones_like(c[6])
-    idx = []
+    items = []
     for i in range(max(ma, 1)):
         live = npx > float(i)
         fo = (shade.fdiv(i + 0.5, npx) - 0.5) * c[17] if ma > 1 else torch.zeros_like(c[6])
@@ -572,8 +606,76 @@ def shade_rows_touched(g, n_rows: int, ma: int) -> tuple[int, int]:
         y0 = torch.floor((c[7] + c[15] * fo) * th0.to(torch.float32) - 0.5)
         x0i = torch.remainder(x0.to(torch.int32), torch.clamp(tw0, min=1))
         y0i = torch.remainder(y0.to(torch.int32), torch.clamp(th0, min=1))
-        idx.append(torch.clamp(off0 + y0i * tw0 + x0i, 0, n_rows - 1)[live])
-    return int(npx.sum()), int(torch.unique(torch.cat(idx)).numel())
+        row = torch.clamp(off0 + y0i * tw0 + x0i, 0, n_rows - 1)
+        items.append((pix[live], torch.full_like(pix[live], i), row[live].long()))
+    return tuple(torch.cat(t) for t in zip(*items))
+
+
+def shade_warp_lines(kind: str, g, fid, texels, ma: int) -> dict:
+    """L1 requests of a shade kernel's reads at frame g (fid: face ids),
+    per warp of 32 consecutive pixels (the kernels' thread order), counting
+    one request per distinct 128-byte line a warp-wide load touches (rows
+    from a 128-byte aligned base), for each probe index:
+      * texel_lines: the atlas rows read a load a texel (the first design
+        of these kernels): for each texel k, the distinct lines the lanes
+        with a probe i read;
+      * lines: the rows as csrc/shade.cu reads them: 16-bit rows six
+        16-byte loads and one 8-byte load, srgb8 rows six 8-byte loads and
+        one 4-byte load (offsets by the row's parity), float32 rows 13
+        16-byte loads; for each load, the distinct lines of the lanes;
+      * field_face_lines, face_lines (deferred): FIELD_FACE_LOADS and
+        FACE_LOADS loads of each covered pixel's face row, each a request
+        per distinct face of the warp.
+    With the ms each implies at one request per SM clock over the card's
+    SMs (sm_clock)."""
+    p, i, r = shade_items(g, texels.shape[0], ma)
+    chunk = texels.shape[1] * texels.element_size() // 13  # one texel's bytes
+    warp = p // 32
+
+    def requests(lines):  # lines: (items, loads)
+        load = torch.arange(lines.shape[1], device=lines.device)
+        return int(torch.unique((((warp * max(ma, 1) + i)[:, None] * 16 + load) << 32) | lines).numel())
+
+    k = torch.arange(13, device=p.device)
+    per_texel = ((r[:, None] * 13 + k) * chunk) // L1_LINE
+    if chunk == 16:
+        wide = per_texel
+    else:
+        odd = (r & 1)[:, None]
+        j = torch.arange(7, device=p.device)
+        offs = torch.where(j < 6, odd * chunk + j * 2 * chunk, (1 - odd) * 12 * chunk)
+        wide = (r[:, None] * 13 * chunk + offs) // L1_LINE
+    out = dict(texel_lines=requests(per_texel), lines=requests(wide))
+    if kind == "deferred":
+        px = torch.nonzero(fid.reshape(-1) >= 0)[:, 0]
+        faces = int(torch.unique((px // 32) << 32 | fid.reshape(-1)[px].long()).numel())
+        out.update(field_face_lines=FIELD_FACE_LOADS * faces, face_lines=FACE_LOADS * faces)
+    sms, hz, _ = sm_clock()
+    return {**out, **{f"{key}_ms": n / (sms * hz) * 1e3 for key, n in out.items()}}
+
+
+@functools.cache
+def sm_clock() -> tuple[int, float, str]:
+    """(SMs, SM clock in Hz, where the clock came from) of card 0:
+    torch.cuda.get_device_properties' clock_rate where torch has it, else
+    nvidia-smi's maximum SM clock."""
+    props = torch.cuda.get_device_properties(0)
+    khz = getattr(props, "clock_rate", None)
+    if khz:
+        return props.multi_processor_count, khz * 1e3, "torch.cuda.get_device_properties clock_rate"
+    smi = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True)
+    return props.multi_processor_count, float(smi.stdout.strip()) * 1e6, "nvidia-smi clocks.max.sm"
+
+
+def fmt_lines(st: dict) -> str:
+    """shade_warp_lines' counts with the ms each implies."""
+    sms, hz, _ = sm_clock()
+    face = (f"; face rows {st['face_lines']} ({st['face_lines_ms']:.4f} ms; a load a field: "
+            f"{st['field_face_lines']}, {st['field_face_lines_ms']:.4f} ms)" if "face_lines" in st else "")
+    return (f"L1 requests (shade_warp_lines, at {hz / 1e9:.3f} GHz x {sms} SMs): atlas rows {st['lines']} "
+            f"({st['lines_ms']:.4f} ms; a load a texel: {st['texel_lines']}, {st['texel_lines_ms']:.4f} ms)"
+            f"{face}")
 
 
 def shade_bound(kind: str, g, fid, texels, ma: int) -> dict:
@@ -584,7 +686,8 @@ def shade_bound(kind: str, g, fid, texels, ma: int) -> dict:
     distinct 52-channel atlas row the probes read once (shade_rows_touched)
     and the srgb8 decode table, and write the 4 output planes; per probe
     SHADE_FLOPS_PER_PROBE, per covered pixel its lighting (and for deferred
-    its interpolation). Adds the probe and distinct row counts."""
+    its interpolation). Adds the probe and distinct row counts and
+    shade_warp_lines' request counts."""
     hp, wp = fid.shape
     covered = int((fid >= 0).sum())
     probes, rows = shade_rows_touched(g, texels.shape[0], ma)
@@ -595,7 +698,7 @@ def shade_bound(kind: str, g, fid, texels, ma: int) -> dict:
     else:
         nbytes = hp * wp * 4 + int(torch.unique(fid[fid >= 0]).numel()) * shade.SHADE_ROW_WIDTH * 4
         flops = covered * (SHADE_FLOPS_PER_PIXEL + DEFERRED_FLOPS_PER_PIXEL)
-    return dict(probes=probes, rows=rows,
+    return dict(probes=probes, rows=rows, **shade_warp_lines(kind, g, fid, texels, ma),
                 **bound(nbytes + row_bytes + 4 * hp * wp * 4, flops + probes * SHADE_FLOPS_PER_PROBE))
 
 
@@ -693,9 +796,11 @@ def shade_times(res: dict, texels, texel_format: str, lut, cp, ma: int, light: d
 
 
 def fmt_times(kind: str, st: dict) -> str:
-    return (f"{kind} {st['ms']:.4f} ms (device {fmt_ms(st['dev_ms'])}) vs plain {st['plain_ms']:.3f} ms (device "
+    dev = st["dev_ms"]
+    return (f"{kind} {st['ms']:.4f} ms (device {fmt_ms(dev)}) vs plain {st['plain_ms']:.3f} ms (device "
             f"{fmt_ms(st['plain_dev_ms'])}); bound {st['bound_ms']:.4f} ms by {st['bound_by']} ({st['probes']} "
-            f"probes reading {st['rows']} distinct atlas rows), {st['bound_ms'] / st['ms']:.3f} of it")
+            f"probes reading {st['rows']} distinct atlas rows), {st['bound_ms'] / st['ms']:.3f} of it by events"
+            + (f", {st['bound_ms'] / dev:.3f} by device ms" if dev else "") + f"; {fmt_lines(st)}")
 
 
 def kernel_phases(r: Renderer, cam, card: str, phase: str = "kernel_phases") -> dict:
@@ -889,6 +994,16 @@ def kernel_phases(r: Renderer, cam, card: str, phase: str = "kernel_phases") -> 
     return out
 
 
+def print_shade_info() -> None:
+    """Registers, resident blocks per SM, threads and static shared memory
+    per block of each shade kernel instance (one per row format)."""
+    for name in ("shade_gbuffer", "shade_deferred"):
+        for dtype, code in zip(SHADE_DTYPES, (0, 1, 2, 3)):
+            regs, blocks, threads, smem = _build.kernel_info(name, code)
+            print(f"{name} kernel, {dtype} rows: {regs} registers per thread, {blocks} resident blocks per SM of "
+                  f"{threads} threads ({blocks * threads // 32} warps), {smem} B of static shared memory per block")
+
+
 def shade_kernels(scene, r: Renderer, cam, card: str, phase: str = "shade_kernels") -> dict:
     """Phase 1c: the gather and deferred kernels (csrc/shade.cu) on frame
     0's real inputs at 1920x1080 against their plain versions (shade_pair)
@@ -903,9 +1018,7 @@ def shade_kernels(scene, r: Renderer, cam, card: str, phase: str = "shade_kernel
     light = light_kwargs(kw)
     f = frame_inputs(r, cam)
     vis, cp, attrs, rows = f["vis"], f["cp"], f["attrs"], f["rows"]
-    for name in ("shade_gbuffer", "shade_deferred"):
-        regs, blocks = _build.kernel_info(name)
-        print(f"{name} kernel: {regs} registers per thread, {blocks} resident blocks per SM (float16 rows)")
+    print_shade_info()
     out = {}
     full16 = None
     for dtype in SHADE_DTYPES:
@@ -939,7 +1052,8 @@ def shade_kernels(scene, r: Renderer, cam, card: str, phase: str = "shade_kernel
             same = {k: bool(torch.equal(res[k], full16[k][:, px])) for k in SHADE_KERNELS}
             print(f"shade kernels, middle slab (tile rows {per}-{2 * per - 1}, y_offset {per * th}), float16: "
                   + "; ".join(f"{k} vs plain: {fmt_compare(c)}" for k, c in res["cmp"].items())
-                  + f"; equal to the whole frame's rows {same} [{card}]")
+                  + f"; equal to the whole frame's rows {same}; deferred "
+                  + fmt_lines(shade_warp_lines("deferred", res["g"], res["fid"], texels, ma_main)) + f" [{card}]")
             check(all(same.values()), f"{phase}: a slab's shaded rows differ from the frame's")
         del texels
         torch.cuda.empty_cache()
@@ -1192,6 +1306,7 @@ def config_matrix(scene, cam, card: str, seed: int) -> dict:
         check(intact, f"{phase}: a guard band was touched")
         kern = "; ".join(f"{k} device {fmt_ms(v[0])} ms"
                          + (f" (bound {v[2]['bound_ms']:.4f} ms by {v[2]['bound_by']})" if v[2] else "") + f" {v[1]}"
+                         + (f", {fmt_lines(v[2])}" if k in SHADE_KERNELS else "")
                          for k, v in kernels.items())
         print(f"config_matrix {label}: {WIDTH}x{HEIGHT} tile {cfg.tile_h}x{cfg.tile_w} ({r.tiles_x}x{r.tiles_y} tiles), "
               f"sampler {r.sampler}, binning {r.binning}, shading {cfg.shading}, output {output}, anisotropy "
@@ -2622,6 +2737,7 @@ def main() -> None:
                     help="run only the multi_device phase (for a machine with several cards)")
     ap.add_argument("--named-scenes", action="store_true", help="run only the named_scenes phase")
     ap.add_argument("--config-matrix", action="store_true", help="run only kernel_phases and config_matrix")
+    ap.add_argument("--shade-kernels", action="store_true", help="run only the shade_kernels phase")
     args = ap.parse_args()
     t_run = time.perf_counter()
 
@@ -2646,9 +2762,12 @@ def main() -> None:
         if any(k in line for k in ("entry function", "registers", "spill", "error")):
             print("  nvcc:", line.strip())
     _build.library()
-    for name in ("raster", "plan", "plan_large", "sample", "shade_gbuffer", "shade_deferred", "vmem_take"):
+    for name in ("raster", "plan", "plan_large", "sample", "vmem_take"):
         regs, blocks = _build.kernel_info(name)
         print(f"{name} kernel: {regs} registers per thread, {blocks} resident blocks per SM")
+    print_shade_info()
+    sms, hz, src = sm_clock()
+    print(f"card: {sms} SMs, SM clock {hz / 1e9:.3f} GHz ({src})")
 
     card = smi.stdout.strip()
     if args.named_scenes:
@@ -2667,6 +2786,9 @@ def main() -> None:
         deferred = Renderer(scene, RendererConfig(width=WIDTH, height=HEIGHT, shading="deferred"))
         gather = Renderer(scene, RendererConfig(width=WIDTH, height=HEIGHT, sampler="gather"))
         multi_device({"window": r, "gather": gather, "deferred": deferred}, cams[0], card)
+        return
+    if args.shade_kernels:
+        shade_kernels(scene, r, cams[0], card)
         return
     stats = kernel_phases(r, cams[0], card)
     stats.update(shade_kernels(scene, r, cams[0], card))

@@ -46,10 +46,21 @@ blend, background pixels, a slab's y_offset, mip sizes of 0 and rows
 clamped into the table (assert_shade_close: bit for bit but where torch's
 CPU pow or log2 rounds unlike glibc's, then within 1 LSB), the deferred
 kernel equal to the gather kernel on the emulated resolve kernel's
-G-buffer bit for bit, and rows off their load width refused.
+G-buffer bit for bit, and rows off their load grid refused (face rows off
+the 16-byte grid too). The kernels' wide row loads (six two-texel loads
+and one texel, their order by the row's parity; a load off its alignment
+is an error of the launch here, as the card faults) also run on warp
+shapes (WARP_SHAPES: every lane at 16 probes, one covered lane a warp,
+warps with none, rows clamped to the table's ends) in the four formats,
+and the deferred kernel's 16-byte face-row loads on face ids with one
+covered lane a warp, warps with none and rows clamped to the last row.
 
-Time on one worker: about 45 s (the shade cases about a third of it: the
-plain gather runs 16 probes over every pixel).
+chip_smoke.py's count of the shade kernels' L1 requests
+(shade_warp_lines) is held to a count by hand on a small G-buffer.
+
+Time on one worker: about 55 s (the shade cases about a third of it: the
+plain gather runs 16 probes over every pixel; the warp-shape cases about
+5 s together, the request counts about 2 s).
 """
 
 import ctypes
@@ -552,6 +563,166 @@ def test_shade_kernels_width_0_and_rows_outside_the_table(emu, shade_frame, dtyp
     info[face == 2, 0:16] -= n
     want = shade.shade_deferred_plain(f["fid"], rows, tex, cp, max_anisotropy=16, texel_format=fmt, **light)
     assert_shade_close(_emu_shade(emu, "deferred", tex, fmt, cp, light, 16, fid=f["fid"], rows=rows), want, covered)
+
+
+def test_shade_deferred_kernel_refuses_misaligned_face_rows(emu, shade_frame):
+    """The deferred kernel copies its face rows in 16-byte chunks: a shade
+    row table off that grid is refused (cudaErrorInvalidValue) before the
+    launch, and the wrapper's check (shade._check_face_rows) raises on it."""
+    f = shade_frame
+    tex, rows, fid = f["texels"]["float16"], f["rows"], f["fid"]
+    shifted = torch.empty(rows.numel() + 4)[1:rows.numel() + 1].view(rows.shape)
+    shifted.copy_(rows)
+    params = (ctypes.c_float * shade.N_PARAMS)(*shade.shade_params(**dict(f["light"], blend="alpha")))
+    out = torch.empty((4,) + tuple(fid.shape))
+    err = emu.tr_shade_deferred(fid.data_ptr(), shifted.data_ptr(), rows.shape[0], tex.data_ptr(), tex.shape[0], 1,
+                                None, f["cp"].data_ptr(), fid.shape[0], fid.shape[1], 0, 16,
+                                ctypes.addressof(params), out.data_ptr(), None)
+    assert shifted.data_ptr() % 16 == 4 and err == 1
+    with pytest.raises(ValueError, match="16-byte"):
+        shade._check_face_rows(shifted)
+    shade._check_face_rows(rows)
+
+
+# Warp shapes of the shade kernels' probe loops, on a synthetic 128x8
+# G-buffer (32 warps of 32 pixels): every pixel covered at 16 probes; one
+# covered lane a warp at 16 probes; every other warp without a covered
+# lane, the rest at random counts 1-16; random counts with the atlas
+# offsets of a third of the pixels past the table's end (their rows clamp
+# to its last row) and a third below it (row 0). The probes' rows fall on
+# both parities, so both orders of the wide row loads run.
+WARP_SHAPES = ("every_lane_16_probes", "single_lane", "no_lane", "last_row")
+
+
+def _warp_shape_gbuf(shape: str, n_rows: int, seed: int = 5) -> torch.Tensor:
+    """(18, 8, 128) G-buffer of WARP_SHAPES' shape: own mip 64x64 at offset
+    0, parent 32x32, probe counts set through the major axis (ext = |maj_du|
+    * 64 * span lands just below the count)."""
+    rng = np.random.default_rng(seed)
+    h, w = 8, 128
+    g = torch.from_numpy(rng.random((18, h, w), dtype=np.float32))
+    g[3:6] = g[3:6] * 2.0 - 1.0
+    g[8] = 0.0
+    g[9:11] = 64.0
+    g[11:13] = 32.0
+    g[17] = 0.9
+    lane = torch.arange(h * w).view(h, w) % 32
+    warp = torch.arange(h * w).view(h, w) // 32
+    counts = torch.from_numpy(rng.integers(1, 17, (h, w))).float()
+    covered = torch.ones((h, w), dtype=torch.bool)
+    if shape == "every_lane_16_probes":
+        counts[:] = 16.0
+    elif shape == "single_lane":
+        covered = lane == (warp * 7) % 32
+        counts[:] = 16.0
+    elif shape == "no_lane":
+        covered = warp % 2 == 1
+    else:
+        third = torch.remainder(torch.arange(h * w).view(h, w), 3)
+        g[8, third == 1] = float(n_rows // 256 + 8)
+        g[8, third == 2] = -8.0
+    g[14] = (counts - 0.5) / (64.0 * 0.9) * torch.where(lane % 2 == 0, 1.0, -1.0)
+    g[15] = 0.1 / 64.0
+    g[16] = covered.float()
+    return g
+
+
+@pytest.mark.parametrize("dtype", TEXTURE_DTYPES)
+@pytest.mark.parametrize("shape", WARP_SHAPES)
+def test_shade_gather_kernel_warp_shapes(emu, shade_frame, shape, dtype):
+    """The emulated tr_shade_gbuffer on WARP_SHAPES' G-buffers, in each
+    texel format, against shade_gbuffer_plain (assert_shade_close): the
+    wide row loads and each lane's in-order sum hold where every lane runs
+    16 probes, where one lane runs all of a warp's, where a warp has none
+    and lanes with few probes run beside lanes with many, and on rows
+    clamped to the table's ends (the last row, even or odd, read to its
+    end and no further). About 0.5 s each."""
+    f = shade_frame
+    tex, fmt = f["texels"][dtype], _texel_format(dtype)
+    light = dict(f["light"], blend="alpha")
+    g = _warp_shape_gbuf(shape, tex.shape[0])
+    covered = g[16] > 0
+    npx = shade.probe_count(g[17], g[14], g[15], g[9], g[10], 16)
+    if shape != "last_row":
+        assert torch.equal(npx[covered], torch.full_like(npx[covered], 16.0)) or shape == "no_lane"
+    per_warp = covered.view(-1, 32).sum(dim=1)
+    if shape == "single_lane":
+        assert torch.equal(per_warp, torch.ones_like(per_warp))
+    if shape == "no_lane":
+        assert int((per_warp == 0).sum()) == 16 and int((per_warp == 32).sum()) == 16
+    want = shade.shade_gbuffer_plain(g, tex, f["cp"], max_anisotropy=16, texel_format=fmt, **light)
+    assert_shade_close(_emu_shade(emu, "gather", tex, fmt, f["cp"], light, 16, gbuf=g), want, covered)
+
+
+def _chip_smoke():
+    """chip_smoke.py as a module (it needs no card to import)."""
+    import importlib.util
+    import pathlib
+
+    spec = importlib.util.spec_from_file_location("chip_smoke", pathlib.Path(__file__).parent.parent / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float16", "srgb8"])
+def test_chip_smoke_counts_the_shade_kernels_l1_requests(monkeypatch, dtype):
+    """chip_smoke.py::shade_warp_lines against a count by hand on the
+    "last_row" warp shape with (u, v) spread over the texture: per warp of
+    32 pixels and probe index, the distinct 128-byte lines of each texel
+    load (a load a texel) and of each of csrc/shade.cu's wide loads (by the
+    row's parity), and the face rows' loads per distinct face of a warp.
+    About 1 s each."""
+    cs = _chip_smoke()
+    monkeypatch.setattr(cs, "sm_clock", lambda: (132, 1.98e9, "test"))
+    n_rows = 9001
+    tex = torch.zeros((n_rows, 52), dtype=getattr(torch, dtype) if dtype != "srgb8" else torch.uint8)
+    g = _warp_shape_gbuf("last_row", n_rows)
+    g[6:8] = torch.from_numpy(np.random.default_rng(3).random((2, 8, 128), dtype=np.float32)) * 3
+    fid = torch.where(g[16] > 0, torch.arange(8 * 128, dtype=torch.int32).view(8, 128) // 5, -1)
+    got = cs.shade_warp_lines("deferred", g, fid, tex, 16)
+    chunk = 52 * tex.element_size() // 13
+    per_texel, wide = set(), set()
+    for p, i, r in zip(*(t.tolist() for t in cs.shade_items(g, n_rows, 16))):
+        for k in range(13):
+            per_texel.add((p // 32, i, k, (r * 13 + k) * chunk // 128))
+        offs = ([16 * k for k in range(13)] if chunk == 16 else
+                [(r & 1) * chunk + 2 * chunk * j for j in range(6)] + [(1 - (r & 1)) * 12 * chunk])
+        for j, off in enumerate(offs):
+            wide.add((p // 32, i, j, (r * 13 * chunk + off) // 128))
+    faces = {(p // 32, f) for p, f in enumerate(fid.reshape(-1).tolist()) if f >= 0}
+    assert (got["texel_lines"], got["lines"]) == (len(per_texel), len(wide))
+    assert (got["field_face_lines"], got["face_lines"]) == (43 * len(faces), 18 * len(faces))
+    assert got["lines"] < got["texel_lines"] or dtype == "float32"
+
+
+# The deferred kernel's warp shapes on the shade frame's face ids: one
+# covered lane kept a warp; every other warp emptied; every face's atlas
+# offsets moved to the table's last row (rows past it clamp there).
+DEFERRED_WARP_SHAPES = ("single_lane", "no_lane", "last_row")
+
+
+@pytest.mark.parametrize("shape", DEFERRED_WARP_SHAPES)
+def test_shade_deferred_kernel_warp_shapes(emu, shade_frame, shape):
+    """The emulated tr_shade_deferred at anisotropy 16 on float16 rows with
+    DEFERRED_WARP_SHAPES' face ids and rows, against shade_deferred_plain.
+    About 1 s each."""
+    f = shade_frame
+    tex, light = f["texels"]["float16"], dict(f["light"], blend="alpha")
+    fid, rows = f["fid"].clone(), f["rows"]
+    p = torch.arange(fid.numel()).view(fid.shape)
+    if shape == "single_lane":
+        fid[(p % 32) != 9] = -1
+    elif shape == "no_lane":
+        fid[(p // 32) % 2 == 0] = -1
+    else:
+        rows = rows.clone()
+        rows[:, shade.ROW_TEXINFO:shade.ROW_TEXINFO + 16].view(torch.int32).fill_(tex.shape[0] - 1)
+    covered = fid >= 0
+    assert int(covered.sum()) > 30
+    want = shade.shade_deferred_plain(fid, rows, tex, f["cp"], max_anisotropy=16, **light)
+    assert_shade_close(_emu_shade(emu, "deferred", tex, "float", f["cp"], light, 16, fid=fid, rows=rows), want,
+                       covered)
 
 
 def test_shade_kernels_refuse_misaligned_rows(emu, shade_frame):

@@ -48,16 +48,17 @@ and warp-synchronous code that leans on lockstep. The ASan shapes:
     bit-flipped copies of them, each input and output in an allocation
     of exactly its size, plus an output one byte short.
 
-ThreadSanitizer runs RACE_CASES, each kernel once. Each case is also held
+ThreadSanitizer runs RACE_CASES, each kernel once (the shade kernels too:
+a block's threads share the srgb8 decode table). Each case is also held
 to its plain version under tests/test_torch_csrc.py's budgets. Planted
 faults show that the harness catches them: the raster output one tile row
 short must abort with ASan's heap-buffer-overflow, and a small kernel that
 reads its neighbour's shared word without a barrier must end with
 ThreadSanitizer's data race.
 
-Time on one worker: about 65 s (the two builds side by side, then the
-four subprocesses side by side: the ThreadSanitizer cases take about 45 s,
-the ASan cases about 40 s, the planted ones about 5 s each).
+Time on one worker: about 80 s (the two builds side by side, then the
+four subprocesses side by side: the ThreadSanitizer cases, the shade
+kernels among them, take the longest, the planted ones about 5 s each).
 
 Run the cases by hand: python tests/test_torch_memsafety.py LIB OUT.json
 CASE... with LD_PRELOAD=$(g++ -print-file-name=libasan.so) (or libtsan.so
@@ -119,12 +120,15 @@ CASES = (
 )
 ZSTD_SRC = pathlib.Path(__file__).resolve().parent.parent / "tpurast_torch" / "native" / "zstd.cpp"
 # The cases under ThreadSanitizer: each kernel once; the plan (with raster
-# the only kernel that shares memory between threads) on its 24-window tile,
-# its most greedy rounds; both again at 64x128 off the tile grid, where
-# the raster's units cover sub-rectangles and the plan's block-wide minima
-# and plan words run over groups of 4096 px.
+# and the shade kernels the kernels that share memory between threads) on
+# its 24-window tile, its most greedy rounds; both again at 64x128 off the
+# tile grid, where the raster's units cover sub-rectangles and the plan's
+# block-wide minima and plan words run over groups of 4096 px; the shade
+# kernels on float16 rows and on srgb8 rows, whose decode table each block
+# copies into shared memory behind a barrier.
 RACE_CASES = ["raster_grid", "resolve_grid", "sample_grid", "plan_24_windows", "vmem_take_odd_rows",
-              "plane_scale_tile_grid", "raster_64x128_off_grid", "plan_64x128_off_grid"]
+              "plane_scale_tile_grid", "raster_64x128_off_grid", "plan_64x128_off_grid", "shade_gather_off_grid",
+              "shade_deferred_off_grid"]
 PLANTED = "raster_output_one_tile_row_short"
 PLANTED_RACE = "planted_race"
 # A block whose threads read their neighbour's shared-memory word without

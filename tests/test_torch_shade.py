@@ -220,8 +220,8 @@ def test_wrappers_have_no_fallback():
 
 def test_row_check_takes_each_texel_dtype_at_its_alignment(texels):
     """csrc/shade.cu's row check: each dtype with its texel format, (N, 52)
-    rows, contiguous, starting on the grid of the format's loads (16 bytes
-    for float32, 8 for float16 and bfloat16, 4 for srgb8); srgb8 rows with
+    rows, contiguous, starting on the grid of the format's widest loads (16
+    bytes for float32, float16 and bfloat16, 8 for srgb8); srgb8 rows with
     their (256,) f32 decode table on their device, _srgb_texel of 0..255,
     float rows with none."""
     rows32 = torch.rand((9, 52))

@@ -11,7 +11,7 @@
 // count. Plain torch versions: tpurast_torch/kernels/shade.py
 // (shade_gbuffer_plain, shade_deferred_plain), which keep that form.
 //
-// Here one thread shades one pixel, in pixel order (consecutive threads on
+// One thread shades one pixel, in pixel order (consecutive threads on
 // consecutive pixels of a row, so every plane read and store is
 // coalesced), and builds nothing per frame:
 //   * a pixel with no face reads its match plane (gather) or its face id
@@ -22,36 +22,58 @@
 //     3x3 window, device/textures.py), summed in the plain version's order
 //     (acc + probe, the mip blend inside each probe) and divided by the
 //     count; then shading.cuh's lighting and blend;
-//   * the deferred kernel reads the pixel's face row (104 floats of
-//     pack_shade_rows; neighbouring pixels share a face, so most of it
-//     comes from L1 / L2) and repeats shade_deferred's edge functions,
-//     interpolation, UV derivatives and level fields in registers, in the
-//     order of csrc/resolve.cu, so that deferred equals forward + gather
-//     bit for bit.
+//   * the deferred kernel reads the fields of the pixel's face row (104
+//     floats of pack_shade_rows) and repeats shade_deferred's edge
+//     functions, interpolation, UV derivatives and level fields in
+//     registers, in the order of csrc/resolve.cu, so that deferred equals
+//     forward + gather bit for bit.
 //
-// The atlas rows come in the four texel formats of
-// device/textures.py::texels_tensor, read through Row<format> (by_format
-// picks it once per launch): float32 rows are 208 B (a texel is one 16-byte
-// load), float16 and bfloat16 rows 104 B (one 8-byte load), srgb8 rows 52 B
-// (one 4-byte load; RGB decoded through a 256-entry table that the scene
-// upload makes once on the device with the plain version's own
-// _srgb_texel, so no powf runs here, alpha by 1/255). Only float32 rows sit
-// on the 16-byte grid, so each format loads at its own width.
+// What bounds it on this card: L1 requests, not bytes. The 32 lanes of a
+// warp are 32 pixels whose rows lie apart, so a warp-wide load touches up
+// to 32 lines of 128 B, and L1 serves it as one request per line, however
+// few bytes each lane takes. Loading each texel on its own (13 loads a
+// probe) gave 15.3M requests at the orbit frame (1920x1080, anisotropy 16,
+// float16 rows), 0.059 ms at 1.98 GHz over 132 SMs against 0.074 ms
+// measured, and the same time in every texel width (chip_smoke.py's
+// shade_warp_lines; PERF.md section 6). So each lane reads its row
+// in as few loads as the row's alignment allows, each on its own lane's
+// line: a float16 / bfloat16 row (104 B, on the 16-byte grid at every
+// other row) is six 16-byte loads and one 8-byte load, their order by the
+// row's parity; an srgb8 row (52 B) six 8-byte loads and one 4-byte load;
+// a float32 row (208 B) thirteen 16-byte loads. That is 7 requests a probe
+// where there were 13, and all of a probe's loads are in flight together.
+// The deferred kernel reads its face row's fields the same way: ten
+// 16-byte loads for fields 0-11, 16-19 and 24-47, three for the texture
+// info at level 0 (widths, heights, mip count), and the five level fields
+// it picks, 18 loads where there were 43.
 //
-// What bounds it on this card: bytes. Per frame pixel the match plane or
-// face id (4 B); per covered pixel 17 G-buffer planes (gather) or its face
-// row, one atlas row per probe (~3.1 probes at the orbit frame, 104 B each
-// in f16) and 4 output planes; at 1920x1080 about 0.06 ms over 3.35 TB/s
-// (chip_smoke.py's bound gives the figure of its run). A probe is ~160
-// flops, far below the f32 rate. The design spends nothing on pixels
-// without a face or on probes a pixel does not count; a warp runs to its
-// worst lane's probe count.
+// These loads brought the orbit frame to 8.1M requests and the kernels'
+// device time from 0.074 / 0.075 ms to 0.064 / 0.067 ms; what holds them now
+// is not the requests (0.031 ms of it) but each warp's chain of dependent
+// reads (match plane, G-buffer or face row, each probe's row).
+//
+// Measured and deleted (PERF.md section 6): staging each round's
+// rows in shared memory, copied by the whole warp with cp.async (about 3
+// lines a warp-wide copy), with a warp's probes spread over its lanes or
+// one probe index a round, and the deferred kernel's face rows staged the
+// same way: the rounds' waits and barriers cost more than the requests
+// saved; two probes' rows loaded before either is blended (75-80
+// registers, 3 blocks a SM); an L1 prefetch of the next probe's row (two
+// more requests a probe).
+//
+// srgb8 rows decode RGB through a 256-entry table that the scene upload
+// makes once on the device with the plain version's own _srgb_texel (so no
+// powf runs here), copied into shared memory once per block; alpha is
+// byte / 255.
 
 #include "shading.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+// 256 threads a block, at least 4 blocks a SM (64 registers a thread): the
+// faster of the limits measured (PERF.md section 6; without the bound
+// the deferred kernel on bfloat16 rows took 74 registers and 3 blocks).
+constexpr int kThreads = 256, kMinBlocks = 4;
 constexpr int kRowTexels = 13;  // 52 channels: the 2x2 quad, then the 3x3 parent window
 constexpr int kMaxMips = 16;
 // pack_shade_rows: [setup(24) | world(9) | normal(9) | uv(6) | tex-info(49, int32 bits) | pad]
@@ -59,46 +81,124 @@ constexpr int kRowWidth = 104;
 constexpr int kRowWorld = 24, kRowNormal = 33, kRowUv = 42, kRowTexinfo = 48;
 enum Format { kF32 = 0, kF16 = 1, kBF16 = 2, kSrgb8 = 3 };
 
-// The atlas rows in one texel format: texel(r, k, t) reads the four
-// channels of texel k (0-12) of row r as f32. The primary template holds
-// the 16-bit formats (float16, bfloat16).
+// Texel k of a row read as six two-texel blocks w and one texel s: a row on
+// the blocks' grid (even) is w[0..5] then s, an odd row s then w[0..5];
+// lo / hi pick a block's first or second texel.
+template <int k, class T, class B, class Lo, class Hi>
+__device__ __forceinline__ T pick(bool odd, const B w[6], T s, Lo lo, Hi hi) {
+  const T even_t = k == 12 ? s : (k % 2 == 0 ? lo(w[k < 12 ? k / 2 : 0]) : hi(w[k < 12 ? k / 2 : 0]));
+  const int j = k == 0 ? 0 : (k - 1) / 2;
+  const T odd_t = k == 0 ? s : ((k - 1) % 2 == 0 ? lo(w[j]) : hi(w[j]));
+  return odd ? odd_t : even_t;
+}
+
+// The 13 texels of a row read as pick() takes them.
+template <class T, class B, class Lo, class Hi>
+__device__ __forceinline__ void pick_row(bool odd, const B w[6], T s, Lo lo, Hi hi, T t[13]) {
+  t[0] = pick<0>(odd, w, s, lo, hi);
+  t[1] = pick<1>(odd, w, s, lo, hi);
+  t[2] = pick<2>(odd, w, s, lo, hi);
+  t[3] = pick<3>(odd, w, s, lo, hi);
+  t[4] = pick<4>(odd, w, s, lo, hi);
+  t[5] = pick<5>(odd, w, s, lo, hi);
+  t[6] = pick<6>(odd, w, s, lo, hi);
+  t[7] = pick<7>(odd, w, s, lo, hi);
+  t[8] = pick<8>(odd, w, s, lo, hi);
+  t[9] = pick<9>(odd, w, s, lo, hi);
+  t[10] = pick<10>(odd, w, s, lo, hi);
+  t[11] = pick<11>(odd, w, s, lo, hi);
+  t[12] = pick<12>(odd, w, s, lo, hi);
+}
+
+// The atlas rows in one texel format: load(r, t) reads the 13 texels of
+// row r into registers (Chunk: one texel as stored), decode(t, lut, c)
+// gives a texel's four channels as f32. The primary template holds the
+// 16-bit formats (float16, bfloat16): 104-byte rows, the base on the
+// 16-byte grid.
 template <int kFmt>
 struct Row {
-  const uint2* __restrict__ base;
-  __device__ __forceinline__ static float decode(unsigned bits) {
+  using Chunk = uint2;
+  static constexpr int kLut = 0;
+  const unsigned char* __restrict__ base;
+  __device__ __forceinline__ void load(long long r, Chunk t[kRowTexels]) const {
+    const unsigned char* row = base + r * (kRowTexels * 8);
+    const bool odd = (r & 1) != 0;
+    const float4* wide = (const float4*)(row + (odd ? 8 : 0));
+    float4 w[6];
+#pragma unroll
+    for (int j = 0; j < 6; ++j) w[j] = ldg_f4(wide + j);
+    const uint2 s = ldg_u2((const uint2*)(row + (odd ? 0 : 96)));
+    pick_row(
+        odd, w, s, [](const float4& b) { return uint2{__float_as_uint(b.x), __float_as_uint(b.y)}; },
+        [](const float4& b) { return uint2{__float_as_uint(b.z), __float_as_uint(b.w)}; }, t);
+  }
+  __device__ __forceinline__ static float channel(unsigned bits) {
     return kFmt == kF16 ? f16_bits(bits) : bf16_bits(bits);
   }
-  __device__ __forceinline__ void texel(long long r, int k, float t[4]) const {
-    const uint2 v = ldg_u2(base + r * kRowTexels + k);
-    t[0] = decode(v.x & 0xFFFFu);
-    t[1] = decode(v.x >> 16);
-    t[2] = decode(v.y & 0xFFFFu);
-    t[3] = decode(v.y >> 16);
+  __device__ __forceinline__ static void decode(const Chunk& v, const float*, float c[4]) {
+    c[0] = channel(v.x & 0xFFFFu);
+    c[1] = channel(v.x >> 16);
+    c[2] = channel(v.y & 0xFFFFu);
+    c[3] = channel(v.y >> 16);
   }
 };
 
+// float32 rows: 208 bytes, every texel a 16-byte load.
 template <>
 struct Row<kF32> {
+  using Chunk = float4;
+  static constexpr int kLut = 0;
   const float4* __restrict__ base;
-  __device__ __forceinline__ void texel(long long r, int k, float t[4]) const {
-    const float4 v = ldg_f4(base + r * kRowTexels + k);
-    t[0] = v.x;
-    t[1] = v.y;
-    t[2] = v.z;
-    t[3] = v.w;
+  __device__ __forceinline__ void load(long long r, Chunk t[kRowTexels]) const {
+#pragma unroll
+    for (int k = 0; k < kRowTexels; ++k) t[k] = ldg_f4(base + r * kRowTexels + k);
+  }
+  __device__ __forceinline__ static void decode(const Chunk& v, const float*, float c[4]) {
+    c[0] = v.x;
+    c[1] = v.y;
+    c[2] = v.z;
+    c[3] = v.w;
   }
 };
 
+// srgb8 rows: 52 bytes, the base on the 8-byte grid; decode's lut is the
+// block's shared copy of the table.
 template <>
 struct Row<kSrgb8> {
-  const unsigned* __restrict__ base;
-  const float* __restrict__ lut;  // shade._srgb_texel of 0..255
-  __device__ __forceinline__ void texel(long long r, int k, float t[4]) const {
-    const unsigned v = ldg_u32(base + r * kRowTexels + k);
-    t[0] = lut[v & 0xFFu];
-    t[1] = lut[(v >> 8) & 0xFFu];
-    t[2] = lut[(v >> 16) & 0xFFu];
-    t[3] = (float)(v >> 24) * (float)(1.0 / 255.0);
+  using Chunk = unsigned;
+  static constexpr int kLut = 256;
+  const unsigned char* __restrict__ base;
+  const float* __restrict__ lut;  // shade._srgb_texel of 0..255, in device memory
+  __device__ __forceinline__ void load(long long r, Chunk t[kRowTexels]) const {
+    const unsigned char* row = base + r * (kRowTexels * 4);
+    const bool odd = (r & 1) != 0;
+    const uint2* wide = (const uint2*)(row + (odd ? 4 : 0));
+    uint2 w[6];
+#pragma unroll
+    for (int j = 0; j < 6; ++j) w[j] = ldg_u2(wide + j);
+    const unsigned s = ldg_u32((const unsigned*)(row + (odd ? 0 : 48)));
+    pick_row(
+        odd, w, s, [](const uint2& b) { return b.x; }, [](const uint2& b) { return b.y; }, t);
+  }
+  __device__ __forceinline__ static void decode(const Chunk& v, const float* lut, float c[4]) {
+    c[0] = lut[v & 0xFFu];
+    c[1] = lut[(v >> 8) & 0xFFu];
+    c[2] = lut[(v >> 16) & 0xFFu];
+    c[3] = (float)(v >> 24) * (float)(1.0 / 255.0);
+  }
+};
+
+// The block's shared copy of the srgb8 decode table (load: a block barrier,
+// so every thread of the block calls it); the other formats have none.
+template <class R>
+struct Lut {
+  float table[R::kLut > 0 ? R::kLut : 1];
+  __device__ __forceinline__ const float* load(const R& rows) {
+    if constexpr (R::kLut > 0) {
+      for (int i = threadIdx.x; i < R::kLut; i += kThreads) table[i] = rows.lut[i];
+      __syncthreads();
+    }
+    return table;
   }
 };
 
@@ -120,8 +220,8 @@ __device__ __forceinline__ float clamp01(float x) { return min_nan(max_nan(x, 0.
 // shade._trilerp at (u, v): one atlas row, the row index clamped into the
 // table, repeat addressing, the parent window's 3x3 weights.
 template <class R>
-__device__ __forceinline__ void trilerp(const R& rows, long long n_rows, const Mips& m, float u, float v,
-                                        float out[4]) {
+__device__ __forceinline__ void trilerp(const R& rows, const float* lut, long long n_rows, const Mips& m, float u,
+                                        float v, float out[4]) {
   const float x = u * (float)m.tw0 - 0.5f;
   const float y = v * (float)m.th0 - 0.5f;
   const float x0 = floorf(x);
@@ -133,6 +233,8 @@ __device__ __forceinline__ void trilerp(const R& rows, long long n_rows, const M
   // int32 arithmetic as the plain version's (wrapping, not undefined).
   const int idx32 = (int)((unsigned)m.off0 + (unsigned)y0i * (unsigned)m.tw0 + (unsigned)x0i);
   const long long r = idx32 < 0 ? 0 : ((long long)idx32 > n_rows - 1 ? n_rows - 1 : (long long)idx32);
+  typename R::Chunk t[kRowTexels];
+  rows.load(r, t);
 
   const float x1f = u * (float)m.tw1 - 0.5f;
   const float y1f = v * (float)m.th1 - 0.5f;
@@ -148,15 +250,15 @@ __device__ __forceinline__ void trilerp(const R& rows, long long n_rows, const M
 
   float q[4][4];
 #pragma unroll
-  for (int k = 0; k < 4; ++k) rows.texel(r, k, q[k]);
+  for (int k = 0; k < 4; ++k) R::decode(t[k], lut, q[k]);
   float c1[4];
 #pragma unroll
   for (int k = 0; k < 9; ++k) {
-    float t[4];
-    rows.texel(r, 4 + k, t);
+    float c[4];
+    R::decode(t[4 + k], lut, c);
     const float w = wy1[k / 3] * wx1[k % 3];
 #pragma unroll
-    for (int c = 0; c < 4; ++c) c1[c] = k == 0 ? w * t[c] : c1[c] + w * t[c];
+    for (int ch = 0; ch < 4; ++ch) c1[ch] = k == 0 ? w * c[ch] : c1[ch] + w * c[ch];
   }
 #pragma unroll
   for (int c = 0; c < 4; ++c) {
@@ -172,18 +274,18 @@ __device__ __forceinline__ void trilerp(const R& rows, long long n_rows, const M
 // n_px probes only (a probe the plain version masks adds 0.0 to a sum
 // that is never -0, so skipping it changes no bit).
 template <class R>
-__device__ __forceinline__ void albedo_of(const R& rows, long long n_rows, const Mips& m, float u, float v,
-                                          float maj_du, float maj_dv, float span, float n_px, int max_anisotropy,
-                                          float albedo[4]) {
+__device__ __forceinline__ void albedo_of(const R& rows, const float* lut, long long n_rows, const Mips& m, float u,
+                                          float v, float maj_du, float maj_dv, float span, float n_px,
+                                          int max_anisotropy, float albedo[4]) {
   if (max_anisotropy <= 1) {
-    trilerp(rows, n_rows, m, u, v, albedo);
+    trilerp(rows, lut, n_rows, m, u, v, albedo);
     return;
   }
   float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
   for (int i = 0; i < max_anisotropy && (float)i < n_px; ++i) {
     const float fo = (((float)i + 0.5f) / n_px - 0.5f) * span;
     float probe[4];
-    trilerp(rows, n_rows, m, u + maj_du * fo, v + maj_dv * fo, probe);
+    trilerp(rows, lut, n_rows, m, u + maj_du * fo, v + maj_dv * fo, probe);
 #pragma unroll
     for (int c = 0; c < 4; ++c) acc[c] = acc[c] + probe[c];
   }
@@ -192,10 +294,12 @@ __device__ __forceinline__ void albedo_of(const R& rows, long long n_rows, const
 }
 
 template <class R>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
     shade_gbuffer_kernel(const float* __restrict__ gbuf, R rows, long long n_rows,
                          const float* __restrict__ cam, int height, int width, int max_anisotropy, ShadeParams prm,
                          float* __restrict__ out) {
+  __shared__ Lut<R> shared_lut;
+  const float* lut = shared_lut.load(rows);
   const long long plane = (long long)height * width;
   const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= plane) return;
@@ -214,7 +318,7 @@ __global__ void __launch_bounds__(kThreads)
   const float maj_du = gbuf[14 * plane + p], maj_dv = gbuf[15 * plane + p], span = gbuf[17 * plane + p];
   const float n_px = probe_count(maj_du, maj_dv, tw0f, th0f, span, max_anisotropy);
   float albedo[4];
-  albedo_of(rows, n_rows, m, u, v, maj_du, maj_dv, span, n_px, max_anisotropy, albedo);
+  albedo_of(rows, lut, n_rows, m, u, v, maj_du, maj_dv, span, n_px, max_anisotropy, albedo);
   light_store(g, albedo, cam, prm, plane, p, out);
 }
 
@@ -225,11 +329,23 @@ __device__ __forceinline__ int level_field(const int* __restrict__ info, int bas
   return level >= 0 && level < kMaxMips ? info[base + level] : 0;
 }
 
+// Fields 4b-4b+3 of a face row (16-byte block b) into s.
+template <int b>
+__device__ __forceinline__ void face_block(const float4* __restrict__ row4, float s[48]) {
+  const float4 v = ldg_f4(row4 + b);
+  s[4 * b] = v.x;
+  s[4 * b + 1] = v.y;
+  s[4 * b + 2] = v.z;
+  s[4 * b + 3] = v.w;
+}
+
 template <class R>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
     shade_deferred_kernel(const int* __restrict__ fid, const float* __restrict__ shade_rows, int n_faces,
                           R rows, long long n_rows, const float* __restrict__ cam, int height, int width,
                           int y_offset, int max_anisotropy, ShadeParams prm, float* __restrict__ out) {
+  __shared__ Lut<R> shared_lut;
+  const float* lut = shared_lut.load(rows);
   const long long plane = (long long)height * width;
   const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= plane) return;
@@ -238,8 +354,26 @@ __global__ void __launch_bounds__(kThreads)
     store_clear(prm, plane, p, out);
     return;
   }
-  const float* s = shade_rows + (long long)f * kRowWidth;
-  const int* info = (const int*)(s + kRowTexinfo);
+  const float4* row4 = (const float4*)(shade_rows + (long long)f * kRowWidth);
+  // The 16-byte blocks it reads whole: fields 0-11 (the edge functions,
+  // 0-8), 16-19 (the anchor, 16 and 17) and 24-47 (world, normal, uv).
+  float s[48];
+  face_block<0>(row4, s);
+  face_block<1>(row4, s);
+  face_block<2>(row4, s);
+  face_block<4>(row4, s);
+  face_block<6>(row4, s);
+  face_block<7>(row4, s);
+  face_block<8>(row4, s);
+  face_block<9>(row4, s);
+  face_block<10>(row4, s);
+  face_block<11>(row4, s);
+  // The texture info: widths, heights and mip count at level 0 as the
+  // first fields of three 16-byte blocks; the level fields one by one.
+  const int* info = (const int*)(shade_rows + (long long)f * kRowWidth + kRowTexinfo);
+  const float w0 = (float)(int)__float_as_uint(ldg_f4(row4 + (kRowTexinfo + 16) / 4).x);
+  const float h0 = (float)(int)__float_as_uint(ldg_f4(row4 + (kRowTexinfo + 32) / 4).x);
+  const int n_mips = (int)__float_as_uint(ldg_f4(row4 + (kRowTexinfo + 48) / 4).x);
   const float px = ((float)(p % width) + 0.5f) - s[16];
   const float py = ((float)(p / width + y_offset) + 0.5f) - s[17];
 
@@ -278,8 +412,6 @@ __global__ void __launch_bounds__(kThreads)
     dv_dy = (gy * esum - nval * d_y) * inv2;
   }
 
-  const float w0 = (float)info[16], h0 = (float)info[32];
-  const int n_mips = info[48];
   const float ax = du_dx * w0, bx = dv_dx * h0;
   const float ay = du_dy * w0, by = dv_dy * h0;
   const float rho2_x = ax * ax + bx * bx;
@@ -309,16 +441,17 @@ __global__ void __launch_bounds__(kThreads)
                level_field(info, 16, l1), level_field(info, 32, l1), lod - (float)l0};
   const float n_px = probe_count(maj_du, maj_dv, (float)m.tw0, (float)m.th0, span, max_anisotropy);
   float albedo[4];
-  albedo_of(rows, n_rows, m, uv_u, uv_v, maj_du, maj_dv, span, n_px, max_anisotropy, albedo);
+  albedo_of(rows, lut, n_rows, m, uv_u, uv_v, maj_du, maj_dv, span, n_px, max_anisotropy, albedo);
   light_store(g, albedo, cam, prm, plane, p, out);
 }
 
-// The vector width of a format's texel, the alignment its rows need.
-int texel_bytes(int fmt) { return fmt == kF32 ? 16 : fmt == kSrgb8 ? 4 : 8; }
+// The alignment a format's rows need: float32 and the 16-bit formats 16
+// bytes, srgb8 8.
+int row_alignment(int fmt) { return fmt == kSrgb8 ? 8 : 16; }
 
 bool rows_ok(const void* texels, long long n_rows, int fmt, const float* lut) {
   return fmt >= kF32 && fmt <= kSrgb8 && n_rows >= 1 && (fmt != kSrgb8 || lut != nullptr) &&
-         (uintptr_t)texels % texel_bytes(fmt) == 0;
+         (uintptr_t)texels % row_alignment(fmt) == 0;
 }
 
 // Calls launch(rows) once, with the atlas rows as their format's Row.
@@ -329,13 +462,13 @@ void by_format(int fmt, const void* texels, const float* lut, F&& launch) {
       launch(Row<kF32>{(const float4*)texels});
       break;
     case kF16:
-      launch(Row<kF16>{(const uint2*)texels});
+      launch(Row<kF16>{(const unsigned char*)texels});
       break;
     case kBF16:
-      launch(Row<kBF16>{(const uint2*)texels});
+      launch(Row<kBF16>{(const unsigned char*)texels});
       break;
     default:
-      launch(Row<kSrgb8>{(const unsigned*)texels, lut});
+      launch(Row<kSrgb8>{(const unsigned char*)texels, lut});
   }
 }
 
@@ -344,9 +477,10 @@ int blocks_for(int height, int width) { return (int)(((long long)height * width 
 }  // namespace
 
 // texels: (n_rows, 52) rows of format fmt (0 float32, 1 float16, 2
-// bfloat16, 3 srgb8 with lut its 256-entry RGB decode table); gbuf: the
-// (>= 18, height, width) f32 G-buffer; cam (3,) f32; params: N_PARAMS
-// floats of kernels/shade.py::shade_params; out (4, height, width) f32.
+// bfloat16, 3 srgb8 with lut its 256-entry RGB decode table), starting on
+// the 16-byte grid (srgb8: the 8-byte grid); gbuf: the (>= 18, height,
+// width) f32 G-buffer; cam (3,) f32; params: N_PARAMS floats of
+// kernels/shade.py::shade_params; out (4, height, width) f32.
 extern "C" int tr_shade_gbuffer(const float* gbuf, const void* texels, long long n_rows, int fmt, const float* lut,
                                 const float* cam, int height, int width, int max_anisotropy, const float* params,
                                 float* out, void* stream) {
@@ -362,12 +496,12 @@ extern "C" int tr_shade_gbuffer(const float* gbuf, const void* texels, long long
 }
 
 // fid: (height, width) int32 face ids (-1 background); shade_rows:
-// (n_faces, 104) f32 from pack_shade_rows; y_offset: the first frame pixel
-// row of a slab; the rest as tr_shade_gbuffer.
+// (n_faces, 104) f32 from pack_shade_rows, on the 16-byte grid; y_offset:
+// the first frame pixel row of a slab; the rest as tr_shade_gbuffer.
 extern "C" int tr_shade_deferred(const int* fid, const float* shade_rows, int n_faces, const void* texels,
                                  long long n_rows, int fmt, const float* lut, const float* cam, int height, int width,
                                  int y_offset, int max_anisotropy, const float* params, float* out, void* stream) {
-  if (!rows_ok(texels, n_rows, fmt, lut)) return (int)cudaErrorInvalidValue;
+  if (!rows_ok(texels, n_rows, fmt, lut) || (uintptr_t)shade_rows % 16 != 0) return (int)cudaErrorInvalidValue;
   const ShadeParams prm = read_shade_params(params);
   const int blocks = blocks_for(height, width);
   if (blocks == 0) return (int)cudaSuccess;
@@ -379,22 +513,39 @@ extern "C" int tr_shade_deferred(const int* fid, const float* shade_rows, int n_
 }
 
 #ifndef TR_HOST_EMU
-// Registers per thread and resident blocks per SM of the f16 instances
-// (the formats differ only in their loads).
-extern "C" int tr_shade_gbuffer_info(int* registers, int* blocks_per_sm) {
+namespace {
+
+// Registers per thread, resident blocks per SM, threads and static shared
+// bytes per block of one kernel instance.
+template <class K>
+int kernel_attrs(K kernel, int* registers, int* blocks_per_sm, int* threads, int* shared_bytes) {
   cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, shade_gbuffer_kernel<Row<kF16>>);
+  const cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
   if (err != cudaSuccess) return (int)err;
   *registers = attr.numRegs;
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, shade_gbuffer_kernel<Row<kF16>>, kThreads, 0);
+  *threads = kThreads;
+  *shared_bytes = (int)attr.sharedSizeBytes;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel, kThreads, 0);
 }
 
-extern "C" int tr_shade_deferred_info(int* registers, int* blocks_per_sm) {
-  cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, shade_deferred_kernel<Row<kF16>>);
-  if (err != cudaSuccess) return (int)err;
-  *registers = attr.numRegs;
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, shade_deferred_kernel<Row<kF16>>, kThreads,
-                                                            0);
+}  // namespace
+
+// The instance of the rows' format fmt (as tr_shade_gbuffer's).
+extern "C" int tr_shade_gbuffer_info(int fmt, int* registers, int* blocks_per_sm, int* threads, int* shared_bytes) {
+  if (fmt < kF32 || fmt > kSrgb8) return (int)cudaErrorInvalidValue;
+  int err = 0;
+  by_format(fmt, nullptr, nullptr, [&](auto rows) {
+    err = kernel_attrs(shade_gbuffer_kernel<decltype(rows)>, registers, blocks_per_sm, threads, shared_bytes);
+  });
+  return err;
+}
+
+extern "C" int tr_shade_deferred_info(int fmt, int* registers, int* blocks_per_sm, int* threads, int* shared_bytes) {
+  if (fmt < kF32 || fmt > kSrgb8) return (int)cudaErrorInvalidValue;
+  int err = 0;
+  by_format(fmt, nullptr, nullptr, [&](auto rows) {
+    err = kernel_attrs(shade_deferred_kernel<decltype(rows)>, registers, blocks_per_sm, threads, shared_bytes);
+  });
+  return err;
 }
 #endif

@@ -64,9 +64,12 @@ SIGNATURES = {
 }
 
 
-# Kernels with a tr_<name>_info entry point (registers, blocks per SM).
-INFO = ("tr_raster_info", "tr_plan_info", "tr_plan_large_info", "tr_sample_info", "tr_shade_gbuffer_info",
-        "tr_shade_deferred_info", "tr_vmem_take_info")
+# Kernels with a tr_<name>_info entry point: (leading int arguments, int
+# outputs). The outputs are registers per thread and resident blocks per
+# SM; the shade kernels' take the rows' format code (shade.ROW_FORMATS) and
+# also give threads and static shared bytes per block.
+INFO = {"tr_raster_info": (0, 2), "tr_plan_info": (0, 2), "tr_plan_large_info": (0, 2), "tr_sample_info": (0, 2),
+        "tr_shade_gbuffer_info": (1, 4), "tr_shade_deferred_info": (1, 4), "tr_vmem_take_info": (0, 2)}
 
 
 def nvcc_path() -> str:
@@ -132,24 +135,25 @@ def library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-    for name in INFO:
+    for name, (n_in, n_out) in INFO.items():
         fn = getattr(lib, name)
-        fn.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
+        fn.argtypes = [ctypes.c_int] * n_in + [ctypes.POINTER(ctypes.c_int)] * n_out
         fn.restype = ctypes.c_int
     lib.tr_error_string.argtypes = [ctypes.c_int]
     lib.tr_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def kernel_info(name: str) -> tuple[int, int]:
+def kernel_info(name: str, *args: int) -> tuple[int, ...]:
     """(registers per thread, resident blocks per SM) of a kernel of INFO
-    ("raster", "plan", "plan_large", "sample", "shade_gbuffer",
-    "shade_deferred", "vmem_take") as built, from the CUDA runtime."""
-    regs, blocks = ctypes.c_int(), ctypes.c_int()
-    err = getattr(library(), f"tr_{name}_info")(ctypes.byref(regs), ctypes.byref(blocks))
+    ("raster", "plan", "plan_large", "sample", "vmem_take") as built, from
+    the CUDA runtime; for "shade_gbuffer" and "shade_deferred", given the
+    rows' format code, also (threads, static shared bytes) per block."""
+    outs = [ctypes.c_int() for _ in range(INFO[f"tr_{name}_info"][1])]
+    err = getattr(library(), f"tr_{name}_info")(*args, *map(ctypes.byref, outs))
     if err != 0:
         raise RuntimeError(f"tr_{name}_info: CUDA error {err} ({library().tr_error_string(err).decode()})")
-    return regs.value, blocks.value
+    return tuple(o.value for o in outs)
 
 
 def call(name: str, *args) -> None:

@@ -493,7 +493,7 @@ def _check_rows(texels, texel_format: str, srgb_lut):
         raise ValueError(f"texels: expected (N >= 1, 52), got {tuple(texels.shape)}")
     if not texels.is_contiguous():
         raise ValueError("texels: must be contiguous")
-    align = 16 if code == 0 else 4 if code == 3 else 8
+    align = 8 if code == ROW_FORMATS[torch.uint8] else 16  # csrc/shade.cu reads rows in 16- or 8-byte loads
     if texels.data_ptr() % align:
         raise ValueError(f"texels: {texels.dtype} rows must start on a {align}-byte boundary")
     if code == 3:
@@ -504,6 +504,16 @@ def _check_rows(texels, texel_format: str, srgb_lut):
             raise ValueError(f"srgb_lut: on {srgb_lut.device}, the rows on {texels.device}")
         return code, srgb_lut
     return code, None
+
+
+def _check_face_rows(shade_rows):
+    """The (F, 104) f32 pack_shade_rows table as csrc/shade.cu takes it:
+    contiguous, on the 16-byte grid of its loads."""
+    _k.check(shade_rows, "shade_rows", torch.float32)
+    if shade_rows.dim() != 2 or shade_rows.shape[1] != SHADE_ROW_WIDTH:
+        raise ValueError(f"shade_rows: expected (F, {SHADE_ROW_WIDTH}), got {tuple(shade_rows.shape)}")
+    if shade_rows.data_ptr() % 16:
+        raise ValueError("shade_rows: must start on a 16-byte boundary (the kernel reads its rows in 16-byte loads)")
 
 
 def shade_gbuffer(gbuf, texels, camera_position, *, light_direction, light_color, ambient_amount: float,
@@ -550,9 +560,7 @@ def shade_deferred(fid, shade_rows, texels, camera_position, *, light_direction,
     _k.check(fid, "fid", torch.int32)
     if fid.dim() != 2:
         raise ValueError(f"fid: expected (H, W), got {tuple(fid.shape)}")
-    _k.check(shade_rows, "shade_rows", torch.float32)
-    if shade_rows.dim() != 2 or shade_rows.shape[1] != SHADE_ROW_WIDTH:
-        raise ValueError(f"shade_rows: expected (F, {SHADE_ROW_WIDTH}), got {tuple(shade_rows.shape)}")
+    _check_face_rows(shade_rows)
     _k.check(camera_position, "camera_position", torch.float32, (3,))
     code, lut = _check_rows(texels, texel_format, srgb_lut)
     h, w = fid.shape
