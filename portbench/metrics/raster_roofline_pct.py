@@ -1,0 +1,13 @@
+"""raster_roofline_pct (%): the raster kernel's share of its roofline: the mean
+bound of the reference's frames of the traced slice (portbench/yardstick.py)
+over the kernel's mean device time a frame in the slice. Nothing when the
+trace holds no such kernel."""
+
+UNIT = "%"
+
+
+def read(run):
+    r = run.reading
+    if r is None or not r.layer_ms.get("raster") or "raster" not in r.bounds:
+        return None
+    return 100.0 * r.bounds["raster"] / r.layer_ms["raster"]
