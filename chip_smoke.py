@@ -102,9 +102,9 @@ eight generated 1024^2 BC4 textures with full mip chains), and then, at
      line is printed and checked: parity_max_lsb <= 1, dropped_pairs 0,
      backend "cuda", capture_ms and graph_pool_bytes set, and every render
      kernel's launch counter equal to the frames the run rendered (gate,
-     warm-up, timed loop, present loop and the stage prefixes that reach
-     the kernel, each prefix a graph), the probes' at 0; its stage_ms is
-     printed beside the window stages' eager device ms. Then an
+     warm-up, timed loop, present loop), the probes' at 0; its stage_ms
+     (the timed frames' stage marks) is printed beside the window stages'
+     eager device ms. Then an
      Engine at its default 1280x720 over the same scene for 8 ticks under a
      scripted controller: None first, every later image (720, 1280, 4) u8,
      nothing dropped, the camera moved, and the last presented image equal
@@ -263,7 +263,7 @@ from tpurast_torch import cli  # noqa: E402
 from tpurast_torch import kernels as K  # noqa: E402
 from tpurast_torch.camera import Camera, MoveDirection  # noqa: E402
 from tpurast_torch.config import RendererConfig  # noqa: E402
-from tpurast_torch import parallel  # noqa: E402
+from tpurast_torch import parallel, tracing  # noqa: E402
 from tpurast_torch.assets.gltf import load_glb  # noqa: E402
 from tpurast_torch.device.scene import (build_orbit_scene, build_scene, orbit_camera, orbit_track,  # noqa: E402
                                        scene_bytes)
@@ -274,7 +274,6 @@ from tpurast_torch.graphs import FrameGraph, Graph  # noqa: E402
 from tpurast_torch.kernels import _build, geometry, present, probes, raster, resolve, sampler, shade  # noqa: E402
 from tpurast_torch.parallel import make_sharded_renderer  # noqa: E402
 from tpurast_torch.present import Presenter  # noqa: E402
-from tpurast_torch.profiling import STAGES  # noqa: E402
 from tpurast_torch.renderer import Renderer, render_frame  # noqa: E402
 from tpurast_torch.tools import (aniso_mode_stats, check_sampler, fit_pose, microbench,  # noqa: E402
                                  microbench_pipeline, parity_render, profile_sampler, profile_stages,
@@ -533,13 +532,13 @@ def guard_raster(phase: str, so, bins, vis, *, tile_h, tile_w, tiles_x, tiles_y,
     keys, work, _ = raster.kernel_buffers(tile_h, tile_w, tiles_x, tiles_y, slots, "meta")
     guard(phase, "raster", "tr_raster", so["setup"], so["aabb"], bins["pair_faces"], bins["offsets"], slots,
           tiles_x, tiles_y, tile_h, tile_w, tile_row_offset, float(clear_depth) + 0.0, Out(keys.shape, torch.int64),
-          Out(work.shape, torch.int32), work.numel(), Out(vis.shape), want=(None, None, vis))
+          Out(work.shape, torch.int32), work.numel(), Out(vis.shape), None, None, want=(None, None, vis))
 
 
 def guard_resolve(phase: str, vis, attrs, g, *, max_anisotropy, y_offset=0):
     _, hp, wp = vis.shape
     guard(phase, "resolve", "tr_resolve", vis, attrs, attrs.shape[0], hp, wp, y_offset, max_anisotropy,
-          Out(g.shape), want=(g,))
+          Out(g.shape), None, None, want=(g,))
 
 
 def guard_plan(phase: str, g, plan, *, tiles_x, tiles_y, tile_h, tile_w, max_anisotropy):
@@ -553,7 +552,7 @@ def guard_plan(phase: str, g, plan, *, tiles_x, tiles_y, tile_h, tile_w, max_ani
 def guard_sample(phase: str, g, page, plan, cp, fb, *, tiles_x, tiles_y, tile_h, tile_w, max_anisotropy, **light):
     params = (ctypes.c_float * shade.N_PARAMS)(*shade.shade_params(**light))
     guard(phase, "sample", "tr_sample", g, page, page.shape[2], plan["table"], cp, tiles_x, tiles_y, tile_h, tile_w,
-          max_anisotropy, ctypes.addressof(params), Out(fb.shape), want=(fb,))
+          max_anisotropy, ctypes.addressof(params), Out(fb.shape), None, None, want=(fb,))
 
 
 def print_guards(phase: str, card: str) -> None:
@@ -728,10 +727,10 @@ def guard_shade(phase: str, kind: str, fb, texels, texel_format: str, lut, cp, m
     h, w = fb.shape[1:]
     if kind == "gather":
         guard(phase, kind, "tr_shade_gbuffer", g, texels, texels.shape[0], code, lut, cp, h, w, ma,
-              ctypes.addressof(params), Out(fb.shape), want=(fb,))
+              ctypes.addressof(params), Out(fb.shape), None, None, want=(fb,))
     else:
         guard(phase, kind, "tr_shade_deferred", fid, rows, rows.shape[0], texels, texels.shape[0], code, lut, cp, h,
-              w, y_offset, ma, ctypes.addressof(params), Out(fb.shape), want=(fb,))
+              w, y_offset, ma, ctypes.addressof(params), Out(fb.shape), None, None, want=(fb,))
 
 
 def shade_pair(phase: str, vis, attrs, rows, texels, texel_format: str, lut, cp, ma: int, light: dict, *,
@@ -1649,7 +1648,7 @@ def graph_costs(label: str, r: Renderer, cam, card: str, reps: int = 6) -> dict:
     host = host_ms(lambda: r.render(cam))
     uniforms_ms = float(np.median(host_ms(lambda: r.frame_uniforms(cam))))
     graph = r._frame_fn("frame")
-    replay_ms = float(np.median(host_ms(graph._graph.replay)))
+    replay_ms = float(np.median(host_ms(graph.replay)))
     copies_ms = device_ms(lambda: [v.clone() for v in graph._outputs.values()], 20)
     busy = device_ms(lambda: r.render_with_uniforms(vp, cp), 3)
     info = r.graph_info()["frame"]
@@ -2379,9 +2378,10 @@ def present_breakdown(r: Renderer, cams, frames: int = 24) -> None:
 
 def runtime_path(scene, seed: int, window_ops: dict, kernel_ms: dict) -> dict:
     """The bench entry point in-process, then the Engine; returns the render
-    kernels' launches on the bench run. Its stage_sweep (graphs) is printed
-    beside window_ops (stage_device_ops, eager) and, for the kernel stages,
-    beside kernel_ms (each render kernel's device ms in a graph replay)."""
+    kernels' launches on the bench run. Its stage_ms (the timed frames'
+    stage marks) is printed beside window_ops (stage_device_ops, eager)
+    and, for the kernel stages, beside kernel_ms (each render kernel's
+    device ms in a graph replay)."""
     argv = ["--scene", "orbit", "--width", str(WIDTH), "--height", str(HEIGHT), "--frames", str(BENCH_FRAMES),
             "--warmup", str(BENCH_WARMUP), "--stages", "--seed", str(seed)]
     K.reset_launches()
@@ -2402,33 +2402,38 @@ def runtime_path(scene, seed: int, window_ops: dict, kernel_ms: dict) -> dict:
     check(res["triangles"] == scene.n_faces and res["frames"] == BENCH_FRAMES, "the bench's scene")
     # Frames that reach each kernel: the gate's two kernel frames (the
     # capture's eager frame and the replay it compares), the warm-up, the
-    # timed loop, the present loop, and warm-up + frames of every stage
-    # prefix from the kernel's own stage on ("frame" included). A capture
-    # launches nothing.
+    # timed loop and the present loop. A capture launches nothing.
     loops = 2 + BENCH_WARMUP + BENCH_FRAMES + min(BENCH_FRAMES, cli.PRESENT_FRAMES)
-    per_prefix = cli.SWEEP_WARMUP + cli.SWEEP_FRAMES
-    prefixes = [s or "frame" for s in STAGES]
     for name in KERNELS:
-        want = loops + per_prefix * (len(prefixes) - prefixes.index(name)) if name in RENDER_KERNELS else 0
+        want = loops if name in RENDER_KERNELS else 0
         check(launches[name] == want, f"runtime path: {name} launched {launches[name]} times, want {want}")
-    check(list(res["stage_ms"]) == prefixes, "the bench's stage_ms keys")
+    check(list(res["stage_ms"]) == list(tracing.MARKS[1:]), "the bench's stage_ms keys")
+    # The card's frame records and the host's count of frames agree (every
+    # frame has finished: the present loop's last hand-out waited for it),
+    # and the timed frames' marks add up to about their frame.
+    marks = tracing.marks("cuda")
+    last = int(tracing.snapshot().frames[str(marks.device)]["seq"][-1])
+    check(last == marks.enqueued, f"the card's last frame record is {last}, the host counted {marks.enqueued}")
+    marked = sum(res["stage_ms"].values())
+    check(abs(marked - res["p50_frame_ms"]) < 0.25 * res["p50_frame_ms"],
+          f"the stage marks sum to {marked:.3f} ms a frame, the frame takes {res['p50_frame_ms']:.3f}")
     check(res["capture_ms"] is not None and res["graph_pool_bytes"] > 0, "the bench's graph keys")
     copy_ms, nbytes = readback_ms(HEIGHT, WIDTH)
     print(f"present loop: {res['present_ms_per_frame']:.4f} ms a frame with the double-buffered read-back against "
           f"{res['p50_frame_ms']:.4f} ms a frame without ({res['present_ms_per_frame'] - res['p50_frame_ms']:+.4f}); "
           f"one read-back is {nbytes} B, {copy_ms:.4f} ms alone into pinned memory "
           f"({nbytes / copy_ms / 1e6:.2f} GB/s)")
-    print("stage_sweep (differences of prefix medians, each prefix a CUDA graph ending in its probe's sums) ms: "
+    print("stage_ms (the timed frames' stage marks on the card's clock, in the replayed graph) ms: "
           + ", ".join(f"{k} {v:.3f}" for k, v in res["stage_ms"].items()))
-    # The same stages' device ms from the eager stage_device_ops: a sweep
-    # delta also holds the difference of two prefixes' probe sums.
-    pairs = {"geometry": ("geometry",), "binning": ("binning",), "raster": ("raster",),
-             "resolve": ("pack_attrs", "resolve"), "plan": ("plan",), "sample": ("sample",), "frame": ("encode",)}
-    print("stage_sweep delta vs stage_device_ops device ms: " + ", ".join(
+    # The same stages' device ms from the eager stage_device_ops (a marked
+    # interval also holds the launch gaps between its operations).
+    pairs = {"geometry": ("geometry",), "binning": ("binning",), "raster": ("raster",), "pack": ("pack_attrs",),
+             "shading": ("resolve", "plan", "sample"), "encode": ("encode",)}
+    print("stage_ms vs stage_device_ops device ms: " + ", ".join(
         f"{k} {res['stage_ms'][k]:.3f} vs {sum(window_ops[o]['dev_ms'] for o in ops):.3f}" for k, ops in pairs.items()))
-    # The resolve prefix adds the attribute pack to the resolve kernel.
-    kernel_stage_ms = dict(kernel_ms, resolve=kernel_ms["resolve"] + window_ops["pack_attrs"]["dev_ms"])
-    print("stage_sweep delta vs the kernel's device ms in a window replay (resolve: with the eager pack's): "
+    kernel_stage_ms = {"raster": kernel_ms["raster"],
+                       "shading": kernel_ms["resolve"] + kernel_ms["plan"] + kernel_ms["sample"]}
+    print("stage_ms vs the kernels' device ms in a window replay: "
           + ", ".join(f"{k} {res['stage_ms'][k]:.3f} vs {v:.3f} ({res['stage_ms'][k] - v:+.3f})"
                       for k, v in kernel_stage_ms.items()))
 

@@ -58,6 +58,12 @@ covered lane a warp, warps with none and rows clamped to the last row.
 chip_smoke.py's count of the shade kernels' L1 requests
 (shade_warp_lines) is held to a count by hand on a small G-buffer.
 
+The frame trace's mark kernel (csrc/trace.cu) fills a frame's slot of its
+ring with the sequence number, monotonic times and the counters, and the
+ring wraps; each render kernel stamps its start and end marks when given
+their words, its output unchanged (the emulation's %globaltimer is the
+host's monotonic clock).
+
 Time on one worker: about 55 s (the shade cases about a third of it: the
 plain gather runs 16 probes over every pixel; the warp-shape cases about
 5 s together, the request counts about 2 s).
@@ -180,8 +186,9 @@ def test_raster_kernel(emu, frame, case, clear_depth, min_covered):
     assert torch.equal(out, vis)
 
 
-def _emu_raster(emu, so, bins, args, clear_depth=0.0, row0=0):
-    """The emulated raster kernel's (2, Hp, Wp) output."""
+def _emu_raster(emu, so, bins, args, clear_depth=0.0, row0=0, marks=(None, None)):
+    """The emulated raster kernel's (2, Hp, Wp) output; marks: the
+    addresses of the frame trace's start and end words, or None."""
     slots = bins["pair_faces"].numel()
     keys, work, out = raster.kernel_buffers(args["tile_h"], args["tile_w"], args["tiles_x"], args["tiles_y"], slots,
                                             "cpu")
@@ -189,15 +196,15 @@ def _emu_raster(emu, so, bins, args, clear_depth=0.0, row0=0):
     err = emu.tr_raster(so["setup"].data_ptr(), so["aabb"].data_ptr(), bins["pair_faces"].data_ptr(),
                         bins["offsets"].data_ptr(), slots, args["tiles_x"], args["tiles_y"], args["tile_h"],
                         args["tile_w"], row0, clear_depth, keys.data_ptr(), work.data_ptr(), work.numel(),
-                        out.data_ptr(), None)
+                        out.data_ptr(), *marks, None)
     assert err == 0
     return out
 
 
-def _emu_resolve(emu, vis, attrs, y_offset=0, max_anisotropy=16):
+def _emu_resolve(emu, vis, attrs, y_offset=0, max_anisotropy=16, marks=(None, None)):
     out = torch.full((resolve.A_OUT,) + tuple(vis.shape[1:]), -5.0)
     err = emu.tr_resolve(vis.data_ptr(), attrs.data_ptr(), attrs.shape[0], vis.shape[1], vis.shape[2], y_offset,
-                         max_anisotropy, out.data_ptr(), None)
+                         max_anisotropy, out.data_ptr(), *marks, None)
     assert err == 0
     return out
 
@@ -341,12 +348,12 @@ def test_plan_kernel_nan_under_a_matched_pixel(emu, planes, value):
     assert residual_px == int(plan["residual_px"])
 
 
-def _emu_sample(emu, g, page, plan, cp, tiles, light, max_anisotropy):
+def _emu_sample(emu, g, page, plan, cp, tiles, light, max_anisotropy, marks=(None, None)):
     out = torch.full((4,) + tuple(g.shape[1:]), -3.0)
     params = (ctypes.c_float * shade.N_PARAMS)(*shade.shade_params(**light))
     err = emu.tr_sample(g.data_ptr(), page.data_ptr(), page.shape[2], plan["table"].data_ptr(), cp.data_ptr(),
                         tiles["tiles_x"], tiles["tiles_y"], tiles["tile_h"], tiles["tile_w"], max_anisotropy,
-                        ctypes.addressof(params), out.data_ptr(), None)
+                        ctypes.addressof(params), out.data_ptr(), *marks, None)
     assert err == 0
     return out
 
@@ -471,7 +478,7 @@ def _texel_format(dtype: str) -> str:
 
 
 def _emu_shade(emu, kernel, texels, texel_format, cp, light, max_anisotropy, *, gbuf=None, fid=None, rows=None,
-               y_offset=0):
+               y_offset=0, marks=(None, None)):
     """The emulated tr_shade_gbuffer (gbuf) or tr_shade_deferred (fid,
     rows) launch's (4, H, W) framebuffer, through the wrapper's row check."""
     code, lut = shade._check_rows(texels, texel_format, shade.srgb_table("cpu"))
@@ -481,11 +488,11 @@ def _emu_shade(emu, kernel, texels, texel_format, cp, light, max_anisotropy, *, 
     out = torch.full((4, h, w), -3.0)
     if kernel == "gather":
         err = emu.tr_shade_gbuffer(gbuf.data_ptr(), texels.data_ptr(), texels.shape[0], code, lut_ptr, cp.data_ptr(),
-                                   h, w, max_anisotropy, ctypes.addressof(params), out.data_ptr(), None)
+                                   h, w, max_anisotropy, ctypes.addressof(params), out.data_ptr(), *marks, None)
     else:
         err = emu.tr_shade_deferred(fid.data_ptr(), rows.data_ptr(), rows.shape[0], texels.data_ptr(),
                                     texels.shape[0], code, lut_ptr, cp.data_ptr(), h, w, y_offset, max_anisotropy,
-                                    ctypes.addressof(params), out.data_ptr(), None)
+                                    ctypes.addressof(params), out.data_ptr(), *marks, None)
     assert err == 0
     return out
 
@@ -577,7 +584,7 @@ def test_shade_deferred_kernel_refuses_misaligned_face_rows(emu, shade_frame):
     out = torch.empty((4,) + tuple(fid.shape))
     err = emu.tr_shade_deferred(fid.data_ptr(), shifted.data_ptr(), rows.shape[0], tex.data_ptr(), tex.shape[0], 1,
                                 None, f["cp"].data_ptr(), fid.shape[0], fid.shape[1], 0, 16,
-                                ctypes.addressof(params), out.data_ptr(), None)
+                                ctypes.addressof(params), out.data_ptr(), None, None, None)
     assert shifted.data_ptr() % 16 == 4 and err == 1
     with pytest.raises(ValueError, match="16-byte"):
         shade._check_face_rows(shifted)
@@ -742,11 +749,109 @@ def test_shade_kernels_refuse_misaligned_rows(emu, shade_frame):
         tex = f["texels"][dtype]
         err = emu.tr_shade_gbuffer(g.data_ptr(), tex.data_ptr() + shift, tex.shape[0] - 1, code, lut.data_ptr(),
                                    f["cp"].data_ptr(), g.shape[1], g.shape[2], 16, ctypes.addressof(params),
-                                   out.data_ptr(), None)
+                                   out.data_ptr(), None, None, None)
         assert err == 1, dtype
     tiles, page = f["tiles"], f["page"]
     plan = sampler.plan_tiles_plain(g, max_anisotropy=16, **tiles)
     err = emu.tr_sample(g.data_ptr(), page.data_ptr() + 2, page.shape[2], plan["table"].data_ptr(),
                         f["cp"].data_ptr(), tiles["tiles_x"], tiles["tiles_y"], tiles["tile_h"], tiles["tile_w"], 16,
-                        ctypes.addressof(params), out.data_ptr(), None)
+                        ctypes.addressof(params), out.data_ptr(), None, None, None)
     assert err == 716
+
+
+# ---------------------------------------------------------------------------
+# The frame trace: the mark kernel (csrc/trace.cu) and the marks the render
+# kernels stamp (common.cuh stamp_start, stamp_end).
+
+
+def test_trace_mark_kernel(emu):
+    """Marks 0, 1 and 6 of a frame: mark 0 takes the next sequence number
+    from the device's counter and zeroes the words the render kernels
+    stamp; mark 6 copies the frame's record (here with the stamped words
+    planted) and counters into its slot of the ring, then the completion
+    word. Monotonic times (the emulation's %globaltimer is the host's
+    monotonic clock, Python's perf_counter_ns); the next frame takes the
+    next slot, the ring wraps, and a calibration mark writes only its word."""
+    import ctypes
+    import time
+
+    from tpurast_torch import tracing
+
+    slots, S = 4, tracing.SLOT
+    ring = torch.full(((slots + 1) * S,), -1, dtype=torch.int64)
+    seq = torch.zeros(1, dtype=torch.int64)
+    rec = torch.full((S,), -5, dtype=torch.int64)  # the record in flight
+
+    def mark(i, ovf=None, mis=None):
+        last = i == len(tracing.MARKS) - 1
+        err = emu.tr_trace_mark(ring.data_ptr(), seq.data_ptr(), rec.data_ptr(), slots, i, int(last),
+                                None if ovf is None else ovf.data_ptr(), None if mis is None else mis.data_ptr(),
+                                None)
+        assert err == 0
+
+    def frame(ovf, mis):
+        mark(0)
+        assert rec[1 + 2:1 + 6].tolist() == [0, 0, 0, 0]  # the stamped words, zeroed
+        mark(1)
+        for i in tracing.STAMPED:  # as the kernels would stamp them
+            rec[1 + i] = time.perf_counter_ns()
+        mark(6, ovf, mis)
+
+    t0 = time.perf_counter_ns()
+    frame(torch.tensor(7, dtype=torch.int32), torch.tensor(3, dtype=torch.int32))
+    t1 = time.perf_counter_ns()
+    got = ring[1 * S:2 * S]
+    times = got[1:1 + len(tracing.MARKS)]
+    assert int(seq) == 1 and int(got[0]) == 1 and int(got[tracing.DONE]) == 1
+    assert t0 <= int(times[0]) and bool((times[1:] >= times[:-1]).all()) and int(times[-1]) <= t1
+    assert (int(got[tracing.OVERFLOW]), int(got[tracing.MISS])) == (7, 3)
+    for _ in range(4):  # frames 2..5: frame 5 wraps into frame 1's slot
+        frame(torch.tensor(0, dtype=torch.int32), torch.tensor(1, dtype=torch.int32))
+    assert int(seq) == 5 and ring.view(slots + 1, S)[:slots, 0].tolist() == [4, 5, 2, 3]
+    assert ring.view(slots + 1, S)[1, tracing.MISS] == 1
+    mark(0)
+    mark(6)  # no counters: 0
+    assert ring.view(slots + 1, S)[2, tracing.OVERFLOW] == 0 and ring.view(slots + 1, S)[2, tracing.DONE] == 6
+    assert emu.tr_trace_mark(ring.data_ptr(), seq.data_ptr(), rec.data_ptr(), slots, -1, 0, None, None, None) == 0
+    assert int(seq) == 6 and t1 <= int(ring[slots * S]) <= time.perf_counter_ns()
+    # Mapped memory (plain zeroed memory here).
+    emu.tr_trace_alloc.argtypes = [ctypes.c_longlong, ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_void_p)]
+    host, dev = ctypes.c_void_p(), ctypes.c_void_p()
+    assert emu.tr_trace_alloc(64, ctypes.byref(host), ctypes.byref(dev)) == 0
+    assert host.value == dev.value and bytes((ctypes.c_char * 64).from_address(host.value)) == bytes(64)
+
+
+@pytest.mark.parametrize("kernel", ["raster", "resolve", "sample", "gather", "deferred"])
+def test_render_kernels_stamp_the_frame_marks(emu, frame, shade_frame, kernel):
+    """Given the addresses of two words of the frame's record, each render
+    kernel's entry point stamps the time its first block starts into the
+    first and raises the second to the time its last block ends (the
+    emulation's %globaltimer is the host's perf_counter_ns), and writes
+    the same output as without them."""
+    import time
+
+    f = shade_frame
+    light = dict(f["light"], blend="alpha")
+    tex = f["texels"]["float32"]
+    if kernel == "raster":
+        args, so, bins = _frame_case(frame)
+        run = lambda m: _emu_raster(emu, so, bins, args, marks=m)  # noqa: E731
+    elif kernel == "resolve":
+        run = lambda m: _emu_resolve(emu, f["vis"], f["attrs"], marks=m)  # noqa: E731
+    elif kernel == "sample":
+        g = resolve.resolve_gbuffer_plain(f["vis"], f["attrs"], max_anisotropy=16)
+        plan = sampler.plan_tiles_plain(g, max_anisotropy=16, **f["tiles"])
+        run = lambda m: _emu_sample(emu, g, f["page"], plan, f["cp"], f["tiles"], light, 16, marks=m)  # noqa: E731
+    elif kernel == "gather":
+        g = resolve.resolve_gbuffer_plain(f["vis"], f["attrs"], max_anisotropy=16)
+        run = lambda m: _emu_shade(emu, "gather", tex, "float", f["cp"], light, 16, gbuf=g, marks=m)  # noqa: E731
+    else:
+        run = lambda m: _emu_shade(emu, "deferred", tex, "float", f["cp"], light, 16, fid=f["fid"],  # noqa: E731
+                                   rows=f["rows"], marks=m)
+    want = run((None, None))
+    words = torch.zeros(2, dtype=torch.int64)
+    t0 = time.perf_counter_ns()
+    got = run((words.data_ptr(), words.data_ptr() + 8))
+    t1 = time.perf_counter_ns()
+    assert torch.equal(got, want)
+    assert t0 <= int(words[0]) < int(words[1]) <= t1

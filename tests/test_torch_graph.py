@@ -131,12 +131,14 @@ def _install(monkeypatch, guard: Guard) -> None:
     for name in ("__getitem__", "__setitem__"):
         monkeypatch.setattr(torch.Tensor, name, indexed(f"Tensor.{name}", getattr(torch.Tensor, name)))
     # The kernels: their plain versions, outside the guard (on the card the
-    # CUDA kernels run there, and they read nothing back).
+    # CUDA kernels run there, and they read nothing back); the trace's
+    # stamps are the CUDA kernels' alone.
     for mod, name, plain in ((raster, "rasterize_tiles", raster.rasterize_tiles_plain),
                              (resolve, "resolve_gbuffer", resolve.resolve_gbuffer_plain),
                              (sampler, "plan_tiles", sampler.plan_tiles_plain),
                              (sampler, "sample_tiles", sampler.sample_tiles_plain)):
         def swapped(*args, _plain=plain, **kwargs):
+            kwargs.pop("stamps", None)
             with guard.disarmed():
                 return _plain(*args, **kwargs)
         monkeypatch.setattr(mod, name, swapped)
@@ -264,14 +266,14 @@ def test_renderer_keeps_a_graph_per_output_and_drops_them_on_resize(scene, monke
     assert r.uses_graphs
     frame = r._frame_fn("frame")
     assert isinstance(frame, graphs.FrameGraph) and r._frame_fn("frame") is frame
-    assert frame.fn.func is render_frame and frame.fn.keywords == r._frame_kwargs
+    assert frame.fn.func is render_frame and frame.fn.keywords == dict(r._frame_kwargs, marks=r.marks)
     gbuf = r._frame_fn("gbuf", output="gbuf", shading="forward")
     assert gbuf is not frame and gbuf.fn.keywords["output"] == "gbuf"
     assert set(r.graph_info()) == {"frame", "gbuf"}
     with kernels.plain_kernels():
         assert not r.uses_graphs
         eager = r._frame_fn("frame")
-        assert not isinstance(eager, graphs.FrameGraph) and eager.keywords == r._frame_kwargs
+        assert not isinstance(eager, graphs.FrameGraph) and eager.keywords == dict(r._frame_kwargs, marks=r.marks)
     r.recreate_swapchain(0, 0)  # ignored: the graphs stay
     assert r._frame_fn("frame") is frame
     r.recreate_swapchain(64, 32)

@@ -326,7 +326,7 @@ class Cases:
         args = [exact(so["setup"]), exact(so["aabb"]), exact(bins["pair_faces"]), exact(bins["offsets"])]
         err = self.lib.tr_raster(*(a.data_ptr() for a in args), bins["pair_faces"].numel(), tiles["tiles_x"],
                                  tiles["tiles_y"], tiles["tile_h"], tiles["tile_w"], row0, clear_depth,
-                                 keys.data_ptr(), work.data_ptr(), work.numel(), out.data_ptr(), None)
+                                 keys.data_ptr(), work.data_ptr(), work.numel(), out.data_ptr(), None, None, None)
         assert err == 0
         return out.reshape(2, hp, wp)
 
@@ -334,7 +334,7 @@ class Cases:
         vis, attrs = exact(vis), exact(attrs)
         out = torch.empty((resolve.A_OUT,) + tuple(vis.shape[1:]))
         err = self.lib.tr_resolve(vis.data_ptr(), attrs.data_ptr(), attrs.shape[0], vis.shape[1], vis.shape[2],
-                                  y_offset, max_anisotropy, out.data_ptr(), None)
+                                  y_offset, max_anisotropy, out.data_ptr(), None, None, None)
         assert err == 0
         return out
 
@@ -390,7 +390,7 @@ class Cases:
         out = torch.empty((4,) + tuple(g.shape[1:]))
         err = self.lib.tr_sample(args[0].data_ptr(), page.data_ptr(), page.shape[2], args[2].data_ptr(),
                                  args[3].data_ptr(), tiles["tiles_x"], tiles["tiles_y"], tiles["tile_h"],
-                                 tiles["tile_w"], ma, args[4].data_ptr(), out.data_ptr(), None)
+                                 tiles["tile_w"], ma, args[4].data_ptr(), out.data_ptr(), None, None, None)
         assert err == 0
         hp, wp = g.shape[1:]
         lsb = (present.encode_srgb_u8(out, wp, hp).int() - present.encode_srgb_u8(want, wp, hp).int()).abs().max()
@@ -446,7 +446,8 @@ class Cases:
             want = shade.shade_gbuffer_plain(g, texels, cp, max_anisotropy=ma, texel_format=fmt, **light)
             g = exact(g)
             err = self.lib.tr_shade_gbuffer(g.data_ptr(), texels.data_ptr(), n, code, lut_ptr, cp.data_ptr(),
-                                            fid.shape[0], fid.shape[1], ma, params.data_ptr(), out.data_ptr(), None)
+                                            fid.shape[0], fid.shape[1], ma, params.data_ptr(), out.data_ptr(), None,
+                                            None, None)
         else:
             so, sc = f["so"], f["sc"]
             rows = shade.pack_shade_rows(so["setup"], sc["corner_world"], sc["corner_normal"], sc["corner_uv"],
@@ -456,7 +457,7 @@ class Cases:
             rows = exact(rows)
             err = self.lib.tr_shade_deferred(fid.data_ptr(), rows.data_ptr(), rows.shape[0], texels.data_ptr(), n,
                                              code, lut_ptr, cp.data_ptr(), fid.shape[0], fid.shape[1], 0, ma,
-                                             params.data_ptr(), out.data_ptr(), None)
+                                             params.data_ptr(), out.data_ptr(), None, None, None)
         assert err == 0
         w, h = SIZES[size]
         covered = fid >= 0

@@ -15,6 +15,9 @@ kernels for the reference tools' Pallas probes. The runtime is here too:
 scenes and ``python -m tpurast_torch.cli``, the benchmark entry point, with
 scan binning and slab frames (``parallel``). On a CUDA device a frame is a
 CUDA graph replay (``graphs.FrameGraph``, the reference's ``jax.jit``).
+``tracing`` is the program's own trace: host spans, seven stage marks a
+frame inside the frame's graph and per-frame counters, read with
+``tracing.snapshot()``.
 
 It imports torch and never jax, and nothing of ``tpurast``: the host-side
 numpy modules it needs are its own copies under the same names (config,

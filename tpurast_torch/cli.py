@@ -5,9 +5,11 @@
 Prints ONE JSON line with fps / p50 / Mtris plus the present-loop
 (host-visible) frame rate, the dropped-pair counter, the parity gate's
 result and the binning that ran ("pairs" or "scan"). `--stages` adds a
-per-stage decomposition (stage_ms, from profiling.stage_sweep) to the
-line; `--all` runs every config of ALL_CONFIGS in a subprocess of its own
-and prints one line each.
+per-stage decomposition to the line: stage_ms, the mean ms of each stage
+over the timed frames, from the frames' own stage marks (tracing.py; on
+the card the device's clock, in the graph the frames replay); `--all`
+runs every config of ALL_CONFIGS in a subprocess of its own and prints
+one line each.
 
 It runs on the card: without a CUDA device it exits non-zero unless
 `--device cpu` asks for the CPU (the kernels' plain torch versions; its
@@ -66,7 +68,6 @@ ALL_CONFIGS = [
 
 GROUP = 16  # frames between two timing events
 PRESENT_FRAMES = 48
-SWEEP_FRAMES, SWEEP_WARMUP = 32, 4  # frames per prefix of --stages, and untimed ones before them
 
 
 def _build_parser() -> argparse.ArgumentParser:
@@ -95,7 +96,8 @@ def _build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--seed", type=int, default=0, help="seed of the procedural scene (orbit)")
     ap.add_argument("--save", default=None, help="save last frame PNG here")
     ap.add_argument("--skip-parity-gate", action="store_true", help="skip the kernels-vs-plain-versions check")
-    ap.add_argument("--stages", action="store_true", help="add per-stage timing (stage_ms) to the JSON line")
+    ap.add_argument("--stages", action="store_true",
+                    help="add per-stage timing (stage_ms, from the timed frames' stage marks) to the JSON line")
     ap.add_argument("--all", action="store_true", help="run every config of ALL_CONFIGS (one JSON line each)")
     return ap
 
@@ -163,11 +165,11 @@ def main(argv: list[str] | None = None) -> int:
 
     import torch
 
-    from tpurast_torch import kernels
+    from tpurast_torch import kernels, tracing
     from tpurast_torch.config import RendererConfig
     from tpurast_torch.device.scene_cache import load_named_scene
     from tpurast_torch.present import Presenter
-    from tpurast_torch.profiling import stage_sweep, time_groups
+    from tpurast_torch.profiling import time_groups
     from tpurast_torch.renderer import Renderer
 
     device = torch.device(args.device)
@@ -204,10 +206,7 @@ def main(argv: list[str] | None = None) -> int:
     cfg = RendererConfig(width=args.width, height=args.height, **overrides)
     renderer = Renderer(scene, cfg, device=device)
 
-    n_cams = args.frames + args.warmup
-    if args.stages:
-        n_cams = max(n_cams, SWEEP_FRAMES + SWEEP_WARMUP)
-    cams = flythrough(args.scene, n_cams)
+    cams = flythrough(args.scene, args.frames + args.warmup)
 
     # Correctness gate: one small frame with the CUDA kernels and once more
     # with every kernel's plain torch version on the SAME device; any
@@ -254,9 +253,11 @@ def main(argv: list[str] | None = None) -> int:
         counters["window_miss"] += int(frame["window_miss_px"])
 
     batch = uniforms[args.warmup : args.warmup + args.frames]
+    first_seq = renderer.marks.enqueued + 1
     t0 = time.perf_counter()
     group_ms = time_groups(render, renderer.scene, batch, GROUP, after_group=read_counters)
     wall = time.perf_counter() - t0
+    timed_seqs = (first_seq, renderer.marks.enqueued)
     times_ms = np.repeat(group_ms, [len(batch[g : g + GROUP]) for g in range(0, len(batch), GROUP)])
 
     # The flythrough with device->host read-back: the timed loop includes
@@ -280,7 +281,8 @@ def main(argv: list[str] | None = None) -> int:
 
     stage_ms = None
     if args.stages:
-        _, stage_ms = stage_sweep(renderer, uniforms, frames=SWEEP_FRAMES, group=GROUP, warmup=SWEEP_WARMUP)
+        frames = tracing.snapshot().frames[str(renderer.marks.device)]
+        stage_ms = {k: round(v, 4) for k, v in tracing.stage_ms(frames, *timed_seqs).items()}
 
     graph = renderer.graph_info().get("frame", {})
     p50 = float(np.percentile(times_ms, 50))

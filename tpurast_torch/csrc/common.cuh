@@ -167,6 +167,36 @@ __device__ __forceinline__ void st_stream_f(float* p, float v) {
 #endif
 }
 
+// The card's %globaltimer in ns (the host emulation: the host's monotonic
+// clock).
+__device__ __forceinline__ long long global_ns() {
+#ifdef TR_HOST_EMU
+  return tr_emu_globaltimer();
+#else
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return (long long)t;
+#endif
+}
+
+// A frame's stage marks that fall where a hand-written kernel starts or
+// ends (trace.cu). Given a mark's word, a kernel's first block stamps the
+// time it starts (stamp_start, first thing), and each block, once all its
+// threads are done, raises the word to the time it ends (stamp_end, last
+// thing), so that the word holds the end of the last block; the frame's
+// first mark zeroed it. nullptr: no mark, and no barrier.
+__device__ __forceinline__ void stamp_start(long long* mark) {
+  if (mark != nullptr && blockIdx.x == 0 && blockIdx.y == 0 && threadIdx.x == 0 && threadIdx.y == 0) {
+    *mark = global_ns();
+  }
+}
+
+__device__ __forceinline__ void stamp_end(long long* mark) {
+  if (mark == nullptr) return;
+  __syncthreads();
+  if (threadIdx.x == 0 && threadIdx.y == 0) atomicMax(mark, global_ns());
+}
+
 // The float a bfloat16's 16 bits stand for.
 __device__ __forceinline__ float bf16_bits(unsigned bits) { return __uint_as_float(bits << 16); }
 

@@ -19,7 +19,9 @@
 #include <algorithm>
 #include <atomic>
 #include <barrier>
+#include <chrono>
 #include <cstdint>
+#include <cstdlib>
 #include <cstring>
 #include <memory>
 #include <thread>
@@ -121,7 +123,12 @@ void tr_emu_launch(dim3 grid, dim3 block, F&& body) {
   tr_emu_block_barrier = nullptr;
 }
 
-enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaErrorMisalignedAddress = 716 };
+enum cudaError_t {
+  cudaSuccess = 0,
+  cudaErrorInvalidValue = 1,
+  cudaErrorMemoryAllocation = 2,
+  cudaErrorMisalignedAddress = 716
+};
 // The error of the last launch: a vector load off its alignment
 // (tr_emu_check_aligned), where the card would fault.
 inline std::atomic<int> tr_emu_error{0};
@@ -168,6 +175,15 @@ T tr_emu_atomic_min(T* p, T v) {
 inline int atomicMax(int* p, int v) { return tr_emu_atomic_max(p, v); }
 inline int atomicMin(int* p, int v) { return tr_emu_atomic_min(p, v); }
 inline unsigned long long atomicMax(unsigned long long* p, unsigned long long v) { return tr_emu_atomic_max(p, v); }
+inline long long atomicMax(long long* p, long long v) { return tr_emu_atomic_max(p, v); }
+
+// %globaltimer's stand-in: the host's monotonic clock in ns (the clock of
+// Python's time.perf_counter_ns on Linux).
+inline long long tr_emu_globaltimer() {
+  return std::chrono::duration_cast<std::chrono::nanoseconds>(std::chrono::steady_clock::now().time_since_epoch())
+      .count();
+}
+inline void __threadfence_system() { std::atomic_thread_fence(std::memory_order_seq_cst); }
 
 inline int __popc(unsigned v) { return __builtin_popcount(v); }
 

@@ -133,7 +133,9 @@ __host__ __device__ __forceinline__ Subs tile_subs(int tile_h, int tile_w) {
 // tile, unit k of a tile is chunk k / n_subs on sub-rectangle k % n_subs),
 // work[n_tiles] = number of units, work[n_tiles + 1] = 0 (the unit
 // counter), work[n_tiles + 2 + u] = the tile of unit u.
-__global__ void raster_units_kernel(const int* __restrict__ offsets, int n_tiles, int n_subs, int* __restrict__ work) {
+__global__ void raster_units_kernel(const int* __restrict__ offsets, int n_tiles, int n_subs, int* __restrict__ work,
+                                    long long* mark_start) {
+  stamp_start(mark_start);
   __shared__ int sums[kUnitsThreads];
   const int per = (n_tiles + kUnitsThreads - 1) / kUnitsThreads;
   const int t0 = threadIdx.x * per;
@@ -318,13 +320,14 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 __global__ void raster_unpack_kernel(const unsigned long long* __restrict__ gkeys, long long n_px,
-                                     unsigned long long clear_key, float* __restrict__ out) {
+                                     unsigned long long clear_key, float* __restrict__ out, long long* mark_end) {
   for (long long i = (long long)blockIdx.x * kUnpackThreads + threadIdx.x; i < n_px;
        i += (long long)gridDim.x * kUnpackThreads) {
     const unsigned long long k = gkeys[i] < clear_key ? clear_key : gkeys[i];
     out[i] = __uint_as_float((unsigned)(k >> 32));
     out[n_px + i] = (float)((int)(unsigned)(k & 0xffffffffull) - 1);
   }
+  stamp_end(mark_end);
 }
 
 }  // namespace
@@ -333,11 +336,13 @@ __global__ void raster_unpack_kernel(const unsigned long long* __restrict__ gkey
 // offsets[n_tiles]); row0: the first global tile row (0 for a whole frame);
 // scratch: (Hp * Wp) 64-bit keys; work: work_len ints, at least
 // n_tiles + 2 + n_subs * (n_tiles + ceil(pair_slots / 128))
-// (kernels/raster.py kernel_buffers).
+// (kernels/raster.py kernel_buffers). mark_start, mark_end: the frame
+// trace's words for raster's start and end, or nullptr (common.cuh).
 
 extern "C" int tr_raster(const float* setup, const float* aabb, const int* pair_faces, const int* offsets,
                          int pair_slots, int tiles_x, int tiles_y, int tile_h, int tile_w, int row0,
-                         float clear_depth, void* scratch, int* work, int work_len, float* out, void* stream) {
+                         float clear_depth, void* scratch, int* work, int work_len, float* out,
+                         long long* mark_start, long long* mark_end, void* stream) {
   const int n_tiles = tiles_x * tiles_y;
   if (tile_h < 1 || tile_w < 1) return (int)cudaErrorInvalidValue;
   const Subs subs = tile_subs(tile_h, tile_w);
@@ -346,9 +351,11 @@ extern "C" int tr_raster(const float* setup, const float* aabb, const int* pair_
   }
   const long long n_px = (long long)n_tiles * tile_h * tile_w;
   unsigned long long* gkeys = (unsigned long long*)scratch;
+  // The units first: the frame trace's raster start is its first block.
+  TR_LAUNCH(raster_units_kernel, 1, kUnitsThreads, stream, offsets, n_tiles, subs.nx * subs.ny, work,
+            mark_start);
   cudaError_t err = cudaMemsetAsync(gkeys, 0, n_px * sizeof(unsigned long long), (cudaStream_t)stream);
   if (err != cudaSuccess) return (int)err;
-  TR_LAUNCH(raster_units_kernel, 1, kUnitsThreads, stream, offsets, n_tiles, subs.nx * subs.ny, work);
 #ifdef TR_HOST_EMU
   const int grid = 3;
 #else
@@ -366,7 +373,7 @@ extern "C" int tr_raster(const float* setup, const float* aabb, const int* pair_
   const unsigned long long clear_key = (unsigned long long)clear_bits << 32;
   const long long px_blocks = (n_px + kUnpackThreads - 1) / kUnpackThreads;
   const int unpack_blocks = px_blocks < kUnpackMaxBlocks ? (int)px_blocks : kUnpackMaxBlocks;
-  TR_LAUNCH(raster_unpack_kernel, unpack_blocks, kUnpackThreads, stream, gkeys, n_px, clear_key, out);
+  TR_LAUNCH(raster_unpack_kernel, unpack_blocks, kUnpackThreads, stream, gkeys, n_px, clear_key, out, mark_end);
   return (int)cudaGetLastError();
 }
 

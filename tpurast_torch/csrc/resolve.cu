@@ -41,9 +41,9 @@ __device__ __forceinline__ float level_pow(float level) {
   return (level >= 0.0f && level < (float)kMaxMips) ? ldexpf(1.0f, -(int)level) : 0.0f;
 }
 
-__global__ void resolve_kernel(const float* __restrict__ vis, const float* __restrict__ attrs,
-                               int n_faces, int height, int width, int y_offset, int max_anisotropy,
-                               float* __restrict__ out) {
+__device__ __forceinline__ void resolve_pixel(const float* __restrict__ vis, const float* __restrict__ attrs,
+                                              int n_faces, int height, int width, int y_offset, int max_anisotropy,
+                                              float* __restrict__ out) {
   const long long plane = (long long)height * width;
   const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= plane) return;
@@ -138,13 +138,22 @@ __global__ void resolve_kernel(const float* __restrict__ vis, const float* __res
   for (int i = 0; i < kAOut; ++i) out[i * plane + p] = g[i];
 }
 
+__global__ void resolve_kernel(const float* __restrict__ vis, const float* __restrict__ attrs, int n_faces,
+                               int height, int width, int y_offset, int max_anisotropy, float* __restrict__ out,
+                               long long* mark_start, long long* mark_end) {
+  stamp_start(mark_start);
+  resolve_pixel(vis, attrs, n_faces, height, width, y_offset, max_anisotropy, out);
+  stamp_end(mark_end);
+}
+
 }  // namespace
 
 extern "C" int tr_resolve(const float* vis, const float* attrs, int n_faces, int height, int width,
-                          int y_offset, int max_anisotropy, float* out, void* stream) {
+                          int y_offset, int max_anisotropy, float* out, long long* mark_start, long long* mark_end,
+                          void* stream) {
   const long long n = (long long)height * width;
   const int blocks = (int)((n + kThreads - 1) / kThreads);
   TR_LAUNCH(resolve_kernel, blocks, kThreads, stream, vis, attrs, n_faces, height, width, y_offset,
-            max_anisotropy, out);
+            max_anisotropy, out, mark_start, mark_end);
   return (int)cudaGetLastError();
 }

@@ -109,10 +109,10 @@ __device__ void shade_store(const float* __restrict__ gbuf, long long plane, lon
   light_store(g, albedo, cam, prm, plane, p, out);
 }
 
-__global__ void __launch_bounds__(kThreads)
-    sample_kernel(const float* __restrict__ gbuf, Page page, const int* __restrict__ table,
-                  const float* __restrict__ cam, int tiles_x, int tile_h, int tile_w, int hp, int wp,
-                  int max_anisotropy, ShadeParams prm, float* __restrict__ out) {
+__device__ __forceinline__ void sample_pixel(const float* __restrict__ gbuf, Page page, const int* __restrict__ table,
+                                             const float* __restrict__ cam, int tiles_x, int tile_h, int tile_w, int hp,
+                                             int wp, int max_anisotropy, const ShadeParams& prm,
+                                             float* __restrict__ out) {
   // A warp's lanes cover kWarpW x kWarpH pixels; the warps tile the block.
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int x = blockIdx.x * kBlockW + warp % (kBlockW / kWarpW) * kWarpW + lane % kWarpW;
@@ -143,19 +143,30 @@ __global__ void __launch_bounds__(kThreads)
   shade_store(gbuf, plane, p, s_own, s_par, n_px, cam, prm, out);
 }
 
+__global__ void __launch_bounds__(kThreads)
+    sample_kernel(const float* __restrict__ gbuf, Page page, const int* __restrict__ table,
+                  const float* __restrict__ cam, int tiles_x, int tile_h, int tile_w, int hp, int wp,
+                  int max_anisotropy, ShadeParams prm, float* __restrict__ out, long long* mark_start,
+                  long long* mark_end) {
+  stamp_start(mark_start);
+  sample_pixel(gbuf, page, table, cam, tiles_x, tile_h, tile_w, hp, wp, max_anisotropy, prm, out);
+  stamp_end(mark_end);
+}
+
 }  // namespace
 
-// page: (PH, PW, 4) bf16, PW = page_w.
+// page: (PH, PW, 4) bf16, PW = page_w. mark_start, mark_end: the frame
+// trace's words for the kernel's start and end, or nullptr (common.cuh).
 extern "C" int tr_sample(const float* gbuf, const void* page, int page_w, const int* table, const float* cam,
                          int tiles_x, int tiles_y, int tile_h, int tile_w, int max_anisotropy, const float* params,
-                         float* out, void* stream) {
+                         float* out, long long* mark_start, long long* mark_end, void* stream) {
   const ShadeParams prm = read_shade_params(params);
   const int hp = tiles_y * tile_h, wp = tiles_x * tile_w;
   const dim3 grid((wp + kBlockW - 1) / kBlockW, (hp + kBlockH - 1) / kBlockH);
   if (grid.y > 65535) return (int)cudaErrorInvalidValue;
   const Page texels{(const uint2*)page, page_w};
   TR_LAUNCH(sample_kernel, grid, kThreads, stream, gbuf, texels, table, cam, tiles_x, tile_h, tile_w, hp, wp,
-            max_anisotropy, prm, out);
+            max_anisotropy, prm, out, mark_start, mark_end);
   return (int)cudaGetLastError();
 }
 

@@ -294,10 +294,10 @@ __device__ __forceinline__ void albedo_of(const R& rows, const float* lut, long 
 }
 
 template <class R>
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
-    shade_gbuffer_kernel(const float* __restrict__ gbuf, R rows, long long n_rows,
-                         const float* __restrict__ cam, int height, int width, int max_anisotropy, ShadeParams prm,
-                         float* __restrict__ out) {
+__device__ __forceinline__ void shade_gbuffer_pixel(const float* __restrict__ gbuf, const R& rows, long long n_rows,
+                                                    const float* __restrict__ cam, int height, int width,
+                                                    int max_anisotropy, const ShadeParams& prm,
+                                                    float* __restrict__ out) {
   __shared__ Lut<R> shared_lut;
   const float* lut = shared_lut.load(rows);
   const long long plane = (long long)height * width;
@@ -322,6 +322,16 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   light_store(g, albedo, cam, prm, plane, p, out);
 }
 
+template <class R>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+    shade_gbuffer_kernel(const float* __restrict__ gbuf, R rows, long long n_rows,
+                         const float* __restrict__ cam, int height, int width, int max_anisotropy, ShadeParams prm,
+                         float* __restrict__ out, long long* mark_start, long long* mark_end) {
+  stamp_start(mark_start);
+  shade_gbuffer_pixel(gbuf, rows, n_rows, cam, height, width, max_anisotropy, prm, out);
+  stamp_end(mark_end);
+}
+
 // A level field of the face row's texture info (int32 bits): offsets
 // (base 0), widths (16) or heights (32) at a level, 0 outside [0, 16)
 // (shade._plane_select).
@@ -340,10 +350,11 @@ __device__ __forceinline__ void face_block(const float4* __restrict__ row4, floa
 }
 
 template <class R>
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
-    shade_deferred_kernel(const int* __restrict__ fid, const float* __restrict__ shade_rows, int n_faces,
-                          R rows, long long n_rows, const float* __restrict__ cam, int height, int width,
-                          int y_offset, int max_anisotropy, ShadeParams prm, float* __restrict__ out) {
+__device__ __forceinline__ void shade_deferred_pixel(const int* __restrict__ fid, const float* __restrict__ shade_rows,
+                                                     int n_faces, const R& rows, long long n_rows,
+                                                     const float* __restrict__ cam, int height, int width,
+                                                     int y_offset, int max_anisotropy, const ShadeParams& prm,
+                                                     float* __restrict__ out) {
   __shared__ Lut<R> shared_lut;
   const float* lut = shared_lut.load(rows);
   const long long plane = (long long)height * width;
@@ -445,6 +456,18 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   light_store(g, albedo, cam, prm, plane, p, out);
 }
 
+template <class R>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+    shade_deferred_kernel(const int* __restrict__ fid, const float* __restrict__ shade_rows, int n_faces,
+                          R rows, long long n_rows, const float* __restrict__ cam, int height, int width,
+                          int y_offset, int max_anisotropy, ShadeParams prm, float* __restrict__ out,
+                          long long* mark_start, long long* mark_end) {
+  stamp_start(mark_start);
+  shade_deferred_pixel(fid, shade_rows, n_faces, rows, n_rows, cam, height, width, y_offset, max_anisotropy, prm,
+                       out);
+  stamp_end(mark_end);
+}
+
 // The alignment a format's rows need: float32 and the 16-bit formats 16
 // bytes, srgb8 8.
 int row_alignment(int fmt) { return fmt == kSrgb8 ? 8 : 16; }
@@ -480,17 +503,19 @@ int blocks_for(int height, int width) { return (int)(((long long)height * width 
 // bfloat16, 3 srgb8 with lut its 256-entry RGB decode table), starting on
 // the 16-byte grid (srgb8: the 8-byte grid); gbuf: the (>= 18, height,
 // width) f32 G-buffer; cam (3,) f32; params: N_PARAMS floats of
-// kernels/shade.py::shade_params; out (4, height, width) f32.
+// kernels/shade.py::shade_params; out (4, height, width) f32; mark_start,
+// mark_end: the frame trace's words for the kernel's start and end, or
+// nullptr (common.cuh).
 extern "C" int tr_shade_gbuffer(const float* gbuf, const void* texels, long long n_rows, int fmt, const float* lut,
                                 const float* cam, int height, int width, int max_anisotropy, const float* params,
-                                float* out, void* stream) {
+                                float* out, long long* mark_start, long long* mark_end, void* stream) {
   if (!rows_ok(texels, n_rows, fmt, lut)) return (int)cudaErrorInvalidValue;
   const ShadeParams prm = read_shade_params(params);
   const int blocks = blocks_for(height, width);
   if (blocks == 0) return (int)cudaSuccess;
   by_format(fmt, texels, lut, [&](auto rows) {
     TR_LAUNCH(shade_gbuffer_kernel<decltype(rows)>, blocks, kThreads, stream, gbuf, rows, n_rows, cam, height, width,
-              max_anisotropy, prm, out);
+              max_anisotropy, prm, out, mark_start, mark_end);
   });
   return (int)cudaGetLastError();
 }
@@ -500,14 +525,15 @@ extern "C" int tr_shade_gbuffer(const float* gbuf, const void* texels, long long
 // the first frame pixel row of a slab; the rest as tr_shade_gbuffer.
 extern "C" int tr_shade_deferred(const int* fid, const float* shade_rows, int n_faces, const void* texels,
                                  long long n_rows, int fmt, const float* lut, const float* cam, int height, int width,
-                                 int y_offset, int max_anisotropy, const float* params, float* out, void* stream) {
+                                 int y_offset, int max_anisotropy, const float* params, float* out,
+                                 long long* mark_start, long long* mark_end, void* stream) {
   if (!rows_ok(texels, n_rows, fmt, lut) || (uintptr_t)shade_rows % 16 != 0) return (int)cudaErrorInvalidValue;
   const ShadeParams prm = read_shade_params(params);
   const int blocks = blocks_for(height, width);
   if (blocks == 0) return (int)cudaSuccess;
   by_format(fmt, texels, lut, [&](auto rows) {
     TR_LAUNCH(shade_deferred_kernel<decltype(rows)>, blocks, kThreads, stream, fid, shade_rows, n_faces, rows,
-              n_rows, cam, height, width, y_offset, max_anisotropy, prm, out);
+              n_rows, cam, height, width, y_offset, max_anisotropy, prm, out, mark_start, mark_end);
   });
   return (int)cudaGetLastError();
 }

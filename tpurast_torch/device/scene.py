@@ -38,7 +38,7 @@ import os
 import numpy as np
 import torch
 
-from tpurast_torch import math3d
+from tpurast_torch import math3d, tracing
 from tpurast_torch.assets.gltf import GltfModel, PrimitiveDraw, load_glb
 from tpurast_torch.assets.ktx2 import load_ktx2, parse_ktx2
 from tpurast_torch.camera import Camera
@@ -141,7 +141,16 @@ def build_scene(
     memory_assets: dict[str, bytes] | None = None,
 ) -> DeviceScene:
     """Assemble parsed models into flat buffers + texture atlas + pages
-    (tpurast/device/scene.py build_scene, same arguments and result)."""
+    (tpurast/device/scene.py build_scene, same arguments and result),
+    inside the ``setup.scene`` span (tracing.py)."""
+    span = tracing.SETUP_SCENE.begin()
+    try:
+        return _build_scene(models, data_dir, face_pad, vert_pad, memory_assets)
+    finally:
+        tracing.SETUP_SCENE.end(span)
+
+
+def _build_scene(models, data_dir, face_pad, vert_pad, memory_assets) -> DeviceScene:
     draws: list[PrimitiveDraw] = [d for m in models for d in m.draws]
 
     # Texture registry: id 0 is the fallback; others keyed by URI.
@@ -273,7 +282,16 @@ def upload(scene: DeviceScene, device, texture_dtype: str | None = None) -> dict
     texture_dtype ("float32", "float16", "bfloat16" or "srgb8") the atlas
     also carries the quad-row texels in that dtype (srgb8 rows with
     atlas["srgb_lut"], their decode table, kernels/shade.py::srgb_table);
-    without it, it does not. A scene without pages uploads no page."""
+    without it, it does not. A scene without pages uploads no page. Inside
+    the ``setup.upload`` span (tracing.py)."""
+    span = tracing.SETUP_UPLOAD.begin()
+    try:
+        return _upload(scene, device, texture_dtype)
+    finally:
+        tracing.SETUP_UPLOAD.end(span)
+
+
+def _upload(scene: DeviceScene, device, texture_dtype: str | None) -> dict:
     cw, cn, cu = scene.corner_tables()
     face_tex = (
         scene.face_tex if scene.face_tex is not None else scene.prim_tex[scene.face_prim]

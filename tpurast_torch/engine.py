@@ -8,7 +8,9 @@ Startup mirrors the reference's Engine.init: the 4-model demo scene with
 its placements when given a data directory (or any prebuilt scene), the
 camera at -2.5 * forward looking at +forward, a 1280x720 default target.
 The engine renders on ``device``: "cuda" (the default) launches the CUDA
-kernels, "cpu" runs their plain torch versions.
+kernels, "cpu" runs their plain torch versions. ``trace`` (the default)
+traces its Renderer (tracing.py) and reads each frame's counters from the
+trace's counter ring.
 """
 
 from __future__ import annotations
@@ -44,13 +46,14 @@ class Engine:
         overlay: bool = True,
         *,
         device="cuda",
+        trace: bool = True,
     ):
         self.config = config or RendererConfig()
         if scene is None:
             if data_dir is None:
                 raise ValueError("need data_dir or a prebuilt scene")
             scene = load_demo_scene(data_dir)
-        self.renderer = Renderer(scene, self.config, device=device)
+        self.renderer = Renderer(scene, self.config, device=device, trace=trace)
         fwd = math3d.WORLD_SPACE.forward.vector()
         self.camera = Camera.from_target(fwd * -2.5, fwd)
         self.presenter = Presenter()
@@ -60,11 +63,15 @@ class Engine:
         # cap the loop at 60 Hz when enabled.
         self.vsync = False
         self._last_instant: float | None = None
-        # Overflow surfacing: the previous frame's bin_overflow and
-        # window_miss_px scalars are read one frame late, after this
-        # frame's work is enqueued, so the read waits for a frame the
-        # device has (nearly) finished and never stalls the one being
-        # enqueued.
+        # Overflow surfacing. Traced: each tick reads bin_overflow and
+        # window_miss_px of every frame the card has finished since the
+        # last read from the counter ring (tracing.FrameMarks.counters),
+        # which waits for nothing; a frame still in flight is read by a
+        # later tick, or by run()'s end. Untraced: the previous frame's
+        # scalars are read one tick late with .item(), which copies behind
+        # the frame just enqueued and so waits for that frame to finish.
+        marks = self.renderer.marks
+        self._counted = 0 if marks is None else marks.enqueued
         self._pending_overflow = None
         self._pending_window_miss = None
         self.overflow_frames = 0
@@ -96,30 +103,17 @@ class Engine:
 
         frame = self.renderer.render(self.camera)
         image = self.presenter.present(frame["color"])
-        # Check the PREVIOUS frame's counters (this frame is already
-        # enqueued behind them).
-        if self._pending_overflow is not None:
-            dropped = int(self._pending_overflow.item())
-            if dropped:
-                self.overflow_frames += 1
-                self.dropped_total += dropped
-                log.warning(
-                    "frame %d: %d binned pairs dropped (more huge faces than the binner's budget)",
-                    self.frame_index - 1,
-                    dropped,
-                )
-        if self._pending_window_miss is not None:
-            missed = int(self._pending_window_miss.item())
-            if missed:
-                self.window_miss_total += missed
-                log.warning(
-                    "frame %d: %d pixels lie in tiles that need more texel windows than the plan holds "
-                    "(unwindowable UV layout); the frame is correct",
-                    self.frame_index - 1,
-                    missed,
-                )
-        self._pending_overflow = frame["bin_overflow"]
-        self._pending_window_miss = frame.get("window_miss_px")
+        if self.renderer.marks is not None:
+            self._read_counter_ring(self.frame_index)
+        else:
+            # The PREVIOUS frame's counters (this frame is already
+            # enqueued behind them).
+            if self._pending_overflow is not None:
+                self._account(self.frame_index - 1, int(self._pending_overflow.item()), 0)
+            if self._pending_window_miss is not None:
+                self._account(self.frame_index - 1, 0, int(self._pending_window_miss.item()))
+            self._pending_overflow = frame["bin_overflow"]
+            self._pending_window_miss = frame.get("window_miss_px")
         if self.vsync:
             budget = 1.0 / 60.0
             elapsed = time.perf_counter() - now
@@ -132,6 +126,29 @@ class Engine:
         if image is not None and self.overlay_enabled:
             image = draw_frametime_overlay(image, self.stats.last_ms)
         return image
+
+    def _account(self, index: int, dropped: int, missed: int) -> None:
+        if dropped:
+            self.overflow_frames += 1
+            self.dropped_total += dropped
+            log.warning("frame %d: %d binned pairs dropped (more huge faces than the binner's budget)",
+                        index, dropped)
+        if missed:
+            self.window_miss_total += missed
+            log.warning("frame %d: %d pixels lie in tiles that need more texel windows than the plan holds "
+                        "(unwindowable UV layout); the frame is correct", index, missed)
+
+    def _read_counter_ring(self, newest: int) -> None:
+        """Account the counters of the frames the card has finished since
+        the last read, in order; ``newest`` is the frame index of the last
+        frame enqueued."""
+        marks = self.renderer.marks
+        while self._counted < marks.enqueued:
+            counters = marks.counters(self._counted + 1)
+            if counters is None:
+                break
+            self._counted += 1
+            self._account(newest - (marks.enqueued - self._counted), *counters)
 
     def run(
         self,
@@ -151,6 +168,8 @@ class Engine:
                 if on_frame:
                     on_frame(i, image)
         tail = self.presenter.flush()
+        if self.renderer.marks is not None:  # the last frame has finished
+            self._read_counter_ring(self.frame_index - 1)
         if tail is not None:
             tail_img = np.asarray(tail)
             if self.overlay_enabled:

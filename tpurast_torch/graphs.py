@@ -32,7 +32,8 @@ launch a frame in place of some 330 eager launches.
     for a frame, color and depth, 16.6 MB at 1920x1080, and two scalars.
   * The kernel launches counted while fn was captured (nothing ran) are
     taken back from kernels.LAUNCHES and added again on every replay, so
-    LAUNCHES keeps counting the launches the card runs.
+    LAUNCHES keeps counting the launches the card runs; so are the frames
+    the capture's stage marks counted (tracing.FrameMarks.enqueued).
   * Inside kernels.plain_kernels() fn runs eagerly with the plain versions
     and the graph is neither captured nor replayed: the reference reads its
     interpret flag when it traces.
@@ -44,11 +45,10 @@ launch a frame in place of some 330 eager launches.
 from __future__ import annotations
 
 import functools
-import time
 
 import torch
 
-from tpurast_torch import kernels
+from tpurast_torch import kernels, tracing
 
 
 def graph_wanted(device) -> bool:
@@ -66,9 +66,10 @@ class Graph:
     """fn(*inputs) -> a tensor or a dict of tensors, with n tensor inputs,
     captured on the first call and replayed on the later ones (module
     docstring). After the capture, ``inputs`` are the static input buffers,
-    ``capture_ms`` is the host time of the capture (after the eager call
-    has finished), ``pool_bytes`` the device memory the graph's pool
-    reserved and ``launches`` the kernel launches of one replay."""
+    ``capture_ms`` is the host time of the first call, the eager call (with
+    the kernels' build) and the capture (the ``setup.capture`` span,
+    tracing.py), ``pool_bytes`` the device memory the graph's pool reserved
+    and ``launches`` the kernel launches of one replay."""
 
     def __init__(self, fn, name: str = "graph"):
         self.fn = fn
@@ -76,6 +77,7 @@ class Graph:
         self.capture_ms: float | None = None
         self.pool_bytes: int | None = None
         self.launches: dict[str, int] = {}
+        self.frames: dict = {}  # tracing.FrameMarks -> frames a replay counts
         self.inputs: tuple[torch.Tensor, ...] | None = None
         self._graph: torch.cuda.CUDAGraph | None = None
         self._device: torch.device | None = None
@@ -99,13 +101,29 @@ class Graph:
             for x, s in zip(inputs, self.inputs):
                 if x is not s:
                     s.copy_(x, non_blocking=True)
-            self._graph.replay()
-            out = _map(self._outputs, torch.Tensor.clone)
+            self.replay()
+            return _map(self._outputs, torch.Tensor.clone)
+
+    def replay(self) -> None:
+        """Replay the captured graph on its static inputs, its outputs left
+        in the graph's own buffers, and count what it launched: kernels
+        (kernels.LAUNCHES) and frames (tracing.FrameMarks.enqueued)."""
+        self._graph.replay()
         for k, n in self.launches.items():
             kernels.LAUNCHES[k] += n
-        return out
+        for m, n in self.frames.items():
+            m.count(n)
 
     def _capture(self, device, fn, inputs):
+        span = tracing.SETUP_CAPTURE.begin()
+        try:
+            first = self._eager_and_capture(device, fn, inputs)
+        finally:
+            ns = tracing.SETUP_CAPTURE.end(span)
+        self.capture_ms = ns / 1e6
+        return first
+
+    def _eager_and_capture(self, device, fn, inputs):
         with torch.cuda.device(device):
             static = tuple(
                 torch.empty_strided(x.shape, x.stride(), dtype=x.dtype, device=device).copy_(x) for x in inputs
@@ -119,10 +137,10 @@ class Graph:
             _map(first, lambda v: v.record_stream(current))
 
             torch.cuda.synchronize(device)
-            t0 = time.perf_counter()
             torch.cuda.empty_cache()
             reserved = torch.cuda.memory_reserved(device)
             before = dict(kernels.LAUNCHES)
+            frames_before = tracing.enqueued()
             graph = torch.cuda.CUDAGraph()
             try:
                 # A capture stream of the graph's device: torch.cuda.graph's
@@ -134,10 +152,12 @@ class Graph:
             finally:
                 counted = {k: kernels.LAUNCHES[k] - before[k] for k in before}
                 kernels.LAUNCHES.update(before)
+                self.frames = {m: m.enqueued - n for m, n in frames_before.items() if m.enqueued != n}
+                for m, n in self.frames.items():
+                    m.count(-n)
             self.pool_bytes = torch.cuda.memory_reserved(device) - reserved
         self.launches = {k: n for k, n in counted.items() if n}
         self._graph, self._device, self.inputs, self._outputs = graph, device, static, outputs
-        self.capture_ms = (time.perf_counter() - t0) * 1e3
         return first
 
     def close(self) -> None:

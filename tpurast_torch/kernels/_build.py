@@ -53,14 +53,15 @@ _L = ctypes.c_longlong
 
 # C signatures (see the extern "C" functions in csrc/*.cu).
 SIGNATURES = {
-    "tr_raster": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P, _P, _I, _P, _P],
-    "tr_resolve": [_P, _P, _I, _I, _I, _I, _I, _P, _P],
+    "tr_raster": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P, _P, _I, _P, _P, _P, _P],
+    "tr_resolve": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P],
     "tr_plan": [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
-    "tr_sample": [_P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
-    "tr_shade_gbuffer": [_P, _P, _L, _I, _P, _P, _I, _I, _I, _P, _P, _P],
-    "tr_shade_deferred": [_P, _P, _I, _P, _L, _I, _P, _P, _I, _I, _I, _I, _P, _P, _P],
+    "tr_sample": [_P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
+    "tr_shade_gbuffer": [_P, _P, _L, _I, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P],
+    "tr_shade_deferred": [_P, _P, _I, _P, _L, _I, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     "tr_plane_scale": [_P, _I, _I, _I, _I, _I, _I, _P, _P],
     "tr_vmem_take": [_P, _I, _P, _L, _P, _P],
+    "tr_trace_mark": [_P, _P, _P, _I, _I, _I, _P, _P, _P],
 }
 
 
@@ -139,6 +140,8 @@ def library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.c_int] * n_in + [ctypes.POINTER(ctypes.c_int)] * n_out
         fn.restype = ctypes.c_int
+    lib.tr_trace_alloc.argtypes = [_L, ctypes.POINTER(_P), ctypes.POINTER(_P)]
+    lib.tr_trace_alloc.restype = ctypes.c_int
     lib.tr_error_string.argtypes = [ctypes.c_int]
     lib.tr_error_string.restype = ctypes.c_char_p
     return lib
@@ -154,6 +157,18 @@ def kernel_info(name: str, *args: int) -> tuple[int, ...]:
     if err != 0:
         raise RuntimeError(f"tr_{name}_info: CUDA error {err} ({library().tr_error_string(err).decode()})")
     return tuple(o.value for o in outs)
+
+
+def host_mapped(nbytes: int) -> tuple[int, int]:
+    """(host address, device address) of ``nbytes`` zeroed bytes of pinned
+    host memory mapped into the devices' address space
+    (csrc/trace.cu tr_trace_alloc): kernels write it, the host reads it
+    with no copy. Lives as long as the process."""
+    host, dev = _P(), _P()
+    err = library().tr_trace_alloc(nbytes, ctypes.byref(host), ctypes.byref(dev))
+    if err != 0:
+        raise RuntimeError(f"tr_trace_alloc: CUDA error {err} ({library().tr_error_string(err).decode()})")
+    return host.value, dev.value
 
 
 def call(name: str, *args) -> None:

@@ -168,7 +168,7 @@ def kernel_buffers(tile_h: int, tile_w: int, tiles_x: int, tiles_y: int, slots: 
 
 
 def rasterize_tiles(setup, aabb, pair_faces, offsets, *, tile_h, tile_w, tiles_x, tiles_y, clear_depth=0.0,
-                    tile_row_offset: int = 0):
+                    tile_row_offset: int = 0, stamps=(None, None)):
     """Visibility raster over all tiles (raster.py rasterize_tiles).
 
     setup (F, 24) f32 and aabb (F, 4) f32 from triangle_setup;
@@ -176,7 +176,9 @@ def rasterize_tiles(setup, aabb, pair_faces, offsets, *, tile_h, tile_w, tiles_x
     bin_triangles. Returns (2, Hp, Wp) f32: plane 0 depth, plane 1 face id
     (-1 = none), Hp = tiles_y*tile_h, Wp = tiles_x*tile_w; tile_row_offset
     (a Python int) is the first frame tile row of a slab. CPU tensors run
-    the plain version; CUDA tensors launch csrc/raster.cu."""
+    the plain version; CUDA tensors launch csrc/raster.cu. stamps: the (start, end) words of the frame
+    trace's marks that the kernel stamps (tracing.FrameMarks.stamps), each
+    a 0-dim int64 CUDA tensor or None; the plain version takes none."""
     if not _k.use_kernel(setup, aabb, pair_faces, offsets):
         return rasterize_tiles_plain(
             setup, aabb, pair_faces, offsets, tile_h=tile_h, tile_w=tile_w,
@@ -196,7 +198,7 @@ def rasterize_tiles(setup, aabb, pair_faces, offsets, *, tile_h, tile_w, tiles_x
     keys, work, out = kernel_buffers(tile_h, tile_w, tiles_x, tiles_y, slots, setup.device)
     _build.call(
         "tr_raster", setup, aabb, pair_faces, offsets, slots, tiles_x, tiles_y, tile_h, tile_w, tile_row_offset,
-        float(clear_depth) + 0.0, keys, work, work.numel(), out,
+        float(clear_depth) + 0.0, keys, work, work.numel(), out, *stamps,
     )
     _k.LAUNCHES["raster"] += 1
     return out

@@ -185,13 +185,15 @@ def resolve_gbuffer_plain(vis, attrs, *, max_anisotropy: int = 1, tile_row_offse
 
 
 def resolve_gbuffer(vis, attrs, *, max_anisotropy: int = 1, tile_row_offset: int = 0,
-                    tile_h: int | None = None) -> torch.Tensor:
+                    tile_h: int | None = None, stamps=(None, None)) -> torch.Tensor:
     """Per-pixel G-buffer (A_OUT, Hp, Wp) from the raster output vis
     (2, Hp, Wp) and the attribute table attrs (F, A_IN)
     (resolve.py resolve_gbuffer). A slab (tile_row_offset, a Python int,
     its first frame tile row, with tile_h) interpolates at the frame's
     pixel rows and writes its own. CPU tensors run the plain version;
-    CUDA tensors launch csrc/resolve.cu."""
+    CUDA tensors launch csrc/resolve.cu. stamps: the (start, end) words of the frame
+    trace's marks that the kernel stamps (tracing.FrameMarks.stamps), each
+    a 0-dim int64 CUDA tensor or None; the plain version takes none."""
     if not _k.use_kernel(vis, attrs):
         return resolve_gbuffer_plain(vis, attrs, max_anisotropy=max_anisotropy, tile_row_offset=tile_row_offset,
                                      tile_h=tile_h)
@@ -204,6 +206,6 @@ def resolve_gbuffer(vis, attrs, *, max_anisotropy: int = 1, tile_row_offset: int
         raise ValueError(f"attrs: expected (F, {A_IN}), got {tuple(attrs.shape)}")
     _, hp, wp = vis.shape
     out = torch.empty((A_OUT, hp, wp), dtype=torch.float32, device=vis.device)
-    _build.call("tr_resolve", vis, attrs, attrs.shape[0], hp, wp, y_offset, max_anisotropy, out)
+    _build.call("tr_resolve", vis, attrs, attrs.shape[0], hp, wp, y_offset, max_anisotropy, out, *stamps)
     _k.LAUNCHES["resolve"] += 1
     return out

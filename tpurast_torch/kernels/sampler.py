@@ -438,14 +438,16 @@ def _check_page(page):
 
 def sample_tiles(gbuf, page, plan, camera_position, *, tiles_x, tiles_y, tile_h, tile_w,
                  max_anisotropy, light_direction, light_color, ambient_amount, specular_power,
-                 clear_color, blend="alpha"):
+                 clear_color, blend="alpha", stamps=(None, None)):
     """Texture, light and blend every pixel of the G-buffer gbuf
     (A_OUT, Hp, Wp) from the bf16 page, the (4, PH, PW) view that
     interleave_page gives, with the plan from plan_tiles (read for the
     tiles' classes); camera_position (3,) f32. Returns the (4, Hp, Wp) f32
     linear framebuffer (sampler.py sample_tiles, with the residual tiles
     already shaded). CPU tensors run the plain version, on any (4, PH, PW)
-    page; CUDA tensors launch csrc/sampler.cu."""
+    page; CUDA tensors launch csrc/sampler.cu. stamps: the (start, end) words of the frame
+    trace's marks that the kernel stamps (tracing.FrameMarks.stamps), each
+    a 0-dim int64 CUDA tensor or None; the plain version takes none."""
     kw = dict(
         light_direction=light_direction, light_color=light_color, ambient_amount=ambient_amount,
         specular_power=specular_power, clear_color=clear_color, blend=blend,
@@ -465,7 +467,7 @@ def sample_tiles(gbuf, page, plan, camera_position, *, tiles_x, tiles_y, tile_h,
     out = torch.empty((4, hp, wp), dtype=torch.float32, device=gbuf.device)
     _build.call(
         "tr_sample", gbuf, page, page.shape[2], table, camera_position,
-        tiles_x, tiles_y, tile_h, tile_w, max_anisotropy, ctypes.addressof(params), out,
+        tiles_x, tiles_y, tile_h, tile_w, max_anisotropy, ctypes.addressof(params), out, *stamps,
     )
     _k.LAUNCHES["sample"] += 1
     return out

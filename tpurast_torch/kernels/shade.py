@@ -518,12 +518,14 @@ def _check_face_rows(shade_rows):
 
 def shade_gbuffer(gbuf, texels, camera_position, *, light_direction, light_color, ambient_amount: float,
                   specular_power: float, clear_color, max_anisotropy: int = 1, blend: str = "alpha",
-                  texel_format: str = "float", srgb_lut=None):
+                  texel_format: str = "float", srgb_lut=None, stamps=(None, None)):
     """The forward path's gather shading tail (shade.py shade_gbuffer) of
     the (A_OUT, H, W) G-buffer gbuf from the (N, 52) atlas rows texels:
     (4, H, W) f32 linear planes. CPU tensors run shade_gbuffer_plain;
     CUDA tensors launch csrc/shade.cu's tr_shade_gbuffer, which decodes
-    srgb8 rows through srgb_lut (srgb_table's)."""
+    srgb8 rows through srgb_lut (srgb_table's). stamps: the (start, end) words of the frame
+    trace's marks that the kernel stamps (tracing.FrameMarks.stamps), each
+    a 0-dim int64 CUDA tensor or None; the plain version takes none."""
     light = dict(light_direction=light_direction, light_color=light_color, ambient_amount=ambient_amount,
                  specular_power=specular_power, clear_color=clear_color, blend=blend)
     if not _k.use_kernel(gbuf, texels, camera_position):
@@ -538,20 +540,23 @@ def shade_gbuffer(gbuf, texels, camera_position, *, light_direction, light_color
     params = (ctypes.c_float * N_PARAMS)(*shade_params(**light))
     out = torch.empty((4, h, w), dtype=torch.float32, device=gbuf.device)
     _build.call("tr_shade_gbuffer", gbuf, texels, texels.shape[0], code, lut, camera_position, h, w,
-                int(max_anisotropy), ctypes.addressof(params), out)
+                int(max_anisotropy), ctypes.addressof(params), out, *stamps)
     _k.LAUNCHES["gather"] += 1
     return out
 
 
 def shade_deferred(fid, shade_rows, texels, camera_position, *, light_direction, light_color,
                    ambient_amount: float, specular_power: float, clear_color, max_anisotropy: int = 1,
-                   y_offset=0, blend: str = "alpha", texel_format: str = "float", srgb_lut=None):
+                   y_offset=0, blend: str = "alpha", texel_format: str = "float", srgb_lut=None,
+                   stamps=(None, None)):
     """Deferred shading (shade.py shade_deferred) of the (H, W) int32 face
     ids fid (-1 background) from the (F, 104) pack_shade_rows table and the
     (N, 52) atlas rows, pixel rows offset by y_offset (a slab's first frame
     row, a Python int): (4, H, W) f32 linear planes. CPU tensors run
     shade_deferred_plain; CUDA tensors launch csrc/shade.cu's
-    tr_shade_deferred (srgb_lut as shade_gbuffer's)."""
+    tr_shade_deferred (srgb_lut as shade_gbuffer's). stamps: the (start, end) words of the frame
+    trace's marks that the kernel stamps (tracing.FrameMarks.stamps), each
+    a 0-dim int64 CUDA tensor or None; the plain version takes none."""
     light = dict(light_direction=light_direction, light_color=light_color, ambient_amount=ambient_amount,
                  specular_power=specular_power, clear_color=clear_color, blend=blend)
     if not _k.use_kernel(fid, shade_rows, texels, camera_position):
@@ -567,6 +572,7 @@ def shade_deferred(fid, shade_rows, texels, camera_position, *, light_direction,
     params = (ctypes.c_float * N_PARAMS)(*shade_params(**light))
     out = torch.empty((4, h, w), dtype=torch.float32, device=fid.device)
     _build.call("tr_shade_deferred", fid, shade_rows, shade_rows.shape[0], texels, texels.shape[0], code,
-                lut, camera_position, h, w, int(y_offset), int(max_anisotropy), ctypes.addressof(params), out)
+                lut, camera_position, h, w, int(y_offset), int(max_anisotropy), ctypes.addressof(params), out,
+                *stamps)
     _k.LAUNCHES["deferred"] += 1
     return out

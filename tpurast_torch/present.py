@@ -20,6 +20,10 @@ memory to the next frame while the copy still reads it.
 
 For a CPU tensor (or a numpy array) there are no streams: the frame is
 kept as it is and interleaved when it is handed out, as the reference does.
+
+The hand-out of a CUDA frame records two spans (tracing.py):
+``present.wait``, the wait for its copy event, and ``present.copy``, the
+copy out of the pinned buffer.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from tpurast_torch import tracing
 from tpurast_torch.kernels.present import interleave
 
 __all__ = ["Presenter", "interleave"]
@@ -75,8 +80,12 @@ class Presenter:
             return None
         if isinstance(entry, tuple):
             buf, done, _ = entry
+            span = tracing.PRESENT_WAIT.begin()
             done.synchronize()
-            return buf.numpy().copy()
+            span = tracing.PRESENT_WAIT.then(span, tracing.PRESENT_COPY)
+            image = buf.numpy().copy()
+            tracing.PRESENT_COPY.end(span)
+            return image
         return interleave(entry.numpy() if isinstance(entry, torch.Tensor) else np.asarray(entry))
 
     def present(self, device_frame) -> np.ndarray | None:

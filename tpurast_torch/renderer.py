@@ -32,7 +32,10 @@ binning="scan" bins with geometry.bin_triangles (draw order in a buffer
 of bin_capacity pairs) where "pairs" takes geometry.bin_pairs; the two
 give the same frame. render_frame(tile_row_offset=, crop_height=) renders
 a slab of tile rows in the frame's pixel coordinates (parallel.py puts
-slabs together into the same frame, bit for bit).
+slabs together into the same frame, bit for bit). render_frame(marks=)
+places the frame's seven stage marks (tracing.py); a Renderer built with
+trace=True (the default) gives its frame graph its device's marks and
+records a ``frame`` span around each frame it renders.
 """
 
 from __future__ import annotations
@@ -43,7 +46,7 @@ import logging
 import numpy as np
 import torch
 
-from tpurast_torch import math3d
+from tpurast_torch import math3d, tracing
 from tpurast_torch.camera import Camera
 from tpurast_torch.config import RendererConfig
 from tpurast_torch.device.scene import DeviceScene, upload
@@ -117,6 +120,14 @@ def _stage_probe(*tensors):
     return {"stage_probe": s}
 
 
+def _no_mark(i, overflow=None, miss=None) -> None:
+    pass
+
+
+def _no_stamps(start=None, end=None) -> tuple:
+    return None, None
+
+
 def render_frame(
     scene,
     view_proj,
@@ -146,6 +157,7 @@ def render_frame(
     tile_row_offset=None,
     crop_height: int | None = None,
     stage: str | None = None,
+    marks: tracing.FrameMarks | None = None,
 ):
     """One frame (tpurast/renderer.py render_frame). scene is the dict of
     tensors from tpurast_torch.device.scene.upload (with the atlas texels
@@ -175,7 +187,14 @@ def render_frame(
     assignment), sample (the linear framebuffer). The port has no segment
     schedule, so "segments" is the binning prefix once more. "resolve"
     needs forward shading, "plan" and "sample" the window sampler: asked of
-    another path they raise ValueError, as an unknown name does."""
+    another path they raise ValueError, as an unknown name does.
+
+    marks (a tracing.FrameMarks, or None for none) receives tracing.MARKS:
+    the frame's start and the end of geometry, binning, raster, the pack,
+    shading and the encode, the last with bin_overflow and window_miss_px;
+    on the kernel path raster and the first and last shading kernels stamp
+    the four marks between (FrameMarks.stamps). A whole frame only: not
+    with stage= or output="gbuf"."""
     del segment_headroom
     check_tiles(tile_h, tile_w)
     ty_base = 0 if tile_row_offset is None else int(tile_row_offset)
@@ -188,11 +207,17 @@ def render_frame(
         raise ValueError(f"stage={stage!r} does not exist with shading={shading!r}, sampler={sampler!r}")
     if output not in ("srgb_u8", "linear", "gbuf"):
         raise ValueError(f"unknown output {output!r}")
+    if marks is not None and (stage is not None or output == "gbuf"):
+        raise ValueError("marks= needs a whole frame: no stage= prefix, no gbuf output")
+    mark = _no_mark if marks is None else marks.mark
+    stamps = _no_stamps if marks is None else marks.stamps
 
+    mark(0)
     clip_c = geometry.transform_corners(scene["corner_world"], view_proj)
     setup_out = geometry.triangle_setup(clip_c, None, scene["n_faces"], width, height)
     if stage == "geometry":
         return _stage_probe(setup_out["setup"], setup_out["valid"], setup_out["aabb"])
+    mark(1)
     grid = (setup_out["aabb"], setup_out["valid"], tiles_x, tiles_y, tile_w, tile_h)
     if binning == "pairs":
         bins = geometry.bin_pairs(*grid, ty_base=ty_base)
@@ -200,13 +225,15 @@ def render_frame(
         bins = geometry.bin_triangles(*grid, bin_capacity, ty_base=ty_base)
     if stage in ("binning", "segments"):
         return _stage_probe(bins["counts"], bins["offsets"], bins["pair_faces"])
+    mark(2)
     setup = setup_out["setup"]
     vis = raster.rasterize_tiles(
         setup, setup_out["aabb"], bins["pair_faces"], bins["offsets"], tile_h=tile_h, tile_w=tile_w,
-        tiles_x=tiles_x, tiles_y=tiles_y, clear_depth=clear_depth, tile_row_offset=ty_base,
+        tiles_x=tiles_x, tiles_y=tiles_y, clear_depth=clear_depth, tile_row_offset=ty_base, stamps=stamps(2, 3),
     )
     if stage == "raster":
         return _stage_probe(vis)
+    mark(3)
     depth = vis[0]
     light = dict(
         light_direction=light_direction, light_color=light_color, ambient_amount=ambient_amount,
@@ -219,8 +246,9 @@ def render_frame(
             setup, scene["corner_world"], scene["corner_normal"], scene["corner_uv"],
             scene["face_tex"], scene["atlas"],
         )
+        mark(4)
         gbuf = resolve.resolve_gbuffer(vis, attrs, max_anisotropy=max_anisotropy, tile_row_offset=ty_base,
-                                       tile_h=tile_h)
+                                       tile_h=tile_h, stamps=stamps(4))
         if output == "gbuf":
             return {"gbuf": gbuf, "depth": depth, "fid": vis[1].to(torch.int32)}
         if stage == "resolve":
@@ -234,7 +262,7 @@ def render_frame(
                 return _stage_probe(plan["table"], plan["assign"])
             framebuffer = ksampler.sample_tiles(
                 gbuf, scene["atlas"]["page"], plan, camera_position, max_anisotropy=max_anisotropy,
-                **light, **tiles,
+                stamps=stamps(None, 5), **light, **tiles,
             )
             if stage == "sample":
                 return _stage_probe(framebuffer)
@@ -247,18 +275,21 @@ def render_frame(
         else:
             framebuffer = shade.shade_gbuffer(
                 gbuf, scene["atlas"]["texels"], camera_position, max_anisotropy=max_anisotropy,
-                texel_format=texture_format, srgb_lut=scene["atlas"].get("srgb_lut"), **light,
+                texel_format=texture_format, srgb_lut=scene["atlas"].get("srgb_lut"), stamps=stamps(None, 5),
+                **light,
             )
     else:
         shade_rows = shade.pack_shade_rows(
             setup, scene["corner_world"], scene["corner_normal"], scene["corner_uv"],
             scene["face_tex"], scene["atlas"],
         )
+        mark(4)
         framebuffer = shade.shade_deferred(
             vis[1].to(torch.int32), shade_rows, scene["atlas"]["texels"], camera_position,
             max_anisotropy=max_anisotropy, y_offset=ty_base * tile_h, texel_format=texture_format,
-            srgb_lut=scene["atlas"].get("srgb_lut"), **light,
+            srgb_lut=scene["atlas"].get("srgb_lut"), stamps=stamps(4, 5), **light,
         )
+    mark(5)
     result = {
         "depth": present.crop_linear(depth, width, out_h),
         "bin_overflow": bins["overflow"],
@@ -268,6 +299,7 @@ def render_frame(
         result["color"] = present.encode_srgb_u8(framebuffer, width, out_h)
     else:
         result["color"] = present.crop_linear(framebuffer, width, out_h)
+    mark(6, bins["overflow"], window_miss_px)
     return result
 
 
@@ -312,7 +344,14 @@ class Renderer:
     CUDA graph of render_frame (graphs.FrameGraph), one per output, captured
     at their first call for the current target; recreate_swapchain drops
     them. On the CPU and inside kernels.plain_kernels() they call
-    render_frame (uses_graphs)."""
+    render_frame (uses_graphs).
+
+    With ``trace`` (the default) the target's frame function ("frame")
+    gives render_frame the device's tracing.FrameMarks (``marks``), and
+    render and render_with_uniforms record each frame's ``frame`` span; the
+    first frame calibrates the device's clock. trace=False, or output="gbuf", renders
+    the same frames with neither (``marks`` is None): the graph holds the
+    frame's kernels alone."""
 
     def __init__(
         self,
@@ -321,6 +360,7 @@ class Renderer:
         output: str = "srgb_u8",
         *,
         device="cuda",
+        trace: bool = True,
     ):
         self.config = config or RendererConfig()
         cfg = self.config
@@ -333,6 +373,9 @@ class Renderer:
         self.texture_dtype = resolve_texture_dtype(scene, cfg.texture_dtype)
         self._graphs: dict[str, FrameGraph] = {}
         self._uniforms = _PinnedUniforms(self.device) if self.device.type == "cuda" else None
+        # A frame of output "gbuf" stops at the G-buffer: no frame to mark.
+        self.marks = tracing.marks(self.device) if trace and output != "gbuf" else None
+        self._calibrated = False
         # Only the gather paths read the atlas rows (shade.py).
         self.scene = upload(scene, self.device, self.texture_dtype if self.sampler == "gather" else None)
         self._configure_target(cfg.width, cfg.height)
@@ -397,9 +440,12 @@ class Renderer:
 
     def _frame_fn(self, key: str, **change):
         """fn(scene, view_proj, camera_position) for render_frame with the
-        target's arguments and ``change``: the target's graph ``key`` (made
-        on first use) where uses_graphs, render_frame itself elsewhere."""
+        target's arguments and ``change`` (and for "frame" the Renderer's
+        marks): the target's graph ``key`` (made on first use) where
+        uses_graphs, render_frame itself elsewhere."""
         kw = dict(self._frame_kwargs, **change)
+        if key == "frame" and self.marks is not None:
+            kw["marks"] = self.marks
         if not self.uses_graphs:
             return functools.partial(render_frame, **kw)
         if key not in self._graphs:
@@ -433,7 +479,18 @@ class Renderer:
     def render_with_uniforms(self, view_proj, camera_position) -> dict:
         """Render one frame from precomputed frame uniforms: color, depth,
         bin_overflow, window_miss_px."""
-        return self._frame_fn("frame")(self.scene, view_proj, camera_position)
+        fn = self._frame_fn("frame")
+        if self.marks is None:
+            return fn(self.scene, view_proj, camera_position)
+        span = tracing.FRAME.begin()
+        try:
+            out = fn(self.scene, view_proj, camera_position)
+        finally:
+            tracing.FRAME.end(span)
+        if not self._calibrated:
+            self.marks.calibrate()
+            self._calibrated = True
+        return out
 
     def debug_gbuf(self, camera: Camera, with_fid: bool = False):
         """Forward-path G-buffer (A_OUT, Hp, Wp), whatever the configured
