@@ -7,6 +7,7 @@
     python3 chip_smoke.py --named-scenes     # phase 12 alone
     python3 chip_smoke.py --config-matrix    # phases 1 and 1b alone
     python3 chip_smoke.py --shade-kernels    # phase 1c alone
+    python3 chip_smoke.py --bin-kernels      # phase 1d alone
 
 Builds the CUDA kernels from tpurast_torch/csrc, builds a procedural scene
 from the seed (a 256x256-quad floor and 64 UV spheres, 258,048 triangles,
@@ -61,6 +62,19 @@ eight generated 1024^2 BC4 textures with full mip chains), and then, at
      (shade_warp_lines: the kernels' loads beside one load a texel, and for
      deferred its face rows), and each instance's registers, blocks per SM,
      threads and shared memory per block;
+ 1d. bin_kernels (the end of every kernel_phases, so also on each named
+     scene; --bin-kernels: the orbit scene and the porsche_class stand-in
+     at the viewer's start pose and cli's first flythrough pose alone): the
+     binning kernels (csrc/bin.cu) against the plain bin_pairs and
+     bin_triangles on frame 0's boxes: the frame, its two slabs of half the
+     tile rows, the scan binner at the Renderer's capacity and at half the
+     live pairs (the rest counted in overflow); offsets, counts and overflow
+     equal, the pairs on the live prefix (the scan's whole buffer), one
+     launch a call, into guarded outputs; the frame's binning twice more and
+     as a CUDA graph's replay, the same bits; the live pairs against the
+     pair slots, the kernels a call, their ms and device ms beside their
+     bound and the plain version's, and both as graphs (kept to the end of
+     the run);
   2. runs the microbenchmark probes at the tools' sizes against their
      plain versions, bit for bit: vmem_take (4096x16 f32 table, 2,073,600
      indices; then an odd row count, a count of indices that fills no whole
@@ -190,7 +204,7 @@ eight generated 1024^2 BC4 textures with full mip chains), and then, at
      directory, its five lines printed as stand-ins; and entry(directory)
      equal to Renderer.render bit for bit.
 
-Every kernel-against-plain phase (kernel_phases, shade_kernels,
+Every kernel-against-plain phase (kernel_phases, bin_kernels, shade_kernels,
 config_matrix, probe_phases, slab_kernels, padded_kernels, named_scenes)
 also launches each kernel once more with its outputs and scratch as views
 inside larger buffers whose every byte
@@ -281,6 +295,8 @@ from tpurast_torch.tools import (aniso_mode_stats, check_sampler, fit_pose, micr
 from tpurast_torch.tools.microbench import device_ms  # noqa: E402
 
 KERNELS = {
+    # No pallas_call: the reference leaves bin_pairs and bin_triangles to XLA.
+    "bin": ("tpurast_torch/csrc/bin.cu", "tpurast/kernels/geometry.py:202"),
     "raster": ("tpurast_torch/csrc/raster.cu", "tpurast/kernels/raster.py:88"),
     "resolve": ("tpurast_torch/csrc/resolve.cu", "tpurast/kernels/resolve.py:126"),
     "plan": ("tpurast_torch/csrc/plan.cu", "tpurast/kernels/sampler.py:230"),
@@ -292,9 +308,12 @@ KERNELS = {
     "plane_scale": ("tpurast_torch/csrc/probes.cu", "tools/microbench_pipeline.py:35"),
 }
 RENDER_KERNELS = ("raster", "resolve", "plan", "sample")
+# The kernels a window frame (slab, pose) launches once: the binning kernels too.
+FRAME_KERNELS = ("bin",) + RENDER_KERNELS
 SHADE_KERNELS = ("gather", "deferred")
 # The kernels each frame path launches once per frame (or slab).
-PATH_KERNELS = {"window": RENDER_KERNELS, "gather": ("raster", "resolve", "gather"), "deferred": ("raster", "deferred")}
+PATH_KERNELS = {"window": FRAME_KERNELS, "gather": ("bin", "raster", "resolve", "gather"),
+                "deferred": ("bin", "raster", "deferred")}
 # The card's published peaks (H100 SXM at 700 W): device memory bytes/s
 # and f32 FLOP/s outside the tensor cores. A kernel's bound is the larger of its bytes and its operations
 # over these.
@@ -990,7 +1009,163 @@ def kernel_phases(r: Renderer, cam, card: str, phase: str = "kernel_phases") -> 
     print(f"sample under an all-residual plan: frame equal to the one under the real plan {same}; "
           f"{direct_ms:.4f} ms vs {st['ms']:.4f} ms")
     check(same, "the sampled frame depends on the plan")
+    out["bin"] = bin_kernels(r, cam, card, phase)
     return out
+
+
+# Graphs of the binning phase, kept to the end of the run: torch.profiler
+# crashes on a replay of a graph captured before another graph was
+# destroyed (tools/profiler_graph_crash.py).
+KEPT_GRAPHS: list = []
+
+
+def graph_of(fn) -> tuple:
+    """fn captured into a CUDA graph after two warm-up calls on a side
+    stream; returns (graph, the outputs of the captured call). The graph is
+    kept to the end of the run (KEPT_GRAPHS)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = fn()
+    KEPT_GRAPHS.append(g)
+    return g, out
+
+
+def bin_bound(n_faces: int, pairs: int, tiles: int) -> dict:
+    """The binning kernels' bound: each face's box (16 B) and valid flag
+    (1 B) read once, each live pair's face and tile written once (8 B),
+    offsets and counts written once; a few operations a face."""
+    return bound(n_faces * 17 + pairs * 8 + (2 * tiles + 1) * 4, n_faces * 20)
+
+
+def bins_agree(got: dict, want: dict, scan: bool) -> bool:
+    """The binning contract: offsets, counts and overflow equal; pair_faces
+    and pair_tiles equal on the live prefix (bin_pairs) or pair_faces whole
+    (bin_triangles)."""
+    n = int(want["offsets"][-1])
+    same = all(bool(torch.equal(got[k], want[k])) for k in ("offsets", "counts", "overflow"))
+    if scan:
+        return same and bool(torch.equal(got["pair_faces"], want["pair_faces"]))
+    return same and all(bool(torch.equal(got[k][:n], want[k][:n])) for k in ("pair_faces", "pair_tiles"))
+
+
+def guard_bin(phase: str, label: str, aabb, valid, grid: tuple, ty_base: int, capacity, got: dict) -> None:
+    """tr_bin into guarded outputs and scratch, against the wrapper's
+    outputs (pair_faces and pair_tiles of bin_pairs past the live prefix
+    are not defined, so only the bands around them are held)."""
+    tx, ty, tw, th = grid
+    f = aabb.shape[0]
+    scan = capacity is not None
+    args = (f, tx, ty, tw, th, geometry.TILES_PER_FACE, geometry.HUGE_BUDGET, ty_base, int(not scan))
+    n_scratch = _build.library().tr_bin_scratch(*args)
+    pf = got["pair_faces"]
+    guard(phase, f"bin {label}", "tr_bin", aabb, valid, *args, pf.numel(), Out(pf.shape, torch.int32),
+          None if scan else Out(got["pair_tiles"].shape, torch.int32), Out(got["offsets"].shape, torch.int32),
+          Out(got["counts"].shape, torch.int32), Out((), torch.int32), Out((n_scratch,), torch.int32), n_scratch,
+          want=((pf, got["offsets"], got["counts"], got["overflow"], None) if scan
+                else (None, None, got["offsets"], got["counts"], got["overflow"], None)))
+
+
+def bin_kernels(r: Renderer, cam, card: str, phase: str = "bin_kernels") -> dict:
+    """The binning kernels (csrc/bin.cu) against the plain bin_pairs and
+    bin_triangles on cam's frame of r: the whole frame, its two slabs of
+    half the tile rows (ty_base), the scan binner at r's capacity and at
+    half the live pairs (the rest counted in overflow); each one launch
+    (LAUNCHES["bin"]), equal to the plain version, and into guarded
+    outputs; the whole frame's also twice more and as a CUDA graph's
+    replay, the same bits. Prints the live pairs against the pair slots,
+    the device operations a call, the kernels' ms and device ms beside
+    their bound and the plain version's, and both as graphs. Returns the
+    whole frame's stats (the kernels line's fields)."""
+    kw, sc = r._frame_kwargs, r.scene
+    vp, _ = r.frame_uniforms(cam)
+    so = geometry.triangle_setup(geometry.transform_corners(sc["corner_world"], vp), None, sc["n_faces"],
+                                 kw["width"], kw["height"])
+    aabb, valid = so["aabb"], so["valid"]
+    tx, ty, tw, th = r.tiles_x, r.tiles_y, kw["tile_w"], kw["tile_h"]
+    half = ty // 2
+    with K.plain_kernels():
+        frame = geometry.bin_pairs(aabb, valid, tx, ty, tw, th)
+    n_frame, dropped = int(frame["offsets"][-1]), int(frame["overflow"])
+    cases = {"frame": (ty, 0, None), "slab 1 of 2": (half, 0, None), "slab 2 of 2": (ty - half, half, None),
+             "scan": (ty, 0, r.bin_capacity), "scan at half the pairs": (ty, 0, max(n_frame // 2, 1))}
+    out = {}
+    for label, (rows, base, cap) in cases.items():
+        grid = (aabb, valid, tx, rows, tw, th)
+
+        def binned(grid=grid, base=base, cap=cap):
+            if cap is None:
+                return geometry.bin_pairs(*grid, ty_base=base)
+            return geometry.bin_triangles(*grid, cap, ty_base=base)
+
+        before = K.LAUNCHES["bin"]
+        got = binned()
+        torch.cuda.synchronize()
+        launches = K.LAUNCHES["bin"] - before
+        with K.plain_kernels():
+            want = binned()
+        n = int(want["offsets"][-1])
+        slots = want["pair_faces"].numel()
+        same = bins_agree(got, want, cap is not None)
+        print(f"{phase}: bin {label}: {n} live pairs of {slots} slots ({n / max(slots, 1):.4f}), overflow "
+              f"{int(want['overflow'])}, densest tile {int(want['counts'].max())}; equal to the plain version {same}; "
+              f"launches {launches} [{card}]")
+        check(same, f"{phase}: binning kernels ({label}) disagree with the plain version")
+        check(launches == 1, f"{phase}: bin {label}: {launches} launches for one call")
+        if cap is not None and cap < n_frame:  # the huge faces' dropped pairs and those past the capacity
+            check(int(got["overflow"]) == dropped + n_frame - cap,
+                  f"{phase}: {label}: overflow {int(got['overflow'])}, want {dropped + n_frame - cap}")
+        guard_bin(phase, label, aabb, valid, (tx, rows, tw, th), base, cap, got)
+        if label != "frame":
+            continue
+        again = [binned(), binned()]
+        g, replayed = graph_of(binned)
+        g.replay()
+        torch.cuda.synchronize()
+        steady = all(bins_agree(x, got, False) for x in again + [replayed])
+        check(steady, f"{phase}: the binning kernels' calls or graph replay differ from the first call")
+        with K.plain_kernels():
+            plain_graph, _ = graph_of(binned)
+        kernel_graph_ms, plain_graph_ms = cuda_ms(g.replay, 50), cuda_ms(plain_graph.replay, 50)
+
+        def plain_binned():
+            with K.plain_kernels():
+                return binned()
+
+        ops = device_ops(binned, 20)
+        out = dict(max_abs_err=0.0, library_ms=None, pairs=n, slots=slots, **bin_bound(aabb.shape[0], n, tx * ty),
+                   **timed(binned, plain_binned, 50, 10))
+        st = out
+        print(f"{phase}: bin frame: {sum(1 for _ in ops)} kernels a call ({', '.join(k[:40] for k in ops)}); "
+              f"repeated calls and a graph replay the same bits {steady}; {st['ms']:.4f} ms (device "
+              f"{fmt_ms(st['dev_ms'])}) vs plain {st['plain_ms']:.4f} ms (device {fmt_ms(st['plain_dev_ms'])}); as "
+              f"graphs {kernel_graph_ms:.4f} ms vs plain {plain_graph_ms:.4f} ms a replay; bound {st['bound_ms']:.5f} "
+              f"ms by {st['bound_by']} ({aabb.shape[0]} faces, {n} pairs, {tx * ty} tiles) [{card}]")
+    return out
+
+
+def bin_standin(seed: int, card: str) -> None:
+    """bin_kernels on the porsche_class stand-in (tools.standin_data at full
+    scale in a temporary directory) at 1920x1080: the viewer's start pose,
+    (0, 0, -2.5) looking at the origin, and cli's first flythrough pose."""
+    from tpurast_torch.tools import standin_data
+
+    tmp = tempfile.mkdtemp(prefix="tpurast_torch_standin_")
+    try:
+        standin_data.write_standin(tmp, "full", seed=seed, stored=True)
+        scene = load_named_scene("porsche_class", tmp)
+        r = Renderer(scene, RendererConfig(width=WIDTH, height=HEIGHT))
+        print(f"bin_kernels porsche_class (stand-in): {scene.n_faces} faces, {r.tiles_x}x{r.tiles_y} tiles")
+        viewer = Camera.from_target(np.array([0.0, 0.0, -2.5], np.float32), np.zeros(3, np.float32))
+        for label, cam in (("viewer start pose", viewer), ("flythrough pose 0", cli.flythrough("porsche_class", 1)[0])):
+            bin_kernels(r, cam, card, phase=f"bin_kernels porsche_class, {label}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def print_shade_info() -> None:
@@ -1280,7 +1455,7 @@ def config_matrix(scene, cam, card: str, seed: int) -> dict:
         launches = {k: v // (MATRIX_REPLAYS + 1) for k, v in K.LAUNCHES.items() if v}
         want = path_want(path_of(r), MATRIX_REPLAYS + 1)
         if output == "gbuf":
-            want = {k: v if k in ("raster", "resolve") else 0 for k, v in want.items()}
+            want = {k: v if k in ("bin", "raster", "resolve") else 0 for k, v in want.items()}
         check(all(K.LAUNCHES[k] == want[k] for k in KERNELS),
               f"{phase}: launches {dict(K.LAUNCHES)} over {MATRIX_REPLAYS + 1} frames, want {want}")
         with plain_raster_memo():
@@ -1333,7 +1508,7 @@ def config_matrix(scene, cam, card: str, seed: int) -> dict:
     res = json.loads(lines[0])
     check(res["parity_max_lsb"] is not None and res["parity_max_lsb"] <= 1 and res["dropped_pairs"] == 0,
           "config_matrix: the bench at 112x128 failed its parity gate or dropped pairs")
-    check(all(K.LAUNCHES[k] > 0 for k in RENDER_KERNELS), "config_matrix: the bench at 112x128 skipped a kernel")
+    check(all(K.LAUNCHES[k] > 0 for k in FRAME_KERNELS), "config_matrix: the bench at 112x128 skipped a kernel")
     print(f"config_matrix: {len(MATRIX)} configurations and the bench in {time.perf_counter() - t0:.1f} s [{card}]")
     return out
 
@@ -1677,7 +1852,7 @@ def graph_frames(r: Renderer, cams, window_frames, card: str) -> dict:
     same = [all(bool(torch.equal(f[k], w[k])) for k in GRAPH_OUTPUTS) for f, w in zip(held, wants)]
     print(f"two window frames held at once: each equal to its eager frame {same}; launches {launches}")
     check(all(same), "a held graph frame was overwritten by the next replay")
-    check(all(launches[name] == 2 for name in RENDER_KERNELS), "graph replays: not one launch per kernel a frame")
+    check(all(launches[name] == 2 for name in FRAME_KERNELS), "graph replays: not one launch per kernel a frame")
 
     from torch.profiler import ProfilerActivity, profile
 
@@ -1959,7 +2134,7 @@ def scan_path(scene, r: Renderer, cams, window_frames, card: str) -> dict:
     n_rendered = SCAN_FRAMES + 1
     print(f"scan path: bin_capacity {rs.bin_capacity}, {n_rendered} frames (1 warm-up), launches {launches}")
     for name in KERNELS:
-        want = n_rendered if name in RENDER_KERNELS else 0
+        want = n_rendered if name in FRAME_KERNELS else 0
         check(launches[name] == want, f"scan: {name} launched {launches[name]} times for {n_rendered} frames")
     for k, f in enumerate(frames):
         same = all(bool(torch.equal(f[x], window_frames[k][x])) for x in ("color", "depth"))
@@ -2123,7 +2298,7 @@ def pose_tools(scene, r: Renderer, card: str) -> dict:
         check(images[0].shape == (h, w, 3) and side.shape == (h, 2 * w + parity_render.BAND_PX, 3),
               f"{w}x{h}: render_poses' shapes")
         check(lsb <= 1 and d_eq and not any(overflow), f"{w}x{h}: off-grid frames disagree with the plain versions")
-        check(all(launches[n] == len(specs) for n in RENDER_KERNELS), f"{w}x{h}: not one launch per pose")
+        check(all(launches[n] == len(specs) for n in FRAME_KERNELS), f"{w}x{h}: not one launch per pose")
         padded_kernels(rr, cams[0], card)
 
     # The screenshot-sized graph frame against the 1280x720 one, by events
@@ -2155,7 +2330,7 @@ def pose_tools(scene, r: Renderer, card: str) -> dict:
     search_s = time.perf_counter() - t0
     pose_launches = dict(K.LAUNCHES)
     for name in KERNELS:
-        want = POSE_ITERS if name in RENDER_KERNELS else 0
+        want = POSE_ITERS if name in FRAME_KERNELS else 0
         check(pose_launches[name] == want, f"fit_pose: {name} launched {pose_launches[name]} times, want {want}")
     true_iou = fit_pose.iou((fr.render(true_cam)["depth"] > 0).cpu().numpy(), mask_ref)
     check(true_iou == 1.0, f"fit_pose: the true pose scores IoU {true_iou} after {POSE_ITERS} replays")
@@ -2203,7 +2378,7 @@ def pose_tools(scene, r: Renderer, card: str) -> dict:
             print(f"  first difference: {a!r} vs {b!r}")
             break
     check(same, "fit_pose: the kernels' search differs from the plain versions'")
-    check(all(kr["launches"][n] == POSE_PLAIN_ITERS for n in RENDER_KERNELS) and not any(pr["launches"].values()),
+    check(all(kr["launches"][n] == POSE_PLAIN_ITERS for n in FRAME_KERNELS) and not any(pr["launches"].values()),
           "fit_pose: launches of the 40-pose searches")
 
     print(f"pose tools: {time.perf_counter() - t_phase:.1f} s [{card}]")
@@ -2405,7 +2580,7 @@ def runtime_path(scene, seed: int, window_ops: dict, kernel_ms: dict) -> dict:
     # timed loop and the present loop. A capture launches nothing.
     loops = 2 + BENCH_WARMUP + BENCH_FRAMES + min(BENCH_FRAMES, cli.PRESENT_FRAMES)
     for name in KERNELS:
-        want = loops if name in RENDER_KERNELS else 0
+        want = loops if name in FRAME_KERNELS else 0
         check(launches[name] == want, f"runtime path: {name} launched {launches[name]} times, want {want}")
     check(list(res["stage_ms"]) == list(tracing.MARKS[1:]), "the bench's stage_ms keys")
     # The card's frame records and the host's count of frames agree (every
@@ -2632,7 +2807,7 @@ def named_scenes(seed: int, card: str) -> dict:
             cam = cli.flythrough(name, 1)[0]
             stats[name] = kernel_phases(r, cam, card, phase=f"named_scenes {name}")
             win = named_frame(f"named_scenes {name} window {w}x{h}", r, cam, card)
-            for k in RENDER_KERNELS:
+            for k in FRAME_KERNELS:
                 stats[name][k]["launches"] = win["launches"][k]
             print(f"named_scenes {name} {w}x{h}: frame {win['graph_ms']:.3f} ms (graph), device busy "
                   f"{fmt_ms(win['busy_ms'])} ms, idle share "
@@ -2726,7 +2901,7 @@ def named_scenes(seed: int, card: str) -> dict:
         print(f"entry(stand-in): fn is a {type(fn).__name__}; fn(*args) equal to Renderer.render bit for bit "
               f"{same} (eager + capture, replay), coverage {cov:.3f}, launches {launches} [{card}]")
         check(isinstance(fn, FrameGraph) and all(same), "entry's frame differs from Renderer.render")
-        check(all(launches[k] == 2 for k in RENDER_KERNELS), "entry: not one launch per kernel a frame")
+        check(all(launches[k] == 2 for k in FRAME_KERNELS), "entry: not one launch per kernel a frame")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print(f"named_scenes: {time.perf_counter() - t_phase:.1f} s [{card}]")
@@ -2743,6 +2918,8 @@ def main() -> None:
     ap.add_argument("--named-scenes", action="store_true", help="run only the named_scenes phase")
     ap.add_argument("--config-matrix", action="store_true", help="run only kernel_phases and config_matrix")
     ap.add_argument("--shade-kernels", action="store_true", help="run only the shade_kernels phase")
+    ap.add_argument("--bin-kernels", action="store_true",
+                    help="run only the binning phase (the orbit scene and the porsche_class stand-in)")
     args = ap.parse_args()
     t_run = time.perf_counter()
 
@@ -2795,6 +2972,10 @@ def main() -> None:
     if args.shade_kernels:
         shade_kernels(scene, r, cams[0], card)
         return
+    if args.bin_kernels:
+        bin_kernels(r, cams[0], card)
+        bin_standin(args.seed, card)
+        return
     stats = kernel_phases(r, cams[0], card)
     stats.update(shade_kernels(scene, r, cams[0], card))
     config_matrix(scene, cams[0], card, args.seed)
@@ -2815,7 +2996,7 @@ def main() -> None:
     print(f"main path: {n_rendered} frames (1 warm-up), launches {launches}")
     print_times("window", times, r, cams[0])
     for name in KERNELS:
-        want = n_rendered if name in RENDER_KERNELS else 0
+        want = n_rendered if name in FRAME_KERNELS else 0
         check(launches[name] == want, f"{name}: {launches[name]} launches for {n_rendered} frames, want {want}")
     check_frames(frames, "window")
     print("coverage per frame: " + ", ".join(f"{float((f['depth'] > 0).float().mean()):.3f}" for f in frames))
@@ -2846,7 +3027,7 @@ def main() -> None:
     for name in PROBE_KERNELS:
         launches[name] = K.LAUNCHES[name]
         check(launches[name] > 0, f"{name}: not launched on the microbenchmark path")
-    check(all(K.LAUNCHES[name] == 0 for name in RENDER_KERNELS), "a render kernel launched on the microbench path")
+    check(all(K.LAUNCHES[name] == 0 for name in FRAME_KERNELS), "a render kernel launched on the microbench path")
     print(f"microbench path: launches {dict(K.LAUNCHES)}; vmemtake {take['ms']:.4f} ms "
           f"({take['ns_per_row']:.4f} ns/row); pipeline " + json.dumps({k: round(v, 4) for k, v in pipe.items()}))
 
@@ -2884,7 +3065,7 @@ def main() -> None:
          "pose_launches": pose_launches[name],
          **({"named_scenes": {s: {k: named[s][name][k] for k in ("launches", "max_abs_err", "ms", "dev_ms", "bound_ms",
                                                                     "bound_by")} for s in named if name in named[s]}}
-            if name in RENDER_KERNELS + SHADE_KERNELS else {}),
+            if name in FRAME_KERNELS + SHADE_KERNELS else {}),
          **{k: stats[name][k] for k in keys}}
         for name, (src, rep) in KERNELS.items()
     ]

@@ -64,9 +64,20 @@ ring wraps; each render kernel stamps its start and end marks when given
 their words, its output unchanged (the emulation's %globaltimer is the
 host's monotonic clock).
 
-Time on one worker: about 55 s (the shade cases about a third of it: the
+The binning kernels (csrc/bin.cu tr_bin) run through geometry.bin_pairs and
+bin_triangles themselves, the emulated library standing in for the card's
+(emu_bin), against the plain binners: offsets, counts and overflow
+exactly, the pairs on the live prefix (bin_triangles' whole buffer), one
+launch a call; on tests/test_torch_geometry.py's random faces, a slab of
+them, the orbit frame, no faces, no valid face, every face huge, faces of
+more pairs than a lane writes, y-buckets clamped past 8,192 rows, 8,100
+tiles (the tile sort's two passes), the scan contract with room and with
+half the pairs' room; and a call on two devices raises.
+
+Time on one worker: about 71 s (the shade cases about a fifth of it: the
 plain gather runs 16 probes over every pixel; the warp-shape cases about
-5 s together, the request counts about 2 s).
+5 s together, the request counts about 2 s; the binning cases about 27 s,
+their 1,024-thread blocks emulated, the two-pass ones the longest).
 """
 
 import ctypes
@@ -85,8 +96,8 @@ from tpurast_torch.device.scene import build_orbit_scene, orbit_track
 from tpurast_torch.device.textures import TEXTURE_DTYPES, texels_tensor
 from tpurast_torch.kernels import _build, geometry, present, probes, raster, resolve, sampler, shade
 from tpurast_torch.renderer import Renderer
-from test_torch_memsafety import (SCENE as SMALL_SCENE, assert_resolve_close, assert_shade_close, poisoned_gbuf,
-                                  texture_grid_gbuf)
+from test_torch_memsafety import (SCENE as SMALL_SCENE, assert_resolve_close, assert_shade_close, bin_boxes,
+                                  poisoned_gbuf, texture_grid_gbuf)
 from test_torch_raster import ADVERSARIAL, A_TILES_X, A_TILES_Y, AH, AW, adversarial_clip
 from test_torch_scene import numpy_bc_decoders  # noqa: F401  (module-wide autouse)
 
@@ -117,6 +128,9 @@ def emu_library(tmp_path_factory) -> ctypes.CDLL:
     for name, argtypes in _build.SIGNATURES.items():
         getattr(lib, name).argtypes = argtypes
         getattr(lib, name).restype = ctypes.c_int
+    for name, n_in in _build.COUNTS.items():
+        getattr(lib, name).argtypes = [ctypes.c_int] * n_in
+        getattr(lib, name).restype = ctypes.c_longlong
     return lib
 
 
@@ -855,3 +869,128 @@ def test_render_kernels_stamp_the_frame_marks(emu, frame, shade_frame, kernel):
     t1 = time.perf_counter_ns()
     assert torch.equal(got, want)
     assert t0 <= int(words[0]) < int(words[1]) <= t1
+
+
+# ---------------------------------------------------------------------------
+# Pair binning (csrc/bin.cu tr_bin), through geometry.bin_pairs and
+# bin_triangles with the emulated library in place of the card's.
+
+
+def _bin_random_faces():
+    """tests/test_torch_geometry.py's ~2k faces (small, huge, across the eye
+    plane, off screen) through the port's setup at its 512x256 frame."""
+    from test_torch_geometry import H as GH, W as GW, _random_faces, _view_proj
+
+    corners = _random_faces()
+    clip = geometry.transform_corners(torch.from_numpy(corners), torch.from_numpy(_view_proj()))
+    so = geometry.triangle_setup(clip, None, corners.shape[0], GW, GH)
+    return so["aabb"], so["valid"]
+
+
+# case: (faces, tiles_x, tiles_y, tile_w, tile_h, ty_base, pair capacity ("half": half the pairs; None: bin_pairs),
+#        tiles_per_face)
+BIN_CASES = {
+    "random_faces": ("random", 4, 8, 128, 32, 0, None, 8),
+    "random_faces_slab": ("random", 4, 3, 128, 32, 2, None, 8),
+    "orbit_frame": ("orbit", None, None, None, None, 0, None, 8),
+    "no_faces": ("none", 4, 8, 128, 32, 0, None, 8),
+    "no_face_valid": ("invalid", 4, 8, 128, 32, 0, None, 8),
+    "every_face_huge": ("huge", 4, 8, 128, 32, 0, None, 8),
+    "many_pairs_a_face": ("random", 4, 8, 128, 32, 0, None, 40),
+    "y_buckets_past_8192_rows": ("tall", 2, 320, 128, 32, 0, None, 8),
+    "two_tile_passes": ("4k", 30, 270, 128, 8, 0, None, 8),
+    "scan": ("random", 4, 8, 128, 32, 0, 16384, 8),
+    "scan_truncated": ("random", 4, 8, 128, 32, 0, "half", 8),
+    "scan_two_tile_passes_truncated": ("4k", 30, 270, 128, 8, 0, "half", 8),
+}
+
+
+def _bin_case_inputs(case, frame):
+    kind, tx, ty, tw, th, ty_base, cap, tpf = BIN_CASES[case]
+    if kind == "orbit":
+        r, kw, _, _, so, _ = frame
+        aabb, valid, tx, ty, tw, th = so["aabb"], so["valid"], r.tiles_x, r.tiles_y, kw["tile_w"], kw["tile_h"]
+    elif kind in ("random", "none", "invalid"):
+        aabb, valid = _bin_random_faces()
+        aabb, valid = (aabb[:0], valid[:0]) if kind == "none" else (aabb, valid & (kind != "invalid"))
+    elif kind == "huge":
+        aabb, valid = bin_boxes(300, 512, 256, 3, 1.0)
+    elif kind == "tall":
+        aabb, valid = bin_boxes(3000, 256, 10240, 4, 0.05)
+    else:  # 3840x2160 in 8x128 tiles: 8,100 tiles
+        aabb, valid = bin_boxes(700, 3840, 2160, 5, 0.03, size=(1.0, 60.0), huge_size=(100.0, 400.0))
+    grid = (aabb, valid, tx, ty, tw, th)
+    if cap == "half":
+        cap = int(geometry.bin_pairs(*grid, tiles_per_face=tpf, ty_base=ty_base)["offsets"][-1]) // 2
+    return grid, dict(tiles_per_face=tpf, ty_base=ty_base), cap
+
+
+@pytest.fixture
+def emu_bin(emu, monkeypatch):
+    """geometry's binners on CPU tensors through their kernel path, with the
+    emulated library in place of the card's (no stream)."""
+    from tpurast_torch import kernels
+
+    def call(name, *args):
+        err = getattr(emu, name)(*(a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args), None)
+        assert err == 0, f"{name}: error {err}"
+
+    monkeypatch.setattr(kernels, "use_kernel", lambda *tensors: not kernels.plain_kernels_active())
+    monkeypatch.setattr(_build, "call", call)
+    monkeypatch.setattr(_build, "library", lambda: emu)
+
+
+@pytest.mark.parametrize("case", list(BIN_CASES))
+def test_bin_kernels(emu_bin, frame, case):
+    """The binning kernels against the plain bin_pairs / bin_triangles:
+    offsets, counts and overflow exactly; pair_faces and pair_tiles on the
+    live prefix [0, offsets[-1]) (all that bin_pairs defines), bin_triangles'
+    whole pair_faces buffer (0 past the binned pairs). The cases: the random
+    faces of tests/test_torch_geometry.py (eye-plane crossers, more huge
+    faces than HUGE_BUDGET), a slab of them (ty_base 2), the orbit frame,
+    no faces, no valid face, every face huge, faces of more pairs than a
+    lane writes, y-buckets clamped past 8,192 rows, 8,100 tiles (the tile
+    sort in two passes), and the scan contract with room and with half the
+    pairs' room. One launch a call (LAUNCHES["bin"])."""
+    from tpurast_torch import kernels
+
+    grid, kw, cap = _bin_case_inputs(case, frame)
+
+    def binned():
+        return geometry.bin_pairs(*grid, **kw) if cap is None else geometry.bin_triangles(*grid, cap, **kw)
+
+    before = kernels.LAUNCHES["bin"]
+    got = binned()
+    assert kernels.LAUNCHES["bin"] == before + 1
+    with kernels.plain_kernels():
+        want = binned()
+    assert kernels.LAUNCHES["bin"] == before + 1
+    assert set(got) == set(want)
+    for k in ("offsets", "counts", "overflow"):
+        assert torch.equal(got[k], want[k]), k
+    n = int(want["offsets"][-1])
+    assert got["pair_faces"].shape == want["pair_faces"].shape
+    if cap is None:
+        assert torch.equal(got["pair_faces"][:n], want["pair_faces"][:n])
+        assert torch.equal(got["pair_tiles"][:n], want["pair_tiles"][:n])
+    else:
+        assert torch.equal(got["pair_faces"], want["pair_faces"])
+    slots = want["pair_tiles"].numel() if cap is None else cap
+    assert (n == 0) == (BIN_CASES[case][0] in ("none", "invalid")) and n <= slots
+    if case in ("random_faces", "every_face_huge", "two_tile_passes"):
+        assert int(want["overflow"]) > 0, "more huge faces than HUGE_BUDGET"
+    if case.endswith("truncated"):
+        assert n == cap and int(want["overflow"]) > 0
+
+
+def test_bin_kernels_refuse_mixed_devices():
+    """A call with its tensors on two devices raises (kernels.use_kernel)
+    before anything is binned or launched."""
+    from tpurast_torch import kernels
+
+    aabb, valid = bin_boxes(16, 512, 256, 6, 0.0)
+    before = kernels.LAUNCHES["bin"]
+    for binner in (geometry.bin_pairs, lambda *a: geometry.bin_triangles(*a, 64)):
+        with pytest.raises(ValueError, match="all be on the CPU or all on one CUDA device"):
+            binner(aabb, valid.to("meta"), 4, 8, 128, 32)
+    assert kernels.LAUNCHES["bin"] == before

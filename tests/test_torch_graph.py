@@ -15,7 +15,9 @@ without a card.
     versions here, which run inside the guard.
   * test_shade_wrappers_read_nothing_back_before_the_launch: what those two
     wrappers do on a CUDA device before the launch (the row check, the
-    srgb8 decode table) reads nothing back inside the guard.
+    srgb8 decode table) reads nothing back inside the guard; so for the
+    binning wrapper (csrc/bin.cu), bin_pairs' and bin_triangles', up to its
+    launch, which is recorded and not made.
   * test_forked_slabs_read_nothing_back: render_slabs' fork and join
     (parallel._fork_join, taken as on a CUDA device, with fake streams):
     each slab on a stream of its own that waits for the current stream,
@@ -195,6 +197,35 @@ def test_shade_wrappers_read_nothing_back_before_the_launch(scene, dtype, monkey
     monkeypatch.undo()
     assert code == want[0] and (lut is None) == (want[1] is None)
     assert lut is None or lut is table
+
+
+@pytest.mark.parametrize("binner", ["pairs", "scan"])
+def test_bin_wrapper_reads_nothing_back_before_the_launch(scene, cam, binner, monkeypatch):
+    """What geometry's binning wrapper does on a CUDA device before its
+    launch (the checks, tr_bin_scratch, the outputs and scratch it
+    allocates, the launch's arguments) reads nothing back inside the guard;
+    the launch itself is recorded, not made."""
+    from tpurast_torch.kernels import _build, geometry
+
+    r = Renderer(scene, CFG, device="cpu")
+    kw = r._frame_kwargs
+    vp, _ = r.frame_uniforms(cam)
+    so = geometry.triangle_setup(geometry.transform_corners(r.scene["corner_world"], vp), None,
+                                 r.scene["n_faces"], kw["width"], kw["height"])
+    calls = []
+    monkeypatch.setattr(kernels, "use_kernel", lambda *tensors: True)
+    monkeypatch.setattr(_build, "library", lambda: type("Lib", (), {"tr_bin_scratch": lambda *args: 4096})())
+    monkeypatch.setattr(_build, "call", lambda name, *args: calls.append((name, args)))
+    grid = (so["aabb"], so["valid"], r.tiles_x, r.tiles_y, kw["tile_w"], kw["tile_h"])
+    guard = Guard()
+    _install(monkeypatch, guard)
+    before = kernels.LAUNCHES["bin"]
+    with guard.on():
+        out = geometry.bin_pairs(*grid, ty_base=1) if binner == "pairs" else geometry.bin_triangles(*grid, 512)
+    assert [name for name, _ in calls] == ["tr_bin"] and kernels.LAUNCHES["bin"] == before + 1
+    assert out["offsets"].shape == (r.tiles_x * r.tiles_y + 1,) and ("pair_tiles" in out) == (binner == "pairs")
+    assert out["pair_faces"].shape == ((geometry.TILES_PER_FACE * so["aabb"].shape[0] + geometry.HUGE_BUDGET
+                                        * r.tiles_x * r.tiles_y,) if binner == "pairs" else (512,))
 
 
 def test_guard_catches_each_read_back(monkeypatch):

@@ -42,6 +42,11 @@ and warp-synchronous code that leans on lockstep. The ASan shapes:
     an index array off the 16-byte grid;
   * plane_scale off the 16-byte grid in its three launch geometries
     (tile-grid and row-band blocks on a 3-plane buffer, one-plane);
+  * the binning kernels (csrc/bin.cu) on random boxes (more huge faces
+    than HUGE_BUDGET, some past the frame's edges): bin_pairs' contract on
+    the frame and on a slab, bin_triangles' with half the pairs' room, and
+    8,100 tiles, where the tile sort runs as two passes; the scratch from
+    tr_bin_scratch, exact-size;
   * the port's Zstandard decoder (tpurast_torch/native/zstd.cpp, built
     into the ASan library beside the kernels) on frames made with the
     zstandard package at levels 3 and 19 and on 600 truncated and
@@ -49,16 +54,19 @@ and warp-synchronous code that leans on lockstep. The ASan shapes:
     of exactly its size, plus an output one byte short.
 
 ThreadSanitizer runs RACE_CASES, each kernel once (the shade kernels too:
-a block's threads share the srgb8 decode table). Each case is also held
+a block's threads share the srgb8 decode table; the binning kernels, whose
+warps keep counters in shared memory and whose last block reads what the
+others wrote, on the frame and on a slab). Each case is also held
 to its plain version under tests/test_torch_csrc.py's budgets. Planted
 faults show that the harness catches them: the raster output one tile row
 short must abort with ASan's heap-buffer-overflow, and a small kernel that
 reads its neighbour's shared word without a barrier must end with
 ThreadSanitizer's data race.
 
-Time on one worker: about 80 s (the two builds side by side, then the
-four subprocesses side by side: the ThreadSanitizer cases, the shade
-kernels among them, take the longest, the planted ones about 5 s each).
+Time on one worker: about 120 s (the two builds side by side, then the
+four subprocesses side by side: the ThreadSanitizer cases, the shade and
+binning kernels among them, take the longest, the planted ones about 5 s
+each).
 
 Run the cases by hand: python tests/test_torch_memsafety.py LIB OUT.json
 CASE... with LD_PRELOAD=$(g++ -print-file-name=libasan.so) (or libtsan.so
@@ -69,6 +77,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import ctypes
+import functools
 import json
 import os
 import pathlib
@@ -117,6 +126,7 @@ CASES = (
     + ["zstd_corrupt_and_truncated_frames"]
     + ["shade_gather_off_grid", "shade_deferred_off_grid"]
     + [f"{k}_{t}_{s}" for t, s in LARGE_TILES for k in ("raster", "plan")]
+    + ["bin_random_faces", "bin_random_faces_slab", "bin_scan_truncated", "bin_two_tile_passes"]
 )
 ZSTD_SRC = pathlib.Path(__file__).resolve().parent.parent / "tpurast_torch" / "native" / "zstd.cpp"
 # The cases under ThreadSanitizer: each kernel once; the plan (with raster
@@ -128,7 +138,7 @@ ZSTD_SRC = pathlib.Path(__file__).resolve().parent.parent / "tpurast_torch" / "n
 # copies into shared memory behind a barrier.
 RACE_CASES = ["raster_grid", "resolve_grid", "sample_grid", "plan_24_windows", "vmem_take_odd_rows",
               "plane_scale_tile_grid", "raster_64x128_off_grid", "plan_64x128_off_grid", "shade_gather_off_grid",
-              "shade_deferred_off_grid"]
+              "shade_deferred_off_grid", "bin_random_faces", "bin_random_faces_slab"]
 PLANTED = "raster_output_one_tile_row_short"
 PLANTED_RACE = "planted_race"
 # A block whose threads read their neighbour's shared-memory word without
@@ -150,6 +160,29 @@ extern "C" int tr_planted_race(int* out) {
 
 # ---------------------------------------------------------------- helpers
 # (shared with tests/test_torch_csrc.py)
+
+
+def bin_boxes(n, width, height, seed, huge_share, size=(1.0, 120.0), huge_size=(300.0, 900.0)):
+    """n random screen boxes (F, 4) f32 over width x height, some past its
+    edges, a share of them large, and (F,) valid flags, 80% set."""
+    rng = np.random.default_rng(seed)
+    x0 = rng.uniform(-60, width, n)
+    y0 = rng.uniform(-40, height, n)
+    big = rng.uniform(size=n) < huge_share
+    w = np.where(big, rng.uniform(*huge_size, n), rng.uniform(*size, n))
+    h = w * rng.uniform(0.3, 1.5, n)
+    aabb = np.stack([x0, y0, x0 + w, y0 + h], axis=1).astype(np.float32)
+    return torch.from_numpy(aabb), torch.from_numpy(rng.uniform(size=n) < 0.8)
+
+
+# The binning cases: (boxes: n, width, height, seed, huge share, small and large sizes), the grid (tiles_x,
+# tiles_y, tile_w, tile_h), ty_base, pair capacity (None: bin_pairs; "half": bin_triangles with half the pairs).
+BIN_CASES = {
+    "random_faces": ((2000, 512, 256, 8, 0.12), (4, 8, 128, 32), 0, None),
+    "random_faces_slab": ((2000, 512, 256, 8, 0.12), (4, 3, 128, 32), 2, None),
+    "scan_truncated": ((2000, 512, 256, 8, 0.12), (4, 8, 128, 32), 0, "half"),
+    "two_tile_passes": ((700, 3840, 2160, 5, 0.03, (1.0, 60.0), (100.0, 400.0)), (30, 270, 128, 8), 0, None),
+}
 
 
 def assert_resolve_close(out, g, covered):
@@ -464,6 +497,40 @@ class Cases:
         assert int(covered[h:].sum() + covered[:h, w:].sum()) > 0 if size == "off_grid" else True
         assert_shade_close(out, want, covered)
 
+    def bin(self, case):
+        """tr_bin on BIN_CASES[case], every input, output and the scratch
+        (tr_bin_scratch ints) a tensor of exactly its size, against the plain
+        binner: offsets, counts and overflow exactly, the pairs on the live
+        prefix (bin_triangles: its whole buffer)."""
+        boxes, (tx, ty, tw, th), base, cap = BIN_CASES[case]
+        aabb, valid = bin_boxes(*boxes)
+        grid = (aabb, valid, tx, ty, tw, th)
+        if cap == "half":
+            cap = int(geometry.bin_pairs(*grid, ty_base=base)["offsets"][-1]) // 2
+        scan = cap is not None
+        want = geometry.bin_triangles(*grid, cap, ty_base=base) if scan else geometry.bin_pairs(*grid, ty_base=base)
+        f = aabb.shape[0]
+        args = (f, tx, ty, tw, th, geometry.TILES_PER_FACE, geometry.HUGE_BUDGET, base, int(not scan))
+        n_scratch = self.lib.tr_bin_scratch(*args)
+        slots = geometry.TILES_PER_FACE * f + min(geometry.HUGE_BUDGET, f) * tx * ty
+        aabb, valid = exact(aabb), exact(valid)
+        faces = torch.empty((cap if scan else slots,), dtype=torch.int32)
+        tiles = None if scan else torch.empty((slots,), dtype=torch.int32)
+        offsets = torch.empty((tx * ty + 1,), dtype=torch.int32)
+        counts = torch.empty((tx * ty,), dtype=torch.int32)
+        overflow = torch.empty((), dtype=torch.int32)
+        scratch = torch.empty((n_scratch,), dtype=torch.int32)
+        err = self.lib.tr_bin(aabb.data_ptr(), valid.data_ptr(), *args, faces.numel(), faces.data_ptr(),
+                              None if tiles is None else tiles.data_ptr(), offsets.data_ptr(), counts.data_ptr(),
+                              overflow.data_ptr(), scratch.data_ptr(), n_scratch, None)
+        assert err == 0
+        n = int(want["offsets"][-1])
+        assert n > 500 and (int(want["overflow"]) > 0 or case == "random_faces_slab")
+        for k, got in (("offsets", offsets), ("counts", counts), ("overflow", overflow)):
+            assert torch.equal(got, want[k]), k
+        assert torch.equal(faces, want["pair_faces"]) if scan else torch.equal(faces[:n], want["pair_faces"][:n])
+        assert scan or torch.equal(tiles[:n], want["pair_tiles"][:n])
+
     def plan_24_windows(self):
         plan = self.check_plan(texture_grid_gbuf(24, 6), dict(tiles_x=1, tiles_y=1, tile_h=32, tile_w=128))
         assert int(plan["cls"][0]) == sampler.CLS_WINDOWED and int(plan["n_used"][0]) >= 24
@@ -557,6 +624,7 @@ class Cases:
             "zstd_corrupt_and_truncated_frames": self.zstd_frames,
             "shade_gather_off_grid": lambda: self.shade("gather", "off_grid"),
             "shade_deferred_off_grid": lambda: self.shade("deferred", "off_grid"),
+            **{f"bin_{k}": functools.partial(self.bin, k) for k in BIN_CASES},
             PLANTED: self.planted,
             PLANTED_RACE: self.planted_race,
         }
@@ -569,6 +637,9 @@ def main(argv) -> int:
     for name, argtypes in _build.SIGNATURES.items():
         getattr(lib, name).argtypes = argtypes
         getattr(lib, name).restype = ctypes.c_int
+    for name, n_in in _build.COUNTS.items():
+        getattr(lib, name).argtypes = [ctypes.c_int] * n_in
+        getattr(lib, name).restype = ctypes.c_longlong
     runner = Cases(lib)
     verdicts = {}
     for case in cases:

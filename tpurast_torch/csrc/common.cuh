@@ -1,5 +1,5 @@
 // Shared helpers of the tpurast_torch CUDA kernels (raster.cu, resolve.cu,
-// plan.cu, sampler.cu, shade.cu, probes.cu).
+// plan.cu, sampler.cu, shade.cu, probes.cu, bin.cu).
 //
 // The kernels are built with --fmad=false and without fast math, so every
 // a*b+c below rounds twice and every division and sqrtf is correctly
@@ -85,6 +85,16 @@ __device__ __forceinline__ unsigned warp_ballot(bool pred) {
                                       [](int a, int b) { return a | b; });
 #else
   return __ballot_sync(0xffffffffu, pred);
+#endif
+}
+
+// A barrier of the calling warp that also orders its lanes' shared-memory
+// accesses (__syncwarp). All 32 lanes must call.
+__device__ __forceinline__ void warp_sync() {
+#ifdef TR_HOST_EMU
+  tr_emu_warp_barrier->arrive_and_wait();
+#else
+  __syncwarp();
 #endif
 }
 

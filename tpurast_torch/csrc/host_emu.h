@@ -186,6 +186,7 @@ inline long long tr_emu_globaltimer() {
 inline void __threadfence_system() { std::atomic_thread_fence(std::memory_order_seq_cst); }
 
 inline int __popc(unsigned v) { return __builtin_popcount(v); }
+inline int __ffs(unsigned v) { return __builtin_ffs((int)v); }
 
 inline unsigned __float_as_uint(float f) {
   unsigned u;

@@ -62,7 +62,10 @@ SIGNATURES = {
     "tr_plane_scale": [_P, _I, _I, _I, _I, _I, _I, _P, _P],
     "tr_vmem_take": [_P, _I, _P, _L, _P, _P],
     "tr_trace_mark": [_P, _P, _P, _I, _I, _I, _P, _P, _P],
+    "tr_bin": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _L, _P],
 }
+# Host functions that return a count (see csrc/*.cu): their int arguments.
+COUNTS = {"tr_bin_scratch": 9}
 
 
 # Kernels with a tr_<name>_info entry point: (leading int arguments, int
@@ -140,6 +143,10 @@ def library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.c_int] * n_in + [ctypes.POINTER(ctypes.c_int)] * n_out
         fn.restype = ctypes.c_int
+    for name, n_in in COUNTS.items():
+        fn = getattr(lib, name)
+        fn.argtypes = [_I] * n_in
+        fn.restype = _L
     lib.tr_trace_alloc.argtypes = [_L, ctypes.POINTER(_P), ctypes.POINTER(_P)]
     lib.tr_trace_alloc.restype = ctypes.c_int
     lib.tr_error_string.argtypes = [ctypes.c_int]

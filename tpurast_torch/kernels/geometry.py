@@ -2,8 +2,11 @@
 
 Counterpart of tpurast/kernels/geometry.py (transform_corners,
 triangle_setup, _tile_ranges, bin_pairs, bin_triangles), same layouts and
-field numbering. These are not kernels on either side: the reference leaves
-them to XLA, the port to eager torch.
+field numbering. The reference leaves all of them to XLA. The port leaves
+the transform and the setup to eager torch; the binners are CUDA kernels
+for CUDA tensors (csrc/bin.cu, ``LAUNCHES["bin"]``), and the torch code
+below is their plain version, which CPU tensors and kernels.plain_kernels()
+take.
 
 Every expression keeps the reference's operation order, with one
 rounding per operation. Eager torch never contracts a*b+c into an FMA on
@@ -19,6 +22,9 @@ which rounds differently from a true division.
 from __future__ import annotations
 
 import torch
+
+from tpurast_torch import kernels as _k
+from tpurast_torch.kernels import _build
 
 # Per-face setup row (tpurast/kernels/geometry.py SETUP_WIDTH):
 # [E(9), z_clip(3), w_clip(3), face_id, anchor_x, anchor_y, ymin, ymax, pad].
@@ -160,6 +166,46 @@ def _tile_ranges(aabb, valid, tiles_x, tiles_y, tile_w, tile_h, ty_base=0):
     return tx0, ty0, tx1, ty1, valid & intersects
 
 
+def _check_fields(f: int, t: int) -> None:
+    if f > 1 << FACE_BITS or t * YB >= 1 << TILE_KEY_BITS:
+        raise ValueError(f"binning: {f} faces and {t} tiles exceed the sort-key fields (at most 2^{FACE_BITS} "
+                         f"faces, tiles * {YB} under 2^{TILE_KEY_BITS})")
+
+
+def _bin_kernel(aabb, valid, tiles_x, tiles_y, tile_w, tile_h, tiles_per_face, huge_budget, ty_base,
+                pair_capacity=None) -> dict:
+    """Both binners on the card (csrc/bin.cu tr_bin): bin_pairs' outputs
+    (pair_capacity None: the pair slots of the plain version, each tile's
+    faces by y-bucket, then face) or bin_triangles' (each tile's faces by
+    face, pair_faces of pair_capacity entries, 0 past the binned pairs).
+    Only the live prefix [0, offsets[-1]) of pair_faces and pair_tiles is
+    written; scratch and outputs are allocated here and nothing is read
+    back."""
+    f, t = aabb.shape[0], tiles_x * tiles_y
+    _check_fields(f, t)
+    _k.check(aabb, "aabb", torch.float32, (f, 4))
+    _k.check(valid, "valid", torch.bool, (f,))
+    by_y = pair_capacity is None
+    args = (f, tiles_x, tiles_y, tile_w, tile_h, tiles_per_face, huge_budget, int(ty_base), int(by_y))
+    n_scratch = _build.library().tr_bin_scratch(*args)
+    if n_scratch < 0:
+        raise ValueError(f"binning kernel: refuses {args} (tiles_x, tiles_y, tile_w, tile_h at least 1, "
+                         "tiles_per_face at least 0, fewer than 2^31 pair slots)")
+    dev = aabb.device
+    slots = tiles_per_face * f + max(0, min(huge_budget, f)) * t
+    scratch = torch.empty((n_scratch,), dtype=torch.int32, device=dev)
+    pair_faces = torch.empty((slots if by_y else pair_capacity,), dtype=torch.int32, device=dev)
+    pair_tiles = torch.empty((slots,), dtype=torch.int32, device=dev) if by_y else None
+    offsets = torch.empty((t + 1,), dtype=torch.int32, device=dev)
+    counts = torch.empty((t,), dtype=torch.int32, device=dev)
+    overflow = torch.empty((), dtype=torch.int32, device=dev)
+    _build.call("tr_bin", aabb, valid, *args, pair_faces.numel(), pair_faces, pair_tiles, offsets, counts, overflow,
+                scratch, scratch.numel())
+    _k.LAUNCHES["bin"] += 1
+    out = {"pair_faces": pair_faces, "offsets": offsets, "counts": counts, "overflow": overflow}
+    return dict(out, pair_tiles=pair_tiles) if by_y else out
+
+
 def _expand_pairs(aabb, valid, tiles_x, tiles_y, tile_w, tile_h, tiles_per_face, huge_budget, ty_base, ybucket):
     """The (tile, face) pairs both binners sort: the j-th overlapped tile of
     every small face, every tile of the first huge_budget huge faces in
@@ -168,9 +214,7 @@ def _expand_pairs(aabb, valid, tiles_x, tiles_y, tile_w, tile_h, tiles_per_face,
     dropped pair count of the huge faces beyond the budget, 0-dim)."""
     f = aabb.shape[0]
     t = tiles_x * tiles_y
-    if f > 1 << FACE_BITS or t * YB >= 1 << TILE_KEY_BITS:
-        raise ValueError(f"binning: {f} faces and {t} tiles exceed the sort-key fields (at most 2^{FACE_BITS} "
-                         f"faces, tiles * {YB} under 2^{TILE_KEY_BITS})")
+    _check_fields(f, t)
     dev = aabb.device
     tx0, ty0, tx1, ty1, valid = _tile_ranges(aabb, valid, tiles_x, tiles_y, tile_w, tile_h, ty_base)
     span_x = tx1 - tx0 + 1
@@ -236,7 +280,11 @@ def bin_pairs(
     The reference's 2-key lax.sort becomes one stable sort of a single
     int64 key (tile*YB + ybucket) << FACE_BITS | face. Returns pair_faces (P,)
     i32, pair_tiles (P,) i32, offsets (T+1,) i32, counts (T,) i32 and
-    overflow (the dropped pair count, 0-dim i32)."""
+    overflow (the dropped pair count, 0-dim i32). CUDA tensors take
+    csrc/bin.cu (_bin_kernel), which writes only the live prefix of the P
+    slots."""
+    if _k.use_kernel(aabb, valid):
+        return _bin_kernel(aabb, valid, tiles_x, tiles_y, tile_w, tile_h, tiles_per_face, huge_budget, ty_base)
     t = tiles_x * tiles_y
     ybucket = torch.clamp(torch.floor(aabb[:, 1] * (1.0 / 8.0)), 0, YB - 1).to(torch.int32)
     packed, dropped = _expand_pairs(aabb, valid, tiles_x, tiles_y, tile_w, tile_h, tiles_per_face, huge_budget,
@@ -284,8 +332,12 @@ def bin_triangles(
     rank, where the reference scatters it. face_chunk only bounds the
     reference's memory and is accepted for its signature. Returns
     pair_faces (pair_capacity,) i32, offsets (T+1,) i32, counts (T,) i32
-    and overflow (0-dim i32); nothing is read back to the host."""
+    and overflow (0-dim i32); nothing is read back to the host. CUDA
+    tensors take csrc/bin.cu (_bin_kernel) with one y-bucket."""
     del face_chunk
+    if _k.use_kernel(aabb, valid):
+        return _bin_kernel(aabb, valid, tiles_x, tiles_y, tile_w, tile_h, tiles_per_face, huge_budget, ty_base,
+                           pair_capacity)
     t = tiles_x * tiles_y
     dev = aabb.device
     packed, dropped = _expand_pairs(aabb, valid, tiles_x, tiles_y, tile_w, tile_h, tiles_per_face, huge_budget,
