@@ -211,8 +211,9 @@ def _cross(a, b):
 
 def triangle_setup(c, n_faces: int, width: int, height: int):
     """Per-face edge functions anchored at a rounded corner, depth and w
-    rows, screen AABB and validity (in range, finite, front-facing,
-    partly in front of the eye, on screen)."""
+    rows, screen AABB, validity (in range, finite, front-facing, partly in
+    front of the eye, on screen) and ``cut``: a corner's w at or below the
+    eye plane's epsilon, which makes the face's box the whole screen."""
     dev = c.device
     nf = c.shape[0]
     w = c[..., 3]
@@ -243,7 +244,7 @@ def triangle_setup(c, n_faces: int, width: int, height: int):
     maxy = torch.where(any_behind, torch.full_like(zero, float(height)), torch.where(w_ok, sy, -big).amax(dim=-1))
     valid = valid & (maxx >= 0.0) & (maxy >= 0.0) & (minx < width) & (miny < height)
     rows = torch.cat([e0, e1, e2, c[..., 2], w, ax[:, None], ay[:, None]], dim=-1).to(torch.float32)
-    return dict(rows=rows, valid=valid, aabb=torch.stack([minx, miny, maxx, maxy], dim=-1))
+    return dict(rows=rows, valid=valid, aabb=torch.stack([minx, miny, maxx, maxy], dim=-1), cut=any_behind)
 
 
 # Columns of triangle_setup's rows.

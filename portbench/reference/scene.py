@@ -14,10 +14,12 @@ from __future__ import annotations
 
 import concurrent.futures
 import dataclasses
+import math
 import os
 
 import numpy as np
 
+from portbench import recipes
 from portbench.reference import assets
 from portbench.reference import math3d as m3
 
@@ -88,7 +90,7 @@ def assemble(draws: list[dict], texture_of) -> RefScene:
                     face_tex=np.asarray(ptex, dtype=np.int32)[face_prim], n_faces=n_faces, textures=textures)
 
 
-def _glb_draws(path: str, post=None) -> list[dict]:
+def glb_draws(path: str, post=None) -> list[dict]:
     """A generated GLB's primitives with their model matrices: the glTF to
     world basis change, then ``post``."""
     with open(path, "rb") as f:
@@ -104,9 +106,9 @@ def porsche_class(data_dir: str, max_textures: int) -> RefScene:
     crate (odd) placed on a 4-wide grid, dragons at scale 2, crates 0.25."""
     folder = os.path.join(data_dir, "textures", "porche")
     uris = sorted(f"textures/porche/{n}" for n in os.listdir(folder) if n.endswith(".ktx2"))[:max_textures]
-    dragon = _glb_draws(os.path.join(data_dir, "meshes/stanford_dragon.glb"))
-    crate = _glb_draws(os.path.join(data_dir, "meshes/crate.glb"))
-    draws = _glb_draws(os.path.join(data_dir, "meshes/arena.glb"))
+    dragon = glb_draws(os.path.join(data_dir, "meshes/stanford_dragon.glb"))
+    crate = glb_draws(os.path.join(data_dir, "meshes/crate.glb"))
+    draws = glb_draws(os.path.join(data_dir, "meshes/arena.glb"))
     for i, uri in enumerate(uris):
         is_dragon = i % 2 == 0
         gx, gz = i % 4, i // 4
@@ -128,8 +130,33 @@ def porsche_class(data_dir: str, max_textures: int) -> RefScene:
     return assemble(draws, pyramids.get)
 
 
+def instanced_dragons(data_dir: str, count: int, spacing: float) -> RefScene:
+    """The dragon of a data directory drawn ``count`` times, row by row, on
+    the smallest square grid that holds them, ``spacing`` apart in x and z
+    and centred on the origin, each first moved one unit down (along the
+    world's up taken negative). Its texture, where the directory lacks it,
+    is the fallback."""
+    side = math.isqrt(count - 1) + 1
+    dragon = glb_draws(os.path.join(data_dir, "meshes/stanford_dragon.glb"), post=m3.translation(m3.WORLD_UP * -1))
+    draws = []
+    for i in range(count):
+        row, col = divmod(i, side)
+        offset = np.array([(col - (side - 1) / 2) * spacing, 0.0, (row - (side - 1) / 2) * spacing], np.float32)
+        for d in dragon:
+            model = m3.compose(d["model"], m3.translation(offset))
+            draws.append(dict(d, model=model, normal_mat=m3.normal_matrix(model)))
+
+    def load(uri):
+        path = os.path.join(data_dir, uri)
+        if not os.path.exists(path):
+            return None
+        with open(path, "rb") as f:
+            return assets.texture_pyramid(f.read())
+
+    return assemble(draws, load)
+
+
 def from_inputs(inputs: dict) -> RefScene:
-    """The reference's scene from portbench.scenes.scene_inputs' result."""
-    if inputs["kind"] != "standin_porsche_class":
-        raise ValueError(f"unknown scene {inputs['kind']!r}")
-    return porsche_class(inputs["data_dir"], inputs["textures"])
+    """The reference's scene from portbench.scenes.scene_inputs' result, as
+    its recipe (portbench/recipes/<kind>.py) assembles it."""
+    return recipes.module(inputs["kind"]).reference_scene(inputs)

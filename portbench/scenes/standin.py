@@ -7,7 +7,8 @@ mip chains in stored Zstandard frames, under the reference's file names.
 The reference's own data is not in the repository; this stands in for it
 at BASELINE's sizes (BASELINE.md: 12 Porsche BC7-sRGB textures, 2048^2,
 full mips; the port's tools write the 10 of them its mount held). Only the files the porsche-class scene reads are
-written. ``small`` keeps the layout at the CPU tests' size.
+written (``write_standin``); the instanced dragons' recipe writes the dragon alone (``dragon_glb``). ``small``
+keeps the layout at the CPU tests' size.
 """
 
 from __future__ import annotations
@@ -172,36 +173,54 @@ def porsche_uris(scale: str) -> list[str]:
     return [f"textures/porche/standin_{i:02d}_bc7.ktx2" for i in range(len(SCALES[scale]["porsche"]))]
 
 
-def write_standin(out_dir, seed: int, scale: str = "full") -> bool:
-    """Write the porsche-class files for ``seed`` under ``out_dir``, unless
-    the directory already holds them (its marker names the same seed and
-    scale). Returns whether anything was written."""
+def write_marked(out_dir, want: dict, write) -> bool:
+    """Call ``write(root)`` to fill ``out_dir``, unless the directory's
+    marker already names ``want`` (the same generator, seed and scale); the
+    marker is written last. Returns whether anything was written."""
     root = pathlib.Path(out_dir)
     marker = root / MARKER
-    want = {"generator": GENERATOR, "seed": int(seed), "scale": scale}
     if marker.exists() and json.loads(marker.read_text()) == want:
         return False
     if marker.exists():
         marker.unlink()
-    cfg = SCALES[scale]
-
-    def put(rel: str, blob: bytes) -> None:
-        path = root / rel
-        path.parent.mkdir(parents=True, exist_ok=True)
-        path.write_bytes(blob)
-
-    put("meshes/stanford_dragon.glb", write_glb(*dragon_blob(cfg["bands"], cfg["segments"], cfg["splits"], seed),
-                                                image_uri=DRAGON_TEXTURE, generator=GENERATOR, name="stanford_dragon"))
-    put("meshes/crate.glb", write_glb(*crate_mesh(), image_uri=CRATE_TEXTURE, generator=GENERATOR, name="crate"))
-    put("meshes/arena.glb", write_glb(*arena_mesh(), image_uri=None, generator=GENERATOR, name="arena"))
-
-    def texture(i: int) -> bytes:
-        return bc7_ktx2(ldr_image(np.random.default_rng((seed, i)), cfg["porsche"][i], i))
-
-    # numpy releases the GIL in the encoders' array work.
-    with concurrent.futures.ThreadPoolExecutor(min(8, os.cpu_count() or 1)) as pool:
-        blobs = list(pool.map(texture, range(len(cfg["porsche"]))))
-    for uri, blob in zip(porsche_uris(scale), blobs):
-        put(uri, blob)
+    write(root)
     marker.write_text(json.dumps(want) + "\n")
     return True
+
+
+def put(root: pathlib.Path, rel: str, blob: bytes) -> None:
+    path = root / rel
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_bytes(blob)
+
+
+def dragon_glb(seed: int, scale: str) -> bytes:
+    """meshes/stanford_dragon.glb: the blob at ``scale``, naming the
+    dragon's texture."""
+    cfg = SCALES[scale]
+    return write_glb(*dragon_blob(cfg["bands"], cfg["segments"], cfg["splits"], seed),
+                     image_uri=DRAGON_TEXTURE, generator=GENERATOR, name="stanford_dragon")
+
+
+def write_standin(out_dir, seed: int, scale: str = "full") -> bool:
+    """Write the porsche-class files for ``seed`` under ``out_dir``, unless
+    the directory already holds them (its marker names the same seed and
+    scale). Returns whether anything was written."""
+    cfg = SCALES[scale]
+
+    def write(root: pathlib.Path) -> None:
+        put(root, "meshes/stanford_dragon.glb", dragon_glb(seed, scale))
+        put(root, "meshes/crate.glb", write_glb(*crate_mesh(), image_uri=CRATE_TEXTURE, generator=GENERATOR,
+                                                name="crate"))
+        put(root, "meshes/arena.glb", write_glb(*arena_mesh(), image_uri=None, generator=GENERATOR, name="arena"))
+
+        def texture(i: int) -> bytes:
+            return bc7_ktx2(ldr_image(np.random.default_rng((seed, i)), cfg["porsche"][i], i))
+
+        # numpy releases the GIL in the encoders' array work.
+        with concurrent.futures.ThreadPoolExecutor(min(8, os.cpu_count() or 1)) as pool:
+            blobs = list(pool.map(texture, range(len(cfg["porsche"]))))
+        for uri, blob in zip(porsche_uris(scale), blobs):
+            put(root, uri, blob)
+
+    return write_marked(out_dir, {"generator": GENERATOR, "seed": int(seed), "scale": scale}, write)

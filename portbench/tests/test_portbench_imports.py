@@ -5,11 +5,17 @@ imports nothing of the program."""
 
 from __future__ import annotations
 
+import ast
 import json
 import subprocess
 import sys
 
+import pytest
+
 from portbench import run
+
+#: The recipes and the reference: neither may import the program.
+PLAIN = sorted((run.BENCH / "recipes").glob("*.py")) + sorted((run.BENCH / "reference").glob("*.py"))
 
 RUN_TINY = r"""
 import json, sys
@@ -41,12 +47,26 @@ def test_a_run_loads_no_jax_and_reads_no_jax_package_file(tmp_path):
 
 
 def test_the_reference_imports_nothing_of_the_program():
-    code = ("import sys\nfor n in ('tpurast_torch', 'tpurast', 'jax'):\n    sys.modules[n] = None\n"
+    code = ("import sys, importlib\nfor n in ('tpurast_torch', 'tpurast', 'jax'):\n    sys.modules[n] = None\n"
             "import portbench.reference.render, portbench.reference.scene, portbench.reference.assets\n"
             "import portbench.check, portbench.yardstick, portbench.scenes\n"
+            f"for k in {[p.stem for p in PLAIN if p.parent.name == 'recipes' and p.stem != '__init__']!r}:\n"
+            "    importlib.import_module('portbench.recipes.' + k)\n"
             "print(sorted(n for n in sys.modules if n.split('.')[0] in ('tpurast_torch', 'tpurast', 'jax')))")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, cwd=run.ROOT, check=True)
     assert out.stdout.strip() == "['jax', 'tpurast', 'tpurast_torch']"  # only the blocked entries
+
+
+@pytest.mark.parametrize("path", PLAIN, ids=[f"{p.parent.name}/{p.name}" for p in PLAIN])
+def test_recipes_and_reference_name_no_program_module(path):
+    """Not even inside a function, where importing them above would not reach."""
+    names = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            names |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names.add(node.module.split(".")[0])
+    assert names and not names & {"tpurast_torch", "tpurast", "jax", "jaxlib", "flax"}
 
 
 def test_without_a_card_the_run_prints_nothing_and_fails():

@@ -14,6 +14,7 @@ NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
 LINE = re.compile(r"^[^\t\n\r]{1,200}$")
 SOURCES = {"device_trace", "program_span", "program_counter", "host_clock"}
+CELLS = [w["name"] for w in run.load_json(run.ROOT / "BENCHMARK.json")["workloads"]]
 
 
 def test_top_level_keys(manifest):
@@ -58,8 +59,7 @@ def _applies(metric: dict, cell: str) -> bool:
     return "workloads" not in metric or cell in metric["workloads"]
 
 
-@pytest.mark.parametrize("cell", ["porsche_class_1080p.viewer_orbit", "porsche_class_1080p.viewer_orbit_present",
-                                  "porsche_class_1080p.viewer_orbit_deferred"])
+@pytest.mark.parametrize("cell", CELLS)
 def test_cell_files_found_by_name(manifest, cell):
     entry, config, traffic = run.cell_files(manifest, cell)
     for key in ("scene", "width", "height", "renderer", "source", "reduced", "assumed"):
