@@ -74,7 +74,12 @@ eight generated 1024^2 BC4 textures with full mip chains), and then, at
      as a CUDA graph's replay, the same bits; the live pairs against the
      pair slots, the kernels a call, their ms and device ms beside their
      bound and the plain version's, and both as graphs (kept to the end of
-     the run);
+     the run); then with near-plane boxes (near=, faces cut by the eye
+     plane ranged by the box of their part the raster can cover): the
+     frame, its second slab and the scan binner, equal to the plain
+     version, cut_faces and huge_faces too; --bin-kernels adds the
+     instanced dragons (64 stand-in dragons, 1,237,248 faces) at 3840x2160
+     at cli's first flythrough pose;
   2. runs the microbenchmark probes at the tools' sizes against their
      plain versions, bit for bit: vmem_take (4096x16 f32 table, 2,073,600
      indices; then an odd row count, a count of indices that fills no whole
@@ -279,8 +284,8 @@ from tpurast_torch.camera import Camera, MoveDirection  # noqa: E402
 from tpurast_torch.config import RendererConfig  # noqa: E402
 from tpurast_torch import parallel, tracing  # noqa: E402
 from tpurast_torch.assets.gltf import load_glb  # noqa: E402
-from tpurast_torch.device.scene import (build_orbit_scene, build_scene, orbit_camera, orbit_track,  # noqa: E402
-                                       scene_bytes)
+from tpurast_torch.device.scene import (build_orbit_scene, build_scene, load_instanced_dragons,  # noqa: E402
+                                       orbit_camera, orbit_track, scene_bytes)
 from tpurast_torch.device.scene_cache import load_named_scene  # noqa: E402
 from tpurast_torch.device.textures import ROW_WIDTH, texels_tensor  # noqa: E402
 from tpurast_torch.engine import Engine  # noqa: E402
@@ -1084,24 +1089,29 @@ def bin_kernels(r: Renderer, cam, card: str, phase: str = "bin_kernels") -> dict
     whole frame's stats (the kernels line's fields)."""
     kw, sc = r._frame_kwargs, r.scene
     vp, _ = r.frame_uniforms(cam)
-    so = geometry.triangle_setup(geometry.transform_corners(sc["corner_world"], vp), None, sc["n_faces"],
-                                 kw["width"], kw["height"])
+    clip = geometry.transform_corners(sc["corner_world"], vp)
+    so = geometry.triangle_setup(clip, None, sc["n_faces"], kw["width"], kw["height"])
     aabb, valid = so["aabb"], so["valid"]
     tx, ty, tw, th = r.tiles_x, r.tiles_y, kw["tile_w"], kw["tile_h"]
     half = ty // 2
     with K.plain_kernels():
         frame = geometry.bin_pairs(aabb, valid, tx, ty, tw, th)
     n_frame, dropped = int(frame["offsets"][-1]), int(frame["overflow"])
-    cases = {"frame": (ty, 0, None), "slab 1 of 2": (half, 0, None), "slab 2 of 2": (ty - half, half, None),
-             "scan": (ty, 0, r.bin_capacity), "scan at half the pairs": (ty, 0, max(n_frame // 2, 1))}
+    near = (clip, kw["width"], kw["height"])
+    cases = {"frame": (ty, 0, None, None), "slab 1 of 2": (half, 0, None, None),
+             "slab 2 of 2": (ty - half, half, None, None), "scan": (ty, 0, r.bin_capacity, None),
+             "scan at half the pairs": (ty, 0, max(n_frame // 2, 1), None),
+             "frame, near-plane boxes": (ty, 0, None, near),
+             "slab 2 of 2, near-plane boxes": (ty - half, half, None, near),
+             "scan, near-plane boxes": (ty, 0, r.bin_capacity, near)}
     out = {}
-    for label, (rows, base, cap) in cases.items():
+    for label, (rows, base, cap, nr) in cases.items():
         grid = (aabb, valid, tx, rows, tw, th)
 
-        def binned(grid=grid, base=base, cap=cap):
+        def binned(grid=grid, base=base, cap=cap, nr=nr):
             if cap is None:
-                return geometry.bin_pairs(*grid, ty_base=base)
-            return geometry.bin_triangles(*grid, cap, ty_base=base)
+                return geometry.bin_pairs(*grid, ty_base=base, near=nr)
+            return geometry.bin_triangles(*grid, cap, ty_base=base, near=nr)
 
         before = K.LAUNCHES["bin"]
         got = binned()
@@ -1112,11 +1122,18 @@ def bin_kernels(r: Renderer, cam, card: str, phase: str = "bin_kernels") -> dict
         n = int(want["offsets"][-1])
         slots = want["pair_faces"].numel()
         same = bins_agree(got, want, cap is not None)
+        faces = ""
+        if nr is not None:
+            counts = [(int(x["cut_faces"]), int(x["huge_faces"])) for x in (got, want)]
+            same = same and counts[0] == counts[1]
+            faces = f", cut faces naming a tile {counts[1][0]}, huge faces {counts[1][1]}"
         print(f"{phase}: bin {label}: {n} live pairs of {slots} slots ({n / max(slots, 1):.4f}), overflow "
-              f"{int(want['overflow'])}, densest tile {int(want['counts'].max())}; equal to the plain version {same}; "
-              f"launches {launches} [{card}]")
+              f"{int(want['overflow'])}, densest tile {int(want['counts'].max())}{faces}; equal to the plain "
+              f"version {same}; launches {launches} [{card}]")
         check(same, f"{phase}: binning kernels ({label}) disagree with the plain version")
         check(launches == 1, f"{phase}: bin {label}: {launches} launches for one call")
+        if nr is not None:
+            continue
         if cap is not None and cap < n_frame:  # the huge faces' dropped pairs and those past the capacity
             check(int(got["overflow"]) == dropped + n_frame - cap,
                   f"{phase}: {label}: overflow {int(got['overflow'])}, want {dropped + n_frame - cap}")
@@ -1152,7 +1169,8 @@ def bin_kernels(r: Renderer, cam, card: str, phase: str = "bin_kernels") -> dict
 def bin_standin(seed: int, card: str) -> None:
     """bin_kernels on the porsche_class stand-in (tools.standin_data at full
     scale in a temporary directory) at 1920x1080: the viewer's start pose,
-    (0, 0, -2.5) looking at the origin, and cli's first flythrough pose."""
+    (0, 0, -2.5) looking at the origin, and cli's first flythrough pose;
+    then on its dragon instanced 64 times at 3840x2160 at that pose."""
     from tpurast_torch.tools import standin_data
 
     tmp = tempfile.mkdtemp(prefix="tpurast_torch_standin_")
@@ -1164,6 +1182,11 @@ def bin_standin(seed: int, card: str) -> None:
         viewer = Camera.from_target(np.array([0.0, 0.0, -2.5], np.float32), np.zeros(3, np.float32))
         for label, cam in (("viewer start pose", viewer), ("flythrough pose 0", cli.flythrough("porsche_class", 1)[0])):
             bin_kernels(r, cam, card, phase=f"bin_kernels porsche_class, {label}")
+        del r
+        scene = load_instanced_dragons(tmp, 64, 0.35)
+        r = Renderer(scene, RendererConfig(width=3840, height=2160))
+        print(f"bin_kernels dragons64 (stand-in): {scene.n_faces} faces, {r.tiles_x}x{r.tiles_y} tiles")
+        bin_kernels(r, cli.flythrough("dragons64", 1)[0], card, phase="bin_kernels dragons64, flythrough pose 0")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

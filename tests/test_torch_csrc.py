@@ -983,6 +983,80 @@ def test_bin_kernels(emu_bin, frame, case):
         assert n == cap and int(want["overflow"]) > 0
 
 
+# case: (tiles_y, ty_base, pair capacity (None: bin_pairs; "half": half the pairs))
+NEAR_CASES = {"frame": (8, 0, None), "slab": (3, 2, None), "scan": (8, 0, 16384), "scan_truncated": (8, 0, "half")}
+
+
+@pytest.mark.parametrize("case", list(NEAR_CASES))
+def test_bin_kernels_near_boxes(emu_bin, case):
+    """The binning kernels with near-plane boxes (tr_bin_near: face_kernel
+    reads a cut face's corners) against the plain binners with near= on
+    tests/test_torch_memsafety.py's near_faces (faces across the eye plane
+    through the setup, and crafted cut faces: behind the eye, on the eye
+    plane, NaN, infinite and out-of-range corners, overflowing projections):
+    offsets, counts, overflow, cut_faces and huge_faces exactly, the pairs
+    on the live prefix (bin_triangles' whole buffer); one launch a call."""
+    from test_torch_memsafety import near_faces
+
+    from tpurast_torch import kernels
+
+    aabb, valid, clip = near_faces()
+    ty, ty_base, cap = NEAR_CASES[case]
+    grid, near = (aabb, valid, 4, ty, 128, 32), (clip, 512, 256)
+    if cap == "half":
+        with kernels.plain_kernels():
+            cap = int(geometry.bin_pairs(*grid, near=near)["offsets"][-1]) // 2
+
+    def binned():
+        if cap is None:
+            return geometry.bin_pairs(*grid, ty_base=ty_base, near=near)
+        return geometry.bin_triangles(*grid, cap, ty_base=ty_base, near=near)
+
+    before = kernels.LAUNCHES["bin"]
+    got = binned()
+    assert kernels.LAUNCHES["bin"] == before + 1
+    with kernels.plain_kernels():
+        want = binned()
+    assert set(got) == set(want) and {"cut_faces", "huge_faces"} <= set(want)
+    for k in ("offsets", "counts", "overflow", "cut_faces", "huge_faces"):
+        assert torch.equal(got[k], want[k]), k
+    n = int(want["offsets"][-1])
+    if cap is None:
+        assert torch.equal(got["pair_faces"][:n], want["pair_faces"][:n])
+        assert torch.equal(got["pair_tiles"][:n], want["pair_tiles"][:n])
+    else:
+        assert torch.equal(got["pair_faces"], want["pair_faces"])
+    assert n > 0 and int(want["cut_faces"]) > 0 and int(want["huge_faces"]) > 0
+    assert (n == cap) == case.endswith("truncated")
+
+
+def test_trace_mark_kernel_carries_face_counts(emu):
+    """tr_trace_mark_faces: mark 6 copies the binner's cut and huge face
+    counts into the record beside bin_overflow and window_miss_px (0 where
+    a pointer is null); tr_trace_mark writes 0 for both."""
+    from tpurast_torch import tracing
+
+    slots, S = 4, tracing.SLOT
+    ring = torch.full(((slots + 1) * S,), -1, dtype=torch.int64)
+    seq = torch.zeros(1, dtype=torch.int64)
+    rec = torch.zeros((S,), dtype=torch.int64)
+    i32 = lambda v: torch.tensor(v, dtype=torch.int32)  # noqa: E731
+    counts = [i32(7), i32(3), i32(41), i32(65)]
+    for last_counts in (counts, [counts[0], counts[1], None, counts[3]]):
+        for i in (0, 1, 6):
+            c = last_counts if i == 6 else [None] * 4
+            assert emu.tr_trace_mark_faces(ring.data_ptr(), seq.data_ptr(), rec.data_ptr(), slots, i, int(i == 6),
+                                           *(None if t is None else t.data_ptr() for t in c), None) == 0
+    got = ring.view(slots + 1, S)
+    words = [tracing.OVERFLOW, tracing.MISS, tracing.CUT, tracing.HUGE, tracing.DONE]
+    assert got[1, words].tolist() == [7, 3, 41, 65, 1]
+    assert got[2, [tracing.CUT, tracing.HUGE, tracing.DONE]].tolist() == [0, 65, 2]
+    for i in (0, 6):
+        assert emu.tr_trace_mark(ring.data_ptr(), seq.data_ptr(), rec.data_ptr(), slots, i, int(i == 6),
+                                 counts[0].data_ptr(), None, None) == 0
+    assert got[3, [tracing.OVERFLOW, tracing.CUT, tracing.HUGE, tracing.DONE]].tolist() == [7, 0, 0, 3]
+
+
 def test_bin_kernels_refuse_mixed_devices():
     """A call with its tensors on two devices raises (kernels.use_kernel)
     before anything is binned or launched."""

@@ -46,7 +46,10 @@ and warp-synchronous code that leans on lockstep. The ASan shapes:
     than HUGE_BUDGET, some past the frame's edges): bin_pairs' contract on
     the frame and on a slab, bin_triangles' with half the pairs' room, and
     8,100 tiles, where the tile sort runs as two passes; the scratch from
-    tr_bin_scratch, exact-size;
+    tr_bin_scratch, exact-size; and with near-plane boxes (tr_bin_near) on
+    near_faces: faces across the eye plane through the setup, and crafted
+    cut faces wholly behind the eye, on the eye plane, with NaN and
+    infinite corners, the clip corners an exact-size tensor;
   * the port's Zstandard decoder (tpurast_torch/native/zstd.cpp, built
     into the ASan library beside the kernels) on frames made with the
     zstandard package at levels 3 and 19 and on 600 truncated and
@@ -127,6 +130,7 @@ CASES = (
     + ["shade_gather_off_grid", "shade_deferred_off_grid"]
     + [f"{k}_{t}_{s}" for t, s in LARGE_TILES for k in ("raster", "plan")]
     + ["bin_random_faces", "bin_random_faces_slab", "bin_scan_truncated", "bin_two_tile_passes"]
+    + ["bin_near_faces", "bin_near_faces_scan"]
 )
 ZSTD_SRC = pathlib.Path(__file__).resolve().parent.parent / "tpurast_torch" / "native" / "zstd.cpp"
 # The cases under ThreadSanitizer: each kernel once; the plan (with raster
@@ -138,7 +142,7 @@ ZSTD_SRC = pathlib.Path(__file__).resolve().parent.parent / "tpurast_torch" / "n
 # copies into shared memory behind a barrier.
 RACE_CASES = ["raster_grid", "resolve_grid", "sample_grid", "plan_24_windows", "vmem_take_odd_rows",
               "plane_scale_tile_grid", "raster_64x128_off_grid", "plan_64x128_off_grid", "shade_gather_off_grid",
-              "shade_deferred_off_grid", "bin_random_faces", "bin_random_faces_slab"]
+              "shade_deferred_off_grid", "bin_random_faces", "bin_random_faces_slab", "bin_near_faces"]
 PLANTED = "raster_output_one_tile_row_short"
 PLANTED_RACE = "planted_race"
 # A block whose threads read their neighbour's shared-memory word without
@@ -173,6 +177,66 @@ def bin_boxes(n, width, height, seed, huge_share, size=(1.0, 120.0), huge_size=(
     h = w * rng.uniform(0.3, 1.5, n)
     aabb = np.stack([x0, y0, x0 + w, y0 + h], axis=1).astype(np.float32)
     return torch.from_numpy(aabb), torch.from_numpy(rng.uniform(size=n) < 0.8)
+
+
+def near_faces(width: int = 512, height: int = 256, seed: int = 11):
+    """Faces for the binners' near-plane boxes (geometry.near_boxes): aabb
+    (F, 4), valid (F,) and clip (F, 3, 4). First 1,500 random faces through
+    the port's setup at width x height, seen from the origin along +Z (small
+    ones in front, huge ones, and across the eye plane, as in
+    tests/test_torch_geometry.py), then crafted faces, each valid with the whole screen for
+    its box whatever its corners: 200 random cut faces, a face wholly
+    behind the eye, faces on the eye plane (w = 0 at one, two and three
+    corners), a corner exactly on the plane w = NEAR_K * z, NaN and
+    infinite corners, a corner past NEAR_MAX, z of 0 and below, a z so
+    small that the projection overflows, |w| past NEAR_RATIO * z, and a
+    face in front whose box is the whole screen (not cut)."""
+    from tpurast_torch import math3d
+    from tpurast_torch.camera import Camera
+
+    rng = np.random.default_rng(seed)
+
+    def tris(n, lo, hi, size):
+        return rng.uniform(lo, hi, (n, 1, 3)) + rng.uniform(-size, size, (n, 3, 3))
+
+    corners = np.concatenate([tris(1000, [-3, -2, 1], [3, 2, 8], 0.4), tris(150, [-2, -1, 3], [2, 1, 6], 3.0),
+                              tris(350, [-2, -2, -0.5], [2, 2, 0.5], 1.5)]).astype(np.float32)
+    cam = Camera.from_target(np.zeros(3, np.float32), np.array([0.0, 0.0, 1.0], np.float32))
+    vp = (math3d.perspective_inverse_depth(np.radians(80.0), width / height, 0.01) @ cam.view_matrix())
+    clip = geometry.transform_corners(torch.from_numpy(corners), torch.from_numpy(vp.astype(np.float32)))
+    so = geometry.triangle_setup(clip, None, corners.shape[0], width, height)
+    z = np.float32(0.01)
+    on_plane = np.float32(z * np.float32(geometry.NEAR_K))
+    n = 200
+    rand = np.concatenate([rng.uniform(-2, 2, (n, 3, 2)), np.full((n, 3, 1), z), rng.uniform(-1, 1, (n, 3, 1))],
+                          axis=2)
+    inf, nan = np.float32(np.inf), np.float32(np.nan)
+
+    def face(ws, xs=(0.3, -0.2, 0.1), ys=(0.1, 0.4, -0.3), zs=(z, z, z)):
+        return [[x, y, zz, w] for x, y, zz, w in zip(xs, ys, zs, ws)]
+
+    crafted = [
+        face((-1.0, -2.0, -0.5)),  # wholly behind the eye
+        face((0.0, 0.5, 1.0)),  # on the eye plane at one corner
+        face((0.0, 0.0, 1.0)),  # at two
+        face((0.0, 0.0, 0.0)),  # at three
+        face((on_plane, -0.5, 0.7)),  # a corner on w = NEAR_K * z
+        face((nan, -0.5, 0.7)),
+        face((-0.5, 0.7, 0.2), xs=(nan, 0.1, 0.2)),
+        face((-inf, 0.5, 0.7)),
+        face((-0.5, 0.7, 0.2), ys=(inf, 0.1, 0.2)),
+        face((-0.5, 0.7, 0.2), xs=(3e19, 0.1, 0.2)),  # past NEAR_MAX
+        face((-0.5, 0.7, 0.2), zs=(0.0, z, z)),
+        face((-0.5, 0.7, 0.2), zs=(z, -z, z)),
+        face((-1e-31, 1e-31, 5e-32), xs=(1e19, 0.1, 0.2), zs=(1e-35, 1e-35, 1e-35)),  # projections past float's
+        face((-700.0, 500.0, 0.2)),  # |w| past NEAR_RATIO * z
+        face((0.5, 0.7, 0.2)),  # in front: not cut
+    ]
+    extra = np.concatenate([rand, np.array(crafted)]).astype(np.float32)
+    full = torch.tensor([[0.0, 0.0, float(width), float(height)]]).expand(extra.shape[0], 4)
+    aabb = torch.cat([so["aabb"], full]).contiguous()
+    valid = torch.cat([so["valid"], torch.ones(extra.shape[0], dtype=torch.bool)])
+    return aabb, valid, torch.cat([clip, torch.from_numpy(extra)]).contiguous()
 
 
 # The binning cases: (boxes: n, width, height, seed, huge share, small and large sizes), the grid (tiles_x,
@@ -531,6 +595,41 @@ class Cases:
         assert torch.equal(faces, want["pair_faces"]) if scan else torch.equal(faces[:n], want["pair_faces"][:n])
         assert scan or torch.equal(tiles[:n], want["pair_tiles"][:n])
 
+    def bin_near(self, scan: bool):
+        """tr_bin_near on near_faces at 512x256 in 32x128 tiles, every input
+        (the clip corners too), output and the scratch a tensor of exactly
+        its size, against the plain binner with near=: offsets, counts,
+        overflow and the face counts exactly, the pairs as in ``bin``."""
+        aabb, valid, clip = near_faces()
+        tx, ty, tw, th, f = 4, 8, 128, 32, aabb.shape[0]
+        grid, near = (aabb, valid, tx, ty, tw, th), (clip, 512, 256)
+        cap = int(geometry.bin_pairs(*grid, near=near)["offsets"][-1]) // 2 if scan else None
+        want = geometry.bin_triangles(*grid, cap, near=near) if scan else geometry.bin_pairs(*grid, near=near)
+        args = (f, tx, ty, tw, th, geometry.TILES_PER_FACE, geometry.HUGE_BUDGET, 0, int(not scan))
+        n_scratch = self.lib.tr_bin_scratch(*args)
+        slots = geometry.TILES_PER_FACE * f + min(geometry.HUGE_BUDGET, f) * tx * ty
+        aabb, valid, clip = exact(aabb), exact(valid), exact(clip)
+        out = dict(pair_faces=torch.empty((cap if scan else slots,), dtype=torch.int32),
+                   offsets=torch.empty((tx * ty + 1,), dtype=torch.int32),
+                   counts=torch.empty((tx * ty,), dtype=torch.int32), overflow=torch.empty((), dtype=torch.int32),
+                   faces=torch.empty((2,), dtype=torch.int32))
+        tiles = None if scan else torch.empty((slots,), dtype=torch.int32)
+        scratch = torch.empty((n_scratch,), dtype=torch.int32)
+        err = self.lib.tr_bin_near(aabb.data_ptr(), valid.data_ptr(), clip.data_ptr(), 512, 256, *args,
+                                   out["pair_faces"].numel(), out["pair_faces"].data_ptr(),
+                                   None if tiles is None else tiles.data_ptr(), out["offsets"].data_ptr(),
+                                   out["counts"].data_ptr(), out["overflow"].data_ptr(), out["faces"].data_ptr(),
+                                   scratch.data_ptr(), n_scratch, None)
+        assert err == 0
+        n = int(want["offsets"][-1])
+        assert n > 500 and int(want["cut_faces"]) > 20
+        for k in ("offsets", "counts", "overflow"):
+            assert torch.equal(out[k], want[k]), k
+        assert out["faces"].tolist() == [int(want["cut_faces"]), int(want["huge_faces"])]
+        got = out["pair_faces"] if scan else out["pair_faces"][:n]
+        assert torch.equal(got, want["pair_faces"] if scan else want["pair_faces"][:n])
+        assert scan or torch.equal(tiles[:n], want["pair_tiles"][:n])
+
     def plan_24_windows(self):
         plan = self.check_plan(texture_grid_gbuf(24, 6), dict(tiles_x=1, tiles_y=1, tile_h=32, tile_w=128))
         assert int(plan["cls"][0]) == sampler.CLS_WINDOWED and int(plan["n_used"][0]) >= 24
@@ -625,6 +724,8 @@ class Cases:
             "shade_gather_off_grid": lambda: self.shade("gather", "off_grid"),
             "shade_deferred_off_grid": lambda: self.shade("deferred", "off_grid"),
             **{f"bin_{k}": functools.partial(self.bin, k) for k in BIN_CASES},
+            "bin_near_faces": lambda: self.bin_near(False),
+            "bin_near_faces_scan": lambda: self.bin_near(True),
             PLANTED: self.planted,
             PLANTED_RACE: self.planted_race,
         }

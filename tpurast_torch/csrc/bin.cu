@@ -6,7 +6,9 @@
 // huge_budget faces), keys each with 64 bits and sorts them all.
 //
 // The contract: every valid face whose tile range meets the grid names the
-// tiles of its range, row by row; a face of more than tiles_per_face tiles
+// tiles of its range, row by row (a face cut by the eye plane: the range of
+// its near-plane box, near_box, where the caller gives the clip-space
+// corners; geometry.py near_boxes); a face of more than tiles_per_face tiles
 // (a huge face) names them only if it is among the first huge_budget huge
 // faces in draw order, and the tiles of the others are counted as dropped.
 // The pairs are listed by (tile, 8-row y-bucket of the face's top, face)
@@ -30,14 +32,17 @@
 // pair buffer's slots), the live counts read on the device:
 //
 //   face_kernel     a thread a face: its tile range and y-bucket, once, into
-//                   a 16-byte record; each 32 faces' count of huge faces (a
-//                   huge face's draw-order rank is the count before it);
-//                   zeroes the words the later passes count into;
-//   hist_kernel     each block's pairs per y-bucket;
+//                   a 16-byte record (a cut face's corners read here, and
+//                   only a cut face's); each 32 faces' count of huge faces
+//                   (a huge face's draw-order rank is the count before it)
+//                   and of cut faces that name a tile; zeroes the words the
+//                   later passes count into;
+//   hist_kernel     each block's pairs per y-bucket; the frame's huge and
+//                   cut faces;
 //   expand_kernel   each face's pairs, written at their place in (y-bucket,
 //                   face) order and counted per (block of pairs, tile);
 //   scatter_kernel  each pair to its place in its tile; its first block
-//                   writes offsets, counts and overflow.
+//                   writes offsets, counts, overflow and the face counts.
 //
 // Past kTileDigits tiles the tile pass runs as two stable passes, on the
 // low kTileBits bits of the tile and then on the rest (five launches).
@@ -57,11 +62,11 @@
 // place depends on the order in which threads run, so the lists are the
 // same bits on every run, and a CUDA graph's replay equals the eager call.
 //
-// The face arithmetic is the plain version's (geometry.py _tile_ranges and
-// bin_pairs), one rounding per operation: true divisions by the tile size,
-// floor, the clamps in float before the conversion to int, which a face
-// reaches only once it is valid and its range meets the grid (a NaN or an
-// infinite box converts to nothing).
+// The face arithmetic is the plain version's (geometry.py near_boxes,
+// _tile_ranges and bin_pairs), one rounding per operation: true divisions by
+// the tile size, floor, the clamps in float before the conversion to int,
+// which a face reaches only once it is valid and its range meets the grid (a
+// NaN or an infinite box converts to nothing).
 
 #include <algorithm>
 #include <climits>
@@ -83,11 +88,24 @@ constexpr int kSums = 8192;                     // ints of a block's per-warp co
 constexpr int kLaneMax = 16;                    // a face of more pairs is written by its whole warp
 constexpr int kBatch = 8;                       // loads a thread has in flight
 
-// Words of the scratch's head: the dropped pairs and the live pairs.
-enum { kDropped, kPairs, kHead = 4 };
+// Words of the scratch's head: the dropped pairs, the live pairs, the cut
+// faces that name a tile and the huge faces.
+enum { kDropped, kPairs, kCut, kHuge, kHead = 4 };
+
+// Near-plane boxes: geometry.py EYE_EPS, NEAR_K, NEAR_RATIO, NEAR_MAX,
+// NEAR_CLAMP, NEAR_SLOPE, NEAR_PAD.
+constexpr float kEyeEps = 1e-20f;
+constexpr float kNearK = 0.875f;
+constexpr float kNearRatio = 65536.0f;
+constexpr float kNearMax = 18446744073709551616.0f;  // 2^64
+constexpr float kNearClamp = 1073741824.0f;          // 2^30
+constexpr float kNearSlope = 0.00390625f;            // 2^-8
+constexpr float kNearPad = 2.0f;
 
 struct Grid {
   int n_faces, tiles_x, tiles_y, tile_w, tile_h, tiles_per_face, huge_budget, ty_base, ydigits, face_block;
+  const float* clip;    // (F, 3, 4) clip-space corners, or null: no near-plane boxes
+  float width, height;  // the frame's, as the setup's whole-screen box holds them
 };
 
 // The items a block owns, of n, as a power of two: kMinBlockItems, doubled
@@ -98,12 +116,68 @@ __host__ __device__ int block_bits(long long n) {
   return bits;
 }
 
+// The box of a cut face's part on the near side of w = kNearK * z (c: its
+// three corners x, y, z, w), into box[4] (geometry.py near_boxes): the
+// corners kept and the crossings of the edges, each projected as the setup
+// projects a corner, the bounds clamped and widened. Returns false where
+// that part is empty (the face names no tile); leaves box as it is (the
+// whole screen) where the corners are not tame or a point is not in front.
+__device__ bool near_box(const float* c, float half_w, float half_h, float* box) {
+  float zmin = c[2], wmax = 0.0f;
+  bool tame = true;
+  for (int i = 0; i < 12; ++i) tame = tame && fabsf(c[i]) <= kNearMax;
+  for (int i = 0; i < 3; ++i) {
+    zmin = fminf(zmin, c[4 * i + 2]);
+    wmax = fmaxf(wmax, fabsf(c[4 * i + 3]));
+  }
+  if (!tame || !(zmin > 0.0f) || !(wmax <= zmin * kNearRatio)) return true;
+  float d[3];
+  for (int i = 0; i < 3; ++i) d[i] = c[4 * i + 3] - c[4 * i + 2] * kNearK;
+  float lo_x = INFINITY, lo_y = INFINITY, hi_x = -INFINITY, hi_y = -INFINITY;
+  bool any = false;
+  for (int k = 0; k < 6; ++k) {  // corner i, then the crossing of edge i (corner i to i + 1)
+    const int i = k % 3, j = (i + 1) % 3;
+    const bool crossing = k >= 3;
+    if (crossing ? (d[i] >= 0.0f) == (d[j] >= 0.0f) : !(d[i] >= 0.0f)) continue;
+    float x = c[4 * i], y = c[4 * i + 1], w = c[4 * i + 3];
+    if (crossing) {
+      const float t = d[i] / (d[i] - d[j]);
+      x = x + t * (c[4 * j] - x);
+      y = y + t * (c[4 * j + 1] - y);
+      w = w + t * (c[4 * j + 3] - w);
+    }
+    if (!(w > 0.0f)) return true;
+    const float sx = fminf(fmaxf((x + w) * half_w / w, -kNearClamp), kNearClamp);
+    const float sy = fminf(fmaxf((w - y) * half_h / w, -kNearClamp), kNearClamp);
+    lo_x = sx < lo_x ? sx : lo_x;
+    lo_y = sy < lo_y ? sy : lo_y;
+    hi_x = sx > hi_x ? sx : hi_x;
+    hi_y = sy > hi_y ? sy : hi_y;
+    any = true;
+  }
+  if (!any) return false;
+  box[0] = lo_x - fabsf(lo_x) * kNearSlope - kNearPad;
+  box[1] = lo_y - fabsf(lo_y) * kNearSlope - kNearPad;
+  box[2] = hi_x + fabsf(hi_x) * kNearSlope + kNearPad;
+  box[3] = hi_y + fabsf(hi_y) * kNearSlope + kNearPad;
+  return true;
+}
+
 // A face's record (face_kernel): x its first tile, y its range's width in
-// tiles, z its tile count (0: no tile), w its y-bucket.
-__device__ int4 record_of(const float* aabb, const unsigned char* valid, int f, const Grid& g) {
+// tiles, z its tile count (0: no tile), w its y-bucket. *cut: the face is
+// valid, its setup box the whole screen and a corner at w <= kEyeEps (read
+// only where the box is the whole screen).
+__device__ int4 record_of(const float* aabb, const unsigned char* valid, int f, const Grid& g, bool* cut) {
   const int4 none{0, 1, 0, 0};
+  *cut = false;
   if (f >= g.n_faces || !valid[f]) return none;
-  const float* b = aabb + 4LL * f;
+  const float* a = aabb + 4LL * f;
+  float b[4] = {a[0], a[1], a[2], a[3]};
+  if (g.clip != nullptr && b[0] == 0.0f && b[1] == 0.0f && b[2] == g.width && b[3] == g.height) {
+    const float* c = g.clip + 12LL * f;
+    *cut = !(c[3] > kEyeEps && c[7] > kEyeEps && c[11] > kEyeEps);
+    if (*cut && !near_box(c, g.width * 0.5f, g.height * 0.5f, b)) return none;
+  }
   const float tw = (float)g.tile_w, th = (float)g.tile_h, base = (float)g.ty_base;
   const float bx0 = floorf(b[0] / tw), by0 = floorf(b[1] / th) - base;
   const float bx1 = floorf(b[2] / tw), by1 = floorf(b[3] / th) - base;
@@ -282,29 +356,40 @@ __device__ void huge_before(const int* group_huge, int groups, int rounds, int* 
 
 // The contract's offsets (first[t]: the first pair of tile t, clamped to
 // the pair buffer's capacity), counts and overflow (dropped pairs plus those
-// past the capacity).
+// past the capacity), and where asked the face counts (cut, huge).
 struct Out {
-  int *offsets, *counts, *overflow;
+  int *offsets, *counts, *overflow, *faces;
   int capacity;
 };
 
-__device__ void write_offsets(const int* first, int tiles, int pairs, int dropped, const Out& out) {
+__device__ void write_offsets(const int* first, int tiles, int pairs, const int* head, const Out& out) {
   for (int t = threadIdx.x; t <= tiles; t += blockDim.x) {
     const int a = min(t < tiles ? first[t] : pairs, out.capacity);
     out.offsets[t] = a;
     if (t < tiles) out.counts[t] = min(t + 1 < tiles ? first[t + 1] : pairs, out.capacity) - a;
   }
-  if (threadIdx.x == 0) *out.overflow = (int)((unsigned)dropped + (unsigned)max(pairs - out.capacity, 0));
+  if (threadIdx.x == 0) {
+    *out.overflow = (int)((unsigned)head[kDropped] + (unsigned)max(pairs - out.capacity, 0));
+    if (out.faces != nullptr) {
+      out.faces[0] = head[kCut];
+      out.faces[1] = head[kHuge];
+    }
+  }
 }
 
 __global__ void __launch_bounds__(kFaceThreads) face_kernel(const float* aabb, const unsigned char* valid, Grid g,
-                                                            int4* rec, int* group_huge, int* zero, long long n_zero,
-                                                            int* zero_out, long long n_zero_out) {
+                                                            int4* rec, int* group_huge, int* group_cut, int* zero,
+                                                            long long n_zero, int* zero_out, long long n_zero_out) {
   const int f = blockIdx.x * kFaceThreads + threadIdx.x;
-  const int4 r = record_of(aabb, valid, f, g);
+  bool cut;
+  const int4 r = record_of(aabb, valid, f, g, &cut);
   rec[f] = r;
   const unsigned huge = warp_ballot(r.z > g.tiles_per_face);
-  if ((threadIdx.x & 31) == 0) group_huge[f / kGroup] = __popc(huge);
+  const unsigned named_cut = warp_ballot(cut && r.z > 0);
+  if ((threadIdx.x & 31) == 0) {
+    group_huge[f / kGroup] = __popc(huge);
+    group_cut[f / kGroup] = __popc(named_cut);
+  }
   const long long stride = (long long)gridDim.x * kFaceThreads;
   for (long long i = f; i < n_zero; i += stride) zero[i] = 0;
   for (long long i = f; i < n_zero_out; i += stride) zero_out[i] = 0;
@@ -316,8 +401,8 @@ __device__ int pairs_of(const int4& r, bool huge, int rank, const Grid& g) {
   return !huge || rank < g.huge_budget ? r.z : 0;
 }
 
-__global__ void __launch_bounds__(kBig) hist_kernel(const int4* rec, Grid g, const int* group_huge, int* ysum,
-                                                    int* head) {
+__global__ void __launch_bounds__(kBig) hist_kernel(const int4* rec, Grid g, const int* group_huge,
+                                                    const int* group_cut, int* ysum, int* head) {
   __shared__ int hist[kYDigits];
   __shared__ int base[32], part[32];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, groups = g.face_block / kGroup;
@@ -341,6 +426,11 @@ __global__ void __launch_bounds__(kBig) hist_kernel(const int4* rec, Grid g, con
   }
   dropped = (unsigned)warp_add_i((int)dropped);
   if (lane == 0 && dropped != 0) atomicAdd(&head[kDropped], (int)dropped);
+  int cuts = 0;  // of the warp's groups
+  for (int r = lane; r < rounds; r += 32) cuts += group_cut[f0 / kGroup + r];
+  cuts = warp_add_i(cuts);
+  if (lane == 0 && cuts != 0) atomicAdd(&head[kCut], cuts);
+  if (lane == 0 && rank != base[warp]) atomicAdd(&head[kHuge], rank - base[warp]);
   __syncthreads();
   for (int d = threadIdx.x; d < g.ydigits; d += blockDim.x) ysum[blockIdx.x * g.ydigits + d] = hist[d];
 }
@@ -525,7 +615,7 @@ __global__ void __launch_bounds__(kBig) scatter_kernel(const int* in_tiles, cons
     } else {
       block_scan(tile_total, tiles);
     }
-    write_offsets(totals, tiles, pairs, head[kDropped], out);
+    write_offsets(totals, tiles, pairs, head, out);
     __syncthreads();
   }
   // The blocks walk the pair blocks (the same in every thread of a block);
@@ -543,14 +633,14 @@ __global__ void __launch_bounds__(kBig) scatter_kernel(const int* in_tiles, cons
 int warps_for(int digits, int room) { return digits <= room / 32 ? 32 : digits <= room / 16 ? 16 : 8; }
 
 // The scratch's parts, in ints: the faces' records (first, on the 16-byte
-// grid), the groups' huge counts, the y-bucket sums, the head, the tile
+// grid), the groups' huge and cut counts, the y-bucket sums, the head, the tile
 // counts of the first and second tile pass and the per-tile totals (zeroed
 // each call, one run from the head on), and two pair buffers of the pair
 // slots each.
 struct Layout {
   Grid g;
-  long long slots, records, group_huge, ysum, head, hist, hist2, tile_total, a_tiles, a_faces, b_tiles, b_faces,
-      total;
+  long long slots, records, group_huge, group_cut, ysum, head, hist, hist2, tile_total, a_tiles, a_faces, b_tiles,
+      b_faces, total;
   int face_blocks, digits, digits2;
   bool two_pass;
 };
@@ -565,7 +655,8 @@ Layout layout(int n_faces, int tiles_x, int tiles_y, int tile_w, int tile_h, int
   const long long rows_end = ((long long)tiles_y + ty_base) * tile_h;
   const int ydigits = by_y ? (int)std::max(1LL, std::min((long long)kYDigits, (rows_end + 7) / 8)) : 1;
   const int face_block = 1 << block_bits(n_faces);
-  l.g = Grid{n_faces, tiles_x, tiles_y, tile_w, tile_h, tiles_per_face, budget, ty_base, ydigits, face_block};
+  l.g = Grid{n_faces, tiles_x, tiles_y, tile_w, tile_h, tiles_per_face, budget, ty_base, ydigits, face_block,
+             nullptr, 0.0f, 0.0f};
   l.slots = (long long)tiles_per_face * n_faces + budget * tiles;
   l.face_blocks = (int)std::max(1LL, ((long long)n_faces + face_block - 1) / face_block);
   l.two_pass = tiles > kTileDigits;
@@ -574,6 +665,7 @@ Layout layout(int n_faces, int tiles_x, int tiles_y, int tile_w, int tile_h, int
   long long at = 0;
   l.records = at, at += 4LL * l.face_blocks * face_block;
   l.group_huge = at, at += (long long)l.face_blocks * (face_block / kGroup);
+  l.group_cut = at, at += (long long)l.face_blocks * (face_block / kGroup);
   l.ysum = at, at += (long long)ydigits * l.face_blocks;
   l.head = at, at += kHead;
   l.hist = at, at += (long long)l.digits * kMaxBlocks;
@@ -605,36 +697,43 @@ extern "C" long long tr_bin_scratch(int n_faces, int tiles_x, int tiles_y, int t
 }
 
 // Bins n_faces faces (aabb (F, 4) f32, valid (F,) bool) into the tiles_x x
-// tiles_y grid of a slab whose first tile row is ty_base. by_y: order each
-// tile's faces by y-bucket, then face (bin_pairs), else by face
-// (bin_triangles). pair_faces holds `capacity` entries; pair_tiles (the
-// pair slots, as pair_faces) or null: then pair_faces past the binned
-// pairs hold 0 and offsets are clamped to the capacity (bin_triangles'
-// contract). offsets (T+1,), counts (T,), overflow (one int). scratch:
-// tr_bin_scratch ints, on the 16-byte grid.
-extern "C" int tr_bin(const float* aabb, const unsigned char* valid, int n_faces, int tiles_x, int tiles_y,
-                      int tile_w, int tile_h, int tiles_per_face, int huge_budget, int ty_base, int by_y,
-                      int capacity, int* pair_faces, int* pair_tiles, int* offsets, int* counts, int* overflow,
-                      int* scratch, long long scratch_ints, void* stream) {
-  const Layout l = layout(n_faces, tiles_x, tiles_y, tile_w, tile_h, tiles_per_face, huge_budget, ty_base, by_y);
+// tiles_y grid of a slab whose first tile row is ty_base. clip: the faces'
+// clip-space corners (F, 3, 4) f32 and the frame's width and height, so
+// that a face cut by the eye plane is ranged by its near-plane box, or null
+// for none. by_y: order each tile's faces by y-bucket, then face
+// (bin_pairs), else by face (bin_triangles). pair_faces holds `capacity`
+// entries; pair_tiles (the pair slots, as pair_faces) or null: then
+// pair_faces past the binned pairs hold 0 and offsets are clamped to the
+// capacity (bin_triangles' contract). offsets (T+1,), counts (T,), overflow
+// (one int), faces (two ints: the cut faces that name a tile, the huge
+// faces) or null. scratch: tr_bin_scratch ints, on the 16-byte grid.
+extern "C" int tr_bin_near(const float* aabb, const unsigned char* valid, const float* clip, int width, int height,
+                           int n_faces, int tiles_x, int tiles_y, int tile_w, int tile_h, int tiles_per_face,
+                           int huge_budget, int ty_base, int by_y, int capacity, int* pair_faces, int* pair_tiles,
+                           int* offsets, int* counts, int* overflow, int* faces, int* scratch, long long scratch_ints,
+                           void* stream) {
+  Layout l = layout(n_faces, tiles_x, tiles_y, tile_w, tile_h, tiles_per_face, huge_budget, ty_base, by_y);
   if (!shapes_ok(l) || scratch_ints < l.total || capacity < 0 || (uintptr_t)scratch % 16 != 0) {
     return (int)cudaErrorInvalidValue;
   }
+  l.g.clip = clip;
+  l.g.width = (float)width;
+  l.g.height = (float)height;
   const int tiles = tiles_x * tiles_y;
   int* s = scratch;
   int* head = s + l.head;
   int4* rec = reinterpret_cast<int4*>(s + l.records);
-  const Out out{offsets, counts, overflow, capacity};
-  const Out none{nullptr, nullptr, nullptr, capacity};
+  const Out out{offsets, counts, overflow, faces, capacity};
+  const Out none{nullptr, nullptr, nullptr, nullptr, capacity};
   const int all = INT_MAX;
   // The live pairs' blocks: at most kMaxBlocks, and at most one a
   // kMinBlockItems of the pair slots.
   const int scatter_blocks =
       (int)std::max(1LL, std::min((long long)kMaxBlocks, (l.slots + kMinBlockItems - 1) / kMinBlockItems));
   TR_LAUNCH(face_kernel, l.face_blocks * (l.g.face_block / kFaceThreads), kFaceThreads, stream, aabb, valid, l.g, rec,
-            s + l.group_huge, head, l.a_tiles - l.head, pair_tiles == nullptr ? pair_faces : nullptr,
+            s + l.group_huge, s + l.group_cut, head, l.a_tiles - l.head, pair_tiles == nullptr ? pair_faces : nullptr,
             pair_tiles == nullptr ? (long long)capacity : 0LL);
-  TR_LAUNCH(hist_kernel, l.face_blocks, kBig, stream, rec, l.g, s + l.group_huge, s + l.ysum, head);
+  TR_LAUNCH(hist_kernel, l.face_blocks, kBig, stream, rec, l.g, s + l.group_huge, s + l.group_cut, s + l.ysum, head);
   const Pairs a{s + l.a_tiles, s + l.a_faces, s + l.hist, 0, l.two_pass ? kTileDigits - 1 : all, l.digits, 0};
   TR_LAUNCH(expand_kernel, l.face_blocks, 32 * warps_for(l.g.ydigits, kSums), stream, rec, l.g, s + l.group_huge,
             s + l.ysum, a, l.two_pass ? s + l.tile_total : nullptr, head);
@@ -651,4 +750,14 @@ extern "C" int tr_bin(const float* aabb, const unsigned char* valid, int n_faces
               tiles, head, out);
   }
   return (int)cudaGetLastError();
+}
+
+// tr_bin_near without near-plane boxes or face counts.
+extern "C" int tr_bin(const float* aabb, const unsigned char* valid, int n_faces, int tiles_x, int tiles_y,
+                      int tile_w, int tile_h, int tiles_per_face, int huge_budget, int ty_base, int by_y,
+                      int capacity, int* pair_faces, int* pair_tiles, int* offsets, int* counts, int* overflow,
+                      int* scratch, long long scratch_ints, void* stream) {
+  return tr_bin_near(aabb, valid, nullptr, 0, 0, n_faces, tiles_x, tiles_y, tile_w, tile_h, tiles_per_face,
+                     huge_budget, ty_base, by_y, capacity, pair_faces, pair_tiles, offsets, counts, overflow, nullptr,
+                     scratch, scratch_ints, stream);
 }

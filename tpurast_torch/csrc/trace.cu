@@ -6,7 +6,8 @@
 // A frame's record is kSlot int64 words:
 //   0 sequence number, 1..7 the times of marks 0..6 (%globaltimer, ns),
 //   8 bin_overflow, 9 window_miss_px, 10 the sequence number again once the
-//   record is whole.
+//   record is whole, 11 the cut faces that name a tile and 12 the huge
+//   faces (the binner's face counts).
 // While the frame is in flight its record is `frame`, kSlot words of device
 // memory. Marks 0, 1 and 6 are this file's one-thread kernel, a node of the
 // graph of their own. Marks 2 to 5 fall where a hand-written kernel starts
@@ -14,7 +15,7 @@
 // stamps them itself (common.cuh stamp_start, stamp_end), so they add no
 // node. Mark 0 advances the sequence counter *seq, starts the record and
 // zeroes the words the kernels raise to their end; mark 6 copies the
-// record, with the frame's two counters, into its slot seq % slots of
+// record, with the frame's four counters, into its slot seq % slots of
 // `ring`, `slots` + 1 records of host memory mapped into the device, then,
 // after a system-wide fence, writes word 10: a host that reads word 10
 // equal to word 0 reads a whole record, without a copy or a synchronize.
@@ -30,10 +31,10 @@ namespace {
 
 constexpr int kSlot = 16;
 constexpr int kMarks = 7;
-constexpr int kOverflow = 8, kMiss = 9, kDone = 10;
+constexpr int kOverflow = 8, kMiss = 9, kDone = 10, kCut = 11, kHuge = 12;
 
 __global__ void mark_kernel(volatile long long* ring, long long* seq, long long* frame, int slots, int mark, int last,
-                            const int* overflow, const int* miss) {
+                            const int* overflow, const int* miss, const int* cut, const int* huge) {
   const long long t = global_ns();
   if (mark < 0) {
     ring[(long long)slots * kSlot] = t;
@@ -53,6 +54,8 @@ __global__ void mark_kernel(volatile long long* ring, long long* seq, long long*
     for (int i = 1; i <= kMarks; ++i) rec[i] = frame[i];
     rec[kOverflow] = overflow ? *overflow : 0;
     rec[kMiss] = miss ? *miss : 0;
+    rec[kCut] = cut ? *cut : 0;
+    rec[kHuge] = huge ? *huge : 0;
     __threadfence_system();
     rec[kDone] = s;
   }
@@ -60,10 +63,19 @@ __global__ void mark_kernel(volatile long long* ring, long long* seq, long long*
 
 }  // namespace
 
+// cut, huge: the binner's face counts (geometry.py bin_pairs cut_faces,
+// huge_faces), or null for 0.
+extern "C" int tr_trace_mark_faces(long long* ring, long long* seq, long long* frame, int slots, int mark, int last,
+                                   const int* overflow, const int* miss, const int* cut, const int* huge,
+                                   void* stream) {
+  TR_LAUNCH(mark_kernel, 1, 1, stream, ring, seq, frame, slots, mark, last, overflow, miss, cut, huge);
+  return (int)cudaGetLastError();
+}
+
+// tr_trace_mark_faces without face counts.
 extern "C" int tr_trace_mark(long long* ring, long long* seq, long long* frame, int slots, int mark, int last,
                              const int* overflow, const int* miss, void* stream) {
-  TR_LAUNCH(mark_kernel, 1, 1, stream, ring, seq, frame, slots, mark, last, overflow, miss);
-  return (int)cudaGetLastError();
+  return tr_trace_mark_faces(ring, seq, frame, slots, mark, last, overflow, miss, nullptr, nullptr, stream);
 }
 
 // Host memory the card writes and the host reads without a copy: pinned,

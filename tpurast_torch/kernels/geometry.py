@@ -46,6 +46,22 @@ YB = 1024
 FACE_BITS = 31
 TILE_KEY_BITS = 63 - FACE_BITS
 
+# Near-plane boxes (near_boxes, csrc/bin.cu near_box). A face with a corner
+# at w <= EYE_EPS (triangle_setup's test) is cut by the eye plane; the raster
+# covers only its part where depth = z / w <= 1, so its tiles are those of the
+# part on the near side of the plane w = NEAR_K * z, a little nearer the eye
+# than depth 1, projected, clamped to +-NEAR_CLAMP px and widened by
+# NEAR_SLOPE of each bound plus NEAR_PAD px. A face whose corners pass
+# NEAR_MAX, or whose |w| passes NEAR_RATIO times its least z (where the
+# raster's depth could round across the slack), keeps the full screen.
+EYE_EPS = 1e-20
+NEAR_K = 0.875
+NEAR_RATIO = 65536.0
+NEAR_MAX = 2.0**64
+NEAR_CLAMP = 2.0**30
+NEAR_SLOPE = 2.0**-8
+NEAR_PAD = 2.0
+
 
 def _div(a: torch.Tensor, b: float) -> torch.Tensor:
     return a / torch.full_like(a, b)
@@ -166,6 +182,49 @@ def _tile_ranges(aabb, valid, tiles_x, tiles_y, tile_w, tile_h, ty_base=0):
     return tx0, ty0, tx1, ty1, valid & intersects
 
 
+def near_boxes(aabb, valid, clip, width: int, height: int):
+    """The boxes the binners range faces by, with faces cut by the eye plane
+    tightened (csrc/bin.cu near_box; constants above). A valid face whose
+    setup box is the whole screen (0, 0, width, height) and which has a
+    corner at w <= EYE_EPS is cut: it is ranged by the box of its part on the
+    near side of w = NEAR_K * z (the corners kept and the crossings of its
+    edges, each projected as triangle_setup projects a corner), and names no
+    tile where that part is empty. clip: the (F, 3, 4) clip-space corners of
+    the setup. Returns (aabb (F, 4), valid (F,), cut (F,) bool). Elementwise
+    over every face, so that nothing is read back."""
+    x, y, z, w = clip.unbind(-1)
+    full = (aabb[:, 0] == 0.0) & (aabb[:, 1] == 0.0) & (aabb[:, 2] == float(width)) & (aabb[:, 3] == float(height))
+    cut = valid & full & ~(w > EYE_EPS).all(dim=-1)
+    zmin = z.amin(dim=-1)
+    tame = (clip.abs() <= NEAR_MAX).flatten(1).all(dim=-1) & (zmin > 0.0)
+    tame = tame & (w.abs().amax(dim=-1) <= zmin * NEAR_RATIO)
+    d = w - z * NEAR_K
+    keep = d >= 0.0
+
+    def nxt(v):  # corner i + 1 beside corner i: edge i runs from one to the other
+        return torch.roll(v, -1, dims=1)
+
+    cross = keep != nxt(keep)
+    t = d / torch.where(cross, d - nxt(d), torch.ones_like(d))
+
+    def on_edge(v):
+        return v + t * (nxt(v) - v)
+
+    px, py, pw = (torch.cat([v, on_edge(v)], dim=1) for v in (x, y, w))
+    point = torch.cat([keep, cross], dim=1)
+    bad = (point & ~(pw > 0.0)).any(dim=-1)
+    pw_safe = torch.where(point & (pw > 0.0), pw, torch.ones_like(pw))
+    sx = torch.clamp((px + pw) * (width * 0.5) / pw_safe, -NEAR_CLAMP, NEAR_CLAMP)
+    sy = torch.clamp((pw - py) * (height * 0.5) / pw_safe, -NEAR_CLAMP, NEAR_CLAMP)
+    inf = torch.full_like(sx, float("inf"))
+    lo = torch.stack([torch.where(point, s, inf).amin(dim=-1) for s in (sx, sy)], dim=-1)
+    hi = torch.stack([torch.where(point, s, -inf).amax(dim=-1) for s in (sx, sy)], dim=-1)
+    box = torch.cat([lo - lo.abs() * NEAR_SLOPE - NEAR_PAD, hi + hi.abs() * NEAR_SLOPE + NEAR_PAD], dim=-1)
+    tight = cut & tame & ~bad
+    has = point.any(dim=-1)
+    return torch.where((tight & has)[:, None], box, aabb), valid & ~(tight & ~has), cut
+
+
 def _check_fields(f: int, t: int) -> None:
     if f > 1 << FACE_BITS or t * YB >= 1 << TILE_KEY_BITS:
         raise ValueError(f"binning: {f} faces and {t} tiles exceed the sort-key fields (at most 2^{FACE_BITS} "
@@ -173,18 +232,21 @@ def _check_fields(f: int, t: int) -> None:
 
 
 def _bin_kernel(aabb, valid, tiles_x, tiles_y, tile_w, tile_h, tiles_per_face, huge_budget, ty_base,
-                pair_capacity=None) -> dict:
-    """Both binners on the card (csrc/bin.cu tr_bin): bin_pairs' outputs
-    (pair_capacity None: the pair slots of the plain version, each tile's
-    faces by y-bucket, then face) or bin_triangles' (each tile's faces by
-    face, pair_faces of pair_capacity entries, 0 past the binned pairs).
-    Only the live prefix [0, offsets[-1]) of pair_faces and pair_tiles is
-    written; scratch and outputs are allocated here and nothing is read
-    back."""
+                pair_capacity=None, near=None) -> dict:
+    """Both binners on the card (csrc/bin.cu tr_bin, tr_bin_near): bin_pairs'
+    outputs (pair_capacity None: the pair slots of the plain version, each
+    tile's faces by y-bucket, then face) or bin_triangles' (each tile's faces
+    by face, pair_faces of pair_capacity entries, 0 past the binned pairs),
+    with near-plane boxes where ``near`` is given (near_boxes). Only the live
+    prefix [0, offsets[-1]) of pair_faces and pair_tiles is written; scratch
+    and outputs are allocated here and nothing is read back."""
     f, t = aabb.shape[0], tiles_x * tiles_y
     _check_fields(f, t)
     _k.check(aabb, "aabb", torch.float32, (f, 4))
     _k.check(valid, "valid", torch.bool, (f,))
+    if near is not None:
+        clip, width, height = near
+        _k.check(clip, "clip", torch.float32, (f, 3, 4))
     by_y = pair_capacity is None
     args = (f, tiles_x, tiles_y, tile_w, tile_h, tiles_per_face, huge_budget, int(ty_base), int(by_y))
     n_scratch = _build.library().tr_bin_scratch(*args)
@@ -199,19 +261,28 @@ def _bin_kernel(aabb, valid, tiles_x, tiles_y, tile_w, tile_h, tiles_per_face, h
     offsets = torch.empty((t + 1,), dtype=torch.int32, device=dev)
     counts = torch.empty((t,), dtype=torch.int32, device=dev)
     overflow = torch.empty((), dtype=torch.int32, device=dev)
-    _build.call("tr_bin", aabb, valid, *args, pair_faces.numel(), pair_faces, pair_tiles, offsets, counts, overflow,
-                scratch, scratch.numel())
-    _k.LAUNCHES["bin"] += 1
+    outputs = (pair_faces.numel(), pair_faces, pair_tiles, offsets, counts, overflow)
     out = {"pair_faces": pair_faces, "offsets": offsets, "counts": counts, "overflow": overflow}
+    if near is None:
+        _build.call("tr_bin", aabb, valid, *args, *outputs, scratch, scratch.numel())
+    else:
+        faces = torch.empty((2,), dtype=torch.int32, device=dev)
+        _build.call("tr_bin_near", aabb, valid, clip, int(width), int(height), *args, *outputs, faces, scratch,
+                    scratch.numel())
+        out.update(cut_faces=faces[0], huge_faces=faces[1])
+    _k.LAUNCHES["bin"] += 1
     return dict(out, pair_tiles=pair_tiles) if by_y else out
 
 
-def _expand_pairs(aabb, valid, tiles_x, tiles_y, tile_w, tile_h, tiles_per_face, huge_budget, ty_base, ybucket):
+def _expand_pairs(aabb, valid, tiles_x, tiles_y, tile_w, tile_h, tiles_per_face, huge_budget, ty_base, ybucket,
+                  cut=None):
     """The (tile, face) pairs both binners sort: the j-th overlapped tile of
     every small face, every tile of the first huge_budget huge faces in
     draw order. Returns (keys (N,) i64 sorted, tile * YB + ybucket[face]
     << FACE_BITS | face, with tile T for slots that hold no pair; the
-    dropped pair count of the huge faces beyond the budget, 0-dim)."""
+    dropped pair count of the huge faces beyond the budget, 0-dim; where
+    ``cut`` (near_boxes) is given, (2,) i32: the cut faces that name a
+    tile and the huge faces, else None)."""
     f = aabb.shape[0]
     t = tiles_x * tiles_y
     _check_fields(f, t)
@@ -258,7 +329,14 @@ def _expand_pairs(aabb, valid, tiles_x, tiles_y, tile_w, tile_h, tiles_per_face,
     dropped = torch.where(huge, span, torch.zeros_like(span)).sum() - torch.where(
         h_ok_face, span[hl], torch.zeros_like(hidx)
     ).sum()
-    return packed, dropped.to(torch.int32)
+    faces = None if cut is None else torch.stack([(valid & cut).sum(), huge.sum()]).to(torch.int32)
+    return packed, dropped.to(torch.int32), faces
+
+
+def _with_faces(out: dict, faces) -> dict:
+    """The binners' outputs, with cut_faces and huge_faces where
+    _expand_pairs counted them (near= given)."""
+    return out if faces is None else dict(out, cut_faces=faces[0], huge_faces=faces[1])
 
 
 def bin_pairs(
@@ -271,6 +349,7 @@ def bin_pairs(
     tiles_per_face: int = TILES_PER_FACE,
     huge_budget: int = HUGE_BUDGET,
     ty_base=0,
+    near=None,
 ) -> dict:
     """Pair-expansion binning (geometry.py bin_pairs): the j-th overlapped
     tile of every small face, a dense round for the first huge_budget
@@ -282,13 +361,25 @@ def bin_pairs(
     i32, pair_tiles (P,) i32, offsets (T+1,) i32, counts (T,) i32 and
     overflow (the dropped pair count, 0-dim i32). CUDA tensors take
     csrc/bin.cu (_bin_kernel), which writes only the live prefix of the P
-    slots."""
+    slots.
+
+    near: None, or (clip (F, 3, 4), width, height) of the setup: the faces
+    cut by the eye plane are then ranged by their near-plane boxes
+    (near_boxes) in place of the whole screen, and the outputs add
+    cut_faces and huge_faces (0-dim i32: the cut faces that name a tile,
+    the faces of more than tiles_per_face tiles). Frames stay the same
+    bits, since the raster covers nothing of such a face outside that box.
+    The reference has no such input."""
     if _k.use_kernel(aabb, valid):
-        return _bin_kernel(aabb, valid, tiles_x, tiles_y, tile_w, tile_h, tiles_per_face, huge_budget, ty_base)
+        return _bin_kernel(aabb, valid, tiles_x, tiles_y, tile_w, tile_h, tiles_per_face, huge_budget, ty_base,
+                           near=near)
     t = tiles_x * tiles_y
+    cut = None
+    if near is not None:
+        aabb, valid, cut = near_boxes(aabb, valid, *near)
     ybucket = torch.clamp(torch.floor(aabb[:, 1] * (1.0 / 8.0)), 0, YB - 1).to(torch.int32)
-    packed, dropped = _expand_pairs(aabb, valid, tiles_x, tiles_y, tile_w, tile_h, tiles_per_face, huge_budget,
-                                    ty_base, ybucket)
+    packed, dropped, faces = _expand_pairs(aabb, valid, tiles_x, tiles_y, tile_w, tile_h, tiles_per_face,
+                                           huge_budget, ty_base, ybucket, cut)
     pair_keys = packed >> FACE_BITS
     pair_faces = (packed & ((1 << FACE_BITS) - 1)).to(torch.int32)
     pair_tiles = (pair_keys // YB).to(torch.int32)
@@ -296,13 +387,14 @@ def bin_pairs(
     bounds = torch.arange(t + 1, dtype=torch.int64, device=aabb.device) * YB
     offsets = torch.searchsorted(pair_keys, bounds).to(torch.int32)
     counts = offsets[1:] - offsets[:-1]
-    return {
+    out = {
         "pair_faces": pair_faces,
         "pair_tiles": pair_tiles,
         "offsets": offsets,
         "counts": counts,
         "overflow": dropped,
     }
+    return _with_faces(out, faces)
 
 
 def bin_triangles(
@@ -317,6 +409,7 @@ def bin_triangles(
     huge_budget: int = HUGE_BUDGET,
     ty_base=0,
     face_chunk: int = 8192,
+    near=None,
 ) -> dict:
     """Tiled binning into a compact pair buffer of pair_capacity slots
     (geometry.py bin_triangles). Its contract, unlike bin_pairs': a tile's
@@ -332,16 +425,21 @@ def bin_triangles(
     rank, where the reference scatters it. face_chunk only bounds the
     reference's memory and is accepted for its signature. Returns
     pair_faces (pair_capacity,) i32, offsets (T+1,) i32, counts (T,) i32
-    and overflow (0-dim i32); nothing is read back to the host. CUDA
-    tensors take csrc/bin.cu (_bin_kernel) with one y-bucket."""
+    and overflow (0-dim i32); nothing is read back to the host. near (and
+    cut_faces, huge_faces) as bin_pairs'. CUDA tensors take csrc/bin.cu
+    (_bin_kernel) with one y-bucket."""
     del face_chunk
     if _k.use_kernel(aabb, valid):
         return _bin_kernel(aabb, valid, tiles_x, tiles_y, tile_w, tile_h, tiles_per_face, huge_budget, ty_base,
-                           pair_capacity)
+                           pair_capacity, near)
     t = tiles_x * tiles_y
     dev = aabb.device
-    packed, dropped = _expand_pairs(aabb, valid, tiles_x, tiles_y, tile_w, tile_h, tiles_per_face, huge_budget,
-                                    ty_base, torch.zeros(aabb.shape[0], dtype=torch.int32, device=dev))
+    cut = None
+    if near is not None:
+        aabb, valid, cut = near_boxes(aabb, valid, *near)
+    ybucket = torch.zeros(aabb.shape[0], dtype=torch.int32, device=dev)
+    packed, dropped, faces = _expand_pairs(aabb, valid, tiles_x, tiles_y, tile_w, tile_h, tiles_per_face,
+                                           huge_budget, ty_base, ybucket, cut)
     pair_tiles = (packed >> FACE_BITS) // YB
     offsets = torch.searchsorted(pair_tiles, torch.arange(t + 1, dtype=torch.int64, device=dev)).to(torch.int32)
     n = offsets[-1]
@@ -350,9 +448,10 @@ def bin_triangles(
     pair_faces = torch.zeros(pair_capacity, dtype=torch.int32, device=dev)
     pair_faces[:keep] = torch.where(slots < n, packed[:keep] & ((1 << FACE_BITS) - 1), 0).to(torch.int32)
     clamped = torch.clamp(offsets, max=pair_capacity)
-    return {
+    out = {
         "pair_faces": pair_faces,
         "offsets": clamped,
         "counts": clamped[1:] - clamped[:-1],
         "overflow": dropped + torch.clamp(n - pair_capacity, min=0),
     }
+    return _with_faces(out, faces)

@@ -167,7 +167,9 @@ def render_frame(
 
     binning="pairs" bins with geometry.bin_pairs, any other value (the
     reference's rule) with geometry.bin_triangles into bin_capacity pair
-    slots; segment_headroom sizes the reference's segment schedule,
+    slots, both ranging a face cut by the eye plane by its near-plane box
+    (geometry.near_boxes) where the reference gives it the whole screen:
+    the same frame, fewer pairs; segment_headroom sizes the reference's segment schedule,
     which the port does not have, and is accepted and unused.
     texture_format ("float" or "srgb8") is the texel format of the atlas
     rows the gather paths read.
@@ -191,7 +193,8 @@ def render_frame(
 
     marks (a tracing.FrameMarks, or None for none) receives tracing.MARKS:
     the frame's start and the end of geometry, binning, raster, the pack,
-    shading and the encode, the last with bin_overflow and window_miss_px;
+    shading and the encode, the last with bin_overflow, window_miss_px and
+    the binner's cut_faces and huge_faces;
     on the kernel path raster and the first and last shading kernels stamp
     the four marks between (FrameMarks.stamps). A whole frame only: not
     with stage= or output="gbuf"."""
@@ -219,10 +222,12 @@ def render_frame(
         return _stage_probe(setup_out["setup"], setup_out["valid"], setup_out["aabb"])
     mark(1)
     grid = (setup_out["aabb"], setup_out["valid"], tiles_x, tiles_y, tile_w, tile_h)
+    # Faces cut by the eye plane take the tiles of their near-plane boxes.
+    near = (clip_c, width, height)
     if binning == "pairs":
-        bins = geometry.bin_pairs(*grid, ty_base=ty_base)
+        bins = geometry.bin_pairs(*grid, ty_base=ty_base, near=near)
     else:
-        bins = geometry.bin_triangles(*grid, bin_capacity, ty_base=ty_base)
+        bins = geometry.bin_triangles(*grid, bin_capacity, ty_base=ty_base, near=near)
     if stage in ("binning", "segments"):
         return _stage_probe(bins["counts"], bins["offsets"], bins["pair_faces"])
     mark(2)
@@ -299,6 +304,8 @@ def render_frame(
         result["color"] = present.encode_srgb_u8(framebuffer, width, out_h)
     else:
         result["color"] = present.crop_linear(framebuffer, width, out_h)
+    if marks is not None:
+        marks.faces(bins["cut_faces"], bins["huge_faces"])
     mark(6, bins["overflow"], window_miss_px)
     return result
 

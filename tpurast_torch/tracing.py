@@ -34,8 +34,9 @@ where a hand-written kernel starts or ends (raster's start and end, the
 first shading kernel's start, the last one's end), and that kernel stamps
 them (``stamps``), so that they add no node to the frame's path. The first
 mark advances a sequence counter on the device; the last copies the record,
-with the frame's bin_overflow and window_miss_px, into a ring in mapped host
-memory and then marks it whole. The host counts the frames it enqueues in
+with the frame's bin_overflow and window_miss_px and the binner's two face
+counts (the cut faces that name a tile, the huge faces), into a ring in
+mapped host memory and then marks it whole. The host counts the frames it enqueues in
 the same stream order (``enqueued``): placing mark 0 counts one, and a
 graph's replay counts what its capture placed (graphs.py, as with
 kernels.LAUNCHES), so a frame's host and device sequence numbers agree
@@ -71,9 +72,10 @@ MARKS = ("start", "geometry", "binning", "raster", "pack", "shading", "encode")
 STAMPED = (2, 3, 4, 5)
 #: int64 words of a frame record: 0 sequence number, 1..7 the marks' times,
 #: OVERFLOW and MISS the frame's counters, DONE the sequence number once
-#: the record is whole (csrc/trace.cu).
+#: the record is whole, CUT and HUGE the binner's face counts
+#: (geometry.bin_pairs cut_faces, huge_faces; csrc/trace.cu).
 SLOT = 16
-OVERFLOW, MISS, DONE = 8, 9, 10
+OVERFLOW, MISS, DONE, CUT, HUGE = 8, 9, 10, 11, 12
 FRAME_SLOTS = 4096
 FRAME_SPANS = 1 << 16
 SETUP_SPANS = 1024
@@ -177,6 +179,7 @@ class FrameMarks:
         self.enqueued = 0
         self.calibrations: list[tuple[int, int, int]] = []  # (device ns, host ns, round trip ns)
         self._ring = self._seq = self._frame = None
+        self._faces = ()  # the frame in flight's face counts (faces)
         self.records = None if self.cuda else np.zeros((self.slots + 1, SLOT), dtype=np.int64)
 
     def _allocate(self) -> None:
@@ -187,10 +190,11 @@ class FrameMarks:
         self._frame = torch.zeros(SLOT, dtype=torch.int64, device=self.device)  # the record in flight
         self._words = [self._frame[1 + i] for i in range(len(MARKS))]
 
-    def _launch(self, i: int, last: bool, overflow=None, miss=None) -> None:
+    def _launch(self, i: int, last: bool, overflow=None, miss=None, cut=None, huge=None) -> None:
         if self._ring is None:
             self._allocate()
-        _build.call("tr_trace_mark", self._ring, self._seq, self._frame, self.slots, i, int(last), overflow, miss)
+        _build.call("tr_trace_mark_faces", self._ring, self._seq, self._frame, self.slots, i, int(last), overflow, miss,
+                    cut, huge)
 
     def _kernels_stamp(self) -> bool:
         return self.cuda and not kernels.plain_kernels_active()
@@ -207,16 +211,26 @@ class FrameMarks:
             self._allocate()
         return tuple(None if i is None else self._words[i] for i in (start, end))
 
+    def faces(self, cut, huge) -> None:
+        """The binner's cut_faces and huge_faces of the frame in flight
+        (0-dim int32 tensors), for its last mark to write beside the
+        frame's other counters."""
+        self._faces = (cut, huge)
+
     def mark(self, i: int, overflow=None, miss=None) -> None:
         """Mark i of MARKS for the frame in flight; the last mark takes the
-        frame's bin_overflow and window_miss_px (0-dim int32 tensors). A
-        mark of STAMPED that a kernel stamps places nothing here."""
+        frame's bin_overflow and window_miss_px (0-dim int32 tensors) and
+        the face counts ``faces`` gave (0 without). A mark of STAMPED that a
+        kernel stamps places nothing here."""
         last = i == len(MARKS) - 1
+        faces = ()
+        if last:
+            faces, self._faces = self._faces, ()
         if i == 0:
             self.count(1)
         if self.cuda:
             if i not in STAMPED or not self._kernels_stamp():
-                self._launch(i, last, overflow, miss)
+                self._launch(i, last, overflow, miss, *faces)
             return
         t = time.perf_counter_ns()
         s = self.enqueued
@@ -228,6 +242,7 @@ class FrameMarks:
         if last:
             rec[OVERFLOW] = 0 if overflow is None else int(overflow)
             rec[MISS] = 0 if miss is None else int(miss)
+            rec[CUT], rec[HUGE] = (int(c) for c in faces) if faces else (0, 0)
             rec[DONE] = s
 
     def count(self, n: int) -> None:
@@ -263,7 +278,7 @@ class FrameMarks:
 
     def frames(self) -> dict:
         """The whole records held, by sequence number: seq (n,), t_ns (n, 7)
-        on the host's clock, overflow (n,), miss (n,)."""
+        on the host's clock, overflow (n,), miss (n,), cut (n,), huge (n,)."""
         if self.records is None:
             rows = np.zeros((0, SLOT), dtype=np.int64)
         else:
@@ -273,7 +288,8 @@ class FrameMarks:
         t = rows[:, 1 : 1 + len(MARKS)]
         if self.cuda and len(t):
             t = to_host_clock(t, self.calibrations)
-        return dict(seq=rows[:, 0].copy(), t_ns=t.copy(), overflow=rows[:, OVERFLOW].copy(), miss=rows[:, MISS].copy())
+        return dict(seq=rows[:, 0].copy(), t_ns=t.copy(), overflow=rows[:, OVERFLOW].copy(), miss=rows[:, MISS].copy(),
+                    cut=rows[:, CUT].copy(), huge=rows[:, HUGE].copy())
 
 
 def to_host_clock(t_dev, calibrations) -> np.ndarray:
