@@ -8,6 +8,7 @@
     python3 chip_smoke.py --config-matrix    # phases 1 and 1b alone
     python3 chip_smoke.py --shade-kernels    # phase 1c alone
     python3 chip_smoke.py --bin-kernels      # phase 1d alone
+    python3 chip_smoke.py --setup-kernel     # phase 1e alone
 
 Builds the CUDA kernels from tpurast_torch/csrc, builds a procedural scene
 from the seed (a 256x256-quad floor and 64 UV spheres, 258,048 triangles,
@@ -80,6 +81,19 @@ eight generated 1024^2 BC4 textures with full mip chains), and then, at
      version, cut_faces and huge_faces too; --bin-kernels adds the
      instanced dragons (64 stand-in dragons, 1,237,248 faces) at 3840x2160
      at cli's first flythrough pose;
+ 1e. setup_kernel (in every kernel_phases too; --setup-kernel: the orbit
+     scene, then the benchmark's porsche-class stand-in
+     (portbench/scenes/standin.py) at 1920x1080 at the viewer's start pose
+     and at the flythrough's pose 469, its most huge faces, and its 64
+     instanced dragons at 3840x2160 at flythrough pose 0, alone): the setup
+     kernel (csrc/setup.cu, geometry.setup_faces) against
+     transform_corners and triangle_setup on the frame's corners: the clip
+     corners, setup, valid, aabb and det bit for bit (NaN where the plain
+     version has NaN), one launch a call, into guarded outputs; twice more
+     and as a CUDA graph's replay, the same bits; its ms and device ms
+     beside its bound (by bytes: 36 B read and 165 B written a face) and
+     the plain version's, both as graphs, and the kernel's registers and
+     blocks per SM;
   2. runs the microbenchmark probes at the tools' sizes against their
      plain versions, bit for bit: vmem_take (4096x16 f32 table, 2,073,600
      indices; then an odd row count, a count of indices that fills no whole
@@ -300,6 +314,8 @@ from tpurast_torch.tools import (aniso_mode_stats, check_sampler, fit_pose, micr
 from tpurast_torch.tools.microbench import device_ms  # noqa: E402
 
 KERNELS = {
+    # No pallas_call: the reference leaves transform_corners and triangle_setup to XLA.
+    "setup": ("tpurast_torch/csrc/setup.cu", "tpurast/kernels/geometry.py:84"),
     # No pallas_call: the reference leaves bin_pairs and bin_triangles to XLA.
     "bin": ("tpurast_torch/csrc/bin.cu", "tpurast/kernels/geometry.py:202"),
     "raster": ("tpurast_torch/csrc/raster.cu", "tpurast/kernels/raster.py:88"),
@@ -313,12 +329,12 @@ KERNELS = {
     "plane_scale": ("tpurast_torch/csrc/probes.cu", "tools/microbench_pipeline.py:35"),
 }
 RENDER_KERNELS = ("raster", "resolve", "plan", "sample")
-# The kernels a window frame (slab, pose) launches once: the binning kernels too.
-FRAME_KERNELS = ("bin",) + RENDER_KERNELS
+# The kernels a window frame (slab, pose) launches once: the setup and binning kernels too.
+FRAME_KERNELS = ("setup", "bin") + RENDER_KERNELS
 SHADE_KERNELS = ("gather", "deferred")
 # The kernels each frame path launches once per frame (or slab).
-PATH_KERNELS = {"window": FRAME_KERNELS, "gather": ("bin", "raster", "resolve", "gather"),
-                "deferred": ("bin", "raster", "deferred")}
+PATH_KERNELS = {"window": FRAME_KERNELS, "gather": ("setup", "bin", "raster", "resolve", "gather"),
+                "deferred": ("setup", "bin", "raster", "deferred")}
 # The card's published peaks (H100 SXM at 700 W): device memory bytes/s
 # and f32 FLOP/s outside the tensor cores. A kernel's bound is the larger of its bytes and its operations
 # over these.
@@ -1015,6 +1031,7 @@ def kernel_phases(r: Renderer, cam, card: str, phase: str = "kernel_phases") -> 
           f"{direct_ms:.4f} ms vs {st['ms']:.4f} ms")
     check(same, "the sampled frame depends on the plan")
     out["bin"] = bin_kernels(r, cam, card, phase)
+    out["setup"] = setup_kernel(r, cam, card, phase)
     return out
 
 
@@ -1187,6 +1204,127 @@ def bin_standin(seed: int, card: str) -> None:
         r = Renderer(scene, RendererConfig(width=3840, height=2160))
         print(f"bin_kernels dragons64 (stand-in): {scene.n_faces} faces, {r.tiles_x}x{r.tiles_y} tiles")
         bin_kernels(r, cli.flythrough("dragons64", 1)[0], card, phase="bin_kernels dragons64, flythrough pose 0")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# Bytes of one face the setup kernel must move: its world corners read
+# (36 B); its clip corners (48 B), setup row (96 B), box (16 B), det (4 B)
+# and valid flag (1 B) written. f32 operations of a face: the transform
+# (84), the screen points and anchor (about 30), the cross products (27,
+# in float64) and the determinant (5), the box (8).
+SETUP_FACE_BYTES = 36 + 48 + 96 + 16 + 4 + 1
+SETUP_FLOPS_PER_FACE = 160
+SETUP_OUTPUTS = ("clip", "setup", "valid", "aabb", "det")
+
+
+def same_bits(got: torch.Tensor, want: torch.Tensor) -> bool:
+    """Equal bit for bit (-0.0 is not 0.0), NaN where want holds NaN (the
+    NaN's payload aside)."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        return False
+    if not got.is_floating_point():
+        return bool(torch.equal(got, want))
+    nan = torch.isnan(want)
+    return bool(torch.equal(torch.isnan(got), nan)) and bool(
+        torch.equal(got.view(torch.int32)[~nan], want.view(torch.int32)[~nan]))
+
+
+def setup_agree(got: tuple, want: tuple) -> bool:
+    """setup_faces' (clip, outputs) equal, every output by same_bits."""
+    flat = [(got[0], want[0])] + [(got[1][k], want[1][k]) for k in SETUP_OUTPUTS[1:]]
+    return all(same_bits(a, b) for a, b in flat)
+
+
+def setup_kernel(r: Renderer, cam, card: str, phase: str = "setup_kernel", label: str = "frame") -> dict:
+    """The setup kernel (csrc/setup.cu) against transform_corners and
+    triangle_setup on cam's frame of r: the five outputs bit for bit, one
+    launch (LAUNCHES["setup"]), into guarded outputs, twice more and as a
+    CUDA graph's replay the same bits. Prints the faces, the kernel's ms
+    and device ms beside its bound and the plain version's, both as
+    graphs, and its registers and blocks per SM. Returns its stats (the
+    kernels line's fields)."""
+    kw, sc = r._frame_kwargs, r.scene
+    vp, _ = r.frame_uniforms(cam)
+    args = (sc["corner_world"], vp, sc["n_faces"], kw["width"], kw["height"])
+
+    def run():
+        return geometry.setup_faces(*args)
+
+    def plain_run():
+        with K.plain_kernels():
+            return run()
+
+    before = K.LAUNCHES["setup"]
+    got = run()
+    torch.cuda.synchronize()
+    launches = K.LAUNCHES["setup"] - before
+    want = plain_run()
+    same = setup_agree(got, want)
+    f = args[0].shape[0]
+    clip, so = got
+    guard(phase, f"setup {label}", "tr_setup", *args[:2], f, *args[2:], Out(clip.shape), Out(so["setup"].shape),
+          Out(so["valid"].shape, torch.bool), Out(so["aabb"].shape), Out(so["det"].shape),
+          want=(clip, so["setup"], so["valid"], so["aabb"], so["det"]))
+    again = [run(), run()]
+    g, replayed = graph_of(run)
+    g.replay()
+    torch.cuda.synchronize()
+    steady = all(setup_agree(x, got) for x in again + [replayed])
+    plain_graph, _ = graph_of(plain_run)
+    kernel_graph_ms, plain_graph_ms = cuda_ms(g.replay, 50), cuda_ms(plain_graph.replay, 50)
+    regs, blocks = _build.kernel_info("setup")
+    w = want[0][..., 3]
+    st = dict(max_abs_err=0.0, library_ms=None, faces=f, graph_ms=kernel_graph_ms, plain_graph_ms=plain_graph_ms,
+              **bound(f * SETUP_FACE_BYTES, f * SETUP_FLOPS_PER_FACE), **timed(run, plain_run, 50, 10))
+    share = "not measured" if st["dev_ms"] is None else f"{st['bound_ms'] / st['dev_ms']:.3f}"
+    print(f"{phase}: setup {label}: {f} face rows ({args[2]} faces, {int(want[1]['valid'].sum())} valid, "
+          f"{int(((w <= 0).any(dim=1) & (w > 0).any(dim=1)).sum())} across the eye plane); equal to the plain version "
+          f"{same} ({', '.join(SETUP_OUTPUTS)}); launches {launches}; repeated calls and a graph replay the same bits "
+          f"{steady}; {st['ms']:.4f} ms (device {fmt_ms(st['dev_ms'])}) vs plain {st['plain_ms']:.4f} ms (device "
+          f"{fmt_ms(st['plain_dev_ms'])}); as graphs {kernel_graph_ms:.4f} ms vs plain {plain_graph_ms:.4f} ms a "
+          f"replay; bound {st['bound_ms']:.5f} ms by {st['bound_by']} ({SETUP_FACE_BYTES} B a face), {share} of it "
+          f"by device ms; {regs} registers per thread, {blocks} resident blocks of 256 per SM [{card}]")
+    check(same, f"{phase}: the setup kernel ({label}) disagrees with the plain version")
+    check(launches == 1, f"{phase}: setup {label}: {launches} launches for one call")
+    check(steady, f"{phase}: the setup kernel's calls or graph replay differ from the first call")
+    return st
+
+
+def setup_standin(seed: int, card: str) -> None:
+    """setup_kernel on the benchmark's stand-in scenes (portbench/scenes/
+    standin.py, written from the seed into a temporary directory): the
+    porsche-class scene at 1920x1080 at the viewer's start pose, (0, 0,
+    -2.5) looking at the origin, and at the flythrough's pose 469 (its huge
+    faces printed), then its dragon 64 times at 3840x2160 at flythrough
+    pose 0."""
+    from portbench.scenes import standin
+
+    from tpurast_torch.device.scene import load_porsche_class_scene
+
+    tmp = tempfile.mkdtemp(prefix="tpurast_torch_standin_")
+    try:
+        standin.write_standin(tmp, seed, "full")
+        scene = load_porsche_class_scene(tmp, max_textures=12)
+        r = Renderer(scene, RendererConfig(width=WIDTH, height=HEIGHT))
+        kw = r._frame_kwargs
+        viewer = Camera.from_target(np.array([0.0, 0.0, -2.5], np.float32), np.zeros(3, np.float32))
+        pose = cli.flythrough("porsche_class", 470)[469]
+        vp, _ = r.frame_uniforms(pose)
+        with K.plain_kernels():
+            clip, so = geometry.setup_faces(r.scene["corner_world"], vp, scene.n_faces, WIDTH, HEIGHT)
+            huge = int(geometry.bin_pairs(so["aabb"], so["valid"], r.tiles_x, r.tiles_y, kw["tile_w"], kw["tile_h"],
+                                          near=(clip, WIDTH, HEIGHT))["huge_faces"])
+        print(f"setup_kernel porsche_class (benchmark stand-in): {scene.n_faces} faces; flythrough pose 469: {huge} "
+              f"huge faces")
+        for label, cam in (("viewer start pose", viewer), ("flythrough pose 469", pose)):
+            setup_kernel(r, cam, card, phase="setup_kernel porsche_class", label=label)
+        del r, scene
+        scene = load_instanced_dragons(tmp, 64, 0.35)
+        r = Renderer(scene, RendererConfig(width=3840, height=2160))
+        print(f"setup_kernel dragons64 (benchmark stand-in): {scene.n_faces} faces at 3840x2160")
+        setup_kernel(r, cli.flythrough("dragons64", 1)[0], card, phase="setup_kernel dragons64",
+                     label="flythrough pose 0")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1478,7 +1616,7 @@ def config_matrix(scene, cam, card: str, seed: int) -> dict:
         launches = {k: v // (MATRIX_REPLAYS + 1) for k, v in K.LAUNCHES.items() if v}
         want = path_want(path_of(r), MATRIX_REPLAYS + 1)
         if output == "gbuf":
-            want = {k: v if k in ("bin", "raster", "resolve") else 0 for k, v in want.items()}
+            want = {k: v if k in ("setup", "bin", "raster", "resolve") else 0 for k, v in want.items()}
         check(all(K.LAUNCHES[k] == want[k] for k in KERNELS),
               f"{phase}: launches {dict(K.LAUNCHES)} over {MATRIX_REPLAYS + 1} frames, want {want}")
         with plain_raster_memo():
@@ -1664,8 +1802,7 @@ def frame_stages(r: Renderer, vp, cp):
     light = dict(light_direction=kw["light_direction"], light_color=kw["light_color"],
                  ambient_amount=kw["ambient_amount"], specular_power=kw["specular_power"],
                  clear_color=kw["clear_color"], blend=kw["blend"])
-    clip = geometry.transform_corners(sc["corner_world"], vp)
-    so = geometry.triangle_setup(clip, None, sc["n_faces"], kw["width"], kw["height"])
+    _, so = geometry.setup_faces(sc["corner_world"], vp, sc["n_faces"], kw["width"], kw["height"])
     yield "geometry"
     bins = geometry.bin_pairs(so["aabb"], so["valid"], r.tiles_x, r.tiles_y, kw["tile_w"], kw["tile_h"])
     yield "binning"
@@ -2943,6 +3080,8 @@ def main() -> None:
     ap.add_argument("--shade-kernels", action="store_true", help="run only the shade_kernels phase")
     ap.add_argument("--bin-kernels", action="store_true",
                     help="run only the binning phase (the orbit scene and the porsche_class stand-in)")
+    ap.add_argument("--setup-kernel", action="store_true",
+                    help="run only the setup phase (the orbit scene and the benchmark's two stand-in scenes)")
     args = ap.parse_args()
     t_run = time.perf_counter()
 
@@ -2967,7 +3106,7 @@ def main() -> None:
         if any(k in line for k in ("entry function", "registers", "spill", "error")):
             print("  nvcc:", line.strip())
     _build.library()
-    for name in ("raster", "plan", "plan_large", "sample", "vmem_take"):
+    for name in ("raster", "plan", "plan_large", "sample", "vmem_take", "setup"):
         regs, blocks = _build.kernel_info(name)
         print(f"{name} kernel: {regs} registers per thread, {blocks} resident blocks per SM")
     print_shade_info()
@@ -2998,6 +3137,10 @@ def main() -> None:
     if args.bin_kernels:
         bin_kernels(r, cams[0], card)
         bin_standin(args.seed, card)
+        return
+    if args.setup_kernel:
+        setup_kernel(r, cams[0], card)
+        setup_standin(args.seed, card)
         return
     stats = kernel_phases(r, cams[0], card)
     stats.update(shade_kernels(scene, r, cams[0], card))

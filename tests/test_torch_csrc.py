@@ -74,10 +74,23 @@ more pairs than a lane writes, y-buckets clamped past 8,192 rows, 8,100
 tiles (the tile sort's two passes), the scan contract with room and with
 half the pairs' room; and a call on two devices raises.
 
+The setup kernel (csrc/setup.cu tr_setup) runs through geometry.setup_faces
+the same way, against transform_corners and triangle_setup: all five
+outputs bit for bit (NaN where the plain version has NaN) on
+tests/test_torch_geometry.py's faces and at 1, 255, 257 and 2,051 faces,
+with padding past n_faces and NaN and infinite corners, and on faces where
+a rounding decides (a fused multiply-add in the cross products or
+round-half-away in the anchor would show); corners off the
+16-byte grid are refused; and render_frame with every kernel emulated
+renders the same frames as inside plain_kernels(), one setup launch a
+frame.
+
 Time on one worker: about 71 s (the shade cases about a fifth of it: the
 plain gather runs 16 probes over every pixel; the warp-shape cases about
 5 s together, the request counts about 2 s; the binning cases about 27 s,
-their 1,024-thread blocks emulated, the two-pass ones the longest).
+their 1,024-thread blocks emulated, the two-pass ones the longest); the
+setup cases add about 11 s, 9 of them the two emulated frames (111 s in
+all on a loaded host, the emulated library's build 21 s of it).
 """
 
 import ctypes
@@ -96,8 +109,8 @@ from tpurast_torch.device.scene import build_orbit_scene, orbit_track
 from tpurast_torch.device.textures import TEXTURE_DTYPES, texels_tensor
 from tpurast_torch.kernels import _build, geometry, present, probes, raster, resolve, sampler, shade
 from tpurast_torch.renderer import Renderer
-from test_torch_memsafety import (SCENE as SMALL_SCENE, assert_resolve_close, assert_shade_close, bin_boxes,
-                                  poisoned_gbuf, texture_grid_gbuf)
+from test_torch_memsafety import (SCENE as SMALL_SCENE, SETUP_CASES, assert_resolve_close, assert_same_bits,
+                                  assert_shade_close, bin_boxes, poisoned_gbuf, setup_inputs, texture_grid_gbuf)
 from test_torch_raster import ADVERSARIAL, A_TILES_X, A_TILES_Y, AH, AW, adversarial_clip
 from test_torch_scene import numpy_bc_decoders  # noqa: F401  (module-wide autouse)
 
@@ -927,8 +940,9 @@ def _bin_case_inputs(case, frame):
 
 @pytest.fixture
 def emu_bin(emu, monkeypatch):
-    """geometry's binners on CPU tensors through their kernel path, with the
-    emulated library in place of the card's (no stream)."""
+    """The kernel wrappers (geometry's binners and setup, and every other)
+    on CPU tensors through their kernel path, with the emulated library in
+    place of the card's (no stream)."""
     from tpurast_torch import kernels
 
     def call(name, *args):
@@ -1055,6 +1069,92 @@ def test_trace_mark_kernel_carries_face_counts(emu):
         assert emu.tr_trace_mark(ring.data_ptr(), seq.data_ptr(), rec.data_ptr(), slots, i, int(i == 6),
                                  counts[0].data_ptr(), None, None) == 0
     assert got[3, [tracing.OVERFLOW, tracing.CUT, tracing.HUGE, tracing.DONE]].tolist() == [7, 0, 0, 3]
+
+
+# ---------------------------------------------------------------------------
+# Triangle setup (csrc/setup.cu tr_setup), through geometry.setup_faces with
+# the emulated library in place of the card's.
+
+
+@pytest.mark.parametrize("case", ["geometry_faces", *SETUP_CASES])
+def test_setup_kernel(emu_bin, case):
+    """The setup kernel against transform_corners and triangle_setup: the
+    clip corners, setup, valid, aabb and det bit for bit (NaN where the
+    plain version has NaN). The cases: tests/test_torch_geometry.py's
+    2,048 faces (small, huge, across the eye plane, off screen) at its
+    512x256 frame, and tests/test_torch_memsafety.py's SETUP_CASES: 1, 255,
+    257 and 2,051 faces (no whole block), 2,051 rows of which 300 are
+    padding past n_faces, with NaN and infinite corners, and faces on which
+    a rounding decides (a cross product that a fused multiply-add would
+    round otherwise, anchors halfway between pixels). One launch a call
+    (LAUNCHES["setup"])."""
+    from test_torch_geometry import H as GH, W as GW, _random_faces, _view_proj
+
+    from tpurast_torch import kernels
+
+    if case == "geometry_faces":
+        corners = torch.from_numpy(_random_faces())
+        args = (corners, torch.from_numpy(_view_proj()), corners.shape[0], GW, GH)
+    else:
+        args = setup_inputs(*SETUP_CASES[case])
+    before = kernels.LAUNCHES["setup"]
+    clip, got = geometry.setup_faces(*args)
+    assert kernels.LAUNCHES["setup"] == before + 1
+    with kernels.plain_kernels():
+        clip_p, want = geometry.setup_faces(*args)
+    assert kernels.LAUNCHES["setup"] == before + 1
+    assert_same_bits(clip, clip_p, "clip")
+    assert set(got) == set(want) == {"setup", "valid", "aabb", "det"}
+    for k in want:
+        assert_same_bits(got[k], want[k], k)
+    if case == "geometry_faces":
+        w = clip_p[..., 3]
+        assert ((w <= 0).any(dim=1) & (w > 0).any(dim=1)).sum() > 50 and int(want["valid"].sum()) > 400
+    if case.endswith("ties"):
+        assert float(want["setup"][0, 2]) == 32784.0 and want["setup"][1:4, 16:18].tolist() == [
+            [2.0, 0.0], [-2.0, 0.0], [0.0, 2.0]]
+    if case.endswith("non_finite"):
+        bad = ~torch.isfinite(args[0].reshape(-1, 9)).all(dim=1)
+        assert int(bad.sum()) > 20 and bool(bad[args[2]:].any()) and not bool(want["valid"][bad].any())
+        assert bool(torch.isnan(want["setup"]).any())
+
+
+def test_setup_kernel_refuses_corners_off_the_grid(emu_bin):
+    """Corners that do not start on the 16-byte grid (the kernel reads them
+    in 16-byte words) are refused before the launch, as is a matrix that is
+    not (4, 4) f32."""
+    from tpurast_torch import kernels
+
+    corners, vp, n, w, h = setup_inputs(64)
+    before = kernels.LAUNCHES["setup"]
+    off = torch.empty(corners.numel() + 1)[1:].view(corners.shape).copy_(corners)
+    with pytest.raises(ValueError, match="16-byte grid"):
+        geometry.setup_faces(off, vp, n, w, h)
+    with pytest.raises(TypeError, match="view_proj"):
+        geometry.setup_faces(corners, vp.double(), n, w, h)
+    assert kernels.LAUNCHES["setup"] == before
+
+
+def test_render_frame_with_the_emulated_kernels(emu_bin):
+    """render_frame with every kernel emulated (the setup kernel first, and
+    the binning, raster, resolve, plan and sample kernels after it) against
+    the same frames inside plain_kernels(): color, depth and the counters
+    equal, one setup launch a frame."""
+    from tpurast_torch import kernels
+    from tpurast_torch.renderer import render_frame
+
+    r = Renderer(build_orbit_scene(seed=2, **SMALL_SCENE), RendererConfig(width=256, height=128), device="cpu")
+    kernels.reset_launches()
+    for cam in orbit_track(8)[1:3]:
+        vp, cp = r.frame_uniforms(cam)
+        got = render_frame(r.scene, vp, cp, **r._frame_kwargs)
+        with kernels.plain_kernels():
+            want = render_frame(r.scene, vp, cp, **r._frame_kwargs)
+        assert set(got) == set(want)
+        for k in want:
+            assert torch.equal(got[k], want[k]), k
+        assert int((want["depth"] > 0).sum()) > 1000
+    assert kernels.LAUNCHES["setup"] == kernels.LAUNCHES["raster"] == 2
 
 
 def test_bin_kernels_refuse_mixed_devices():

@@ -16,7 +16,8 @@ without a card.
   * test_shade_wrappers_read_nothing_back_before_the_launch: what those two
     wrappers do on a CUDA device before the launch (the row check, the
     srgb8 decode table) reads nothing back inside the guard; so for the
-    binning wrapper (csrc/bin.cu), bin_pairs' and bin_triangles', up to its
+    binning wrapper (csrc/bin.cu), bin_pairs' and bin_triangles', and for
+    the setup wrapper (csrc/setup.cu, geometry.setup_faces), up to its
     launch, which is recorded and not made.
   * test_forked_slabs_read_nothing_back: render_slabs' fork and join
     (parallel._fork_join, taken as on a CUDA device, with fake streams):
@@ -226,6 +227,32 @@ def test_bin_wrapper_reads_nothing_back_before_the_launch(scene, cam, binner, mo
     assert out["offsets"].shape == (r.tiles_x * r.tiles_y + 1,) and ("pair_tiles" in out) == (binner == "pairs")
     assert out["pair_faces"].shape == ((geometry.TILES_PER_FACE * so["aabb"].shape[0] + geometry.HUGE_BUDGET
                                         * r.tiles_x * r.tiles_y,) if binner == "pairs" else (512,))
+
+
+def test_setup_wrapper_reads_nothing_back_before_the_launch(scene, cam, monkeypatch):
+    """What geometry.setup_faces does on a CUDA device before its launch
+    (the checks, the five outputs it allocates, the launch's arguments, the
+    matrix passed by pointer) reads nothing back inside the guard; the
+    launch itself is recorded, not made."""
+    from tpurast_torch.kernels import _build, geometry
+
+    r = Renderer(scene, CFG, device="cpu")
+    kw = r._frame_kwargs
+    vp, _ = r.frame_uniforms(cam)
+    calls = []
+    monkeypatch.setattr(kernels, "use_kernel", lambda *tensors: True)
+    monkeypatch.setattr(_build, "call", lambda name, *args: calls.append((name, args)))
+    guard = Guard()
+    _install(monkeypatch, guard)
+    before = kernels.LAUNCHES["setup"]
+    corners = r.scene["corner_world"]
+    with guard.on():
+        clip, out = geometry.setup_faces(corners, vp, r.scene["n_faces"], kw["width"], kw["height"])
+    assert [name for name, _ in calls] == ["tr_setup"] and kernels.LAUNCHES["setup"] == before + 1
+    assert calls[0][1][:6] == (corners, vp, corners.shape[0], r.scene["n_faces"], kw["width"], kw["height"])
+    f = corners.shape[0]
+    assert clip.shape == (f, 3, 4) and out["setup"].shape == (f, geometry.SETUP_WIDTH)
+    assert out["valid"].dtype == torch.bool and out["aabb"].shape == (f, 4) and out["det"].shape == (f,)
 
 
 def test_guard_catches_each_read_back(monkeypatch):

@@ -50,6 +50,12 @@ and warp-synchronous code that leans on lockstep. The ASan shapes:
     near_faces: faces across the eye plane through the setup, and crafted
     cut faces wholly behind the eye, on the eye plane, with NaN and
     infinite corners, the clip corners an exact-size tensor;
+  * the setup kernel (csrc/setup.cu tr_setup) at 1, 255, 257 and 2,051
+    faces (no whole block, and a last block of 3 faces whose corners end
+    off the 16-byte grid), at 2,051 rows of which the last 300 are padding
+    past n_faces, with NaN and infinite corners, and on faces crafted so
+    that a rounding decides (setup_inputs' ties): the five outputs against
+    transform_corners and triangle_setup, bit for bit;
   * the port's Zstandard decoder (tpurast_torch/native/zstd.cpp, built
     into the ASan library beside the kernels) on frames made with the
     zstandard package at levels 3 and 19 and on 600 truncated and
@@ -59,7 +65,9 @@ and warp-synchronous code that leans on lockstep. The ASan shapes:
 ThreadSanitizer runs RACE_CASES, each kernel once (the shade kernels too:
 a block's threads share the srgb8 decode table; the binning kernels, whose
 warps keep counters in shared memory and whose last block reads what the
-others wrote, on the frame and on a slab). Each case is also held
+others wrote, on the frame and on a slab; the setup kernel at every face
+count, whose block stages corners and rows in shared memory and reuses the
+corners' words for the clip rows). Each case is also held
 to its plain version under tests/test_torch_csrc.py's budgets. Planted
 faults show that the harness catches them: the raster output one tile row
 short must abort with ASan's heap-buffer-overflow, and a small kernel that
@@ -120,6 +128,10 @@ SLABS = {"slab_middle": (1, 2), "slab_below_the_frame": (4, 2)}  # (first tile r
 # kernel's sub-rectangle units (16x1024: 4 of 16x256; 64x128: 2 of 32x128)
 # and the plan kernel's groups of 4096 px with their scratch planes.
 LARGE_TILES = (("16x1024", "grid"), ("64x128", "off_grid"))
+# The setup kernel's cases (setup_inputs): (rows, rows past n_faces, non-finite corners, rounding ties).
+SETUP_CASES = {"1_face": (1, 0, False, False), "255_faces": (255, 0, False, False),
+               "257_faces": (257, 0, False, False), "2051_faces": (2051, 0, False, False),
+               "2051_padded_non_finite": (2051, 300, True, False), "257_rounding_ties": (257, 0, False, True)}
 CASES = (
     [f"{k}_{s}" for s in SIZES for k in ("raster", "resolve", "plan", "sample")]
     + [f"{k}_{s}" for s in SLABS for k in ("raster", "resolve")]
@@ -131,6 +143,7 @@ CASES = (
     + [f"{k}_{t}_{s}" for t, s in LARGE_TILES for k in ("raster", "plan")]
     + ["bin_random_faces", "bin_random_faces_slab", "bin_scan_truncated", "bin_two_tile_passes"]
     + ["bin_near_faces", "bin_near_faces_scan"]
+    + [f"setup_{k}" for k in SETUP_CASES]
 )
 ZSTD_SRC = pathlib.Path(__file__).resolve().parent.parent / "tpurast_torch" / "native" / "zstd.cpp"
 # The cases under ThreadSanitizer: each kernel once; the plan (with raster
@@ -142,7 +155,8 @@ ZSTD_SRC = pathlib.Path(__file__).resolve().parent.parent / "tpurast_torch" / "n
 # copies into shared memory behind a barrier.
 RACE_CASES = ["raster_grid", "resolve_grid", "sample_grid", "plan_24_windows", "vmem_take_odd_rows",
               "plane_scale_tile_grid", "raster_64x128_off_grid", "plan_64x128_off_grid", "shade_gather_off_grid",
-              "shade_deferred_off_grid", "bin_random_faces", "bin_random_faces_slab", "bin_near_faces"]
+              "shade_deferred_off_grid", "bin_random_faces", "bin_random_faces_slab", "bin_near_faces",
+              *(f"setup_{k}" for k in SETUP_CASES)]
 PLANTED = "raster_output_one_tile_row_short"
 PLANTED_RACE = "planted_race"
 # A block whose threads read their neighbour's shared-memory word without
@@ -237,6 +251,71 @@ def near_faces(width: int = 512, height: int = 256, seed: int = 11):
     aabb = torch.cat([so["aabb"], full]).contiguous()
     valid = torch.cat([so["valid"], torch.ones(extra.shape[0], dtype=torch.bool)])
     return aabb, valid, torch.cat([clip, torch.from_numpy(extra)]).contiguous()
+
+
+def setup_inputs(rows: int, padding: int = 0, non_finite: bool = False, ties: bool = False, width: int = 512,
+                 height: int = 256, seed: int = 13):
+    """The setup kernel's inputs: (corner_world (rows, 3, 3), view_proj (4,
+    4), n_faces = rows - padding, width, height). Faces as
+    tests/test_torch_geometry.py makes them, seen from the origin along +Z
+    at width x height: small ones in front, huge ones, faces across the eye
+    plane and far off screen, shuffled so that any count holds each kind.
+    non_finite: faces given a NaN or an infinite corner coordinate (in x,
+    y or z, one corner or all), among them the last, and at least one past
+    n_faces. ties (width 512, height 256): the matrix passes x, y and z
+    through with w = z, and the first faces are crafted so that rounding
+    decides: a cross-product component whose exact value lies just above
+    a float32 midpoint, where float64 then float32 rounds down and one
+    fused multiply-add up (32,784.0 against 32,784.004), and anchors
+    exactly halfway between two pixels (x 2.5 and -2.5, y 2.5), where
+    round-half-even and round-half-away part."""
+    from tpurast_torch import math3d
+    from tpurast_torch.camera import Camera
+
+    rng = np.random.default_rng(seed)
+
+    def tris(n, lo, hi, size):
+        return rng.uniform(lo, hi, (n, 1, 3)) + rng.uniform(-size, size, (n, 3, 3))
+
+    k = -(-rows // 8)
+    corners = np.concatenate([tris(5 * k, [-3, -2, 1], [3, 2, 8], 0.4), tris(k, [-2, -1, 3], [2, 1, 6], 3.0),
+                              tris(k, [-2, -2, -0.5], [2, 2, 0.5], 1.5), tris(k, [40, -2, 2], [60, 2, 9], 0.5)])
+    corners = corners[rng.permutation(corners.shape[0])[:rows]].astype(np.float32)
+    if non_finite:
+        bad = [np.nan, np.inf, -np.inf]
+        for j, f in enumerate(range(rows - 1, 0, -max(1, rows // 40))):
+            if j % 4 == 3:
+                corners[f] = bad[j % 3]
+            else:
+                corners[f, j % 3, (j // 3) % 3] = bad[j % 3]
+    cam = Camera.from_target(np.zeros(3, np.float32), np.array([0.0, 0.0, 1.0], np.float32))
+    vp = math3d.perspective_inverse_depth(np.radians(80.0), width / height, 0.01) @ cam.view_matrix()
+    if ties:
+        assert (width, height) == (512, 256)
+        vp = np.array([[1, 0, 0, 0], [0, 1, 0, 0], [0, 0, 1, 0], [0, 0, 1, 0]])
+        e, t = 2.0**-12, 5 * 2.0**-9  # (1 + e)^2 = 1 + 2^-11 + 2^-24: a midpoint; t: 2.5 px at width 512
+        crafted = [
+            # corner 0 anchors at (0, 0); e0's third component is (256 (1 + e)) (128 (1 + e)) + 2^-45
+            [[-1, 1, 1], [1 + e, 1.5 * 2.0**-29, 2.0**-29], [2.0**-31, -(1 + e), 2.0**-31]],
+            [[-1 + t, 1, 1], [0.5, 0.2, 1], [0.1, 0.6, 1]],  # anchor x 2.5
+            [[-1 - t, 1, 1], [0.5, 0.2, 1], [0.1, 0.6, 1]],  # anchor x -2.5
+            [[-1, 1 - 5 * 2.0**-8, 1], [0.5, 0.2, 1], [0.1, 0.6, 1]],  # anchor y 2.5
+        ]
+        corners[:len(crafted)] = np.array(crafted)
+    return torch.from_numpy(corners), torch.from_numpy(vp.astype(np.float32)), rows - padding, width, height
+
+
+def assert_same_bits(got, want, what: str = "") -> None:
+    """got equal to want bit for bit (so -0.0 is not 0.0), NaN where want
+    holds NaN: a NaN's payload is left aside, since the card's and the
+    host's arithmetic write other NaN bits."""
+    assert got.shape == want.shape and got.dtype == want.dtype, what
+    if not got.is_floating_point():
+        assert torch.equal(got, want), what
+        return
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan), f"{what}: NaN positions"
+    assert torch.equal(got.view(torch.int32)[~nan], want.view(torch.int32)[~nan]), what
 
 
 # The binning cases: (boxes: n, width, height, seed, huge share, small and large sizes), the grid (tiles_x,
@@ -630,6 +709,25 @@ class Cases:
         assert torch.equal(got, want["pair_faces"] if scan else want["pair_faces"][:n])
         assert scan or torch.equal(tiles[:n], want["pair_tiles"][:n])
 
+    def setup(self, case):
+        """tr_setup on setup_inputs(*SETUP_CASES[case]), the corners and
+        every output a tensor of exactly its size, against
+        transform_corners and triangle_setup: all five outputs bit for
+        bit."""
+        corners, vp, n_faces, w, h = setup_inputs(*SETUP_CASES[case])
+        clip = geometry.transform_corners(corners, vp)
+        want = dict(clip=clip, **geometry.triangle_setup(clip, None, n_faces, w, h))
+        f = corners.shape[0]
+        out = dict(clip=torch.empty((f, 3, 4)), setup=torch.empty((f, geometry.SETUP_WIDTH)),
+                   valid=torch.empty((f,), dtype=torch.bool), aabb=torch.empty((f, 4)), det=torch.empty((f,)))
+        corners, vp = exact(corners), exact(vp)
+        err = self.lib.tr_setup(corners.data_ptr(), vp.data_ptr(), f, n_faces, w, h,
+                                *(out[k].data_ptr() for k in ("clip", "setup", "valid", "aabb", "det")), None)
+        assert err == 0
+        for k, v in out.items():
+            assert_same_bits(v, want[k], k)
+        assert f < 64 or int(want["valid"].sum()) > 0
+
     def plan_24_windows(self):
         plan = self.check_plan(texture_grid_gbuf(24, 6), dict(tiles_x=1, tiles_y=1, tile_h=32, tile_w=128))
         assert int(plan["cls"][0]) == sampler.CLS_WINDOWED and int(plan["n_used"][0]) >= 24
@@ -726,6 +824,7 @@ class Cases:
             **{f"bin_{k}": functools.partial(self.bin, k) for k in BIN_CASES},
             "bin_near_faces": lambda: self.bin_near(False),
             "bin_near_faces_scan": lambda: self.bin_near(True),
+            **{f"setup_{k}": functools.partial(self.setup, k) for k in SETUP_CASES},
             PLANTED: self.planted,
             PLANTED_RACE: self.planted_race,
         }

@@ -1,5 +1,5 @@
 // Shared helpers of the tpurast_torch CUDA kernels (raster.cu, resolve.cu,
-// plan.cu, sampler.cu, shade.cu, probes.cu, bin.cu).
+// plan.cu, sampler.cu, shade.cu, probes.cu, bin.cu, setup.cu).
 //
 // The kernels are built with --fmad=false and without fast math, so every
 // a*b+c below rounds twice and every division and sqrtf is correctly
@@ -156,6 +156,15 @@ __device__ __forceinline__ float4 ldg_f4(const float4* p) {
 #else
   return __ldg(p);
 #endif
+}
+
+// A 16-byte store, p aligned to 16 bytes (the card faults on a misaligned
+// one; the host emulation records it as ldg_f4 does).
+__device__ __forceinline__ void st_f4(float4* p, float4 v) {
+#ifdef TR_HOST_EMU
+  tr_emu_check_aligned(p, 16);
+#endif
+  *p = v;
 }
 
 // Streaming 4-byte load and store (ld.global.cs, st.global.cs: evict

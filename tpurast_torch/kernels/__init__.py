@@ -2,8 +2,8 @@
 
 Stages of one frame (tpurast_torch.renderer.render_frame):
 
-  geometry.py — corner transform, triangle setup (torch ops), pair binning
-                (CUDA kernels, csrc/bin.cu)
+  geometry.py — corner transform and triangle setup (CUDA kernel,
+                csrc/setup.cu), pair binning (CUDA kernels, csrc/bin.cu)
   raster.py   — visibility: depth + winning face id per pixel (CUDA kernel)
   resolve.py  — per-pixel G-buffer of the winning face (CUDA kernel)
   sampler.py  — texel window plan per tile (CUDA kernel), anisotropic
@@ -45,7 +45,7 @@ import torch
 
 #: CUDA launches per kernel since the last reset_launches().
 LAUNCHES = {"raster": 0, "resolve": 0, "plan": 0, "sample": 0, "gather": 0, "deferred": 0, "vmem_take": 0,
-            "plane_scale": 0, "bin": 0}
+            "plane_scale": 0, "bin": 0, "setup": 0}
 
 
 def reset_launches() -> None:

@@ -1,18 +1,20 @@
-"""Geometry stage as torch ops: corner transform, triangle setup, binning.
+"""Geometry stage: corner transform, triangle setup, binning.
 
 Counterpart of tpurast/kernels/geometry.py (transform_corners,
 triangle_setup, _tile_ranges, bin_pairs, bin_triangles), same layouts and
-field numbering. The reference leaves all of them to XLA. The port leaves
-the transform and the setup to eager torch; the binners are CUDA kernels
-for CUDA tensors (csrc/bin.cu, ``LAUNCHES["bin"]``), and the torch code
-below is their plain version, which CPU tensors and kernels.plain_kernels()
-take.
+field numbering. The reference leaves all of them to XLA. For CUDA
+tensors the port runs the transform and the setup as one CUDA kernel
+(setup_faces: csrc/setup.cu, ``LAUNCHES["setup"]``) and the binners as
+others (csrc/bin.cu, ``LAUNCHES["bin"]``); the torch code below is their
+plain version, which CPU tensors and kernels.plain_kernels() take, and
+which the JAX parity tests hold to the reference.
 
 Every expression keeps the reference's operation order, with one
 rounding per operation. Eager torch never contracts a*b+c into an FMA on
 the CPU or on the card, so the CPU tests and the card compute the same
-bits here. The one place written as an FMA on purpose is the adjugate's
-cross products (see _cross).
+bits here, and the kernels repeat the same operations. The one place
+written as an FMA on purpose is the adjugate's cross products (see
+_cross).
 
 Divisions by a Python number go through a tensor divisor: torch's CUDA
 division turns a CPU-scalar divisor into a multiply by its reciprocal,
@@ -165,6 +167,42 @@ def triangle_setup(clip: torch.Tensor, faces, n_faces: int, width: int, height: 
         dim=-1,
     ).to(torch.float32)
     return {"setup": setup.contiguous(), "valid": valid, "aabb": aabb, "det": det}
+
+
+def _setup_kernel(corner_world, view_proj, n_faces: int, width: int, height: int):
+    """setup_faces on the card (csrc/setup.cu tr_setup): one launch writes
+    the clip corners and triangle_setup's four outputs; view_proj is read
+    through its pointer, so a CUDA graph's replay reads the matrix its
+    static input holds then."""
+    f = corner_world.shape[0]
+    _k.check(corner_world, "corner_world", torch.float32, (f, 3, 3))
+    _k.check(view_proj, "view_proj", torch.float32, (4, 4))
+    if corner_world.data_ptr() % 16:
+        raise ValueError("corner_world: must start on the 16-byte grid")
+    dev = corner_world.device
+    clip = torch.empty((f, 3, 4), dtype=torch.float32, device=dev)
+    out = {
+        "setup": torch.empty((f, SETUP_WIDTH), dtype=torch.float32, device=dev),
+        "valid": torch.empty((f,), dtype=torch.bool, device=dev),
+        "aabb": torch.empty((f, 4), dtype=torch.float32, device=dev),
+        "det": torch.empty((f,), dtype=torch.float32, device=dev),
+    }
+    _build.call("tr_setup", corner_world, view_proj, f, int(n_faces), int(width), int(height), clip, out["setup"],
+                out["valid"], out["aabb"], out["det"])
+    _k.LAUNCHES["setup"] += 1
+    return clip, out
+
+
+def setup_faces(corner_world: torch.Tensor, view_proj: torch.Tensor, n_faces: int, width: int, height: int):
+    """transform_corners, then triangle_setup on the corners (faces=None):
+    (F, 3, 3) world corners and the (4, 4) view_proj -> (clip (F, 3, 4),
+    {setup, valid, aabb, det}), the frame's geometry stage. CUDA tensors
+    take csrc/setup.cu in one launch (_setup_kernel), the same bits; CPU
+    tensors and plain_kernels() the two torch functions."""
+    if _k.use_kernel(corner_world, view_proj):
+        return _setup_kernel(corner_world, view_proj, n_faces, width, height)
+    clip = transform_corners(corner_world, view_proj)
+    return clip, triangle_setup(clip, None, n_faces, width, height)
 
 
 def _tile_ranges(aabb, valid, tiles_x, tiles_y, tile_w, tile_h, ty_base=0):

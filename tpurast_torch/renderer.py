@@ -3,7 +3,7 @@
 Counterpart of tpurast/renderer.py (render_frame, Renderer), same
 keyword arguments and the same output dict. A frame runs
 
-  corner transform -> triangle setup/cull -> pair binning      (torch ops)
+  corner transform + triangle setup/cull (setup kernel) -> pair binning (bin kernels)
   -> raster kernel, then one of
        forward + window: attribute pack (torch) -> resolve kernel
            -> plan kernel (texel windows per tile: the empty tiles and
@@ -216,8 +216,7 @@ def render_frame(
     stamps = _no_stamps if marks is None else marks.stamps
 
     mark(0)
-    clip_c = geometry.transform_corners(scene["corner_world"], view_proj)
-    setup_out = geometry.triangle_setup(clip_c, None, scene["n_faces"], width, height)
+    clip_c, setup_out = geometry.setup_faces(scene["corner_world"], view_proj, scene["n_faces"], width, height)
     if stage == "geometry":
         return _stage_probe(setup_out["setup"], setup_out["valid"], setup_out["aabb"])
     mark(1)
