@@ -1086,9 +1086,9 @@ def guard_bin(phase: str, label: str, aabb, valid, grid: tuple, ty_base: int, ca
     args = (f, tx, ty, tw, th, geometry.TILES_PER_FACE, geometry.HUGE_BUDGET, ty_base, int(not scan))
     n_scratch = _build.library().tr_bin_scratch(*args)
     pf = got["pair_faces"]
-    guard(phase, f"bin {label}", "tr_bin", aabb, valid, *args, pf.numel(), Out(pf.shape, torch.int32),
+    guard(phase, f"bin {label}", "tr_bin", aabb, valid, None, 0, 0, *args, pf.numel(), Out(pf.shape, torch.int32),
           None if scan else Out(got["pair_tiles"].shape, torch.int32), Out(got["offsets"].shape, torch.int32),
-          Out(got["counts"].shape, torch.int32), Out((), torch.int32), Out((n_scratch,), torch.int32), n_scratch,
+          Out(got["counts"].shape, torch.int32), Out((), torch.int32), None, Out((n_scratch,), torch.int32), n_scratch,
           want=((pf, got["offsets"], got["counts"], got["overflow"], None) if scan
                 else (None, None, got["offsets"], got["counts"], got["overflow"], None)))
 

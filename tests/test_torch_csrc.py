@@ -813,7 +813,7 @@ def test_trace_mark_kernel(emu):
         last = i == len(tracing.MARKS) - 1
         err = emu.tr_trace_mark(ring.data_ptr(), seq.data_ptr(), rec.data_ptr(), slots, i, int(last),
                                 None if ovf is None else ovf.data_ptr(), None if mis is None else mis.data_ptr(),
-                                None)
+                                None, None, None)
         assert err == 0
 
     def frame(ovf, mis):
@@ -839,7 +839,8 @@ def test_trace_mark_kernel(emu):
     mark(0)
     mark(6)  # no counters: 0
     assert ring.view(slots + 1, S)[2, tracing.OVERFLOW] == 0 and ring.view(slots + 1, S)[2, tracing.DONE] == 6
-    assert emu.tr_trace_mark(ring.data_ptr(), seq.data_ptr(), rec.data_ptr(), slots, -1, 0, None, None, None) == 0
+    assert emu.tr_trace_mark(ring.data_ptr(), seq.data_ptr(), rec.data_ptr(), slots, -1, 0, None, None, None, None,
+                             None) == 0
     assert int(seq) == 6 and t1 <= int(ring[slots * S]) <= time.perf_counter_ns()
     # Mapped memory (plain zeroed memory here).
     emu.tr_trace_alloc.argtypes = [ctypes.c_longlong, ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_void_p)]
@@ -1003,7 +1004,7 @@ NEAR_CASES = {"frame": (8, 0, None), "slab": (3, 2, None), "scan": (8, 0, 16384)
 
 @pytest.mark.parametrize("case", list(NEAR_CASES))
 def test_bin_kernels_near_boxes(emu_bin, case):
-    """The binning kernels with near-plane boxes (tr_bin_near: face_kernel
+    """The binning kernels with near-plane boxes (tr_bin given clip: face_kernel
     reads a cut face's corners) against the plain binners with near= on
     tests/test_torch_memsafety.py's near_faces (faces across the eye plane
     through the setup, and crafted cut faces: behind the eye, on the eye
@@ -1045,9 +1046,9 @@ def test_bin_kernels_near_boxes(emu_bin, case):
 
 
 def test_trace_mark_kernel_carries_face_counts(emu):
-    """tr_trace_mark_faces: mark 6 copies the binner's cut and huge face
-    counts into the record beside bin_overflow and window_miss_px (0 where
-    a pointer is null); tr_trace_mark writes 0 for both."""
+    """tr_trace_mark: mark 6 copies the binner's cut and huge face counts
+    into the record beside bin_overflow and window_miss_px (0 where a
+    pointer is null, both of them null included)."""
     from tpurast_torch import tracing
 
     slots, S = 4, tracing.SLOT
@@ -1059,15 +1060,15 @@ def test_trace_mark_kernel_carries_face_counts(emu):
     for last_counts in (counts, [counts[0], counts[1], None, counts[3]]):
         for i in (0, 1, 6):
             c = last_counts if i == 6 else [None] * 4
-            assert emu.tr_trace_mark_faces(ring.data_ptr(), seq.data_ptr(), rec.data_ptr(), slots, i, int(i == 6),
-                                           *(None if t is None else t.data_ptr() for t in c), None) == 0
+            assert emu.tr_trace_mark(ring.data_ptr(), seq.data_ptr(), rec.data_ptr(), slots, i, int(i == 6),
+                                     *(None if t is None else t.data_ptr() for t in c), None) == 0
     got = ring.view(slots + 1, S)
     words = [tracing.OVERFLOW, tracing.MISS, tracing.CUT, tracing.HUGE, tracing.DONE]
     assert got[1, words].tolist() == [7, 3, 41, 65, 1]
     assert got[2, [tracing.CUT, tracing.HUGE, tracing.DONE]].tolist() == [0, 65, 2]
     for i in (0, 6):
         assert emu.tr_trace_mark(ring.data_ptr(), seq.data_ptr(), rec.data_ptr(), slots, i, int(i == 6),
-                                 counts[0].data_ptr(), None, None) == 0
+                                 counts[0].data_ptr(), None, None, None, None) == 0
     assert got[3, [tracing.OVERFLOW, tracing.CUT, tracing.HUGE, tracing.DONE]].tolist() == [7, 0, 0, 3]
 
 

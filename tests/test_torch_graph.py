@@ -224,6 +224,7 @@ def test_bin_wrapper_reads_nothing_back_before_the_launch(scene, cam, binner, mo
     with guard.on():
         out = geometry.bin_pairs(*grid, ty_base=1) if binner == "pairs" else geometry.bin_triangles(*grid, 512)
     assert [name for name, _ in calls] == ["tr_bin"] and kernels.LAUNCHES["bin"] == before + 1
+    assert calls[0][1][2:5] == (None, 0, 0) and calls[0][1][-3] is None  # no clip, no face counts
     assert out["offsets"].shape == (r.tiles_x * r.tiles_y + 1,) and ("pair_tiles" in out) == (binner == "pairs")
     assert out["pair_faces"].shape == ((geometry.TILES_PER_FACE * so["aabb"].shape[0] + geometry.HUGE_BUDGET
                                         * r.tiles_x * r.tiles_y,) if binner == "pairs" else (512,))

@@ -46,7 +46,7 @@ and warp-synchronous code that leans on lockstep. The ASan shapes:
     than HUGE_BUDGET, some past the frame's edges): bin_pairs' contract on
     the frame and on a slab, bin_triangles' with half the pairs' room, and
     8,100 tiles, where the tile sort runs as two passes; the scratch from
-    tr_bin_scratch, exact-size; and with near-plane boxes (tr_bin_near) on
+    tr_bin_scratch, exact-size; and with near-plane boxes (tr_bin given clip) on
     near_faces: faces across the eye plane through the setup, and crafted
     cut faces wholly behind the eye, on the eye plane, with NaN and
     infinite corners, the clip corners an exact-size tensor;
@@ -641,7 +641,8 @@ class Cases:
         assert_shade_close(out, want, covered)
 
     def bin(self, case):
-        """tr_bin on BIN_CASES[case], every input, output and the scratch
+        """tr_bin without near-plane boxes (clip and faces null) on
+        BIN_CASES[case], every input, output and the scratch
         (tr_bin_scratch ints) a tensor of exactly its size, against the plain
         binner: offsets, counts and overflow exactly, the pairs on the live
         prefix (bin_triangles: its whole buffer)."""
@@ -663,9 +664,9 @@ class Cases:
         counts = torch.empty((tx * ty,), dtype=torch.int32)
         overflow = torch.empty((), dtype=torch.int32)
         scratch = torch.empty((n_scratch,), dtype=torch.int32)
-        err = self.lib.tr_bin(aabb.data_ptr(), valid.data_ptr(), *args, faces.numel(), faces.data_ptr(),
+        err = self.lib.tr_bin(aabb.data_ptr(), valid.data_ptr(), None, 0, 0, *args, faces.numel(), faces.data_ptr(),
                               None if tiles is None else tiles.data_ptr(), offsets.data_ptr(), counts.data_ptr(),
-                              overflow.data_ptr(), scratch.data_ptr(), n_scratch, None)
+                              overflow.data_ptr(), None, scratch.data_ptr(), n_scratch, None)
         assert err == 0
         n = int(want["offsets"][-1])
         assert n > 500 and (int(want["overflow"]) > 0 or case == "random_faces_slab")
@@ -675,10 +676,11 @@ class Cases:
         assert scan or torch.equal(tiles[:n], want["pair_tiles"][:n])
 
     def bin_near(self, scan: bool):
-        """tr_bin_near on near_faces at 512x256 in 32x128 tiles, every input
-        (the clip corners too), output and the scratch a tensor of exactly
-        its size, against the plain binner with near=: offsets, counts,
-        overflow and the face counts exactly, the pairs as in ``bin``."""
+        """tr_bin with near-plane boxes on near_faces at 512x256 in 32x128
+        tiles, every input (the clip corners too), output and the scratch a
+        tensor of exactly its size, against the plain binner with near=:
+        offsets, counts, overflow and the face counts exactly, the pairs as
+        in ``bin``."""
         aabb, valid, clip = near_faces()
         tx, ty, tw, th, f = 4, 8, 128, 32, aabb.shape[0]
         grid, near = (aabb, valid, tx, ty, tw, th), (clip, 512, 256)
@@ -694,11 +696,11 @@ class Cases:
                    faces=torch.empty((2,), dtype=torch.int32))
         tiles = None if scan else torch.empty((slots,), dtype=torch.int32)
         scratch = torch.empty((n_scratch,), dtype=torch.int32)
-        err = self.lib.tr_bin_near(aabb.data_ptr(), valid.data_ptr(), clip.data_ptr(), 512, 256, *args,
-                                   out["pair_faces"].numel(), out["pair_faces"].data_ptr(),
-                                   None if tiles is None else tiles.data_ptr(), out["offsets"].data_ptr(),
-                                   out["counts"].data_ptr(), out["overflow"].data_ptr(), out["faces"].data_ptr(),
-                                   scratch.data_ptr(), n_scratch, None)
+        err = self.lib.tr_bin(aabb.data_ptr(), valid.data_ptr(), clip.data_ptr(), 512, 256, *args,
+                              out["pair_faces"].numel(), out["pair_faces"].data_ptr(),
+                              None if tiles is None else tiles.data_ptr(), out["offsets"].data_ptr(),
+                              out["counts"].data_ptr(), out["overflow"].data_ptr(), out["faces"].data_ptr(),
+                              scratch.data_ptr(), n_scratch, None)
         assert err == 0
         n = int(want["offsets"][-1])
         assert n > 500 and int(want["cut_faces"]) > 20

@@ -17,7 +17,7 @@ kernels' plain torch versions):
     and its final frame within 1 LSB of the JAX Engine's on the same scene
     and config with overlay=False under a controller that only turns the
     camera (translation scales with wall-clock dt, which no two runs
-    share); the one-frame-late counters of an untraced Engine, resize,
+    share); the counters it reads from the trace's counter ring, resize,
     the vsync cap;
   * FrameStats against the reference's on the same samples;
   * stage_sweep returns the reference's keys in order, delta summing to
@@ -46,7 +46,7 @@ from tpurast.overlay import FrameStats as RefFrameStats
 from tpurast.profiling import STAGES as REF_STAGES
 from tpurast.renderer import Renderer as RefRenderer
 from tpurast.renderer import render_frame as ref_render_frame
-from tpurast_torch import cli, kernels, profiling
+from tpurast_torch import cli, kernels, profiling, tracing
 from tpurast_torch.camera import MoveDirection
 from tpurast_torch.device import scene as scene_mod
 from tpurast_torch.device import scene_cache
@@ -233,16 +233,18 @@ def test_engine_final_frame_matches_reference(scene):
     assert (got[..., :3] != got[0, 0, :3]).any()  # not a blank frame
 
 
-def test_engine_reads_counters_one_frame_late_and_resizes(tiny_scene):
-    # Untraced, the Engine reads the counters one tick late with .item()
-    # (traced, from the counter ring: tests/test_torch_tracing.py).
-    eng = Engine(scene=tiny_scene, config=TINY_CFG, overlay=False, device="cpu", trace=False)
-    assert eng._pending_overflow is None
+def test_engine_reads_counters_from_the_ring_and_resizes(tiny_scene):
+    # The Engine reads each finished frame's counters from the counter
+    # ring (the frame loop's own case: tests/test_torch_tracing.py).
+    eng = Engine(scene=tiny_scene, config=TINY_CFG, overlay=False, device="cpu")
+    marks = eng.renderer.marks
     eng.tick()
-    assert eng._pending_overflow is not None and eng.dropped_total == 0
-    # A counter that says 7 is accounted by the NEXT tick, to the frame before it.
-    eng._pending_overflow = torch.tensor(7, dtype=torch.int32)
-    eng._pending_window_miss = torch.tensor(3, dtype=torch.int32)
+    assert eng._counted == marks.enqueued and eng.dropped_total == 0
+    # A finished frame whose record says 7 and 3 is accounted by the next tick.
+    last = len(tracing.MARKS) - 1
+    for i in range(last):
+        marks.mark(i)
+    marks.mark(last, torch.tensor(7, dtype=torch.int32), torch.tensor(3, dtype=torch.int32))
     eng.tick()
     assert (eng.dropped_total, eng.overflow_frames, eng.window_miss_total) == (7, 1, 3)
     eng.resize(64, 32)

@@ -10,8 +10,9 @@
     equal to the records' sequence numbers; marks refused with a stage=
     prefix or the gbuf output;
   * the clock mapping's arithmetic on planted calibration pairs;
-  * frames of Renderer(trace=True) equal to trace=False bit for bit, and
-    render_frame(..., marks=...) equal to render_frame without marks;
+  * frames of the traced Renderer and of render_frame(..., marks=...)
+    equal to render_frame without marks bit for bit; a G-buffer Renderer
+    records nothing;
   * the counter ring carrying a planted bin_overflow and window_miss_px,
     and the Engine accounting them from it without a synchronize, to the
     frame that carried them; the bench's --stages from the marks.
@@ -250,20 +251,21 @@ def test_marks_need_a_whole_frame(scene, cams):
 @pytest.mark.parametrize("path", list(PATHS))
 def test_traced_frames_equal_untraced_ones(scene, cams, path):
     cfg = dataclasses.replace(CFG, **PATHS[path])
-    on, off = Renderer(scene, cfg, device="cpu"), Renderer(scene, cfg, device="cpu", trace=False)
-    assert on.marks is tracing.marks("cpu") and off.marks is None
-    u = on.frame_uniforms(cams[2])
-    want = render_frame(on.scene, *u, **on._frame_kwargs)
-    plain = render_frame(on.scene, *u, **on._frame_kwargs, marks=None)
-    marked = render_frame(on.scene, *u, **on._frame_kwargs, marks=tracing.FrameMarks("cpu"))
-    for got in (plain, marked, on.render(cams[2]), off.render(cams[2])):
+    r = Renderer(scene, cfg, device="cpu")
+    assert r.marks is tracing.marks("cpu")
+    u = r.frame_uniforms(cams[2])
+    want = render_frame(r.scene, *u, **r._frame_kwargs)
+    plain = render_frame(r.scene, *u, **r._frame_kwargs, marks=None)
+    marked = render_frame(r.scene, *u, **r._frame_kwargs, marks=tracing.FrameMarks("cpu"))
+    for got in (plain, marked, r.render(cams[2])):
         assert set(got) == set(want) and all(torch.equal(got[k], want[k]) for k in want)
 
 
-def test_an_untraced_renderer_records_nothing(scene, cams):
-    off = Renderer(scene, CFG, device="cpu", trace=False)
+def test_a_gbuf_renderer_records_nothing(scene, cams):
+    g = Renderer(scene, CFG, "gbuf", device="cpu")
+    assert g.marks is None
     first_id, enqueued = _last_id(), tracing.marks("cpu").enqueued
-    off.render(cams[1])
+    assert set(g.render(cams[1])) == {"gbuf", "depth", "fid"}
     assert _last_id() == first_id and tracing.marks("cpu").enqueued == enqueued
 
 
@@ -338,7 +340,7 @@ def test_engine_reads_counters_from_the_counter_ring(scene, monkeypatch, caplog)
         assert (eng.dropped_total, eng.overflow_frames, eng.window_miss_total) == (7, 1, 3)
         eng.run(2)
     assert (eng.dropped_total, eng.overflow_frames, eng.window_miss_total) == (7, 1, 3)
-    assert eng._counted == marks.enqueued and eng._pending_overflow is None
+    assert eng._counted == marks.enqueued
     assert "frame 1: 7 binned pairs dropped" in caplog.text and "frame 1: 3 pixels" in caplog.text
 
 

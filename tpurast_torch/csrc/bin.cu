@@ -707,11 +707,11 @@ extern "C" long long tr_bin_scratch(int n_faces, int tiles_x, int tiles_y, int t
 // capacity (bin_triangles' contract). offsets (T+1,), counts (T,), overflow
 // (one int), faces (two ints: the cut faces that name a tile, the huge
 // faces) or null. scratch: tr_bin_scratch ints, on the 16-byte grid.
-extern "C" int tr_bin_near(const float* aabb, const unsigned char* valid, const float* clip, int width, int height,
-                           int n_faces, int tiles_x, int tiles_y, int tile_w, int tile_h, int tiles_per_face,
-                           int huge_budget, int ty_base, int by_y, int capacity, int* pair_faces, int* pair_tiles,
-                           int* offsets, int* counts, int* overflow, int* faces, int* scratch, long long scratch_ints,
-                           void* stream) {
+extern "C" int tr_bin(const float* aabb, const unsigned char* valid, const float* clip, int width, int height,
+                      int n_faces, int tiles_x, int tiles_y, int tile_w, int tile_h, int tiles_per_face,
+                      int huge_budget, int ty_base, int by_y, int capacity, int* pair_faces, int* pair_tiles,
+                      int* offsets, int* counts, int* overflow, int* faces, int* scratch, long long scratch_ints,
+                      void* stream) {
   Layout l = layout(n_faces, tiles_x, tiles_y, tile_w, tile_h, tiles_per_face, huge_budget, ty_base, by_y);
   if (!shapes_ok(l) || scratch_ints < l.total || capacity < 0 || (uintptr_t)scratch % 16 != 0) {
     return (int)cudaErrorInvalidValue;
@@ -750,14 +750,4 @@ extern "C" int tr_bin_near(const float* aabb, const unsigned char* valid, const 
               tiles, head, out);
   }
   return (int)cudaGetLastError();
-}
-
-// tr_bin_near without near-plane boxes or face counts.
-extern "C" int tr_bin(const float* aabb, const unsigned char* valid, int n_faces, int tiles_x, int tiles_y,
-                      int tile_w, int tile_h, int tiles_per_face, int huge_budget, int ty_base, int by_y,
-                      int capacity, int* pair_faces, int* pair_tiles, int* offsets, int* counts, int* overflow,
-                      int* scratch, long long scratch_ints, void* stream) {
-  return tr_bin_near(aabb, valid, nullptr, 0, 0, n_faces, tiles_x, tiles_y, tile_w, tile_h, tiles_per_face,
-                     huge_budget, ty_base, by_y, capacity, pair_faces, pair_tiles, offsets, counts, overflow, nullptr,
-                     scratch, scratch_ints, stream);
 }

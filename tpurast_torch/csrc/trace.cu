@@ -63,19 +63,13 @@ __global__ void mark_kernel(volatile long long* ring, long long* seq, long long*
 
 }  // namespace
 
-// cut, huge: the binner's face counts (geometry.py bin_pairs cut_faces,
-// huge_faces), or null for 0.
-extern "C" int tr_trace_mark_faces(long long* ring, long long* seq, long long* frame, int slots, int mark, int last,
-                                   const int* overflow, const int* miss, const int* cut, const int* huge,
-                                   void* stream) {
+// overflow, miss: the frame's bin_overflow and window_miss_px; cut, huge:
+// the binner's face counts (geometry.py bin_pairs cut_faces, huge_faces).
+// Each is read by the last mark only, and null for 0.
+extern "C" int tr_trace_mark(long long* ring, long long* seq, long long* frame, int slots, int mark, int last,
+                             const int* overflow, const int* miss, const int* cut, const int* huge, void* stream) {
   TR_LAUNCH(mark_kernel, 1, 1, stream, ring, seq, frame, slots, mark, last, overflow, miss, cut, huge);
   return (int)cudaGetLastError();
-}
-
-// tr_trace_mark_faces without face counts.
-extern "C" int tr_trace_mark(long long* ring, long long* seq, long long* frame, int slots, int mark, int last,
-                             const int* overflow, const int* miss, void* stream) {
-  return tr_trace_mark_faces(ring, seq, frame, slots, mark, last, overflow, miss, nullptr, nullptr, stream);
 }
 
 // Host memory the card writes and the host reads without a copy: pinned,

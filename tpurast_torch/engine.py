@@ -8,9 +8,9 @@ Startup mirrors the reference's Engine.init: the 4-model demo scene with
 its placements when given a data directory (or any prebuilt scene), the
 camera at -2.5 * forward looking at +forward, a 1280x720 default target.
 The engine renders on ``device``: "cuda" (the default) launches the CUDA
-kernels, "cpu" runs their plain torch versions. ``trace`` (the default)
-traces its Renderer (tracing.py) and reads each frame's counters from the
-trace's counter ring.
+kernels, "cpu" runs their plain torch versions. Its Renderer is traced
+(tracing.py), and each tick reads the counters of the frames the device
+has finished from the trace's counter ring.
 """
 
 from __future__ import annotations
@@ -46,14 +46,13 @@ class Engine:
         overlay: bool = True,
         *,
         device="cuda",
-        trace: bool = True,
     ):
         self.config = config or RendererConfig()
         if scene is None:
             if data_dir is None:
                 raise ValueError("need data_dir or a prebuilt scene")
             scene = load_demo_scene(data_dir)
-        self.renderer = Renderer(scene, self.config, device=device, trace=trace)
+        self.renderer = Renderer(scene, self.config, device=device)
         fwd = math3d.WORLD_SPACE.forward.vector()
         self.camera = Camera.from_target(fwd * -2.5, fwd)
         self.presenter = Presenter()
@@ -63,17 +62,12 @@ class Engine:
         # cap the loop at 60 Hz when enabled.
         self.vsync = False
         self._last_instant: float | None = None
-        # Overflow surfacing. Traced: each tick reads bin_overflow and
+        # Overflow surfacing: each tick reads bin_overflow and
         # window_miss_px of every frame the card has finished since the
         # last read from the counter ring (tracing.FrameMarks.counters),
         # which waits for nothing; a frame still in flight is read by a
-        # later tick, or by run()'s end. Untraced: the previous frame's
-        # scalars are read one tick late with .item(), which copies behind
-        # the frame just enqueued and so waits for that frame to finish.
-        marks = self.renderer.marks
-        self._counted = 0 if marks is None else marks.enqueued
-        self._pending_overflow = None
-        self._pending_window_miss = None
+        # later tick, or by run()'s end.
+        self._counted = self.renderer.marks.enqueued
         self.overflow_frames = 0
         self.dropped_total = 0
         self.window_miss_total = 0
@@ -103,17 +97,7 @@ class Engine:
 
         frame = self.renderer.render(self.camera)
         image = self.presenter.present(frame["color"])
-        if self.renderer.marks is not None:
-            self._read_counter_ring(self.frame_index)
-        else:
-            # The PREVIOUS frame's counters (this frame is already
-            # enqueued behind them).
-            if self._pending_overflow is not None:
-                self._account(self.frame_index - 1, int(self._pending_overflow.item()), 0)
-            if self._pending_window_miss is not None:
-                self._account(self.frame_index - 1, 0, int(self._pending_window_miss.item()))
-            self._pending_overflow = frame["bin_overflow"]
-            self._pending_window_miss = frame.get("window_miss_px")
+        self._read_counter_ring(self.frame_index)
         if self.vsync:
             budget = 1.0 / 60.0
             elapsed = time.perf_counter() - now
@@ -168,8 +152,7 @@ class Engine:
                 if on_frame:
                     on_frame(i, image)
         tail = self.presenter.flush()
-        if self.renderer.marks is not None:  # the last frame has finished
-            self._read_counter_ring(self.frame_index - 1)
+        self._read_counter_ring(self.frame_index - 1)  # the last frame has finished
         if tail is not None:
             tail_img = np.asarray(tail)
             if self.overlay_enabled:

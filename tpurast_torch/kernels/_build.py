@@ -61,10 +61,8 @@ SIGNATURES = {
     "tr_shade_deferred": [_P, _P, _I, _P, _L, _I, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     "tr_plane_scale": [_P, _I, _I, _I, _I, _I, _I, _P, _P],
     "tr_vmem_take": [_P, _I, _P, _L, _P, _P],
-    "tr_trace_mark": [_P, _P, _P, _I, _I, _I, _P, _P, _P],
-    "tr_trace_mark_faces": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P],
-    "tr_bin": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _L, _P],
-    "tr_bin_near": [_P, _P, _P, _I, _I] + [_I] * 10 + [_P] * 7 + [_L, _P],
+    "tr_trace_mark": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P],
+    "tr_bin": [_P, _P, _P, _I, _I] + [_I] * 10 + [_P] * 7 + [_L, _P],
     "tr_setup": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
 }
 # Host functions that return a count (see csrc/*.cu): their int arguments.

@@ -271,7 +271,7 @@ def _check_fields(f: int, t: int) -> None:
 
 def _bin_kernel(aabb, valid, tiles_x, tiles_y, tile_w, tile_h, tiles_per_face, huge_budget, ty_base,
                 pair_capacity=None, near=None) -> dict:
-    """Both binners on the card (csrc/bin.cu tr_bin, tr_bin_near): bin_pairs'
+    """Both binners on the card (csrc/bin.cu tr_bin): bin_pairs'
     outputs (pair_capacity None: the pair slots of the plain version, each
     tile's faces by y-bucket, then face) or bin_triangles' (each tile's faces
     by face, pair_faces of pair_capacity entries, 0 past the binned pairs),
@@ -282,8 +282,8 @@ def _bin_kernel(aabb, valid, tiles_x, tiles_y, tile_w, tile_h, tiles_per_face, h
     _check_fields(f, t)
     _k.check(aabb, "aabb", torch.float32, (f, 4))
     _k.check(valid, "valid", torch.bool, (f,))
-    if near is not None:
-        clip, width, height = near
+    clip, width, height = (None, 0, 0) if near is None else near
+    if clip is not None:
         _k.check(clip, "clip", torch.float32, (f, 3, 4))
     by_y = pair_capacity is None
     args = (f, tiles_x, tiles_y, tile_w, tile_h, tiles_per_face, huge_budget, int(ty_base), int(by_y))
@@ -301,12 +301,9 @@ def _bin_kernel(aabb, valid, tiles_x, tiles_y, tile_w, tile_h, tiles_per_face, h
     overflow = torch.empty((), dtype=torch.int32, device=dev)
     outputs = (pair_faces.numel(), pair_faces, pair_tiles, offsets, counts, overflow)
     out = {"pair_faces": pair_faces, "offsets": offsets, "counts": counts, "overflow": overflow}
-    if near is None:
-        _build.call("tr_bin", aabb, valid, *args, *outputs, scratch, scratch.numel())
-    else:
-        faces = torch.empty((2,), dtype=torch.int32, device=dev)
-        _build.call("tr_bin_near", aabb, valid, clip, int(width), int(height), *args, *outputs, faces, scratch,
-                    scratch.numel())
+    faces = None if near is None else torch.empty((2,), dtype=torch.int32, device=dev)
+    _build.call("tr_bin", aabb, valid, clip, int(width), int(height), *args, *outputs, faces, scratch, scratch.numel())
+    if faces is not None:
         out.update(cut_faces=faces[0], huge_faces=faces[1])
     _k.LAUNCHES["bin"] += 1
     return dict(out, pair_tiles=pair_tiles) if by_y else out

@@ -33,8 +33,8 @@ of bin_capacity pairs) where "pairs" takes geometry.bin_pairs; the two
 give the same frame. render_frame(tile_row_offset=, crop_height=) renders
 a slab of tile rows in the frame's pixel coordinates (parallel.py puts
 slabs together into the same frame, bit for bit). render_frame(marks=)
-places the frame's seven stage marks (tracing.py); a Renderer built with
-trace=True (the default) gives its frame graph its device's marks and
+places the frame's seven stage marks (tracing.py); every Renderer but a
+G-buffer one (output="gbuf") gives its frame graph its device's marks and
 records a ``frame`` span around each frame it renders.
 """
 
@@ -352,12 +352,11 @@ class Renderer:
     them. On the CPU and inside kernels.plain_kernels() they call
     render_frame (uses_graphs).
 
-    With ``trace`` (the default) the target's frame function ("frame")
-    gives render_frame the device's tracing.FrameMarks (``marks``), and
-    render and render_with_uniforms record each frame's ``frame`` span; the
-    first frame calibrates the device's clock. trace=False, or output="gbuf", renders
-    the same frames with neither (``marks`` is None): the graph holds the
-    frame's kernels alone."""
+    The target's frame function ("frame") gives render_frame the device's
+    tracing.FrameMarks (``marks``), and render and render_with_uniforms
+    record each frame's ``frame`` span; the first frame calibrates the
+    device's clock. A Renderer of output="gbuf" has no frame to mark: it
+    renders with neither (``marks`` is None)."""
 
     def __init__(
         self,
@@ -366,7 +365,6 @@ class Renderer:
         output: str = "srgb_u8",
         *,
         device="cuda",
-        trace: bool = True,
     ):
         self.config = config or RendererConfig()
         cfg = self.config
@@ -380,7 +378,7 @@ class Renderer:
         self._graphs: dict[str, FrameGraph] = {}
         self._uniforms = _PinnedUniforms(self.device) if self.device.type == "cuda" else None
         # A frame of output "gbuf" stops at the G-buffer: no frame to mark.
-        self.marks = tracing.marks(self.device) if trace and output != "gbuf" else None
+        self.marks = None if output == "gbuf" else tracing.marks(self.device)
         self._calibrated = False
         # Only the gather paths read the atlas rows (shade.py).
         self.scene = upload(scene, self.device, self.texture_dtype if self.sampler == "gather" else None)
@@ -486,7 +484,7 @@ class Renderer:
         """Render one frame from precomputed frame uniforms: color, depth,
         bin_overflow, window_miss_px."""
         fn = self._frame_fn("frame")
-        if self.marks is None:
+        if self.marks is None:  # a G-buffer Renderer
             return fn(self.scene, view_proj, camera_position)
         span = tracing.FRAME.begin()
         try:

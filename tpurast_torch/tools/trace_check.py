@@ -1,5 +1,5 @@
-"""The frame trace (tpurast_torch/tracing.py) on the card: its clock, its cost
-and what it sees over a window.
+"""The frame trace (tpurast_torch/tracing.py) on the card: its clock and what it
+sees over a window.
 
     python -m tpurast_torch.tools.trace_check [--scene porsche_class --data-dir DIR --textures 12]
         [--seconds 20] [--out FILE]
@@ -9,7 +9,7 @@ it, turned 0.01 rad a frame; each frame's uniforms are made as it is
 rendered (Renderer.render), as a viewer makes them. Prints one JSON line a phase (and writes every
 phase, the window's blocks included, to --out):
 
-  agreement  a slice of --frames frames of a traced Renderer under
+  agreement  a slice of --frames frames of the Renderer under
              torch.profiler: each mark's time, mapped onto the host's clock,
              less the profiler's time of the same point (MARK_EVENTS: the
              start of a mark kernel, the start or end of a render kernel
@@ -17,14 +17,9 @@ phase, the window's blocks included, to --out):
              with the offset alone and with the profiler's rate fitted too;
              the mark kernels' profiler device us a frame, and the drift
              between the clock's calibrations
-  cost       Renderer(trace=True) against trace=False in alternating pairs,
-             --rounds of each order, --cost-frames frames each: the render
-             loop's device ms a frame (CUDA events) and host ms a render
-             call, the present loop's host ms a frame; and the host ns of
-             the spans of one present-loop frame, alone
-  window     --seconds of each loop, render then present, on the traced
-             Renderer, the frame records read without a synchronize every
-             512 frames: per block of 512 frames the frame's pace, each marked
+  window     --seconds of each loop, render then present, the frame
+             records read without a synchronize every 512 frames: per
+             block of 512 frames the frame's pace, each marked
              interval, the gap between frames, the queue latency (a frame
              span's end to the frame's first mark) and the host-bound time
              (max(0, next frame span's end - the frame's last mark)); in the
@@ -84,22 +79,6 @@ def _device_events(prof) -> list[tuple[str, float, float]]:
     return sorted(((e["name"], float(e["ts"]), float(e["dur"])) for e in events
                    if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")),
                   key=lambda e: e[1])
-
-
-def _mark_events(prof) -> list[tuple[float, float]]:
-    """(start us, length us) of every mark kernel in a profile, in order."""
-    return [(s, d) for n, s, d in _device_events(prof) if "mark_kernel" in n]
-
-
-def device_ops(r: Renderer, cams, n: int = 32) -> dict:
-    """Device operations a frame of the Renderer's graph, and their names."""
-    torch.cuda.synchronize(r.device)
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for k in range(n):
-            r.render(cams[k])
-        torch.cuda.synchronize(r.device)
-    events = _device_events(prof)
-    return {"per_frame": len(events) / n, "names": sorted({name for name, _, _ in events})}
 
 
 def _nearest(ref: np.ndarray, x: np.ndarray) -> np.ndarray:
@@ -181,62 +160,6 @@ def agreement(r: Renderer, cams, frames: int) -> dict:
     }
 
 
-def _render_loop(r: Renderer, cams, n: int) -> tuple[float, float]:
-    """(device ms a frame by CUDA events, host ms a render call)."""
-    torch.cuda.synchronize(r.device)
-    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    a.record()
-    host = 0.0
-    for k in range(n):
-        u = r.frame_uniforms(cams[k % len(cams)])
-        h0 = time.perf_counter()
-        r.render_with_uniforms(*u)
-        host += time.perf_counter() - h0
-    b.record()
-    b.synchronize()
-    return a.elapsed_time(b) / n, host / n * 1e3
-
-
-def _present_loop(r: Renderer, p: Presenter, cams, n: int) -> float:
-    """Host ms a frame handed out."""
-    torch.cuda.synchronize(r.device)
-    t0 = time.perf_counter()
-    for k in range(n):
-        p.present(r.render(cams[k % len(cams)])["color"])
-    p.flush()
-    return (time.perf_counter() - t0) / n * 1e3
-
-
-def present_spans_ns(n: int = 100_000) -> float:
-    """Host ns of the spans of one present-loop frame: ``frame``, then
-    ``present.wait`` followed by ``present.copy``, as the loop records them."""
-    frame, wait, copy = tracing.FRAME, tracing.PRESENT_WAIT, tracing.PRESENT_COPY
-    t0 = time.perf_counter_ns()
-    for _ in range(n):
-        frame.end(frame.begin())
-        copy.end(wait.then(wait.begin(), copy))
-    return (time.perf_counter_ns() - t0) / n
-
-
-def cost(on: Renderer, off: Renderer, cams, frames: int, rounds: int) -> dict:
-    """--rounds pairs in each order (on, off) and (off, on), alternating;
-    the on-cost of each pair, and their medians."""
-    runs = {"on": [], "off": []}
-    p = Presenter()
-    for i in range(2 * rounds):
-        for name in (("on", "off") if i % 2 == 0 else ("off", "on")):
-            r = on if name == "on" else off
-            dev_ms, host_ms = _render_loop(r, cams, frames)
-            runs[name].append({"render_device_ms": dev_ms, "render_host_ms": host_ms,
-                               "present_host_ms": _present_loop(r, p, cams, frames)})
-    keys = list(runs["on"][0])
-    pairs = {k: [a[k] - b[k] for a, b in zip(runs["on"], runs["off"])] for k in keys}
-    return {"median": {name: {k: float(np.median([x[k] for x in v])) for k in keys} for name, v in runs.items()},
-            "on_less_off_us": {k: [float(x) * 1e3 for x in v] for k, v in pairs.items()},
-            "on_less_off_median_us": {k: float(np.median(v)) * 1e3 for k, v in pairs.items()},
-            "runs": runs, "present_spans_ns": present_spans_ns()}
-
-
 def window(r: Renderer, cams, seconds: float, present: Presenter | None) -> dict:
     """--seconds of the loop, records polled every BLOCK frames (module docstring)."""
     marks = r.marks
@@ -305,8 +228,6 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--shading", default="forward", choices=("forward", "deferred"))
     ap.add_argument("--radius", type=float, default=2.5)
     ap.add_argument("--frames", type=int, default=256)
-    ap.add_argument("--cost-frames", type=int, default=2000)
-    ap.add_argument("--rounds", type=int, default=3, help="cost: pairs in each order")
     ap.add_argument("--seconds", type=float, default=20.0)
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
@@ -319,36 +240,28 @@ def main(argv: list[str] | None = None) -> int:
     else:
         scene = load_named_scene("porsche_class", args.data_dir, max_textures=args.textures)
     cfg = RendererConfig(width=1920, height=1080, shading=args.shading)
-    on = Renderer(scene, cfg, device=device)
-    off = Renderer(scene, cfg, device=device, trace=False)
+    r = Renderer(scene, cfg, device=device)
     cams = cameras(args.radius)
-    for r in (on, off):
-        for c in cams[:16]:
-            r.render(c)
+    for c in cams[:16]:
+        r.render(c)
     torch.cuda.synchronize(device)
-    same = all(torch.equal(a, b) for a, b in zip(on.render(cams[3]).values(), off.render(cams[3]).values()))
-    ops = {"on": device_ops(on, cams), "off": device_ops(off, cams)}
-    marks_only = sorted(set(ops["on"]["names"]) - set(ops["off"]["names"]))
-    results = {"device": torch.cuda.get_device_name(device), "scene": args.scene, "shading": args.shading,
-               "same_frame": same, "ops_per_frame": {k: v["per_frame"] for k, v in ops.items()},
-               "only_traced": marks_only, "only_untraced": sorted(set(ops["off"]["names"]) - set(ops["on"]["names"]))}
+    results = {"device": torch.cuda.get_device_name(device), "scene": args.scene, "shading": args.shading}
     phases = [
-        ("agreement", lambda: agreement(on, cams, args.frames)),
-        ("cost", lambda: cost(on, off, cams, args.cost_frames, args.rounds)),
-        ("window", lambda: window(on, cams, args.seconds, None)),
-        ("window_present", lambda: window(on, cams, args.seconds, Presenter())),
+        ("agreement", lambda: agreement(r, cams, args.frames)),
+        ("window", lambda: window(r, cams, args.seconds, None)),
+        ("window_present", lambda: window(r, cams, args.seconds, Presenter())),
     ]
-    print(json.dumps({k: results[k] for k in results}), flush=True)
+    print(json.dumps(results), flush=True)
     for name, fn in phases:
         t0 = time.perf_counter()
         results[name] = fn()
         line = {"phase": name, "s": round(time.perf_counter() - t0, 3),
-                **{k: v for k, v in results[name].items() if k not in ("blocks", "runs")}}
+                **{k: v for k, v in results[name].items() if k != "blocks"}}
         print(json.dumps(line), flush=True)
     if args.out:
         with open(args.out, "w") as f:
             json.dump(results, f)
-    return 0 if same else 1
+    return 0
 
 
 if __name__ == "__main__":

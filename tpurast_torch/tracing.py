@@ -193,8 +193,8 @@ class FrameMarks:
     def _launch(self, i: int, last: bool, overflow=None, miss=None, cut=None, huge=None) -> None:
         if self._ring is None:
             self._allocate()
-        _build.call("tr_trace_mark_faces", self._ring, self._seq, self._frame, self.slots, i, int(last), overflow, miss,
-                    cut, huge)
+        _build.call("tr_trace_mark", self._ring, self._seq, self._frame, self.slots, i, int(last), overflow, miss, cut,
+                    huge)
 
     def _kernels_stamp(self) -> bool:
         return self.cuda and not kernels.plain_kernels_active()
