@@ -9,6 +9,7 @@
     python3 chip_smoke.py --shade-kernels    # phase 1c alone
     python3 chip_smoke.py --bin-kernels      # phase 1d alone
     python3 chip_smoke.py --setup-kernel     # phase 1e alone
+    python3 chip_smoke.py --face-tables      # phase 1f alone
 
 Builds the CUDA kernels from tpurast_torch/csrc, builds a procedural scene
 from the seed (a 256x256-quad floor and 64 UV spheres, 258,048 triangles,
@@ -94,6 +95,16 @@ eight generated 1024^2 BC4 textures with full mip chains), and then, at
      beside its bound (by bytes: 36 B read and 165 B written a face) and
      the plain version's, both as graphs, and the kernel's registers and
      blocks per SM;
+ 1f. face_tables (--face-tables, alone): the resolve kernel and the
+     deferred kernel (float16 rows, anisotropy 16) as the frame runs them,
+     each pixel's face row read from the frame's setup rows and the
+     scene's table (device/scene.py face_tables), on the orbit scene's
+     frame 0 at 1920x1080 (the frame of section 6's PR 14-15 figures in
+     PERF.md) and on the benchmark's 64 stand-in dragons at 3840x2160 at
+     flythrough pose 0: each against its plain version on the packed
+     table (resolve: phase 1's rule; deferred: within 1 LSB, the clear
+     color exact), into guarded outputs, its ms and device ms beside its
+     bound, and the one-off build of each table (ms, bytes);
   2. runs the microbenchmark probes at the tools' sizes against their
      plain versions, bit for bit: vmem_take (4096x16 f32 table, 2,073,600
      indices; then an odd row count, a count of indices that fills no whole
@@ -298,8 +309,8 @@ from tpurast_torch.camera import Camera, MoveDirection  # noqa: E402
 from tpurast_torch.config import RendererConfig  # noqa: E402
 from tpurast_torch import parallel, tracing  # noqa: E402
 from tpurast_torch.assets.gltf import load_glb  # noqa: E402
-from tpurast_torch.device.scene import (build_orbit_scene, build_scene, load_instanced_dragons,  # noqa: E402
-                                       orbit_camera, orbit_track, scene_bytes)
+from tpurast_torch.device.scene import (FACE_TABLES, build_orbit_scene, build_scene,  # noqa: E402
+                                       load_instanced_dragons, orbit_camera, orbit_track, scene_bytes)
 from tpurast_torch.device.scene_cache import load_named_scene  # noqa: E402
 from tpurast_torch.device.textures import ROW_WIDTH, texels_tensor  # noqa: E402
 from tpurast_torch.engine import Engine  # noqa: E402
@@ -575,9 +586,11 @@ def guard_raster(phase: str, so, bins, vis, *, tile_h, tile_w, tiles_x, tiles_y,
           Out(work.shape, torch.int32), work.numel(), Out(vis.shape), None, None, want=(None, None, vis))
 
 
-def guard_resolve(phase: str, vis, attrs, g, *, max_anisotropy, y_offset=0):
+def guard_resolve(phase: str, vis, setup, table, g, *, max_anisotropy, y_offset=0):
+    """The resolve kernel on the setup rows and the resolve table into a
+    guarded output, against g."""
     _, hp, wp = vis.shape
-    guard(phase, "resolve", "tr_resolve", vis, attrs, attrs.shape[0], hp, wp, y_offset, max_anisotropy,
+    guard(phase, "resolve", "tr_resolve", vis, setup, table, setup.shape[0], hp, wp, y_offset, max_anisotropy,
           Out(g.shape), None, None, want=(g,))
 
 
@@ -760,8 +773,9 @@ def fmt_compare(c: dict) -> str:
 
 def guard_shade(phase: str, kind: str, fb, texels, texel_format: str, lut, cp, ma: int, light: dict, *, g=None,
                 fid=None, rows=None, y_offset: int = 0) -> None:
-    """tr_shade_gbuffer (G-buffer g) or tr_shade_deferred (fid, rows) into
-    a guarded output, against the wrapper's fb."""
+    """tr_shade_gbuffer (G-buffer g) or tr_shade_deferred (the raster's f32
+    face ids fid, rows: the setup rows and the shade table) into a guarded
+    output, against the wrapper's fb."""
     code, lut = shade._check_rows(texels, texel_format, lut)
     params = (ctypes.c_float * shade.N_PARAMS)(*shade.shade_params(**light))
     h, w = fb.shape[1:]
@@ -769,26 +783,32 @@ def guard_shade(phase: str, kind: str, fb, texels, texel_format: str, lut, cp, m
         guard(phase, kind, "tr_shade_gbuffer", g, texels, texels.shape[0], code, lut, cp, h, w, ma,
               ctypes.addressof(params), Out(fb.shape), None, None, want=(fb,))
     else:
-        guard(phase, kind, "tr_shade_deferred", fid, rows, rows.shape[0], texels, texels.shape[0], code, lut, cp, h,
-              w, y_offset, ma, ctypes.addressof(params), Out(fb.shape), None, None, want=(fb,))
+        guard(phase, kind, "tr_shade_deferred", fid, *rows, rows[0].shape[0], texels, texels.shape[0], code, lut, cp,
+              h, w, y_offset, ma, ctypes.addressof(params), Out(fb.shape), None, None, want=(fb,))
 
 
-def shade_pair(phase: str, vis, attrs, rows, texels, texel_format: str, lut, cp, ma: int, light: dict, *,
+def shade_pair(phase: str, vis, tables, texels, texel_format: str, lut, cp, ma: int, light: dict, *,
                tile_row_offset: int = 0, tile_h: int | None = None) -> dict:
-    """Both shade kernels on one frame's (or slab's) raster output vis
-    against their plain versions: within 1 LSB after the sRGB u8 encode,
+    """Both shade kernels on one frame's (or slab's) raster output vis and
+    its face rows, tables = (setup rows, resolve table, shade table), as
+    the frame gives them (the plain versions on the packed tables, put
+    together from the same parts), against their plain versions: within
+    1 LSB after the sRGB u8 encode,
     the clear color exact (shade_compare); the deferred kernel equal bit
     for bit to the gather kernel on the resolve kernel's G-buffer (deferred
     = forward + gather); each launched once more into a guarded output.
     lut is the srgb8 rows' decode table (shade.srgb_table), else None.
-    Returns the G-buffer, face ids, both frames and the comparisons."""
+    Returns the G-buffer, face ids (int32), both frames and the
+    comparisons."""
     y_offset = tile_row_offset * tile_h if tile_row_offset else 0
-    g = resolve.resolve_gbuffer(vis, attrs, max_anisotropy=ma, tile_row_offset=tile_row_offset, tile_h=tile_h)
+    setup, rtab, stab = tables
+    g = resolve.resolve_gbuffer(vis, setup, rtab, max_anisotropy=ma, tile_row_offset=tile_row_offset, tile_h=tile_h)
     fid = vis[1].to(torch.int32)
     covered = fid >= 0
     kw = dict(max_anisotropy=ma, texel_format=texel_format, **light)
     fb = shade.shade_gbuffer(g, texels, cp, srgb_lut=lut, **kw)
-    d = shade.shade_deferred(fid, rows, texels, cp, y_offset=y_offset, srgb_lut=lut, **kw)
+    d = shade.shade_deferred(vis[1], setup, stab, texels, cp, y_offset=y_offset, srgb_lut=lut, **kw)
+    rows = shade.join_shade_rows(setup, stab)
     cmp = {"gather": shade_compare(fb, shade.shade_gbuffer_plain(g, texels, cp, **kw), covered),
            "deferred": shade_compare(d, shade.shade_deferred_plain(fid, rows, texels, cp, y_offset=y_offset, **kw),
                                      covered)}
@@ -797,14 +817,16 @@ def shade_pair(phase: str, vis, attrs, rows, texels, texel_format: str, lut, cp,
         check(c["lsb"] <= 1 and c["clear_equal"], f"{phase}: the {kind} kernel disagrees with its plain version")
     check(same, f"{phase}: the deferred kernel differs from the gather kernel on the resolve kernel's G-buffer")
     guard_shade(phase, "gather", fb, texels, texel_format, lut, cp, ma, light, g=g)
-    guard_shade(phase, "deferred", d, texels, texel_format, lut, cp, ma, light, fid=fid, rows=rows, y_offset=y_offset)
-    return dict(g=g, fid=fid, gather=fb, deferred=d, cmp=cmp, same=same)
+    guard_shade(phase, "deferred", d, texels, texel_format, lut, cp, ma, light, fid=vis[1], rows=(setup, stab),
+                y_offset=y_offset)
+    return dict(g=g, fid=fid, fid_f=vis[1], gather=fb, deferred=d, cmp=cmp, same=same)
 
 
 def frame_inputs(r: Renderer, cam) -> dict:
     """cam's frame through r's geometry, binning (pairs or scan) and the
-    raster kernel, with the raster's arguments and the attribute and
-    shade-row tables."""
+    raster kernel, with the raster's arguments, the face rows as the frame
+    reads them (tables: the setup rows, the resolve and shade tables) and
+    the packed attribute table the plain resolve takes."""
     kw, sc = r._frame_kwargs, r.scene
     vp, cp = r.frame_uniforms(cam)
     so = geometry.triangle_setup(geometry.transform_corners(sc["corner_world"], vp), None, sc["n_faces"],
@@ -815,19 +837,28 @@ def frame_inputs(r: Renderer, cam) -> dict:
     rkw = dict(tiles_x=r.tiles_x, tiles_y=r.tiles_y, tile_h=kw["tile_h"], tile_w=kw["tile_w"],
                clear_depth=kw["clear_depth"], tile_row_offset=0)
     args = (so["setup"], so["aabb"], bins["pair_faces"], bins["offsets"])
-    corners = (so["setup"], sc["corner_world"], sc["corner_normal"], sc["corner_uv"], sc["face_tex"], sc["atlas"])
+    tables = (so["setup"], *scene_tables(sc))
     return dict(so=so, bins=bins, args=args, rkw=rkw, vis=raster.rasterize_tiles(*args, **rkw), cp=cp,
-                attrs=resolve.pack_resolve_attrs(*corners), rows=shade.pack_shade_rows(*corners))
+                tables=tables, attrs=resolve.join_attrs(*tables[:2]))
 
 
-def shade_times(res: dict, texels, texel_format: str, lut, cp, ma: int, light: dict, rows) -> dict:
+def scene_tables(sc) -> tuple:
+    """The uploaded scene sc's resolve and shade tables, built here where
+    its Renderer's path reads the other (device/scene.py face_tables)."""
+    corners = (sc["corner_world"], sc["corner_normal"], sc["corner_uv"], sc["face_tex"], sc["atlas"])
+    return tuple(sc[key] if key in sc else build(*corners) for key, build in FACE_TABLES.values())
+
+
+def shade_times(res: dict, texels, texel_format: str, lut, cp, ma: int, light: dict, tables) -> dict:
     """Both shade kernels' stats on shade_pair's inputs: bound (shade_bound),
     ms and device ms beside their plain versions' (timed), error."""
     kw = dict(max_anisotropy=ma, texel_format=texel_format, **light)
-    g, fid = res["g"], res["fid"]
+    g, fid, fid_f = res["g"], res["fid"], res["fid_f"]
+    setup, _, stab = tables
+    rows = shade.join_shade_rows(setup, stab)
     fns = {"gather": (lambda: shade.shade_gbuffer(g, texels, cp, srgb_lut=lut, **kw),
                       lambda: shade.shade_gbuffer_plain(g, texels, cp, **kw)),
-           "deferred": (lambda: shade.shade_deferred(fid, rows, texels, cp, srgb_lut=lut, **kw),
+           "deferred": (lambda: shade.shade_deferred(fid_f, setup, stab, texels, cp, srgb_lut=lut, **kw),
                         lambda: shade.shade_deferred_plain(fid, rows, texels, cp, **kw))}
     return {kind: dict(max_abs_err=res["cmp"][kind]["max_abs_err"], library_ms=None,
                        **shade_bound(kind, g, fid, texels, ma), **timed(*fns[kind], 20, 2))
@@ -887,11 +918,10 @@ def kernel_phases(r: Renderer, cam, card: str, phase: str = "kernel_phases") -> 
     check(fid_bad == 0 and depth_bad == 0, "raster kernel disagrees with its plain version")
     guard_raster(phase, so, bins, vis, **rkw)
 
-    attrs = resolve.pack_resolve_attrs(
-        so["setup"], sc["corner_world"], sc["corner_normal"], sc["corner_uv"], sc["face_tex"], sc["atlas"]
-    )
+    rtab = scene_tables(sc)[0]
+    attrs = resolve.join_attrs(so["setup"], rtab)
     ma = kw["max_anisotropy"]
-    g = resolve.resolve_gbuffer(vis, attrs, max_anisotropy=ma)
+    g = resolve.resolve_gbuffer(vis, so["setup"], rtab, max_anisotropy=ma)
     g_p = resolve.resolve_gbuffer_plain(vis, attrs, max_anisotropy=ma)
     torch.cuda.synchronize()
     flip = (g[19] != g_p[19]) & (vis[1] >= 0)
@@ -904,12 +934,13 @@ def kernel_phases(r: Renderer, cam, card: str, phase: str = "kernel_phases") -> 
     fid = vis[1][vis[1] >= 0].long()
     out["resolve"] = dict(
         max_abs_err=res_err, library_ms=None,
-        # vis read, the attribute rows of the visible faces, the G-buffer written;
+        # vis read, the attribute rows of the visible faces (their 89
+        # fields, from the setup rows and the table), the G-buffer written;
         # ~150 flops per covered pixel (csrc/resolve.cu).
         **bound(2 * hp * wp * 4 + int(torch.unique(fid).numel()) * attrs.shape[1] * 4 + g.numel() * 4,
                 covered * 150),
         **timed(
-            lambda: resolve.resolve_gbuffer(vis, attrs, max_anisotropy=ma),
+            lambda: resolve.resolve_gbuffer(vis, so["setup"], rtab, max_anisotropy=ma),
             lambda: resolve.resolve_gbuffer_plain(vis, attrs, max_anisotropy=ma),
             20, 3,
         ),
@@ -920,7 +951,7 @@ def kernel_phases(r: Renderer, cam, card: str, phase: str = "kernel_phases") -> 
           f"{out['resolve']['ms']:.3f} ms vs plain {out['resolve']['plain_ms']:.3f} ms")
     check(n_flip <= 0.001 * covered and int_bad == 0 and float_bad == 0,
           "resolve kernel disagrees with its plain version")
-    guard_resolve(phase, vis, attrs, g, max_anisotropy=ma)
+    guard_resolve(phase, vis, so["setup"], rtab, g, max_anisotropy=ma)
 
     tiles = dict(tiles_x=tx, tiles_y=ty, tile_h=th, tile_w=tw)
     plan = sampler.plan_tiles(g, max_anisotropy=ma, **tiles)
@@ -1329,6 +1360,78 @@ def setup_standin(seed: int, card: str) -> None:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def face_table_kernels(scene, r: Renderer, cam, card: str, label: str) -> None:
+    """Phase 1f on one scene: the resolve kernel (r's path and anisotropy)
+    and the deferred kernel (float16 rows, anisotropy 16) on cam's frame,
+    from the frame's setup rows and the scene's tables, against their
+    plain versions on the packed tables; guarded; ms and device ms beside
+    the bound; the tables' one-off build."""
+    phase = f"face_tables {label}"
+    kw, sc = r._frame_kwargs, r.scene
+    corners = (sc["corner_world"], sc["corner_normal"], sc["corner_uv"], sc["face_tex"], sc["atlas"])
+    for kind, (_, build) in FACE_TABLES.items():
+        t = build(*corners)
+        build_ms = cuda_ms(lambda: build(*corners), 5)
+        print(f"{phase}: {kind} table {tuple(t.shape)} ({t.numel() * 4} B), built once in {build_ms:.4f} ms [{card}]")
+    f = frame_inputs(r, cam)
+    vis, cp, (setup, rtab, stab) = f["vis"], f["cp"], f["tables"]
+    hp, wp = vis.shape[1:]
+    covered = vis[1] >= 0
+    ma = kw["max_anisotropy"]
+    g = resolve.resolve_gbuffer(vis, setup, rtab, max_anisotropy=ma)
+    g_p = resolve.resolve_gbuffer_plain(vis, f["attrs"], max_anisotropy=ma)
+    n_flip, int_bad, float_bad = resolve_disagreement(g, g_p, covered)
+    bits = int(((g.view(torch.int32) != g_p.view(torch.int32)) & ~(torch.isnan(g) & torch.isnan(g_p))).sum())
+    faces = int(torch.unique(vis[1][covered]).numel())
+    st = dict(**bound(2 * hp * wp * 4 + faces * resolve.A_IN * 4 + g.numel() * 4, int(covered.sum()) * 150),
+              **timed(lambda: resolve.resolve_gbuffer(vis, setup, rtab, max_anisotropy=ma),
+                      lambda: resolve.resolve_gbuffer_plain(vis, f["attrs"], max_anisotropy=ma), 20, 2))
+    print(f"{phase}: resolve at {wp}x{hp}, anisotropy {ma}, {int(covered.sum())} covered px of {faces} faces; vs "
+          f"plain: l0 flips {n_flip}, integer planes off {int_bad}, float planes off {float_bad}, values differing "
+          f"in any bit {bits} of {g.numel()}; {st['ms']:.4f} ms "
+          f"(device {fmt_ms(st['dev_ms'])}) vs plain {st['plain_ms']:.3f} ms; bound {st['bound_ms']:.4f} ms by "
+          f"{st['bound_by']} [{card}]")
+    check(n_flip <= 0.001 * int(covered.sum()) and int_bad == 0 and float_bad == 0,
+          f"{phase}: the resolve kernel disagrees with its plain version")
+    guard_resolve(phase, vis, setup, rtab, g, max_anisotropy=ma)
+    del g, g_p
+    texels = texels_tensor(scene.atlas.texels, "float16", vis.device)
+    light = light_kwargs(kw)
+    skw = dict(max_anisotropy=16, texel_format="float", **light)
+    d = shade.shade_deferred(vis[1], setup, stab, texels, cp, **skw)
+    fid = vis[1].to(torch.int32)
+    rows = shade.join_shade_rows(setup, stab)
+    cmp = shade_compare(d, shade.shade_deferred_plain(fid, rows, texels, cp, **skw), covered)
+    st = dict(**bound(hp * wp * 4 + faces * shade.SHADE_ROW_WIDTH * 4 + 4 * hp * wp * 4, 0),
+              **timed(lambda: shade.shade_deferred(vis[1], setup, stab, texels, cp, **skw),
+                      lambda: shade.shade_deferred_plain(fid, rows, texels, cp, **skw), 20, 1))
+    print(f"{phase}: deferred at {wp}x{hp}, float16 rows, anisotropy 16; vs plain: {fmt_compare(cmp)}; "
+          f"{st['ms']:.4f} ms (device {fmt_ms(st['dev_ms'])}) vs plain {st['plain_ms']:.3f} ms; bound without the "
+          f"atlas rows {st['bound_ms']:.4f} ms [{card}]")
+    check(cmp["lsb"] <= 1 and cmp["clear_equal"], f"{phase}: the deferred kernel disagrees with its plain version")
+    guard_shade(phase, "deferred", d, texels, "float", None, cp, 16, light, fid=vis[1], rows=(setup, stab))
+    print_guards(phase, card)
+
+
+def face_tables_phase(seed: int, scene, r: Renderer, cam, card: str) -> None:
+    """Phase 1f: face_table_kernels on the orbit frame at 1920x1080, then on
+    the benchmark's 64 stand-in dragons (portbench/scenes/standin.py,
+    written from the seed) at 3840x2160 at flythrough pose 0."""
+    from portbench.scenes import standin
+
+    face_table_kernels(scene, r, cam, card, "orbit frame 0")
+    tmp = tempfile.mkdtemp(prefix="tpurast_torch_standin_")
+    try:
+        standin.write_standin(tmp, seed, "full")
+        dragons = load_instanced_dragons(tmp, 64, 0.35)
+        rd = Renderer(dragons, RendererConfig(width=3840, height=2160))
+        print(f"face_tables dragons64 (benchmark stand-in): {dragons.n_faces} faces at 3840x2160, {rd.sampler} "
+              f"sampler")
+        face_table_kernels(dragons, rd, cli.flythrough("dragons64", 1)[0], card, "dragons64 flythrough pose 0")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def print_shade_info() -> None:
     """Registers, resident blocks per SM, threads and static shared memory
     per block of each shade kernel instance (one per row format)."""
@@ -1352,7 +1455,7 @@ def shade_kernels(scene, r: Renderer, cam, card: str, phase: str = "shade_kernel
     ma_main = kw["max_anisotropy"]
     light = light_kwargs(kw)
     f = frame_inputs(r, cam)
-    vis, cp, attrs, rows = f["vis"], f["cp"], f["attrs"], f["rows"]
+    vis, cp, tables = f["vis"], f["cp"], f["tables"]
     print_shade_info()
     out = {}
     full16 = None
@@ -1364,8 +1467,8 @@ def shade_kernels(scene, r: Renderer, cam, card: str, phase: str = "shade_kernel
         fmt = "srgb8" if dtype == "srgb8" else "float"
         lut = shade.srgb_table(vis.device) if dtype == "srgb8" else None  # as the scene upload makes it
         for ma in (ma_main, 1) if dtype == "float16" else (ma_main,):
-            res = shade_pair(phase, vis, attrs, rows, texels, fmt, lut, cp, ma, light)
-            times = shade_times(res, texels, fmt, lut, cp, ma, light, rows)
+            res = shade_pair(phase, vis, tables, texels, fmt, lut, cp, ma, light)
+            times = shade_times(res, texels, fmt, lut, cp, ma, light, tables)
             print(f"shade kernels, {dtype} rows {tuple(texels.shape)} ({texels.numel() * texels.element_size()} B, "
                   f"uploaded in {up_s:.2f} s), anisotropy {ma}: " + "; ".join(
                       f"{k} vs plain: {fmt_compare(c)}" for k, c in res["cmp"].items())
@@ -1381,7 +1484,7 @@ def shade_kernels(scene, r: Renderer, cam, card: str, phase: str = "shade_kernel
             svis = raster.rasterize_tiles(so["setup"], so["aabb"], sbins["pair_faces"], sbins["offsets"], tile_h=th,
                                           tile_w=kw["tile_w"], tiles_x=r.tiles_x, tiles_y=per,
                                           clear_depth=kw["clear_depth"], tile_row_offset=per)
-            res = shade_pair(phase, svis, attrs, rows, texels, fmt, lut, cp, ma_main, light, tile_row_offset=per,
+            res = shade_pair(phase, svis, tables, texels, fmt, lut, cp, ma_main, light, tile_row_offset=per,
                              tile_h=th)
             px = slice(per * th, 2 * per * th)
             same = {k: bool(torch.equal(res[k], full16[k][:, px])) for k in SHADE_KERNELS}
@@ -1516,15 +1619,16 @@ def matrix_kernels(r: Renderer, cam, phase: str) -> dict:
     fns["raster"] = lambda: raster.rasterize_tiles(*args, **rkw)
     if kw["shading"] == "forward":
         ma = kw["max_anisotropy"]
-        g = resolve.resolve_gbuffer(vis, attrs, max_anisotropy=ma)
+        setup, rtab, _ = fi["tables"]
+        g = resolve.resolve_gbuffer(vis, setup, rtab, max_anisotropy=ma)
         g_p = resolve.resolve_gbuffer_plain(vis, attrs, max_anisotropy=ma)
         n_flip, int_bad, float_bad = resolve_disagreement(g, g_p, vis[1] >= 0)
         res["resolve"] = f"integer planes {'exact' if int_bad == 0 else f'{int_bad} off'}, float off {float_bad}, " \
                          f"l0 flips {n_flip}"
         check(n_flip <= 0.001 * int((vis[1] >= 0).sum()) and int_bad == 0 and float_bad == 0,
               f"{phase}: resolve kernel disagrees with its plain version")
-        guard_resolve(phase, vis, attrs, g, max_anisotropy=ma)
-        fns["resolve"] = lambda: resolve.resolve_gbuffer(vis, attrs, max_anisotropy=ma)
+        guard_resolve(phase, vis, setup, rtab, g, max_anisotropy=ma)
+        fns["resolve"] = lambda: resolve.resolve_gbuffer(vis, setup, rtab, max_anisotropy=ma)
         if kw["sampler"] == "window" and kw["output"] != "gbuf":
             plan = sampler.plan_tiles(g, max_anisotropy=ma, **tiles)
             plan_p = sampler.plan_tiles_plain(g, max_anisotropy=ma, **tiles)
@@ -1549,13 +1653,13 @@ def matrix_kernels(r: Renderer, cam, phase: str) -> dict:
         kind = path_of(r)
         texels, fmt, lut, light = sc["atlas"]["texels"], kw["texture_format"], sc["atlas"].get("srgb_lut"), \
             light_kwargs(kw)
-        rows = fi["rows"]
-        sp = shade_pair(phase, vis, attrs, rows, texels, fmt, lut, cp, kw["max_anisotropy"], light)
+        setup, _, stab = fi["tables"]
+        sp = shade_pair(phase, vis, fi["tables"], texels, fmt, lut, cp, kw["max_anisotropy"], light)
         res[kind] = f"{fmt_compare(sp['cmp'][kind])}, deferred = gather {sp['same']}"
         bounds[kind] = shade_bound(kind, sp["g"], sp["fid"], texels, kw["max_anisotropy"])
         skw = dict(max_anisotropy=kw["max_anisotropy"], texel_format=fmt, srgb_lut=lut, **light)
         fns[kind] = ((lambda: shade.shade_gbuffer(sp["g"], texels, cp, **skw)) if kind == "gather"
-                     else (lambda: shade.shade_deferred(sp["fid"], rows, texels, cp, **skw)))
+                     else (lambda: shade.shade_deferred(sp["fid_f"], setup, stab, texels, cp, **skw)))
     torch.cuda.synchronize()
     dev = matrix_device_ms(fns)
     return {k: (dev[k], res[k], bounds.get(k)) for k in res}
@@ -1809,11 +1913,9 @@ def frame_stages(r: Renderer, vp, cp):
     vis = raster.rasterize_tiles(so["setup"], so["aabb"], bins["pair_faces"], bins["offsets"],
                                  clear_depth=kw["clear_depth"], **tiles)
     yield "raster"
-    corners = (so["setup"], sc["corner_world"], sc["corner_normal"], sc["corner_uv"], sc["face_tex"], sc["atlas"])
+    rtab, stab = scene_tables(sc)
     if kw["shading"] == "forward":
-        attrs = resolve.pack_resolve_attrs(*corners)
-        yield "pack_attrs"
-        g = resolve.resolve_gbuffer(vis, attrs, max_anisotropy=ma)
+        g = resolve.resolve_gbuffer(vis, so["setup"], rtab, max_anisotropy=ma)
         yield "resolve"
         if kw["sampler"] == "window":
             plan = sampler.plan_tiles(g, max_anisotropy=ma, **tiles)
@@ -1825,9 +1927,7 @@ def frame_stages(r: Renderer, vp, cp):
                                      texel_format=kw["texture_format"], srgb_lut=sc["atlas"].get("srgb_lut"), **light)
             yield "shade_gbuffer"
     else:
-        rows = shade.pack_shade_rows(*corners)
-        yield "pack_shade_rows"
-        fb = shade.shade_deferred(vis[1].to(torch.int32), rows, sc["atlas"]["texels"], cp, max_anisotropy=ma,
+        fb = shade.shade_deferred(vis[1], so["setup"], stab, sc["atlas"]["texels"], cp, max_anisotropy=ma,
                                   texel_format=kw["texture_format"], srgb_lut=sc["atlas"].get("srgb_lut"), **light)
         yield "shade_deferred"
     present.encode_srgb_u8(fb, kw["width"], kw["height"])
@@ -2138,12 +2238,12 @@ def slab_kernels(r: Renderer, cam, card: str) -> None:
     check(bad == 0 and same_rows and int(covered.sum()) > 10000, "raster at a row offset disagrees")
     guard_raster("slab_kernels", so, bins, vis, **rkw)
 
-    attrs = resolve.pack_resolve_attrs(so["setup"], sc["corner_world"], sc["corner_normal"], sc["corner_uv"],
-                                       sc["face_tex"], sc["atlas"])
+    rtab = scene_tables(sc)[0]
+    attrs = resolve.join_attrs(so["setup"], rtab)
     ma = kw["max_anisotropy"]
-    g = resolve.resolve_gbuffer(vis, attrs, max_anisotropy=ma, tile_row_offset=row0, tile_h=th)
+    g = resolve.resolve_gbuffer(vis, so["setup"], rtab, max_anisotropy=ma, tile_row_offset=row0, tile_h=th)
     g_p = resolve.resolve_gbuffer_plain(vis, attrs, max_anisotropy=ma, tile_row_offset=row0, tile_h=th)
-    g_full = resolve.resolve_gbuffer(full, attrs, max_anisotropy=ma)
+    g_full = resolve.resolve_gbuffer(full, so["setup"], rtab, max_anisotropy=ma)
     torch.cuda.synchronize()
     flip = (g[19] != g_p[19]) & covered
     keep = ~flip
@@ -2151,13 +2251,14 @@ def slab_kernels(r: Renderer, cam, card: str) -> None:
     float_bad = int((~torch.isclose(g[FLOAT_PLANES][:, keep], g_p[FLOAT_PLANES][:, keep], rtol=1e-5,
                                     atol=1e-6)).sum())
     same_rows = bool(torch.equal(g, g_full[:, rows]))
-    ms = cuda_ms(lambda: resolve.resolve_gbuffer(vis, attrs, max_anisotropy=ma, tile_row_offset=row0, tile_h=th), 20)
+    ms = cuda_ms(lambda: resolve.resolve_gbuffer(vis, so["setup"], rtab, max_anisotropy=ma, tile_row_offset=row0,
+                                                 tile_h=th), 20)
     print(f"slab kernels: resolve vs plain: l0 flips {int(flip.sum())}, integer-plane values differing {int_bad}, "
           f"float-plane values outside rtol 1e-5/atol 1e-6 {float_bad}; equal to the whole frame's rows {same_rows}; "
           f"{ms:.4f} ms [{card}]")
     check(int(flip.sum()) <= 0.001 * int(covered.sum()) and int_bad == 0 and float_bad == 0 and same_rows,
           "resolve at a row offset disagrees")
-    guard_resolve("slab_kernels", vis, attrs, g, max_anisotropy=ma, y_offset=row0 * th)
+    guard_resolve("slab_kernels", vis, so["setup"], rtab, g, max_anisotropy=ma, y_offset=row0 * th)
     print_guards("slab_kernels", card)
 
 
@@ -2418,12 +2519,10 @@ def padded_kernels(rr: Renderer, cam, card: str) -> None:
     bins = geometry.bin_pairs(so["aabb"], so["valid"], rr.tiles_x, rr.tiles_y, kw["tile_w"], kw["tile_h"])
     vis = raster.rasterize_tiles(so["setup"], so["aabb"], bins["pair_faces"], bins["offsets"],
                                  clear_depth=kw["clear_depth"], **tiles)
-    attrs = resolve.pack_resolve_attrs(so["setup"], sc["corner_world"], sc["corner_normal"], sc["corner_uv"],
-                                       sc["face_tex"], sc["atlas"])
     check(bool(torch.equal(vis[1], fid)), f"{rr.width}x{rr.height}: the eager raster's face ids differ from the graph's")
     phase = f"padded_kernels {rr.width}x{rr.height}"
     guard_raster(phase, so, bins, vis, clear_depth=kw["clear_depth"], **tiles)
-    guard_resolve(phase, vis, attrs, g, max_anisotropy=ma)
+    guard_resolve(phase, vis, so["setup"], scene_tables(sc)[0], g, max_anisotropy=ma)
     guard_plan(phase, g, plan, max_anisotropy=ma, **tiles)
     guard_sample(phase, g, page, plan, cp, fb, **skw)
     print_guards(phase, card)
@@ -2762,7 +2861,7 @@ def runtime_path(scene, seed: int, window_ops: dict, kernel_ms: dict) -> dict:
           + ", ".join(f"{k} {v:.3f}" for k, v in res["stage_ms"].items()))
     # The same stages' device ms from the eager stage_device_ops (a marked
     # interval also holds the launch gaps between its operations).
-    pairs = {"geometry": ("geometry",), "binning": ("binning",), "raster": ("raster",), "pack": ("pack_attrs",),
+    pairs = {"geometry": ("geometry",), "binning": ("binning",), "raster": ("raster",), "pack": (),
              "shading": ("resolve", "plan", "sample"), "encode": ("encode",)}
     print("stage_ms vs stage_device_ops device ms: " + ", ".join(
         f"{k} {res['stage_ms'][k]:.3f} vs {sum(window_ops[o]['dev_ms'] for o in ops):.3f}" for k, ops in pairs.items()))
@@ -3000,8 +3099,8 @@ def named_scenes(seed: int, card: str) -> dict:
                 fmt, ma, light = rg._frame_kwargs["texture_format"], rg.config.max_anisotropy, light_kwargs(
                     rg._frame_kwargs)
                 lut = rg.scene["atlas"]["srgb_lut"]
-                sp = shade_pair(kph, fi["vis"], fi["attrs"], fi["rows"], tex, fmt, lut, fi["cp"], ma, light)
-                shade_stats = shade_times(sp, tex, fmt, lut, fi["cp"], ma, light, fi["rows"])
+                sp = shade_pair(kph, fi["vis"], fi["tables"], tex, fmt, lut, fi["cp"], ma, light)
+                shade_stats = shade_times(sp, tex, fmt, lut, fi["cp"], ma, light, fi["tables"])
                 print(f"{kph} ({fmt} rows, anisotropy {ma}): " + "; ".join(
                     f"{k} vs plain: {fmt_compare(c)}" for k, c in sp["cmp"].items())
                     + f"; deferred equal to gather on the resolve kernel's G-buffer {sp['same']}; "
@@ -3082,6 +3181,8 @@ def main() -> None:
                     help="run only the binning phase (the orbit scene and the porsche_class stand-in)")
     ap.add_argument("--setup-kernel", action="store_true",
                     help="run only the setup phase (the orbit scene and the benchmark's two stand-in scenes)")
+    ap.add_argument("--face-tables", action="store_true",
+                    help="run only the face_tables phase (resolve and deferred on the orbit frame and the dragons)")
     args = ap.parse_args()
     t_run = time.perf_counter()
 
@@ -3141,6 +3242,9 @@ def main() -> None:
     if args.setup_kernel:
         setup_kernel(r, cams[0], card)
         setup_standin(args.seed, card)
+        return
+    if args.face_tables:
+        face_tables_phase(args.seed, scene, r, cams[0], card)
         return
     stats = kernel_phases(r, cams[0], card)
     stats.update(shade_kernels(scene, r, cams[0], card))

@@ -54,6 +54,12 @@ shapes (WARP_SHAPES: every lane at 16 probes, one covered lane a warp,
 warps with none, rows clamped to the table's ends) in the four formats,
 and the deferred kernel's 16-byte face-row loads on face ids with one
 covered lane a warp, warps with none and rows clamped to the last row.
+Both kernels read each face's row in two parts, the frame's setup row and
+the scene's table (resolve.scene_table, shade.scene_table): on a slab, a
+scene without pages, face ids on the padded rows and past the last row,
+and the last row of both, they give the plain versions' bits on the
+packed tables (but the last bit of log2 and sqrt), and either table off
+the 16-byte grid is refused.
 
 chip_smoke.py's count of the shade kernels' L1 requests
 (shade_warp_lines) is held to a count by hand on a small G-buffer.
@@ -83,14 +89,16 @@ a rounding decides (a fused multiply-add in the cross products or
 round-half-away in the anchor would show); corners off the
 16-byte grid are refused; and render_frame with every kernel emulated
 renders the same frames as inside plain_kernels(), one setup launch a
-frame.
+frame, on the window path and on the deferred path (its one face table,
+the shade table).
 
 Time on one worker: about 71 s (the shade cases about a fifth of it: the
 plain gather runs 16 probes over every pixel; the warp-shape cases about
 5 s together, the request counts about 2 s; the binning cases about 27 s,
 their 1,024-thread blocks emulated, the two-pass ones the longest); the
 setup cases add about 11 s, 9 of them the two emulated frames (111 s in
-all on a loaded host, the emulated library's build 21 s of it).
+all on a loaded host, the emulated library's build 21 s of it); the split
+face-row cases about 5 s each, the emulated deferred frames about 15 s.
 """
 
 import ctypes
@@ -109,8 +117,9 @@ from tpurast_torch.device.scene import build_orbit_scene, orbit_track
 from tpurast_torch.device.textures import TEXTURE_DTYPES, texels_tensor
 from tpurast_torch.kernels import _build, geometry, present, probes, raster, resolve, sampler, shade
 from tpurast_torch.renderer import Renderer
-from test_torch_memsafety import (SCENE as SMALL_SCENE, SETUP_CASES, assert_resolve_close, assert_same_bits,
-                                  assert_shade_close, bin_boxes, poisoned_gbuf, setup_inputs, texture_grid_gbuf)
+from test_torch_memsafety import (SCENE as SMALL_SCENE, SETUP_CASES, SPLIT_CASES, assert_resolve_bits,
+                                  assert_resolve_close, assert_same_bits, assert_shade_close, bin_boxes,
+                                  poisoned_gbuf, setup_inputs, split_rows, texture_grid_gbuf)
 from test_torch_raster import ADVERSARIAL, A_TILES_X, A_TILES_Y, AH, AW, adversarial_clip
 from test_torch_scene import numpy_bc_decoders  # noqa: F401  (module-wide autouse)
 
@@ -228,18 +237,28 @@ def _emu_raster(emu, so, bins, args, clear_depth=0.0, row0=0, marks=(None, None)
     return out
 
 
-def _emu_resolve(emu, vis, attrs, y_offset=0, max_anisotropy=16, marks=(None, None)):
+def _emu_resolve(emu, vis, rows, y_offset=0, max_anisotropy=16, marks=(None, None)):
+    """The emulated resolve kernel's G-buffer from rows: the (F, 24) setup
+    rows and the (F, 80) per-scene table (resolve.scene_table)."""
+    setup, table = rows
     out = torch.full((resolve.A_OUT,) + tuple(vis.shape[1:]), -5.0)
-    err = emu.tr_resolve(vis.data_ptr(), attrs.data_ptr(), attrs.shape[0], vis.shape[1], vis.shape[2], y_offset,
-                         max_anisotropy, out.data_ptr(), *marks, None)
+    err = emu.tr_resolve(vis.data_ptr(), setup.data_ptr(), table.data_ptr(), setup.shape[0], vis.shape[1],
+                         vis.shape[2], y_offset, max_anisotropy, out.data_ptr(), *marks, None)
     assert err == 0
     return out
 
 
-def _attrs(frame):
+def _rows(frame):
+    """The frame's setup rows and the scene's resolve table, as the kernel
+    takes them."""
     sc, so = frame[2], frame[4]
-    return resolve.pack_resolve_attrs(so["setup"], sc["corner_world"], sc["corner_normal"], sc["corner_uv"],
-                                      sc["face_tex"], sc["atlas"])
+    return so["setup"], sc["resolve_table"]
+
+
+def _attrs(frame):
+    """The packed attribute table the plain version takes: the same two
+    parts put together."""
+    return resolve.join_attrs(*_rows(frame))
 
 
 def test_resolve_kernel(emu, frame):
@@ -248,7 +267,7 @@ def test_resolve_kernel(emu, frame):
                                        tile_w=kw["tile_w"], tiles_x=r.tiles_x, tiles_y=r.tiles_y)
     attrs = _attrs(frame)
     g = resolve.resolve_gbuffer_plain(vis, attrs, max_anisotropy=16)
-    assert_resolve_close(_emu_resolve(emu, vis, attrs), g, vis[1] >= 0)
+    assert_resolve_close(_emu_resolve(emu, vis, _rows(frame)), g, vis[1] >= 0)
 
 
 @pytest.fixture(scope="module")
@@ -257,7 +276,7 @@ def emu_frame(emu, frame):
     r, kw, _, _, so, bins = frame
     vis = _emu_raster(emu, so, bins, dict(tile_h=kw["tile_h"], tile_w=kw["tile_w"], tiles_x=r.tiles_x,
                                           tiles_y=r.tiles_y))
-    return vis, _emu_resolve(emu, vis, _attrs(frame))
+    return vis, _emu_resolve(emu, vis, _rows(frame))
 
 
 @pytest.mark.parametrize("row0,slab_rows", [(1, 2), (3, 1), (2, 2), (4, 2)],
@@ -284,7 +303,7 @@ def test_raster_and_resolve_kernels_on_a_slab(emu, frame, emu_frame, row0, slab_
         assert torch.equal(out, full[:, rows])
     attrs = _attrs(frame)
     g = resolve.resolve_gbuffer_plain(vis, attrs, max_anisotropy=16, tile_row_offset=row0, tile_h=th)
-    got = _emu_resolve(emu, vis, attrs, y_offset=row0 * th)
+    got = _emu_resolve(emu, vis, _rows(frame), y_offset=row0 * th)
     assert_resolve_close(got, g, vis[1] >= 0)
     if row0 < r.tiles_y:
         assert torch.equal(got, full_g[:, rows])
@@ -495,6 +514,7 @@ def shade_frame(small_scene):
                  ambient_amount=kw["ambient_amount"], specular_power=kw["specular_power"],
                  clear_color=kw["clear_color"])
     return dict(vis=vis, fid=vis[1].to(torch.int32), attrs=resolve.pack_resolve_attrs(*corners),
+                resolve_rows=(so["setup"], resolve.scene_table(*corners[1:])), setup=so["setup"], sc=sc,
                 rows=shade.pack_shade_rows(*corners), cp=cp, light=light, page=sc["atlas"]["page"],
                 tiles=dict(tiles_x=r.tiles_x, tiles_y=r.tiles_y, tile_h=kw["tile_h"], tile_w=kw["tile_w"]),
                 texels={dt: texels_tensor(small_scene.atlas.texels, dt, "cpu") for dt in TEXTURE_DTYPES})
@@ -507,7 +527,10 @@ def _texel_format(dtype: str) -> str:
 def _emu_shade(emu, kernel, texels, texel_format, cp, light, max_anisotropy, *, gbuf=None, fid=None, rows=None,
                y_offset=0, marks=(None, None)):
     """The emulated tr_shade_gbuffer (gbuf) or tr_shade_deferred (fid,
-    rows) launch's (4, H, W) framebuffer, through the wrapper's row check."""
+    rows) launch's (4, H, W) framebuffer, through the wrapper's row check.
+    The deferred kernel takes fid as the raster's f32 plane and rows as
+    the (F, 24) setup rows and the (F, 80) per-scene table: a pair of
+    them, or a (F, 104) pack_shade_rows table cut into the two."""
     code, lut = shade._check_rows(texels, texel_format, shade.srgb_table("cpu"))
     lut_ptr = None if lut is None else lut.data_ptr()
     params = (ctypes.c_float * shade.N_PARAMS)(*shade.shade_params(**light))
@@ -517,9 +540,12 @@ def _emu_shade(emu, kernel, texels, texel_format, cp, light, max_anisotropy, *, 
         err = emu.tr_shade_gbuffer(gbuf.data_ptr(), texels.data_ptr(), texels.shape[0], code, lut_ptr, cp.data_ptr(),
                                    h, w, max_anisotropy, ctypes.addressof(params), out.data_ptr(), *marks, None)
     else:
-        err = emu.tr_shade_deferred(fid.data_ptr(), rows.data_ptr(), rows.shape[0], texels.data_ptr(),
-                                    texels.shape[0], code, lut_ptr, cp.data_ptr(), h, w, y_offset, max_anisotropy,
-                                    ctypes.addressof(params), out.data_ptr(), *marks, None)
+        fid = fid.float()
+        setup, table = rows if isinstance(rows, tuple) else (rows[:, :24].contiguous(), rows[:, 24:].contiguous())
+        shade._check_face_rows(setup, table)
+        err = emu.tr_shade_deferred(fid.data_ptr(), setup.data_ptr(), table.data_ptr(), setup.shape[0],
+                                    texels.data_ptr(), texels.shape[0], code, lut_ptr, cp.data_ptr(), h, w, y_offset,
+                                    max_anisotropy, ctypes.addressof(params), out.data_ptr(), *marks, None)
     assert err == 0
     return out
 
@@ -552,7 +578,7 @@ def test_shade_kernels(emu, shade_frame, dtype, max_anisotropy, blend):
                                       texel_format=fmt, **light)
     deferred = _emu_shade(emu, "deferred", tex, fmt, cp, light, max_anisotropy, fid=f["fid"], rows=f["rows"])
     assert_shade_close(deferred, want, covered)
-    g_emu = _emu_resolve(emu, vis, f["attrs"], max_anisotropy=max_anisotropy)
+    g_emu = _emu_resolve(emu, vis, f["resolve_rows"], max_anisotropy=max_anisotropy)
     assert torch.equal(deferred, _emu_shade(emu, "gather", tex, fmt, cp, light, max_anisotropy, gbuf=g_emu))
 
 
@@ -568,6 +594,40 @@ def test_shade_deferred_kernel_on_a_slab(emu, shade_frame):
     assert torch.equal(slab, full[:, 32:])
     want = shade.shade_deferred_plain(fid, f["rows"], tex, f["cp"], max_anisotropy=16, y_offset=32, **light)
     assert_shade_close(slab, want, fid >= 0)
+
+
+@pytest.mark.parametrize("case", SPLIT_CASES)
+def test_resolve_and_deferred_kernels_from_split_rows(emu, shade_frame, case):
+    """The resolve and deferred kernels read each face's row from the
+    frame's setup rows and the scene's table (split_rows' cases: a slab,
+    a scene without pages, face ids on the padded rows and past the last
+    row, the last row of both allocations, each a tensor of its own): the
+    same bits as the plain versions on pack_resolve_attrs and
+    pack_shade_rows at anisotropy 16, NaN where they have NaN; of the
+    G-buffer, the mip fraction's and the probe span's last bits are log2's
+    and sqrt's (assert_resolve_bits).
+    The deferred frame also equals the emulated gather kernel's on that
+    G-buffer bit for bit."""
+    f = shade_frame
+    c = split_rows(case, f["vis"], f["setup"], f["sc"])
+    vis, plain_vis, y0 = c["vis"], c["plain_vis"], c["y_offset"]
+    fid = vis[1]
+    assert int((plain_vis[1] >= 0).sum()) > 500
+    if case == "padded_faces":
+        assert int((fid >= f["sc"]["n_faces"]).sum()) > 100 and int((fid >= c["setup"].shape[0]).sum()) > 5
+    th = 32
+    g = _emu_resolve(emu, vis, (c["setup"].clone(), c["resolve_table"].clone()), y_offset=y0)
+    want = resolve.resolve_gbuffer_plain(plain_vis, c["attrs"], max_anisotropy=16, tile_row_offset=y0 // th,
+                                         tile_h=th)
+    assert_resolve_bits(g, want, f"resolve, {case}")
+    tex, light = f["texels"]["float16"], dict(f["light"], blend="alpha")
+    got = _emu_shade(emu, "deferred", tex, "float", f["cp"], light, 16, fid=fid,
+                     rows=(c["setup"].clone(), c["shade_table"].clone()), y_offset=y0)
+    want = shade.shade_deferred_plain(plain_vis[1].to(torch.int32), c["shade_rows"], tex, f["cp"], max_anisotropy=16,
+                                      y_offset=y0, **light)
+    assert_same_bits(got, want, f"deferred, {case}")
+    gathered = _emu_shade(emu, "gather", tex, "float", f["cp"], light, 16, gbuf=g)
+    assert torch.equal(got, gathered)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "srgb8"])
@@ -600,22 +660,30 @@ def test_shade_kernels_width_0_and_rows_outside_the_table(emu, shade_frame, dtyp
 
 
 def test_shade_deferred_kernel_refuses_misaligned_face_rows(emu, shade_frame):
-    """The deferred kernel copies its face rows in 16-byte chunks: a shade
-    row table off that grid is refused (cudaErrorInvalidValue) before the
-    launch, and the wrapper's check (shade._check_face_rows) raises on it."""
+    """The deferred kernel copies its face rows in 16-byte chunks: setup
+    rows or a per-scene table off that grid are refused
+    (cudaErrorInvalidValue) before the launch, and the wrapper's check
+    (shade._check_face_rows) raises on them."""
     f = shade_frame
-    tex, rows, fid = f["texels"]["float16"], f["rows"], f["fid"]
-    shifted = torch.empty(rows.numel() + 4)[1:rows.numel() + 1].view(rows.shape)
-    shifted.copy_(rows)
+    tex, rows, fid = f["texels"]["float16"], f["rows"], f["fid"].float()
+    setup, table = rows[:, :24].contiguous(), rows[:, 24:].contiguous()
     params = (ctypes.c_float * shade.N_PARAMS)(*shade.shade_params(**dict(f["light"], blend="alpha")))
     out = torch.empty((4,) + tuple(fid.shape))
-    err = emu.tr_shade_deferred(fid.data_ptr(), shifted.data_ptr(), rows.shape[0], tex.data_ptr(), tex.shape[0], 1,
-                                None, f["cp"].data_ptr(), fid.shape[0], fid.shape[1], 0, 16,
-                                ctypes.addressof(params), out.data_ptr(), None, None, None)
-    assert shifted.data_ptr() % 16 == 4 and err == 1
-    with pytest.raises(ValueError, match="16-byte"):
-        shade._check_face_rows(shifted)
-    shade._check_face_rows(rows)
+
+    def off_grid(t):
+        shifted = torch.empty(t.numel() + 4)[1:t.numel() + 1].view(t.shape)
+        return shifted.copy_(t)
+
+    for pair in ((off_grid(setup), table), (setup, off_grid(table))):
+        err = emu.tr_shade_deferred(fid.data_ptr(), pair[0].data_ptr(), pair[1].data_ptr(), rows.shape[0],
+                                    tex.data_ptr(), tex.shape[0], 1, None, f["cp"].data_ptr(), fid.shape[0],
+                                    fid.shape[1], 0, 16, ctypes.addressof(params), out.data_ptr(), None, None, None)
+        assert (pair[0].data_ptr() % 16 == 4 or pair[1].data_ptr() % 16 == 4) and err == 1
+        with pytest.raises(ValueError, match="16-byte"):
+            shade._check_face_rows(*pair)
+    shade._check_face_rows(setup, table)
+    with pytest.raises(ValueError, match="table"):
+        shade._check_face_rows(setup, table[:-1].contiguous())
 
 
 # Warp shapes of the shade kernels' probe loops, on a synthetic 128x8
@@ -865,7 +933,7 @@ def test_render_kernels_stamp_the_frame_marks(emu, frame, shade_frame, kernel):
         args, so, bins = _frame_case(frame)
         run = lambda m: _emu_raster(emu, so, bins, args, marks=m)  # noqa: E731
     elif kernel == "resolve":
-        run = lambda m: _emu_resolve(emu, f["vis"], f["attrs"], marks=m)  # noqa: E731
+        run = lambda m: _emu_resolve(emu, f["vis"], f["resolve_rows"], marks=m)  # noqa: E731
     elif kernel == "sample":
         g = resolve.resolve_gbuffer_plain(f["vis"], f["attrs"], max_anisotropy=16)
         plan = sampler.plan_tiles_plain(g, max_anisotropy=16, **f["tiles"])
@@ -1156,6 +1224,32 @@ def test_render_frame_with_the_emulated_kernels(emu_bin):
             assert torch.equal(got[k], want[k]), k
         assert int((want["depth"] > 0).sum()) > 1000
     assert kernels.LAUNCHES["setup"] == kernels.LAUNCHES["raster"] == 2
+
+
+def test_deferred_frame_with_the_emulated_kernels(emu_bin):
+    """render_frame on the deferred path with every kernel emulated (setup,
+    binning, raster and the deferred kernel, which reads each pixel's face
+    row from the frame's setup rows and the scene's shade table, the
+    Renderer's one face table) against the same frames inside
+    plain_kernels(): color, depth and the counters equal, one deferred
+    launch a frame and no resolve."""
+    from tpurast_torch import kernels
+    from tpurast_torch.renderer import render_frame
+
+    cfg = RendererConfig(width=128, height=64, shading="deferred")
+    r = Renderer(build_orbit_scene(seed=2, **SMALL_SCENE), cfg, device="cpu")
+    assert "shade_table" in r.scene and "resolve_table" not in r.scene
+    kernels.reset_launches()
+    for cam in orbit_track(8)[1:3]:
+        vp, cp = r.frame_uniforms(cam)
+        got = render_frame(r.scene, vp, cp, **r._frame_kwargs)
+        with kernels.plain_kernels():
+            want = render_frame(r.scene, vp, cp, **r._frame_kwargs)
+        assert set(got) == set(want)
+        for k in want:
+            assert torch.equal(got[k], want[k]), k
+        assert int((want["depth"] > 0).sum()) > 1000
+    assert kernels.LAUNCHES["deferred"] == kernels.LAUNCHES["raster"] == 2 and kernels.LAUNCHES["resolve"] == 0
 
 
 def test_bin_kernels_refuse_mixed_devices():

@@ -134,10 +134,14 @@ def _install(monkeypatch, guard: Guard) -> None:
     for name in ("__getitem__", "__setitem__"):
         monkeypatch.setattr(torch.Tensor, name, indexed(f"Tensor.{name}", getattr(torch.Tensor, name)))
     # The kernels: their plain versions, outside the guard (on the card the
-    # CUDA kernels run there, and they read nothing back); the trace's
-    # stamps are the CUDA kernels' alone.
+    # CUDA kernels run there, and they read nothing back; the resolve
+    # kernel's plain version takes the packed table the kernel reads in its
+    # two parts); the trace's stamps are the CUDA kernels' alone.
+    def resolve_plain(vis, setup, table, **kwargs):
+        return resolve.resolve_gbuffer_plain(vis, resolve.join_attrs(setup, table), **kwargs)
+
     for mod, name, plain in ((raster, "rasterize_tiles", raster.rasterize_tiles_plain),
-                             (resolve, "resolve_gbuffer", resolve.resolve_gbuffer_plain),
+                             (resolve, "resolve_gbuffer", resolve_plain),
                              (sampler, "plan_tiles", sampler.plan_tiles_plain),
                              (sampler, "sample_tiles", sampler.sample_tiles_plain)):
         def swapped(*args, _plain=plain, **kwargs):

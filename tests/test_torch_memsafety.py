@@ -38,6 +38,11 @@ and warp-synchronous code that leans on lockstep. The ASan shapes:
     and face ids: gather on float16 rows, deferred on srgb8 rows with the
     256-entry decode table, a third of the atlas offsets moved to the
     table's end, so that rows past it clamp to its last row;
+  * the resolve and deferred kernels on their split face rows (the setup
+    rows and the scene's table, each exact-size) in SPLIT_CASES: a slab, a
+    scene without pages, face ids on the padded rows and past the last
+    row, and the last row of both allocations, whose wide loads end at
+    the allocation's last byte;
   * vmem_take at an odd row count, with indices outside the table, and on
     an index array off the 16-byte grid;
   * plane_scale off the 16-byte grid in its three launch geometries
@@ -132,6 +137,13 @@ LARGE_TILES = (("16x1024", "grid"), ("64x128", "off_grid"))
 SETUP_CASES = {"1_face": (1, 0, False, False), "255_faces": (255, 0, False, False),
                "257_faces": (257, 0, False, False), "2051_faces": (2051, 0, False, False),
                "2051_padded_non_finite": (2051, 300, True, False), "257_rounding_ties": (257, 0, False, True)}
+# The resolve and deferred kernels on their split face rows (split_rows):
+# a slab (the frame's rows from 32 down, at y_offset 32); the scene's
+# tables without its page origins (the resolve table's page bases zero);
+# face ids on the padded rows past n_faces and past the last row (those
+# read no row: the pixel is uncovered); the last row of both allocations.
+SPLIT_CASES = ("slab", "no_pages", "padded_faces", "last_row")
+
 CASES = (
     [f"{k}_{s}" for s in SIZES for k in ("raster", "resolve", "plan", "sample")]
     + [f"{k}_{s}" for s in SLABS for k in ("raster", "resolve")]
@@ -140,6 +152,7 @@ CASES = (
     + ["plane_scale_tile_grid", "plane_scale_one_plane", "plane_scale_row_band"]
     + ["zstd_corrupt_and_truncated_frames"]
     + ["shade_gather_off_grid", "shade_deferred_off_grid"]
+    + [f"split_rows_{k}" for k in SPLIT_CASES]
     + [f"{k}_{t}_{s}" for t, s in LARGE_TILES for k in ("raster", "plan")]
     + ["bin_random_faces", "bin_random_faces_slab", "bin_scan_truncated", "bin_two_tile_passes"]
     + ["bin_near_faces", "bin_near_faces_scan"]
@@ -342,6 +355,21 @@ def assert_resolve_close(out, g, covered):
             assert torch.allclose(out[i][keep], g[i][keep], rtol=1e-5, atol=1e-6), f"plane {i}"
 
 
+def assert_resolve_bits(out, g, what: str = "") -> None:
+    """The resolve kernel against its plain version bit for bit (NaN where
+    it has NaN), every plane a face row's field reaches included, but the
+    two planes whose last bit is a library function's: the mip fraction
+    (13, log2) and the probe span (17, sqrt), where torch's CPU log2 and
+    sqrt round unlike glibc's, within rtol 1e-5 / atol 1e-6."""
+    lib = (13, 17)
+    rest = [i for i in range(resolve.A_OUT) if i not in lib]
+    assert_same_bits(out[rest], g[rest], what)
+    for i in lib:
+        assert torch.equal(torch.isnan(out[i]), torch.isnan(g[i])), f"{what}: plane {i}'s NaN positions"
+        ok = ~torch.isnan(g[i])
+        assert torch.allclose(out[i][ok], g[i][ok], rtol=1e-5, atol=1e-6), f"{what}: plane {i}"
+
+
 def assert_shade_close(out, want, covered):
     """The shade kernels' budget against their plain versions on the CPU:
     the same order of operations, so the f32 planes agree bit for bit
@@ -357,6 +385,37 @@ def assert_shade_close(out, want, covered):
     lsb = (present.encode_srgb_u8(out, w, h).int() - present.encode_srgb_u8(want, w, h).int()).abs().amax(dim=0)
     assert int(lsb.max()) <= 1
     return int((lsb == 1).sum())
+
+
+def split_rows(case, vis, setup, sc):
+    """Case case of SPLIT_CASES on the frame's raster output vis, setup rows
+    and uploaded scene sc: dict(vis, y_offset, setup, resolve_table,
+    shade_table: the kernels' inputs; attrs, shade_rows, plain_vis: the
+    plain versions', the packed tables from the same two parts
+    (pack_resolve_attrs, pack_shade_rows) and vis with the face ids past
+    the last row marked uncovered)."""
+    atlas = dict(sc["atlas"])
+    if case == "no_pages":
+        for k in ("page_origins", "page_sizes", "page_n_mips"):
+            atlas.pop(k, None)
+    corners = (sc["corner_world"], sc["corner_normal"], sc["corner_uv"], sc["face_tex"], atlas)
+    vis, y_offset = vis.clone(), 0
+    rows, n = setup.shape[0], sc["n_faces"]
+    fid = vis[1]
+    covered = torch.nonzero(fid.reshape(-1) >= 0)[:, 0]
+    if case == "slab":
+        vis, y_offset = vis[:, 32:].contiguous(), 32
+    elif case == "padded_faces":
+        assert rows > n
+        pad = torch.arange(covered.numel()) % (rows - n + 2)  # n .. rows + 1
+        fid.view(-1)[covered[::2]] = (n + pad[::2]).float()
+    elif case == "last_row":
+        fid.view(-1)[covered[::3]] = float(rows - 1)
+    plain_vis = vis.clone()
+    plain_vis[1][plain_vis[1] >= rows] = -1.0
+    return dict(vis=vis, y_offset=y_offset, setup=setup, resolve_table=resolve.scene_table(*corners),
+                shade_table=shade.scene_table(*corners), attrs=resolve.pack_resolve_attrs(setup, *corners),
+                shade_rows=shade.pack_shade_rows(setup, *corners), plain_vis=plain_vis)
 
 
 def texture_grid_gbuf(n_tex, cols, seed=11):
@@ -485,6 +544,7 @@ class Cases:
                                                     **f["tiles"])
             f["attrs"] = resolve.pack_resolve_attrs(so["setup"], sc["corner_world"], sc["corner_normal"],
                                                     sc["corner_uv"], sc["face_tex"], sc["atlas"])
+            f["rows"] = (so["setup"], sc["resolve_table"])
             f["g"] = resolve.resolve_gbuffer_plain(f["vis"], f["attrs"], max_anisotropy=f["ma"])
         return f
 
@@ -506,11 +566,12 @@ class Cases:
         assert err == 0
         return out.reshape(2, hp, wp)
 
-    def emu_resolve(self, vis, attrs, y_offset=0, max_anisotropy=16):
-        vis, attrs = exact(vis), exact(attrs)
+    def emu_resolve(self, vis, rows, y_offset=0, max_anisotropy=16):
+        """rows: the (F, 24) setup rows and the (F, 80) resolve table."""
+        vis, setup, table = exact(vis), exact(rows[0]), exact(rows[1])
         out = torch.empty((resolve.A_OUT,) + tuple(vis.shape[1:]))
-        err = self.lib.tr_resolve(vis.data_ptr(), attrs.data_ptr(), attrs.shape[0], vis.shape[1], vis.shape[2],
-                                  y_offset, max_anisotropy, out.data_ptr(), None, None, None)
+        err = self.lib.tr_resolve(vis.data_ptr(), setup.data_ptr(), table.data_ptr(), setup.shape[0], vis.shape[1],
+                                  vis.shape[2], y_offset, max_anisotropy, out.data_ptr(), None, None, None)
         assert err == 0
         return out
 
@@ -547,7 +608,7 @@ class Cases:
 
     def resolve(self, size):
         f = self.frame(size)
-        assert_resolve_close(self.emu_resolve(f["vis"], f["attrs"], max_anisotropy=f["ma"]), f["g"], f["vis"][1] >= 0)
+        assert_resolve_close(self.emu_resolve(f["vis"], f["rows"], max_anisotropy=f["ma"]), f["g"], f["vis"][1] >= 0)
 
     def plan(self, size, tile="32x128"):
         f = self.frame(size, tile)
@@ -594,7 +655,7 @@ class Cases:
             assert torch.equal(self.emu_raster(so, bins, tiles, row0=row0), vis)
             assert int((vis[1] >= 0).sum()) > (500 if inside else -1)
         else:
-            assert_resolve_close(self.emu_resolve(vis, f["attrs"], y_offset=row0 * th), g, vis[1] >= 0)
+            assert_resolve_close(self.emu_resolve(vis, f["rows"], y_offset=row0 * th), g, vis[1] >= 0)
 
     def shade(self, kernel, size):
         """tr_shade_gbuffer on float16 rows or tr_shade_deferred on srgb8
@@ -613,6 +674,7 @@ class Cases:
         light, cp, ma = f["light"], exact(f["cp"]), f["ma"]
         params = torch.tensor(shade.shade_params(**light), dtype=torch.float32)
         fid = exact(f["vis"][1].to(torch.int32))
+        fid_f = exact(f["vis"][1])
         out = torch.empty((4,) + tuple(fid.shape))
         lut = None if lut is None else exact(lut)
         lut_ptr = None if lut is None else lut.data_ptr()
@@ -630,15 +692,47 @@ class Cases:
                                          sc["face_tex"], sc["atlas"])
             rows[1::3, shade.ROW_TEXINFO:shade.ROW_TEXINFO + 16].view(torch.int32).fill_(n - 1)
             want = shade.shade_deferred_plain(fid, rows, texels, cp, max_anisotropy=ma, texel_format=fmt, **light)
-            rows = exact(rows)
-            err = self.lib.tr_shade_deferred(fid.data_ptr(), rows.data_ptr(), rows.shape[0], texels.data_ptr(), n,
-                                             code, lut_ptr, cp.data_ptr(), fid.shape[0], fid.shape[1], 0, ma,
-                                             params.data_ptr(), out.data_ptr(), None, None, None)
+            setup, table = exact(rows[:, :24]), exact(rows[:, 24:])
+            err = self.lib.tr_shade_deferred(fid_f.data_ptr(), setup.data_ptr(), table.data_ptr(), rows.shape[0],
+                                             texels.data_ptr(), n, code, lut_ptr, cp.data_ptr(), fid.shape[0],
+                                             fid.shape[1], 0, ma, params.data_ptr(), out.data_ptr(), None, None, None)
         assert err == 0
         w, h = SIZES[size]
         covered = fid >= 0
         assert int(covered[h:].sum() + covered[:h, w:].sum()) > 0 if size == "off_grid" else True
         assert_shade_close(out, want, covered)
+
+    def split_rows(self, case):
+        """The resolve kernel and the deferred kernel (srgb8 rows) on the
+        256x128 frame's split_rows(case): the setup rows, the face tables,
+        the face ids and every output exact-size, so that a row read past
+        either table's end falls in ASan's redzone; held to the plain
+        versions on the packed tables (assert_resolve_bits,
+        assert_same_bits)."""
+        f = self.frame("grid")
+        c = split_rows(case, f["vis"], f["so"]["setup"], f["sc"])
+        vis, plain_vis, y0 = c["vis"], c["plain_vis"], c["y_offset"]
+        covered = plain_vis[1] >= 0
+        assert int(covered.sum()) > 500
+        th = f["kw"]["tile_h"]
+        g = self.emu_resolve(vis, (c["setup"], c["resolve_table"]), y_offset=y0)
+        want = resolve.resolve_gbuffer_plain(plain_vis, c["attrs"], max_anisotropy=16, tile_row_offset=y0 // th,
+                                             tile_h=th)
+        assert_resolve_bits(g, want, f"resolve, {case}")
+        texels = exact(texels_tensor(self.scene.atlas.texels, "srgb8", "cpu"))
+        code, lut = shade._check_rows(texels, "srgb8", shade.srgb_table("cpu"))
+        light, cp = f["light"], exact(f["cp"])
+        params = torch.tensor(shade.shade_params(**light), dtype=torch.float32)
+        fid, setup, table, lut = exact(vis[1]), exact(c["setup"]), exact(c["shade_table"]), exact(lut)
+        out = torch.empty((4,) + tuple(fid.shape))
+        err = self.lib.tr_shade_deferred(fid.data_ptr(), setup.data_ptr(), table.data_ptr(), setup.shape[0],
+                                         texels.data_ptr(), texels.shape[0], code, lut.data_ptr(), cp.data_ptr(),
+                                         fid.shape[0], fid.shape[1], y0, 16, params.data_ptr(), out.data_ptr(), None,
+                                         None, None)
+        assert err == 0
+        want = shade.shade_deferred_plain(plain_vis[1].to(torch.int32), c["shade_rows"], texels, cp, max_anisotropy=16,
+                                          y_offset=y0, texel_format="srgb8", **light)
+        assert_same_bits(out, want, f"deferred, {case}")
 
     def bin(self, case):
         """tr_bin without near-plane boxes (clip and faces null) on
@@ -823,6 +917,7 @@ class Cases:
             "zstd_corrupt_and_truncated_frames": self.zstd_frames,
             "shade_gather_off_grid": lambda: self.shade("gather", "off_grid"),
             "shade_deferred_off_grid": lambda: self.shade("deferred", "off_grid"),
+            **{f"split_rows_{k}": functools.partial(self.split_rows, k) for k in SPLIT_CASES},
             **{f"bin_{k}": functools.partial(self.bin, k) for k in BIN_CASES},
             "bin_near_faces": lambda: self.bin_near(False),
             "bin_near_faces_scan": lambda: self.bin_near(True),

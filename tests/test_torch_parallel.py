@@ -192,7 +192,8 @@ def test_slab_is_the_frames_rows(scene, cam):
     g, fid = r.debug_gbuf(cam, with_fid=True)
     assert torch.equal(slab["gbuf"], g[:, rows]) and torch.equal(slab["fid"], fid[rows])
     with pytest.raises(ValueError, match="tile_h"):
-        resolve.resolve_gbuffer(torch.zeros((2, 8, 128)), torch.zeros((1, resolve.A_IN)), tile_row_offset=1)
+        resolve.resolve_gbuffer(torch.zeros((2, 8, 128)), torch.zeros((1, 24)), torch.zeros((1, resolve.TABLE_WIDTH)),
+                                tile_row_offset=1)
 
 
 def test_scan_renderer_sizes_its_buffer_as_the_reference(scene):

@@ -106,8 +106,11 @@ def test_float_planes_close(gbufs, planes, rtol, atol):
 
 
 def test_resolve_gbuffer_on_cpu_is_the_plain_version():
-    """resolve_gbuffer on CPU tensors is the plain version, bit for bit."""
+    """resolve_gbuffer on CPU tensors is the plain version on the joined
+    table, bit for bit."""
     vis = torch.full((2, 8, 128), -1.0)
-    attrs = torch.zeros((1, resolve.A_IN))
-    assert torch.equal(resolve.resolve_gbuffer(vis, attrs), resolve.resolve_gbuffer_plain(vis, attrs))
-    assert not resolve.resolve_gbuffer(vis, attrs).any()
+    setup, table = torch.zeros((1, 24)), torch.zeros((1, resolve.TABLE_WIDTH))
+    attrs = resolve.join_attrs(setup, table)
+    assert attrs.shape == (1, resolve.A_IN)
+    assert torch.equal(resolve.resolve_gbuffer(vis, setup, table), resolve.resolve_gbuffer_plain(vis, attrs))
+    assert not resolve.resolve_gbuffer(vis, setup, table).any()

@@ -96,9 +96,7 @@ def stage_outputs(port, cam):
     bins = geometry.bin_pairs(so["aabb"], so["valid"], port.tiles_x, port.tiles_y, kw["tile_w"], kw["tile_h"])
     vis = raster.rasterize_tiles(so["setup"], so["aabb"], bins["pair_faces"], bins["offsets"],
                                  clear_depth=kw["clear_depth"], **tiles)
-    attrs = resolve.pack_resolve_attrs(so["setup"], sc["corner_world"], sc["corner_normal"], sc["corner_uv"],
-                                       sc["face_tex"], sc["atlas"])
-    g = resolve.resolve_gbuffer(vis, attrs, max_anisotropy=kw["max_anisotropy"])
+    g = resolve.resolve_gbuffer(vis, so["setup"], sc["resolve_table"], max_anisotropy=kw["max_anisotropy"])
     plan = sampler.plan_tiles(g, max_anisotropy=kw["max_anisotropy"], **tiles)
     fb = sampler.sample_tiles(
         g, sc["atlas"]["page"], plan, cp, max_anisotropy=kw["max_anisotropy"],

@@ -31,7 +31,7 @@ from tpurast.camera import Camera
 from tpurast.config import RendererConfig
 from tpurast.kernels import sampler as ref_sampler
 from tpurast.renderer import Renderer as RefRenderer
-from tpurast_torch.device.scene import from_numpy
+from tpurast_torch.device.scene import face_tables, from_numpy
 from tpurast_torch.kernels import sampler
 from tpurast_torch.renderer import Renderer
 from test_sampler import _checker_scene
@@ -65,7 +65,7 @@ def frames(request):
     ref_r = RefRenderer(scene, cfg)
     ref = ref_r.render(cam)
     port_r = Renderer(scene, cfg, device="cpu")
-    port_r.scene = from_numpy(jax.tree.map(np.asarray, ref_r.scene), "cpu")
+    port_r.scene = face_tables(from_numpy(jax.tree.map(np.asarray, ref_r.scene), "cpu"), ("resolve",))
     port = port_r.render(cam)
     g = ref_r.debug_gbuf(cam)
     kw = dict(tiles_x=ref_r.tiles_x, tiles_y=ref_r.tiles_y, tile_h=cfg.tile_h, tile_w=cfg.tile_w,

@@ -5,8 +5,10 @@ frame of the small orbit scene (256x128, tests/test_torch_renderer.py's)
 at max_anisotropy 1 and 4 go through tpurast.kernels.shade and
 tpurast_torch.kernels.shade with the same atlas rows, float32 and srgb8:
 
-  * pack_tex_table and pack_shade_rows: bit for bit (the int32 texture
-    info bit-cast into the f32 row);
+  * pack_tex_table, pack_shade_rows and resolve.pack_resolve_attrs: bit
+    for bit (the int32 texture info bit-cast into the f32 row), with and
+    without texture pages; each the setup columns beside its per-scene
+    table (scene_table), which the upload builds once;
   * _plane_select: exact, also at level indices outside [0, 16);
   * _trilerp at random (u, v) over the atlas: rtol 2e-6 / atol 1e-6 per
     channel (XLA:CPU contracts the bilinear a*b+c into FMAs; eager torch
@@ -15,7 +17,8 @@ tpurast_torch.kernels.shade with the same atlas rows, float32 and srgb8:
     sRGB u8 encode, the same pixels covered;
   * shade_deferred with y_offset shades a band of rows exactly as the
     full frame does, and an uncovered G-buffer shades to the clear color;
-  * the wrappers on CPU tensors are the plain versions and count no
+  * the wrappers on CPU tensors are the plain versions (shade_deferred on
+    the setup rows and per-scene table put together) and count no
     launch, hold no fallback, and check the atlas rows as csrc/shade.cu
     takes them (dtype with texel format, shape, each format's alignment,
     srgb8 rows' decode table), which the scene upload makes once.
@@ -33,11 +36,12 @@ import torch
 
 from tpurast.config import RendererConfig
 from tpurast.kernels import geometry as ref_geometry
+from tpurast.kernels import resolve as ref_resolve
 from tpurast.kernels import shade as ref_shade
 from tpurast.renderer import Renderer as RefRenderer
 from tpurast_torch.device.scene import build_orbit_scene, orbit_track
 from tpurast_torch.device.textures import upload_atlas
-from tpurast_torch.kernels import present, shade
+from tpurast_torch.kernels import present, resolve, shade
 from test_torch_scene import numpy_bc_decoders, reference_scene  # noqa: F401  (module-wide autouse)
 
 CFG = RendererConfig(width=256, height=128, segment_headroom=512, sampler="gather")
@@ -89,6 +93,13 @@ def _t(a):
     return torch.from_numpy(np.array(a))
 
 
+def _split(rows):
+    """A (F, 104) packed shading table as shade_deferred takes it: the
+    (F, 24) setup rows and the (F, 80) per-scene table."""
+    rows = _t(np.asarray(rows))
+    return rows[:, :24].contiguous(), rows[:, 24:].contiguous()
+
+
 def _encode(planes, cfg):
     return present.encode_srgb_u8(torch.as_tensor(np.asarray(planes)), cfg.width, cfg.height).numpy().astype(int)
 
@@ -109,6 +120,46 @@ def test_pack_shade_rows_bit_exact(frame):
                                  _t(tr["corner_uv"]), _t(tr["face_tex"]), atlas)
     assert rows.shape == (tr["corner_world"].shape[0], shade.SHADE_ROW_WIDTH) and rows.dtype == torch.float32
     np.testing.assert_array_equal(rows.view(torch.int32).numpy(), np.asarray(frame["rows"]).view(np.int32))
+
+
+@pytest.mark.parametrize("pages", [True, False], ids=["pages", "no_pages"])
+def test_pack_resolve_attrs_bit_exact(frame, pages):
+    """pack_resolve_attrs equals the reference's table bit for bit, with
+    the scene's page origins and without them (zero page bases); it is
+    the setup rows' edge matrix, anchor and face id beside scene_table's
+    first 77 columns, the table's last 3 zeros."""
+    tr = frame["tree"]
+    keys = ("offsets", "sizes", "n_mips") + (("page_origins",) if pages else ())
+    assert "page_origins" in tr["atlas"]
+    ref_atlas = {k: tr["atlas"][k] for k in keys}
+    atlas = {k: _t(v) for k, v in ref_atlas.items()}
+    corners = [_t(tr[k]) for k in ("corner_world", "corner_normal", "corner_uv", "face_tex")]
+    setup = _t(frame["setup"])
+    attrs = resolve.pack_resolve_attrs(setup, *corners, atlas)
+    want = np.asarray(ref_resolve.pack_resolve_attrs(frame["setup"], tr["corner_world"], tr["corner_normal"],
+                                                     tr["corner_uv"], tr["face_tex"], ref_atlas))
+    assert attrs.shape == (tr["corner_world"].shape[0], resolve.A_IN) and attrs.dtype == torch.float32
+    np.testing.assert_array_equal(attrs.view(torch.int32).numpy(), want.view(np.int32))
+    table = resolve.scene_table(*corners, atlas)
+    assert table.shape == (attrs.shape[0], resolve.TABLE_WIDTH) and table.is_contiguous()
+    assert torch.equal(table[:, : resolve.A_IN - resolve.SETUP_COLS], attrs[:, resolve.SETUP_COLS:])
+    assert not table[:, resolve.A_IN - resolve.SETUP_COLS:].any()
+    assert torch.equal(setup[:, [0, 1, 2, 3, 4, 5, 6, 7, 8, 16, 17, 15]], attrs[:, : resolve.SETUP_COLS])
+    assert (attrs[:, 73:] == 0).all().item() != pages
+
+
+def test_pack_shade_rows_is_setup_beside_the_scene_table(frame):
+    """pack_shade_rows is the setup rows beside shade.scene_table, the
+    table's int32 texture info bit for bit (join_shade_rows)."""
+    tr = frame["tree"]
+    atlas = {k: _t(tr["atlas"][k]) for k in ("offsets", "sizes", "n_mips")}
+    corners = [_t(tr[k]) for k in ("corner_world", "corner_normal", "corner_uv", "face_tex")]
+    setup = _t(frame["setup"])
+    table = shade.scene_table(*corners, atlas)
+    assert table.shape == (setup.shape[0], shade.TABLE_WIDTH) and table.dtype == torch.float32
+    rows = shade.pack_shade_rows(setup, *corners, atlas)
+    assert torch.equal(rows.view(torch.int32), shade.join_shade_rows(setup, table).view(torch.int32))
+    assert torch.equal(rows[:, :24], setup)
 
 
 def test_plane_select_matches_reference():
@@ -162,8 +213,7 @@ def test_shade_deferred_matches_reference(frame, texels, fmt):
     cfg = frame["cfg"]
     kw = dict(_light(cfg), max_anisotropy=cfg.max_anisotropy, texel_format=fmt)
     want = ref_shade.shade_deferred(frame["fid"], frame["rows"], ref_tex, frame["cp"], **kw)
-    rows = _t(np.asarray(frame["rows"]))
-    got = shade.shade_deferred(_t(frame["fid"]), rows, port_tex, _t(frame["cp"]), **kw)
+    got = shade.shade_deferred(_t(frame["fid"]).float(), *_split(frame["rows"]), port_tex, _t(frame["cp"]), **kw)
     assert got.shape == (4, 128, 256)
     _within_one_lsb(got, want, cfg)
 
@@ -172,9 +222,9 @@ def test_shade_deferred_y_offset_band_equals_full_frame(frame, texels):
     _, port_tex = texels["float"]
     cfg = frame["cfg"]
     kw = dict(_light(cfg), max_anisotropy=cfg.max_anisotropy)
-    fid, rows, cp = _t(frame["fid"]), _t(np.asarray(frame["rows"])), _t(frame["cp"])
-    full = shade.shade_deferred(fid, rows, port_tex, cp, **kw)
-    band = shade.shade_deferred(fid[40:72], rows, port_tex, cp, y_offset=40, **kw)
+    fid, rows, cp = _t(frame["fid"]).float(), _split(frame["rows"]), _t(frame["cp"])
+    full = shade.shade_deferred(fid, *rows, port_tex, cp, **kw)
+    band = shade.shade_deferred(fid[40:72], *rows, port_tex, cp, y_offset=40, **kw)
     assert torch.equal(band, full[:, 40:72])
 
 
@@ -196,15 +246,17 @@ def test_wrappers_take_the_plain_versions_on_the_cpu(frame, texels):
     cfg = frame["cfg"]
     kw = dict(_light(cfg), max_anisotropy=cfg.max_anisotropy, texel_format="srgb8")
     g, fid, rows, cp = _t(frame["gbuf"]), _t(frame["fid"]), _t(np.asarray(frame["rows"])), _t(frame["cp"])
+    setup, table = _split(frame["rows"])
     kernels.reset_launches()
     assert torch.equal(shade.shade_gbuffer(g, port_tex, cp, **kw), shade.shade_gbuffer_plain(g, port_tex, cp, **kw))
-    assert torch.equal(shade.shade_deferred(fid, rows, port_tex, cp, y_offset=3, **kw),
+    assert torch.equal(shade.shade_deferred(fid.float(), setup, table, port_tex, cp, y_offset=3, **kw),
                        shade.shade_deferred_plain(fid, rows, port_tex, cp, y_offset=3, **kw))
     assert kernels.LAUNCHES["gather"] == kernels.LAUNCHES["deferred"] == 0
     with pytest.raises(ValueError, match="CUDA device"):
         shade.shade_gbuffer(g.to("meta"), port_tex.to("meta"), cp.to("meta"), **kw)
     with pytest.raises(ValueError, match="CUDA device"):
-        shade.shade_deferred(fid.to("meta"), rows.to("meta"), port_tex.to("meta"), cp.to("meta"), **kw)
+        shade.shade_deferred(fid.float().to("meta"), setup.to("meta"), table.to("meta"), port_tex.to("meta"),
+                             cp.to("meta"), **kw)
 
 
 def test_wrappers_have_no_fallback():

@@ -3,7 +3,9 @@
   * the span rings: nesting and parent ids, each span's frame sequence
     number, wrap-around (the last ``capacity`` spans kept), no growth of
     memory over many frames, the set-up spans of a scene build and an
-    upload, a graph's capture_ms read from its capture span;
+    upload, a graph's capture_ms read from its capture span; one
+    ``setup.face_tables`` span a Renderer, inside its upload, however many
+    frames it renders;
   * the seven marks of render_frame in stage order on the forward-window,
     gather and deferred paths, inside the frame's ``frame`` span, their
     intervals summing to the frame; the host's count of frames enqueued
@@ -166,6 +168,31 @@ def test_setup_spans_of_a_scene_build_and_an_upload():
     got = _spans_since(first)
     assert got["name"].tolist() == ["setup.scene", "setup.upload"]
     assert (got["end_ns"] > got["start_ns"]).all()
+
+
+@pytest.mark.parametrize("path", list(PATHS))
+def test_one_face_tables_span_a_renderer(scene, cams, path):
+    """A Renderer builds the face table of its shading path once, inside
+    its upload (a ``setup.face_tables`` span whose parent is the
+    ``setup.upload`` span), and its frames build none: three frames leave
+    exactly one such span. A deferred Renderer's debug_gbuf (a forward
+    G-buffer) builds the resolve table at its first call only."""
+    first = _last_id()
+    r = Renderer(scene, dataclasses.replace(CFG, **PATHS[path]), device="cpu")
+    for cam in cams[:3]:
+        r.render(cam)
+    got = _spans_since(first)
+    tables = got["name"] == "setup.face_tables"
+    assert int(tables.sum()) == 1
+    upload = got["id"][got["name"] == "setup.upload"]
+    assert upload.tolist() == got["parent"][tables].tolist()
+    want = "shade_table" if path == "deferred" else "resolve_table"
+    assert [k for k in ("resolve_table", "shade_table") if k in r.scene] == [want]
+    first = _last_id()
+    r.debug_gbuf(cams[0])
+    r.debug_gbuf(cams[1])
+    built = int((_spans_since(first)["name"] == "setup.face_tables").sum())
+    assert built == (1 if path == "deferred" else 0) and "resolve_table" in r.scene
 
 
 def test_capture_ms_is_the_capture_span(monkeypatch):

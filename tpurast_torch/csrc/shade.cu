@@ -15,18 +15,23 @@
 // consecutive pixels of a row, so every plane read and store is
 // coalesced), and builds nothing per frame:
 //   * a pixel with no face reads its match plane (gather) or its face id
-//     (deferred) and writes the clear color;
+//     (deferred: the raster's f32 face-id plane) and writes the clear
+//     color;
 //   * a covered pixel counts its probes (shade.probe_count) and runs only
 //     those, not max_anisotropy: each probe is one trilerp from one
 //     52-channel atlas row (the own mip's 2x2 quad and the parent mip's
 //     3x3 window, device/textures.py), summed in the plain version's order
 //     (acc + probe, the mip blend inside each probe) and divided by the
 //     count; then shading.cuh's lighting and blend;
-//   * the deferred kernel reads the fields of the pixel's face row (104
-//     floats of pack_shade_rows) and repeats shade_deferred's edge
-//     functions, interpolation, UV derivatives and level fields in
-//     registers, in the order of csrc/resolve.cu, so that deferred equals
-//     forward + gather bit for bit.
+//   * the deferred kernel reads the fields of the pixel's face row (the
+//     104 floats of pack_shade_rows) where its two parts lie: fields 0-23
+//     from the frame's setup row (24 floats a face, which the setup kernel
+//     writes), fields 24-103 from the per-scene table (shade.scene_table,
+//     80 floats a face, built once at the upload), so that no frame builds
+//     the packed table; it repeats shade_deferred's edge functions,
+//     interpolation, UV derivatives and level fields in registers, in the
+//     order of csrc/resolve.cu, so that deferred equals forward + gather
+//     bit for bit.
 //
 // What bounds it on this card: L1 requests, not bytes. The 32 lanes of a
 // warp are 32 pixels whose rows lie apart, so a warp-wide load touches up
@@ -43,9 +48,11 @@
 // a float32 row (208 B) thirteen 16-byte loads. That is 7 requests a probe
 // where there were 13, and all of a probe's loads are in flight together.
 // The deferred kernel reads its face row's fields the same way: ten
-// 16-byte loads for fields 0-11, 16-19 and 24-47, three for the texture
-// info at level 0 (widths, heights, mip count), and the five level fields
-// it picks, 18 loads where there were 43.
+// 16-byte loads for fields 0-11, 16-19 (both in the setup row, 96 bytes,
+// on the 16-byte grid) and 24-47 (the table row's first 96 bytes, its rows
+// 320 bytes on the grid), three for the texture info at level 0 (widths,
+// heights, mip count), and the five level fields it picks, 18 loads where
+// there were 43.
 //
 // These loads brought the orbit frame to 8.1M requests and the kernels'
 // device time from 0.074 / 0.075 ms to 0.064 / 0.067 ms; what holds them now
@@ -76,8 +83,10 @@ namespace {
 constexpr int kThreads = 256, kMinBlocks = 4;
 constexpr int kRowTexels = 13;  // 52 channels: the 2x2 quad, then the 3x3 parent window
 constexpr int kMaxMips = 16;
-// pack_shade_rows: [setup(24) | world(9) | normal(9) | uv(6) | tex-info(49, int32 bits) | pad]
-constexpr int kRowWidth = 104;
+// pack_shade_rows: [setup(24) | world(9) | normal(9) | uv(6) | tex-info(49, int32 bits) | pad], the
+// setup row's 24 floats (kernels/geometry.py SETUP_WIDTH), then the table row's 80
+// (shade.scene_table). Field numbers below are the packed row's.
+constexpr int kSetupWidth = 24, kTableWidth = 80;
 constexpr int kRowWorld = 24, kRowNormal = 33, kRowUv = 42, kRowTexinfo = 48;
 enum Format { kF32 = 0, kF16 = 1, kBF16 = 2, kSrgb8 = 3 };
 
@@ -339,19 +348,20 @@ __device__ __forceinline__ int level_field(const int* __restrict__ info, int bas
   return level >= 0 && level < kMaxMips ? info[base + level] : 0;
 }
 
-// Fields 4b-4b+3 of a face row (16-byte block b) into s.
-template <int b>
+// Floats 4b-4b+3 of a row (16-byte block b) into s[4b + at ...].
+template <int b, int at = 0>
 __device__ __forceinline__ void face_block(const float4* __restrict__ row4, float s[48]) {
   const float4 v = ldg_f4(row4 + b);
-  s[4 * b] = v.x;
-  s[4 * b + 1] = v.y;
-  s[4 * b + 2] = v.z;
-  s[4 * b + 3] = v.w;
+  s[at + 4 * b] = v.x;
+  s[at + 4 * b + 1] = v.y;
+  s[at + 4 * b + 2] = v.z;
+  s[at + 4 * b + 3] = v.w;
 }
 
 template <class R>
-__device__ __forceinline__ void shade_deferred_pixel(const int* __restrict__ fid, const float* __restrict__ shade_rows,
-                                                     int n_faces, const R& rows, long long n_rows,
+__device__ __forceinline__ void shade_deferred_pixel(const float* __restrict__ fid, const float* __restrict__ setup,
+                                                     const float* __restrict__ table, int n_faces, const R& rows,
+                                                     long long n_rows,
                                                      const float* __restrict__ cam, int height, int width,
                                                      int y_offset, int max_anisotropy, const ShadeParams& prm,
                                                      float* __restrict__ out) {
@@ -360,31 +370,35 @@ __device__ __forceinline__ void shade_deferred_pixel(const int* __restrict__ fid
   const long long plane = (long long)height * width;
   const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= plane) return;
-  const int f = fid[p];
-  if (f < 0 || f >= n_faces) {
+  // The face id as the raster writes it (csrc/resolve.cu reads it so).
+  const float fidf = fid[p];
+  const int f = (int)fidf;
+  if (!(fidf >= 0.0f) || f >= n_faces) {
     store_clear(prm, plane, p, out);
     return;
   }
-  const float4* row4 = (const float4*)(shade_rows + (long long)f * kRowWidth);
+  const float4* setup4 = (const float4*)(setup + (long long)f * kSetupWidth);
+  const float4* table4 = (const float4*)(table + (long long)f * kTableWidth);
   // The 16-byte blocks it reads whole: fields 0-11 (the edge functions,
-  // 0-8), 16-19 (the anchor, 16 and 17) and 24-47 (world, normal, uv).
+  // 0-8) and 16-19 (the anchor, 16 and 17) of the setup row, 24-47 (world,
+  // normal, uv) of the table row.
   float s[48];
-  face_block<0>(row4, s);
-  face_block<1>(row4, s);
-  face_block<2>(row4, s);
-  face_block<4>(row4, s);
-  face_block<6>(row4, s);
-  face_block<7>(row4, s);
-  face_block<8>(row4, s);
-  face_block<9>(row4, s);
-  face_block<10>(row4, s);
-  face_block<11>(row4, s);
+  face_block<0>(setup4, s);
+  face_block<1>(setup4, s);
+  face_block<2>(setup4, s);
+  face_block<4>(setup4, s);
+  face_block<0, kSetupWidth>(table4, s);
+  face_block<1, kSetupWidth>(table4, s);
+  face_block<2, kSetupWidth>(table4, s);
+  face_block<3, kSetupWidth>(table4, s);
+  face_block<4, kSetupWidth>(table4, s);
+  face_block<5, kSetupWidth>(table4, s);
   // The texture info: widths, heights and mip count at level 0 as the
   // first fields of three 16-byte blocks; the level fields one by one.
-  const int* info = (const int*)(shade_rows + (long long)f * kRowWidth + kRowTexinfo);
-  const float w0 = (float)(int)__float_as_uint(ldg_f4(row4 + (kRowTexinfo + 16) / 4).x);
-  const float h0 = (float)(int)__float_as_uint(ldg_f4(row4 + (kRowTexinfo + 32) / 4).x);
-  const int n_mips = (int)__float_as_uint(ldg_f4(row4 + (kRowTexinfo + 48) / 4).x);
+  const int* info = (const int*)(table + (long long)f * kTableWidth + (kRowTexinfo - kSetupWidth));
+  const float w0 = (float)(int)__float_as_uint(ldg_f4(table4 + (kRowTexinfo - kSetupWidth + 16) / 4).x);
+  const float h0 = (float)(int)__float_as_uint(ldg_f4(table4 + (kRowTexinfo - kSetupWidth + 32) / 4).x);
+  const int n_mips = (int)__float_as_uint(ldg_f4(table4 + (kRowTexinfo - kSetupWidth + 48) / 4).x);
   const float px = ((float)(p % width) + 0.5f) - s[16];
   const float py = ((float)(p / width + y_offset) + 0.5f) - s[17];
 
@@ -458,12 +472,12 @@ __device__ __forceinline__ void shade_deferred_pixel(const int* __restrict__ fid
 
 template <class R>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
-    shade_deferred_kernel(const int* __restrict__ fid, const float* __restrict__ shade_rows, int n_faces,
-                          R rows, long long n_rows, const float* __restrict__ cam, int height, int width,
-                          int y_offset, int max_anisotropy, ShadeParams prm, float* __restrict__ out,
-                          long long* mark_start, long long* mark_end) {
+    shade_deferred_kernel(const float* __restrict__ fid, const float* __restrict__ setup,
+                          const float* __restrict__ table, int n_faces, R rows, long long n_rows,
+                          const float* __restrict__ cam, int height, int width, int y_offset, int max_anisotropy,
+                          ShadeParams prm, float* __restrict__ out, long long* mark_start, long long* mark_end) {
   stamp_start(mark_start);
-  shade_deferred_pixel(fid, shade_rows, n_faces, rows, n_rows, cam, height, width, y_offset, max_anisotropy, prm,
+  shade_deferred_pixel(fid, setup, table, n_faces, rows, n_rows, cam, height, width, y_offset, max_anisotropy, prm,
                        out);
   stamp_end(mark_end);
 }
@@ -520,19 +534,21 @@ extern "C" int tr_shade_gbuffer(const float* gbuf, const void* texels, long long
   return (int)cudaGetLastError();
 }
 
-// fid: (height, width) int32 face ids (-1 background); shade_rows:
-// (n_faces, 104) f32 from pack_shade_rows, on the 16-byte grid; y_offset:
-// the first frame pixel row of a slab; the rest as tr_shade_gbuffer.
-extern "C" int tr_shade_deferred(const int* fid, const float* shade_rows, int n_faces, const void* texels,
-                                 long long n_rows, int fmt, const float* lut, const float* cam, int height, int width,
-                                 int y_offset, int max_anisotropy, const float* params, float* out,
-                                 long long* mark_start, long long* mark_end, void* stream) {
-  if (!rows_ok(texels, n_rows, fmt, lut) || (uintptr_t)shade_rows % 16 != 0) return (int)cudaErrorInvalidValue;
+// fid: (height, width) f32 face ids as the raster writes them (-1
+// background); setup: (n_faces, 24) f32 setup rows, table: (n_faces, 80)
+// f32 rows of shade.scene_table, both on the 16-byte grid; y_offset: the
+// first frame pixel row of a slab; the rest as tr_shade_gbuffer.
+extern "C" int tr_shade_deferred(const float* fid, const float* setup, const float* table, int n_faces,
+                                 const void* texels, long long n_rows, int fmt, const float* lut, const float* cam,
+                                 int height, int width, int y_offset, int max_anisotropy, const float* params,
+                                 float* out, long long* mark_start, long long* mark_end, void* stream) {
+  if (!rows_ok(texels, n_rows, fmt, lut) || (uintptr_t)setup % 16 != 0 || (uintptr_t)table % 16 != 0)
+    return (int)cudaErrorInvalidValue;
   const ShadeParams prm = read_shade_params(params);
   const int blocks = blocks_for(height, width);
   if (blocks == 0) return (int)cudaSuccess;
   by_format(fmt, texels, lut, [&](auto rows) {
-    TR_LAUNCH(shade_deferred_kernel<decltype(rows)>, blocks, kThreads, stream, fid, shade_rows, n_faces, rows,
+    TR_LAUNCH(shade_deferred_kernel<decltype(rows)>, blocks, kThreads, stream, fid, setup, table, n_faces, rows,
               n_rows, cam, height, width, y_offset, max_anisotropy, prm, out, mark_start, mark_end);
   });
   return (int)cudaGetLastError();

@@ -9,16 +9,19 @@ through the port. ``load_demo_scene`` and the bench's named scenes
 build_scene; they read the reference's data directory (meshes/,
 textures/), which is not part of the repository.
 
-``upload(scene, device, texture_dtype=None)`` is the port's counterpart of
-DeviceScene.device(): the frame's inputs as torch tensors on ``device``.
-It carries the corner tables, face_tex and n_faces, the atlas
-offsets/sizes/n_mips that resolve reads and, when the scene has pages,
-the bf16 texture page with its origins, sizes and mip counts. The
+``upload(scene, device, texture_dtype=None, tables=())`` is the port's
+counterpart of DeviceScene.device(): the frame's inputs as torch tensors
+on ``device``. It carries the corner tables, face_tex and n_faces, the
+atlas offsets/sizes/n_mips that resolve reads and, when the scene has
+pages, the bf16 texture page with its origins, sizes and mip counts. The
 quad-row atlas texels, which only the gather sampler reads, are added
-in ``texture_dtype`` (device/textures.py) when one is given.
+in ``texture_dtype`` (device/textures.py) when one is given. ``tables``
+names the per-scene face tables the frame's shading path reads
+(``face_tables``: "resolve" for forward shading, "shade" for deferred),
+built once here.
 ``from_numpy(tree, device)`` takes the same state from the reference's
-device() pytree converted leaf by leaf with np.asarray, so tests can
-feed both packages identical state. ``replicate(scene_dev, device)``
+device() pytree converted leaf by leaf with np.asarray, so tests can feed
+both packages identical state. ``replicate(scene_dev, device)``
 copies an uploaded scene to another device (parallel.py's mesh).
 
 ``build_orbit_scene`` / ``orbit_track`` generate the procedural scene that
@@ -45,6 +48,7 @@ from tpurast_torch.camera import Camera
 from tpurast_torch.device import textures as tex_mod
 from tpurast_torch.device.pages import build_pages
 from tpurast_torch.device.textures import texels_tensor
+from tpurast_torch.kernels import resolve, shade
 from tpurast_torch.kernels.sampler import interleave_page
 from tpurast_torch.kernels.shade import srgb_table
 
@@ -272,7 +276,34 @@ def _tensors(arrays: dict, page, texels, n_faces: int, device) -> dict:
     }
 
 
-def upload(scene: DeviceScene, device, texture_dtype: str | None = None) -> dict:
+#: The per-scene face tables (kind: the scene dict's key and its builder):
+#: the columns of resolve.pack_resolve_attrs and shade.pack_shade_rows that
+#: do not change from frame to frame.
+FACE_TABLES = {"resolve": ("resolve_table", resolve.scene_table), "shade": ("shade_table", shade.scene_table)}
+
+
+def face_tables(scene_dev: dict, kinds) -> dict:
+    """Adds to the uploaded scene scene_dev the face tables of ``kinds``
+    (FACE_TABLES' keys) that it lacks, on its device, inside a
+    ``setup.face_tables`` span where it builds one; returns scene_dev.
+    render_frame reads scene_dev["resolve_table"] on the forward path and
+    scene_dev["shade_table"] on the deferred one, and builds neither."""
+    missing = [k for k in dict.fromkeys(kinds) if FACE_TABLES[k][0] not in scene_dev]
+    if not missing:
+        return scene_dev
+    span = tracing.SETUP_FACE_TABLES.begin()
+    try:
+        corners = (scene_dev["corner_world"], scene_dev["corner_normal"], scene_dev["corner_uv"],
+                   scene_dev["face_tex"], scene_dev["atlas"])
+        for k in missing:
+            key, build = FACE_TABLES[k]
+            scene_dev[key] = build(*corners)
+    finally:
+        tracing.SETUP_FACE_TABLES.end(span)
+    return scene_dev
+
+
+def upload(scene: DeviceScene, device, texture_dtype: str | None = None, tables=()) -> dict:
     """The frame function's scene state as torch tensors on ``device``.
 
     The page is rounded to bf16 by torch (round to nearest even, bit for
@@ -282,11 +313,12 @@ def upload(scene: DeviceScene, device, texture_dtype: str | None = None) -> dict
     texture_dtype ("float32", "float16", "bfloat16" or "srgb8") the atlas
     also carries the quad-row texels in that dtype (srgb8 rows with
     atlas["srgb_lut"], their decode table, kernels/shade.py::srgb_table);
-    without it, it does not. A scene without pages uploads no page. Inside
-    the ``setup.upload`` span (tracing.py)."""
+    without it, it does not. A scene without pages uploads no page.
+    ``tables``: the face tables to build (face_tables). Inside the
+    ``setup.upload`` span (tracing.py)."""
     span = tracing.SETUP_UPLOAD.begin()
     try:
-        return _upload(scene, device, texture_dtype)
+        return face_tables(_upload(scene, device, texture_dtype), tables)
     finally:
         tracing.SETUP_UPLOAD.end(span)
 
@@ -355,7 +387,8 @@ def _texels_from_numpy(a: np.ndarray) -> torch.Tensor:
 def from_numpy(tree: dict, device) -> dict:
     """``upload``'s result from the reference's DeviceScene.device() pytree,
     converted leaf by leaf with np.asarray (nested dicts kept). The texels
-    and the page come along when the tree has them."""
+    and the page come along when the tree has them; no face table
+    (face_tables adds them)."""
     atlas = tree["atlas"]
     arrays = {
         "corner_world": tree["corner_world"],

@@ -54,11 +54,11 @@ _L = ctypes.c_longlong
 # C signatures (see the extern "C" functions in csrc/*.cu).
 SIGNATURES = {
     "tr_raster": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P, _P, _I, _P, _P, _P, _P],
-    "tr_resolve": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P],
+    "tr_resolve": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P],
     "tr_plan": [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     "tr_sample": [_P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     "tr_shade_gbuffer": [_P, _P, _L, _I, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P],
-    "tr_shade_deferred": [_P, _P, _I, _P, _L, _I, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P],
+    "tr_shade_deferred": [_P, _P, _P, _I, _P, _L, _I, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     "tr_plane_scale": [_P, _I, _I, _I, _I, _I, _I, _P, _P],
     "tr_vmem_take": [_P, _I, _P, _L, _P, _P],
     "tr_trace_mark": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P],

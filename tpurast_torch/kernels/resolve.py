@@ -3,7 +3,16 @@
 Replaces the Pallas kernel tpurast/kernels/resolve.py::_resolve_kernel
 (launched by resolve_gbuffer). The CUDA kernel is csrc/resolve.cu; the
 plain torch version below computes the same bits and is what CPU tensors
-take. pack_resolve_attrs is a torch op on both sides.
+take.
+
+A face's attribute row (pack_resolve_attrs) has two parts: 12 columns of
+the frame's setup row (edge matrix, anchor, face id) and 77
+that depend on the scene alone (uv, world, normal and the face's texture
+columns). The second part is the per-scene table (scene_table), built once
+when the scene is uploaded (device/scene.py face_tables); the kernel reads
+each pixel's face row from the setup rows and that table, so no frame
+builds the packed table. The plain version takes the packed table, which
+join_attrs puts together from the same two parts.
 
 The reference selects each pixel's 89-float attribute row with a one-hot
 HIGHEST-precision matmul per segment, which is exact selection; here each
@@ -19,12 +28,18 @@ import torch
 from tpurast_torch import kernels as _k
 from tpurast_torch.kernels import _build
 from tpurast_torch.kernels import shade as _shade
+from tpurast_torch.kernels.geometry import SETUP_WIDTH
 
 # Attribute-table row layout (A_IN, per face), tpurast/kernels/resolve.py:
 #   0..8 edge matrix | 9,10 anchor | 11 face id | 12..17 uv | 18..26 world
 #   27..35 normal | 36..51 mip offset/256 | 52,53 mip-0 w,h | 54 mip count
 #   55 constant 1.0 | 56 texture id | 57..72 page base y | 73..88 page base x
 A_IN = 89
+# Columns 0..11 come from the setup row (join_attrs), 12..88 from the
+# per-scene table, whose rows hold them at 0..76, padded to TABLE_WIDTH
+# floats so that each row starts on the 16-byte grid.
+SETUP_COLS = 12
+TABLE_WIDTH = 80
 # G-buffer planes (A_OUT): 0..2 world | 3..5 normal | 6,7 u,v | 8 off0/256
 #   9,10 tw0,th0 | 11,12 tw1,th1 | 13 mip frac | 14,15 aniso major du,dv
 #   16 matched | 17 probe span | 18 texture id | 19 l0
@@ -36,9 +51,12 @@ INT_PLANES = (8, 9, 10, 11, 12, 16, 18, 19, 20, 21, 22, 23)
 MAX_MIPS = 16
 
 
-def pack_resolve_attrs(setup, face_world, face_normal, face_uv, face_tex, atlas) -> torch.Tensor:
-    """(F, A_IN) f32 per-face attribute table (resolve.py pack_resolve_attrs)."""
-    f = setup.shape[0]
+def scene_table(face_world, face_normal, face_uv, face_tex, atlas) -> torch.Tensor:
+    """(F, TABLE_WIDTH) f32 per-scene table: attribute columns 12..88 (uv,
+    world, normal, mip offset/256, mip-0 size, mip count, 1.0, texture id,
+    page bases) at 0..76, zeros after."""
+    f = face_world.shape[0]
+    dev = face_world.device
     offsets = atlas["offsets"]
     sizes = atlas["sizes"]
     n_mips = atlas["n_mips"]
@@ -46,7 +64,7 @@ def pack_resolve_attrs(setup, face_world, face_normal, face_uv, face_tex, atlas)
     if "page_origins" in atlas:
         page_base = (atlas["page_origins"] + 1).to(torch.float32)  # (T, 16, 2)
     else:  # a scene without pages: the gather sampler reads no page base
-        page_base = torch.zeros((offsets.shape[0], MAX_MIPS, 2), dtype=torch.float32, device=setup.device)
+        page_base = torch.zeros((offsets.shape[0], MAX_MIPS, 2), dtype=torch.float32, device=dev)
     tex_cols = torch.cat(
         [
             (offsets // 256).to(torch.float32),
@@ -59,19 +77,30 @@ def pack_resolve_attrs(setup, face_world, face_normal, face_uv, face_tex, atlas)
     page_cols = torch.cat([page_base[:, :, 0], page_base[:, :, 1]], dim=1)[ft]
     return torch.cat(
         [
-            setup[:, 0:9],
-            setup[:, 16:18],
-            setup[:, 15:16],
             face_uv.reshape(f, 6),
             face_world.reshape(f, 9),
             face_normal.reshape(f, 9),
             tex_cols,
-            torch.ones((f, 1), dtype=torch.float32, device=setup.device),
+            torch.ones((f, 1), dtype=torch.float32, device=dev),
             face_tex.to(torch.float32)[:, None],
             page_cols,
+            torch.zeros((f, TABLE_WIDTH - (A_IN - SETUP_COLS)), dtype=torch.float32, device=dev),
         ],
         dim=1,
     ).to(torch.float32).contiguous()
+
+
+def join_attrs(setup, table) -> torch.Tensor:
+    """(F, A_IN) f32 attribute table from the (F, 24) setup rows (edge
+    matrix, anchor, face id) and the (F, TABLE_WIDTH) per-scene table: the
+    rows the kernel reads."""
+    return torch.cat([setup[:, 0:9], setup[:, 16:18], setup[:, 15:16], table[:, : A_IN - SETUP_COLS]], dim=1)
+
+
+def pack_resolve_attrs(setup, face_world, face_normal, face_uv, face_tex, atlas) -> torch.Tensor:
+    """(F, A_IN) f32 per-face attribute table (resolve.py pack_resolve_attrs):
+    join_attrs of the setup rows and scene_table."""
+    return join_attrs(setup, scene_table(face_world, face_normal, face_uv, face_tex, atlas))
 
 
 def _level(s, base, level):
@@ -184,28 +213,33 @@ def resolve_gbuffer_plain(vis, attrs, *, max_anisotropy: int = 1, tile_row_offse
     return out.reshape(A_OUT, hp, wp)
 
 
-def resolve_gbuffer(vis, attrs, *, max_anisotropy: int = 1, tile_row_offset: int = 0,
+def resolve_gbuffer(vis, setup, table, *, max_anisotropy: int = 1, tile_row_offset: int = 0,
                     tile_h: int | None = None, stamps=(None, None)) -> torch.Tensor:
     """Per-pixel G-buffer (A_OUT, Hp, Wp) from the raster output vis
-    (2, Hp, Wp) and the attribute table attrs (F, A_IN)
-    (resolve.py resolve_gbuffer). A slab (tile_row_offset, a Python int,
+    (2, Hp, Wp), the frame's (F, 24) setup rows and the scene's
+    (F, TABLE_WIDTH) scene_table (resolve.py resolve_gbuffer on
+    join_attrs(setup, table)). A slab (tile_row_offset, a Python int,
     its first frame tile row, with tile_h) interpolates at the frame's
-    pixel rows and writes its own. CPU tensors run the plain version;
-    CUDA tensors launch csrc/resolve.cu. stamps: the (start, end) words of the frame
+    pixel rows and writes its own. CPU tensors run the plain version on
+    join_attrs(setup, table); CUDA tensors launch csrc/resolve.cu, which
+    reads both where they lie. stamps: the (start, end) words of the frame
     trace's marks that the kernel stamps (tracing.FrameMarks.stamps), each
     a 0-dim int64 CUDA tensor or None; the plain version takes none."""
-    if not _k.use_kernel(vis, attrs):
-        return resolve_gbuffer_plain(vis, attrs, max_anisotropy=max_anisotropy, tile_row_offset=tile_row_offset,
-                                     tile_h=tile_h)
+    if not _k.use_kernel(vis, setup, table):
+        return resolve_gbuffer_plain(vis, join_attrs(setup, table), max_anisotropy=max_anisotropy,
+                                     tile_row_offset=tile_row_offset, tile_h=tile_h)
     y_offset = _y_offset(tile_row_offset, tile_h)
     _k.check(vis, "vis", torch.float32)
     if vis.dim() != 3 or vis.shape[0] != 2:
         raise ValueError(f"vis: expected (2, H, W), got {tuple(vis.shape)}")
-    _k.check(attrs, "attrs", torch.float32)
-    if attrs.dim() != 2 or attrs.shape[1] != A_IN:
-        raise ValueError(f"attrs: expected (F, {A_IN}), got {tuple(attrs.shape)}")
+    _k.check(setup, "setup", torch.float32)
+    _k.check(table, "table", torch.float32)
+    if setup.dim() != 2 or setup.shape[1] != SETUP_WIDTH:
+        raise ValueError(f"setup: expected (F, {SETUP_WIDTH}), got {tuple(setup.shape)}")
+    if table.dim() != 2 or table.shape != (setup.shape[0], TABLE_WIDTH):
+        raise ValueError(f"table: expected ({setup.shape[0]}, {TABLE_WIDTH}), got {tuple(table.shape)}")
     _, hp, wp = vis.shape
     out = torch.empty((A_OUT, hp, wp), dtype=torch.float32, device=vis.device)
-    _build.call("tr_resolve", vis, attrs, attrs.shape[0], hp, wp, y_offset, max_anisotropy, out, *stamps)
+    _build.call("tr_resolve", vis, setup, table, setup.shape[0], hp, wp, y_offset, max_anisotropy, out, *stamps)
     _k.LAUNCHES["resolve"] += 1
     return out

@@ -8,7 +8,7 @@ csrc/sampler.cu and csrc/shade.cu repeat them term for term
 (csrc/shading.cuh holds the lighting and blend they share).
 
 The gather sampler (shade_gbuffer, the forward path's shading tail) and
-deferred shading (pack_shade_rows + shade_deferred) read the quad-row
+deferred shading (shade_deferred) read the quad-row
 atlas (device/textures.py): one (N, 52) row per trilinear sample holds
 the own-mip 2x2 quad and the parent mip's 3x3 window (_trilerp). The
 reference leaves both to XLA (shade.py:316, :463); here each is a CUDA
@@ -19,6 +19,14 @@ every probe of max_anisotropy over every pixel, masked, and are what CPU
 tensors and plain_kernels() take. Kernel and plain version run the same
 _trilerp on the same values, so a forward+gather frame equals the
 deferred frame bit for bit on either.
+
+A face's shading row (pack_shade_rows, 104 floats) is the frame's setup
+row (24 floats) beside 80 that depend on the scene alone: the per-scene
+table (scene_table), built once when the scene is uploaded
+(device/scene.py face_tables). The deferred kernel reads each pixel's face
+row from the setup rows and that table, so no frame builds the packed
+table; the plain version takes the packed table, which join_shade_rows
+puts together from the same two parts.
 
 Two places differ from jnp by necessity, on pixels whose color the blend
 discards: an integer modulus by a texture width of 0 (an uncovered
@@ -49,6 +57,9 @@ ROW_NORMAL = _SETUP_WIDTH + 9
 ROW_UV = _SETUP_WIDTH + 18
 ROW_TEXINFO = _SETUP_WIDTH + 24
 SHADE_ROW_WIDTH = 104
+# The per-scene table's row: the shading row's columns ROW_WORLD.. (80
+# floats, so each row starts on the 16-byte grid).
+TABLE_WIDTH = SHADE_ROW_WIDTH - _SETUP_WIDTH
 # Texture-info row (int32): [offsets(16) | widths(16) | heights(16) | n_mips]
 TEX_ROW_WIDTH = 49
 MAX_MIPS = 16
@@ -180,24 +191,36 @@ def pack_tex_table(atlas) -> torch.Tensor:
     )
 
 
-def pack_shade_rows(setup, face_world, face_normal, face_uv, face_tex, atlas) -> torch.Tensor:
-    """(F, 104) f32 per-face shading table (shade.py pack_shade_rows). The
+def scene_table(face_world, face_normal, face_uv, face_tex, atlas) -> torch.Tensor:
+    """(F, TABLE_WIDTH) f32 per-scene table: the shading row's columns
+    ROW_WORLD.. (world, normal, uv, the texture info and the padding). The
     int32 texture info rides in the f32 row by bit reinterpretation
     (Tensor.view), not conversion: offsets exceed f32's integer range."""
-    f = setup.shape[0]
+    f = face_world.shape[0]
     tex_rows = pack_tex_table(atlas)[face_tex.long()].contiguous()
     return torch.cat(
         [
-            setup,
             face_world.reshape(f, 9),
             face_normal.reshape(f, 9),
             face_uv.reshape(f, 6),
             tex_rows.view(torch.float32),
             torch.zeros((f, SHADE_ROW_WIDTH - ROW_TEXINFO - TEX_ROW_WIDTH), dtype=torch.float32,
-                        device=setup.device),
+                        device=face_world.device),
         ],
         dim=1,
     )
+
+
+def join_shade_rows(setup, table) -> torch.Tensor:
+    """(F, 104) f32 shading table from the (F, 24) setup rows and the
+    (F, TABLE_WIDTH) scene_table: the rows the deferred kernel reads."""
+    return torch.cat([setup, table], dim=1)
+
+
+def pack_shade_rows(setup, face_world, face_normal, face_uv, face_tex, atlas) -> torch.Tensor:
+    """(F, 104) f32 per-face shading table (shade.py pack_shade_rows): the
+    setup rows beside scene_table's columns."""
+    return join_shade_rows(setup, scene_table(face_world, face_normal, face_uv, face_tex, atlas))
 
 
 def _safe_div(a, b, eps=1e-30):
@@ -506,14 +529,16 @@ def _check_rows(texels, texel_format: str, srgb_lut):
     return code, None
 
 
-def _check_face_rows(shade_rows):
-    """The (F, 104) f32 pack_shade_rows table as csrc/shade.cu takes it:
-    contiguous, on the 16-byte grid of its loads."""
-    _k.check(shade_rows, "shade_rows", torch.float32)
-    if shade_rows.dim() != 2 or shade_rows.shape[1] != SHADE_ROW_WIDTH:
-        raise ValueError(f"shade_rows: expected (F, {SHADE_ROW_WIDTH}), got {tuple(shade_rows.shape)}")
-    if shade_rows.data_ptr() % 16:
-        raise ValueError("shade_rows: must start on a 16-byte boundary (the kernel reads its rows in 16-byte loads)")
+def _check_face_rows(setup, table):
+    """The (F, 24) setup rows and (F, TABLE_WIDTH) scene_table as
+    csrc/shade.cu takes them: f32, contiguous, each on the 16-byte grid of
+    its loads."""
+    for t, name, width in ((setup, "setup", _SETUP_WIDTH), (table, "table", TABLE_WIDTH)):
+        _k.check(t, name, torch.float32)
+        if t.dim() != 2 or t.shape != (setup.shape[0], width):
+            raise ValueError(f"{name}: expected ({setup.shape[0]}, {width}), got {tuple(t.shape)}")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: must start on a 16-byte boundary (the kernel reads its rows in 16-byte loads)")
 
 
 def shade_gbuffer(gbuf, texels, camera_position, *, light_direction, light_color, ambient_amount: float,
@@ -545,34 +570,36 @@ def shade_gbuffer(gbuf, texels, camera_position, *, light_direction, light_color
     return out
 
 
-def shade_deferred(fid, shade_rows, texels, camera_position, *, light_direction, light_color,
+def shade_deferred(fid, setup, table, texels, camera_position, *, light_direction, light_color,
                    ambient_amount: float, specular_power: float, clear_color, max_anisotropy: int = 1,
                    y_offset=0, blend: str = "alpha", texel_format: str = "float", srgb_lut=None,
                    stamps=(None, None)):
-    """Deferred shading (shade.py shade_deferred) of the (H, W) int32 face
-    ids fid (-1 background) from the (F, 104) pack_shade_rows table and the
-    (N, 52) atlas rows, pixel rows offset by y_offset (a slab's first frame
-    row, a Python int): (4, H, W) f32 linear planes. CPU tensors run
-    shade_deferred_plain; CUDA tensors launch csrc/shade.cu's
-    tr_shade_deferred (srgb_lut as shade_gbuffer's). stamps: the (start, end) words of the frame
+    """Deferred shading (shade.py shade_deferred) of the (H, W) f32 face
+    ids fid as the raster writes them (vis[1], -1 background) from the
+    frame's (F, 24) setup rows, the scene's (F, TABLE_WIDTH) scene_table
+    and the (N, 52) atlas rows, pixel rows offset by y_offset (a slab's
+    first frame row, a Python int): (4, H, W) f32 linear planes. CPU
+    tensors run shade_deferred_plain on join_shade_rows(setup, table);
+    CUDA tensors launch csrc/shade.cu's tr_shade_deferred (srgb_lut as
+    shade_gbuffer's), which reads both where they lie. stamps: the (start, end) words of the frame
     trace's marks that the kernel stamps (tracing.FrameMarks.stamps), each
     a 0-dim int64 CUDA tensor or None; the plain version takes none."""
     light = dict(light_direction=light_direction, light_color=light_color, ambient_amount=ambient_amount,
                  specular_power=specular_power, clear_color=clear_color, blend=blend)
-    if not _k.use_kernel(fid, shade_rows, texels, camera_position):
-        return shade_deferred_plain(fid, shade_rows, texels, camera_position, max_anisotropy=max_anisotropy,
-                                    y_offset=y_offset, texel_format=texel_format, **light)
-    _k.check(fid, "fid", torch.int32)
+    if not _k.use_kernel(fid, setup, table, texels, camera_position):
+        return shade_deferred_plain(fid.to(torch.int32), join_shade_rows(setup, table), texels, camera_position,
+                                    max_anisotropy=max_anisotropy, y_offset=y_offset, texel_format=texel_format,
+                                    **light)
+    _k.check(fid, "fid", torch.float32)
     if fid.dim() != 2:
         raise ValueError(f"fid: expected (H, W), got {tuple(fid.shape)}")
-    _check_face_rows(shade_rows)
+    _check_face_rows(setup, table)
     _k.check(camera_position, "camera_position", torch.float32, (3,))
     code, lut = _check_rows(texels, texel_format, srgb_lut)
     h, w = fid.shape
     params = (ctypes.c_float * N_PARAMS)(*shade_params(**light))
     out = torch.empty((4, h, w), dtype=torch.float32, device=fid.device)
-    _build.call("tr_shade_deferred", fid, shade_rows, shade_rows.shape[0], texels, texels.shape[0], code,
-                lut, camera_position, h, w, int(y_offset), int(max_anisotropy), ctypes.addressof(params), out,
-                *stamps)
+    _build.call("tr_shade_deferred", fid, setup, table, setup.shape[0], texels, texels.shape[0], code, lut,
+                camera_position, h, w, int(y_offset), int(max_anisotropy), ctypes.addressof(params), out, *stamps)
     _k.LAUNCHES["deferred"] += 1
     return out

@@ -5,17 +5,22 @@ keyword arguments and the same output dict. A frame runs
 
   corner transform + triangle setup/cull (setup kernel) -> pair binning (bin kernels)
   -> raster kernel, then one of
-       forward + window: attribute pack (torch) -> resolve kernel
+       forward + window: resolve kernel
            -> plan kernel (texel windows per tile: the empty tiles and
               the residual pixel count) -> sample kernel (texturing from
               the page + lighting + blend)
-       forward + gather: attribute pack -> resolve kernel
+       forward + gather: resolve kernel
            -> gather kernel (shade_gbuffer: each pixel's own probes from
               the atlas rows + lighting + blend)
-       deferred: shade-row pack (torch) -> deferred kernel
+       deferred: deferred kernel
            (shade_deferred: the pixel's face row, interpolation, its own
            probes from the atlas rows, lighting, blend)
   -> sRGB encode (torch)
+
+The resolve and deferred kernels read each pixel's face row from the
+frame's setup rows and the scene's per-face table (scene["resolve_table"],
+scene["shade_table"]), which the upload builds once
+(device/scene.py face_tables): no frame packs a per-face table.
 
 on the device its tensors live on: the kernels launch on a CUDA device and
 take their plain torch versions on the CPU (tpurast_torch.kernels).
@@ -49,7 +54,7 @@ import torch
 from tpurast_torch import math3d, tracing
 from tpurast_torch.camera import Camera
 from tpurast_torch.config import RendererConfig
-from tpurast_torch.device.scene import DeviceScene, upload
+from tpurast_torch.device.scene import DeviceScene, face_tables, upload
 from tpurast_torch.device.textures import resolve_texture_dtype
 from tpurast_torch.graphs import FrameGraph, graph_wanted
 from tpurast_torch.kernels import geometry, present, raster, resolve, sampler as ksampler, shade
@@ -162,7 +167,9 @@ def render_frame(
     """One frame (tpurast/renderer.py render_frame). scene is the dict of
     tensors from tpurast_torch.device.scene.upload (with the atlas texels
     for sampler="gather" or shading="deferred", with the page for
-    sampler="window"); view_proj (4, 4) and camera_position (3,) are f32
+    sampler="window"; with scene["resolve_table"] for forward shading,
+    scene["shade_table"] for deferred: device/scene.py face_tables);
+    view_proj (4, 4) and camera_position (3,) are f32
     tensors on the scene's device.
 
     binning="pairs" bins with geometry.bin_pairs, any other value (the
@@ -246,13 +253,9 @@ def render_frame(
     # Only the window sampler has tiles it cannot window (counted below).
     window_miss_px = torch.zeros((), dtype=torch.int32, device=depth.device)
     if shading == "forward":
-        attrs = resolve.pack_resolve_attrs(
-            setup, scene["corner_world"], scene["corner_normal"], scene["corner_uv"],
-            scene["face_tex"], scene["atlas"],
-        )
         mark(4)
-        gbuf = resolve.resolve_gbuffer(vis, attrs, max_anisotropy=max_anisotropy, tile_row_offset=ty_base,
-                                       tile_h=tile_h, stamps=stamps(4))
+        gbuf = resolve.resolve_gbuffer(vis, setup, scene["resolve_table"], max_anisotropy=max_anisotropy,
+                                       tile_row_offset=ty_base, tile_h=tile_h, stamps=stamps(4))
         if output == "gbuf":
             return {"gbuf": gbuf, "depth": depth, "fid": vis[1].to(torch.int32)}
         if stage == "resolve":
@@ -283,13 +286,9 @@ def render_frame(
                 **light,
             )
     else:
-        shade_rows = shade.pack_shade_rows(
-            setup, scene["corner_world"], scene["corner_normal"], scene["corner_uv"],
-            scene["face_tex"], scene["atlas"],
-        )
         mark(4)
         framebuffer = shade.shade_deferred(
-            vis[1].to(torch.int32), shade_rows, scene["atlas"]["texels"], camera_position,
+            vis[1], setup, scene["shade_table"], scene["atlas"]["texels"], camera_position,
             max_anisotropy=max_anisotropy, y_offset=ty_base * tile_h, texel_format=texture_format,
             srgb_lut=scene["atlas"].get("srgb_lut"), stamps=stamps(4, 5), **light,
         )
@@ -380,8 +379,10 @@ class Renderer:
         # A frame of output "gbuf" stops at the G-buffer: no frame to mark.
         self.marks = None if output == "gbuf" else tracing.marks(self.device)
         self._calibrated = False
-        # Only the gather paths read the atlas rows (shade.py).
-        self.scene = upload(scene, self.device, self.texture_dtype if self.sampler == "gather" else None)
+        # Only the gather paths read the atlas rows (shade.py); the frame
+        # reads the face table of its shading.
+        self.scene = upload(scene, self.device, self.texture_dtype if self.sampler == "gather" else None,
+                            tables=("shade",) if cfg.shading == "deferred" else ("resolve",))
         self._configure_target(cfg.width, cfg.height)
         log.info(
             "renderer init: %dx%d | device %s | scene: %d tris, %d textures | %s shading, %s sampler, "
@@ -498,7 +499,9 @@ class Renderer:
 
     def debug_gbuf(self, camera: Camera, with_fid: bool = False):
         """Forward-path G-buffer (A_OUT, Hp, Wp), whatever the configured
-        shading; with_fid=True also returns the visibility face-id image."""
+        shading; with_fid=True also returns the visibility face-id image.
+        A deferred Renderer builds the resolve table at its first call."""
+        face_tables(self.scene, ("resolve",))
         fn = self._frame_fn("gbuf", output="gbuf", shading="forward")
         out = fn(self.scene, *self.frame_uniforms(camera))
         return (out["gbuf"], out["fid"]) if with_fid else out["gbuf"]

@@ -21,12 +21,17 @@ the frame loop's.
   present.copy   Presenter: that frame copied out of pinned memory
   setup.scene    device/scene.py build_scene, every scene loader's shared path
   setup.upload   device/scene.py upload, the quad rows included
+  setup.face_tables  device/scene.py face_tables: the scene's per-face
+                 tables (inside setup.upload; once a Renderer)
   setup.capture  graphs.Graph: the first, eager call (with the kernels'
                  build) and the capture
 
 Marks. The ``FrameMarks`` of a device (``marks(device)``) places render_frame's
 seven marks (MARKS): the frame's start, and the end of geometry (transform
-and triangle setup), binning, raster, the pack, shading and the encode. On a
+and triangle setup), binning, raster, the pack, shading and the encode (a
+frame packs no per-face table: its shading kernels read the tables the
+upload built, so the pack mark falls at the first shading kernel's start,
+right after raster's end). On a
 CUDA device a mark is %globaltimer written into the frame's record
 (csrc/trace.cu). Marks 0, 1 and 6 are trace.cu's one-thread kernel, a node
 of the frame's CUDA graph in stream order (``mark``); marks 2 to 5 fall
@@ -161,6 +166,7 @@ PRESENT_WAIT = Span("present.wait", _frame_spans)
 PRESENT_COPY = Span("present.copy", _frame_spans)
 SETUP_SCENE = Span("setup.scene", _setup_spans)
 SETUP_UPLOAD = Span("setup.upload", _setup_spans)
+SETUP_FACE_TABLES = Span("setup.face_tables", _setup_spans)
 SETUP_CAPTURE = Span("setup.capture", _setup_spans)
 
 
