@@ -10,6 +10,7 @@
     python3 chip_smoke.py --bin-kernels      # phase 1d alone
     python3 chip_smoke.py --setup-kernel     # phase 1e alone
     python3 chip_smoke.py --face-tables      # phase 1f alone
+    python3 chip_smoke.py --encode-kernel    # phase 1g alone
 
 Builds the CUDA kernels from tpurast_torch/csrc, builds a procedural scene
 from the seed (a 256x256-quad floor and 64 UV spheres, 258,048 triangles,
@@ -105,6 +106,22 @@ eight generated 1024^2 BC4 textures with full mip chains), and then, at
      table (resolve: phase 1's rule; deferred: within 1 LSB, the clear
      color exact), into guarded outputs, its ms and device ms beside its
      bound, and the one-off build of each table (ms, bytes);
+ 1g. encode_kernel (in every kernel_phases too, on the sampled frame;
+     --encode-kernel, alone: encode_sweep, then the orbit scene's frame 0
+     at 1920x1080, the crop of its last two tile rows as a slab's, and the
+     benchmark's 64 stand-in dragons at 3840x2160 at flythrough pose 0):
+     the encode kernel (csrc/encode.cu, present.encode_srgb_u8) against
+     encode_srgb_u8_plain on the frame's padded linear framebuffer, bit for
+     bit, one launch a call, into a guarded output; twice more and as a
+     CUDA graph's replay the same bytes; its ms and device ms beside its
+     bound (16 B read and 4 B written a pixel of the crop) and the plain
+     version's, both as graphs, its registers and blocks per SM; the
+     Renderer's graph frames and a 2-slab frame launching it once a frame
+     and once a slab. encode_sweep holds the kernel to the plain version
+     (torch ops on the card) on every float32 in [0, 1] (1,065,353,217
+     values) and a sample of the bit patterns outside it (NaN, the
+     infinities), and prints whether the plain version's bytes rise
+     monotonically over [0, 1], and in steps of one;
   2. runs the microbenchmark probes at the tools' sizes against their
      plain versions, bit for bit: vmem_take (4096x16 f32 table, 2,073,600
      indices; then an odd row count, a count of indices that fills no whole
@@ -336,16 +353,18 @@ KERNELS = {
     # No pallas_call: the reference leaves these two to XLA.
     "gather": ("tpurast_torch/csrc/shade.cu", "tpurast/kernels/shade.py:463"),
     "deferred": ("tpurast_torch/csrc/shade.cu", "tpurast/kernels/shade.py:316"),
+    # No pallas_call: the reference leaves the encode to XLA.
+    "encode": ("tpurast_torch/csrc/encode.cu", "tpurast/kernels/present.py:21"),
     "vmem_take": ("tpurast_torch/csrc/probes.cu", "tools/microbench.py:262"),
     "plane_scale": ("tpurast_torch/csrc/probes.cu", "tools/microbench_pipeline.py:35"),
 }
 RENDER_KERNELS = ("raster", "resolve", "plan", "sample")
-# The kernels a window frame (slab, pose) launches once: the setup and binning kernels too.
-FRAME_KERNELS = ("setup", "bin") + RENDER_KERNELS
+# The kernels a window frame (slab, pose) of sRGB u8 output launches once: the setup, binning and encode kernels too.
+FRAME_KERNELS = ("setup", "bin") + RENDER_KERNELS + ("encode",)
 SHADE_KERNELS = ("gather", "deferred")
 # The kernels each frame path launches once per frame (or slab).
-PATH_KERNELS = {"window": FRAME_KERNELS, "gather": ("setup", "bin", "raster", "resolve", "gather"),
-                "deferred": ("setup", "bin", "raster", "deferred")}
+PATH_KERNELS = {"window": FRAME_KERNELS, "gather": ("setup", "bin", "raster", "resolve", "gather", "encode"),
+                "deferred": ("setup", "bin", "raster", "deferred", "encode")}
 # The card's published peaks (H100 SXM at 700 W): device memory bytes/s
 # and f32 FLOP/s outside the tensor cores. A kernel's bound is the larger of its bytes and its operations
 # over these.
@@ -760,7 +779,8 @@ def shade_compare(out, want, covered) -> dict:
     encode and pixels at 1 LSB, and whether the uncovered pixels hold the
     same clear color."""
     h, w = out.shape[1:]
-    lsb = (present.encode_srgb_u8(out, w, h).int() - present.encode_srgb_u8(want, w, h).int()).abs().amax(dim=0)
+    lsb = (present.encode_srgb_u8_plain(out, w, h).int() - present.encode_srgb_u8_plain(want, w, h).int()).abs().amax(
+        dim=0)
     return dict(max_abs_err=float((out - want).abs().max()), px_differ=int((out != want).any(dim=0).sum()),
                 lsb=int(lsb.max()), px_at_1=int((lsb == 1).sum()),
                 clear_equal=bool(torch.equal(out[:, ~covered], want[:, ~covered])))
@@ -1004,7 +1024,7 @@ def kernel_phases(r: Renderer, cam, card: str, phase: str = "kernel_phases") -> 
     fb = sampler.sample_tiles(g, page, plan, cp, **skw)
     fb_p = sampler.sample_tiles_plain(g, page, plan, cp, **skw)
     w, h = kw["width"], kw["height"]
-    enc_diff = (present.encode_srgb_u8(fb, w, h).int() - present.encode_srgb_u8(fb_p, w, h).int()).abs()
+    enc_diff = (present.encode_srgb_u8_plain(fb, w, h).int() - present.encode_srgb_u8_plain(fb_p, w, h).int()).abs()
     lsb = int(enc_diff.max())
     px_bad = int((enc_diff.amax(dim=0) > 0).sum())
     smp_err = float((fb - fb_p).abs().max())
@@ -1063,6 +1083,7 @@ def kernel_phases(r: Renderer, cam, card: str, phase: str = "kernel_phases") -> 
     check(same, "the sampled frame depends on the plan")
     out["bin"] = bin_kernels(r, cam, card, phase)
     out["setup"] = setup_kernel(r, cam, card, phase)
+    out["encode"] = encode_kernel(fb, w, h, card, phase)
     return out
 
 
@@ -1360,6 +1381,192 @@ def setup_standin(seed: int, card: str) -> None:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# Bytes of a pixel of the crop the encode kernel must move: its four f32
+# planes read (16 B), its four bytes written; f32 operations of a pixel:
+# three transfer curves (a power, counted as 20, and five more each), four
+# clamps and four roundings to a byte.
+ENCODE_PX_BYTES = 16 + 4
+ENCODE_FLOPS_PER_PX = 3 * 25 + 4 * 2 + 4 * 2
+# encode_sweep: a colour plane of a chunk (rows, columns; 2^26 values), and
+# the stride of its sample of the bit patterns outside [0, 1].
+SWEEP_PLANE = (8192, 8192)
+SWEEP_STRIDE = 4099
+SWEEP_END = 0x3F800000 + 1  # the bit patterns of 0.0 .. 1.0: every float32 in [0, 1]
+
+
+def sweep_planes(bits: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
+    """(4, rows, cols) f32 planes whose colour planes 0-2 hold the float32
+    bit patterns bits (int64, at most 3 * rows * cols, the rest 1.0) in
+    order, and whose alpha plane holds plane 0's."""
+    n = rows * cols
+    pad = torch.full((3 * n - bits.numel(),), 0x3F800000, dtype=torch.int64, device=bits.device)
+    bits = torch.cat([bits, pad])
+    planes = torch.empty((4, rows, cols), device=bits.device)
+    planes[:3].view(torch.int32).copy_(torch.where(bits >= 2**31, bits - 2**32, bits).view(3, rows, cols))
+    planes[3] = planes[0]
+    return planes
+
+
+def encode_sweep(card: str) -> dict:
+    """The encode kernel against encode_srgb_u8_plain (torch ops on the
+    card) on every float32 in [0, 1], 1,065,353,217 values in the order of
+    their bits, in the colour planes of (4, 8192, 8192) chunks (each value
+    in the alpha plane too where it falls in plane 0), then on every
+    SWEEP_STRIDE-th bit pattern outside [0, 1] and NaN, the infinities,
+    -0.0 and the largest floats: the count of bytes that differ and the
+    first of them. Over [0, 1] also the plain version's bytes in order:
+    whether they never fall and whether they rise in steps of one. Returns
+    those figures."""
+    dev = torch.device("cuda")
+    rows, cols = SWEEP_PLANE
+    n = rows * cols
+    t0 = time.perf_counter()
+    res = dict(differ=0, first=[], monotone=True, steps_of_one=True, steps=0)
+    prev = None
+    for start in range(0, SWEEP_END, 3 * n):
+        bits = torch.arange(start, min(start + 3 * n, SWEEP_END), dtype=torch.int64, device=dev)
+        planes = sweep_planes(bits, rows, cols)
+        got = present.encode_srgb_u8(planes, cols, rows)
+        want = present.encode_srgb_u8_plain(planes, cols, rows)
+        bad = (got != want).nonzero()
+        res["differ"] += bad.shape[0]
+        for p, y, x in bad[:8].tolist():
+            v = planes[p, y, x].view(torch.int32).item() & 0xFFFFFFFF
+            res["first"].append((f"0x{v:08X}", p, int(got[p, y, x]), int(want[p, y, x])))
+        seq = want[:3].reshape(-1)[:bits.numel()].int()
+        seq = torch.cat([seq[:1] if prev is None else prev, seq])
+        step = seq[1:] - seq[:-1]
+        res["monotone"] &= bool((step >= 0).all())
+        res["steps_of_one"] &= bool((step <= 1).all())
+        res["steps"] += int((step > 0).sum())
+        prev = seq[-1:]
+        del planes, got, want
+    outside = torch.cat([torch.arange(SWEEP_END, 2**32, SWEEP_STRIDE, dtype=torch.int64, device=dev),
+                         torch.tensor([0x7FC00000, 0xFFC00000, 0x7F800001, 0x7F800000, 0xFF800000, 0x80000000,
+                                       0x7F7FFFFF, 0xFF7FFFFF, 0x80000001], dtype=torch.int64, device=dev)])
+    r_out = -(-outside.numel() // (3 * 1024))
+    planes = sweep_planes(outside, r_out, 1024)
+    got, want = present.encode_srgb_u8(planes, 1024, r_out), present.encode_srgb_u8_plain(planes, 1024, r_out)
+    res["outside"] = outside.numel()
+    res["outside_differ"] = int((got != want).sum())
+    res["nan_byte"] = int(want[:3].reshape(-1)[outside.numel() - 9])
+    res["seconds"] = time.perf_counter() - t0
+    print(f"encode_sweep: every float32 in [0, 1] ({SWEEP_END:,} values): kernel bytes differing from the plain "
+          f"version {res['differ']} (first {res['first']}); {res['outside']:,} bit patterns outside [0, 1] (NaN, the "
+          f"infinities, -0.0 among them): {res['outside_differ']} differing, NaN's byte {res['nan_byte']}; the plain "
+          f"version's bytes over [0, 1] never fall {res['monotone']}, rise in steps of one {res['steps_of_one']}, "
+          f"{res['steps']} steps; {res['seconds']:.1f} s [{card}]")
+    check(res["differ"] == 0 and res["outside_differ"] == 0, "encode_sweep: the encode kernel differs from the plain "
+          "version")
+    return res
+
+
+def padded_framebuffer(r: Renderer, cam) -> torch.Tensor:
+    """The (4, Hp, Wp) linear f32 framebuffer of cam's frame on r's path
+    before its crop (render_frame with output="linear" returns the crop, a
+    view of it)."""
+    vp, cp = r.frame_uniforms(cam)
+    kw = r._frame_kwargs
+    c = render_frame(r.scene, vp, cp, **dict(kw, output="linear"))["color"]
+    hp, wp = r.tiles_y * kw["tile_h"], r.tiles_x * kw["tile_w"]
+    return c.as_strided((4, hp, wp), (hp * wp, wp, 1))
+
+
+def encode_kernel(fb, width: int, height: int, card: str, phase: str = "encode_kernel", label: str = "frame") -> dict:
+    """The encode kernel (csrc/encode.cu) against encode_srgb_u8_plain on
+    fb, a (4, Hp, Wp) linear framebuffer, cropped to width x height: bit for
+    bit, one launch (LAUNCHES["encode"]), into a guarded output, twice more
+    and as a CUDA graph's replay the same bytes. Prints the kernel's ms and
+    device ms beside its bound and the plain version's, both as graphs, and
+    its registers and blocks per SM. Returns its stats (the kernels line's
+    fields)."""
+    def run():
+        return present.encode_srgb_u8(fb, width, height)
+
+    def plain_run():
+        return present.encode_srgb_u8_plain(fb, width, height)
+
+    before = K.LAUNCHES["encode"]
+    got = run()
+    torch.cuda.synchronize()
+    launches = K.LAUNCHES["encode"] - before
+    want = plain_run()
+    same = bool(torch.equal(got, want))
+    hp, wp = fb.shape[1:]
+    guard(phase, f"encode {label}", "tr_encode", fb, hp, wp, width, height, Out((4, height, width), torch.uint8),
+          want=(got,))
+    again = [run(), run()]
+    g, replayed = graph_of(run)
+    g.replay()
+    torch.cuda.synchronize()
+    steady = all(bool(torch.equal(x, got)) for x in again + [replayed])
+    plain_graph, _ = graph_of(plain_run)
+    kernel_graph_ms, plain_graph_ms = cuda_ms(g.replay, 50), cuda_ms(plain_graph.replay, 50)
+    regs, blocks = _build.kernel_info("encode")
+    px = width * height
+    st = dict(max_abs_err=float((got.int() - want.int()).abs().max()), library_ms=None, pixels=px,
+              graph_ms=kernel_graph_ms, plain_graph_ms=plain_graph_ms,
+              **bound(px * ENCODE_PX_BYTES, px * ENCODE_FLOPS_PER_PX), **timed(run, plain_run, 50, 10))
+    share = "not measured" if st["dev_ms"] is None else f"{st['bound_ms'] / st['dev_ms']:.3f}"
+    print(f"{phase}: encode {label}: {width}x{height} of {wp}x{hp} planes; equal to the plain version {same}; "
+          f"launches {launches}; repeated calls and a graph replay the same bytes {steady}; {st['ms']:.4f} ms (device "
+          f"{fmt_ms(st['dev_ms'])}) vs plain {st['plain_ms']:.4f} ms (device {fmt_ms(st['plain_dev_ms'])}); as graphs "
+          f"{kernel_graph_ms:.4f} ms vs plain {plain_graph_ms:.4f} ms a replay; bound {st['bound_ms']:.5f} ms by "
+          f"{st['bound_by']} ({ENCODE_PX_BYTES} B a pixel), {share} of it by device ms; {regs} registers per thread, "
+          f"{blocks} resident blocks of 256 per SM [{card}]")
+    check(same, f"{phase}: the encode kernel ({label}) disagrees with the plain version")
+    check(launches == 1, f"{phase}: encode {label}: {launches} launches for one call")
+    check(steady, f"{phase}: the encode kernel's calls or graph replay differ from the first call")
+    return st
+
+
+def encode_phase(seed: int, r: Renderer, cam, card: str) -> None:
+    """Phase 1g: encode_sweep; encode_kernel on r's frame of cam (the orbit
+    scene at 1920x1080) and on the crop of its last two tile rows as a slab
+    renders them (planes of the slab's rows, fewer rows cropped); r's graph
+    frames and a 2-slab frame, one encode launch a frame and a slab, their
+    bytes the kernel's on the padded framebuffer; then encode_kernel on the
+    benchmark's 64 stand-in dragons (portbench/scenes/standin.py, written
+    from the seed) at 3840x2160 at flythrough pose 0."""
+    from portbench.scenes import standin
+
+    encode_sweep(card)
+    fb = padded_framebuffer(r, cam)
+    encode_kernel(fb, WIDTH, HEIGHT, card, label="orbit frame 0 at 1920x1080")
+    y0 = (r.tiles_y - 2) * r._frame_kwargs["tile_h"]
+    encode_kernel(fb[:, y0:].contiguous(), WIDTH, HEIGHT - y0, card, label=f"slab crop, rows {y0}..{HEIGHT - 1}")
+    want = present.encode_srgb_u8_plain(fb, WIDTH, HEIGHT)
+    r.render(cam)
+    K.reset_launches()
+    frames = [r.render(cam) for _ in range(3)]
+    torch.cuda.synchronize()
+    frame_launches = dict(K.LAUNCHES)
+    fn = make_sharded_renderer(r.scene, r.config, 2, WIDTH, HEIGHT)
+    uniforms = r.frame_uniforms(cam)
+    fn(r.scene, *uniforms)
+    K.reset_launches()
+    slabs = fn(r.scene, *uniforms)
+    torch.cuda.synchronize()
+    slab_launches = dict(K.LAUNCHES)
+    fn.close()
+    same = all(bool(torch.equal(f["color"], want)) for f in frames + [slabs])
+    print(f"encode_kernel: 3 graph frames: launches {frame_launches}; a 2-slab graph frame: launches {slab_launches}; "
+          f"their color equal to the plain encode of the padded framebuffer {same} [{card}]")
+    check(frame_launches["encode"] == frame_launches["raster"] == 3, "encode_kernel: not one encode launch a frame")
+    check(slab_launches["encode"] == slab_launches["raster"] == 2, "encode_kernel: not one encode launch a slab")
+    check(same, "encode_kernel: a graph frame's color differs from the plain encode")
+    tmp = tempfile.mkdtemp(prefix="tpurast_torch_standin_")
+    try:
+        standin.write_standin(tmp, seed, "full")
+        dragons = load_instanced_dragons(tmp, 64, 0.35)
+        rd = Renderer(dragons, RendererConfig(width=3840, height=2160))
+        fb = padded_framebuffer(rd, cli.flythrough("dragons64", 1)[0])
+        encode_kernel(fb, 3840, 2160, card, label="dragons64 flythrough pose 0 at 3840x2160")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print_guards("encode_kernel", card)
+
+
 def face_table_kernels(scene, r: Renderer, cam, card: str, label: str) -> None:
     """Phase 1f on one scene: the resolve kernel (r's path and anisotropy)
     and the deferred kernel (float16 rows, anisotropy 16) on cam's frame,
@@ -1643,7 +1850,8 @@ def matrix_kernels(r: Renderer, cam, phase: str) -> dict:
             fb = sampler.sample_tiles(g, page, plan, cp, **skw)
             fb_p = sampler.sample_tiles_plain(g, page, plan, cp, **skw)
             w, h = kw["width"], kw["height"]
-            lsb = int((present.encode_srgb_u8(fb, w, h).int() - present.encode_srgb_u8(fb_p, w, h).int()).abs().max())
+            lsb = int((present.encode_srgb_u8_plain(fb, w, h).int()
+                       - present.encode_srgb_u8_plain(fb_p, w, h).int()).abs().max())
             res["sample"] = f"{lsb} LSB"
             check(lsb <= 1, f"{phase}: sample kernel disagrees with its plain version")
             guard_sample(phase, g, page, plan, cp, fb, **skw)
@@ -1683,7 +1891,7 @@ def matrix_frames_agree(label: str, out: str, got: dict, plain: dict) -> str:
     if out == "linear":
         h, w = c.shape[1:]
         lin_err = float((c - c_p).abs().max())
-        c, c_p = present.encode_srgb_u8(c, w, h), present.encode_srgb_u8(c_p, w, h)
+        c, c_p = present.encode_srgb_u8_plain(c, w, h), present.encode_srgb_u8_plain(c_p, w, h)
     diff = (c.int() - c_p.int()).abs()
     lsb, px = int(diff.max()), int((diff.amax(dim=0) > 0).sum())
     counters = all(int(got[k]) == int(plain[k]) for k in ("bin_overflow", "window_miss_px"))
@@ -1721,6 +1929,8 @@ def config_matrix(scene, cam, card: str, seed: int) -> dict:
         want = path_want(path_of(r), MATRIX_REPLAYS + 1)
         if output == "gbuf":
             want = {k: v if k in ("setup", "bin", "raster", "resolve") else 0 for k, v in want.items()}
+        if output == "linear":
+            want["encode"] = 0
         check(all(K.LAUNCHES[k] == want[k] for k in KERNELS),
               f"{phase}: launches {dict(K.LAUNCHES)} over {MATRIX_REPLAYS + 1} frames, want {want}")
         with plain_raster_memo():
@@ -2498,7 +2708,8 @@ def padded_kernels(rr: Renderer, cam, card: str) -> None:
     skw = sample_kwargs(kw, tiles)
     fb = sampler.sample_tiles(g, page, plan, cp, **skw)
     fb_p = sampler.sample_tiles_plain(g, page, plan, cp, **skw)
-    diff = (present.encode_srgb_u8(fb, wp, hp).int() - present.encode_srgb_u8(fb_p, wp, hp).int()).abs().amax(0)
+    diff = (present.encode_srgb_u8_plain(fb, wp, hp).int()
+            - present.encode_srgb_u8_plain(fb_p, wp, hp).int()).abs().amax(0)
     lsb, lsb_past = int(diff.max()), int(diff[past].max())
     print(f"padded frame {rr.width}x{rr.height} -> {wp}x{hp} ({rr.tiles_x}x{rr.tiles_y} tiles; the last tile column "
           f"holds {rr.width - (rr.tiles_x - 1) * kw['tile_w']} frame columns): covered px {int(covered.sum())}, of "
@@ -3183,6 +3394,8 @@ def main() -> None:
                     help="run only the setup phase (the orbit scene and the benchmark's two stand-in scenes)")
     ap.add_argument("--face-tables", action="store_true",
                     help="run only the face_tables phase (resolve and deferred on the orbit frame and the dragons)")
+    ap.add_argument("--encode-kernel", action="store_true",
+                    help="run only the encode phase (every float32 in [0, 1], the orbit frame, a slab, the dragons)")
     args = ap.parse_args()
     t_run = time.perf_counter()
 
@@ -3207,7 +3420,7 @@ def main() -> None:
         if any(k in line for k in ("entry function", "registers", "spill", "error")):
             print("  nvcc:", line.strip())
     _build.library()
-    for name in ("raster", "plan", "plan_large", "sample", "vmem_take", "setup"):
+    for name in ("raster", "plan", "plan_large", "sample", "vmem_take", "setup", "encode"):
         regs, blocks = _build.kernel_info(name)
         print(f"{name} kernel: {regs} registers per thread, {blocks} resident blocks per SM")
     print_shade_info()
@@ -3245,6 +3458,9 @@ def main() -> None:
         return
     if args.face_tables:
         face_tables_phase(args.seed, scene, r, cams[0], card)
+        return
+    if args.encode_kernel:
+        encode_phase(args.seed, r, cams[0], card)
         return
     stats = kernel_phases(r, cams[0], card)
     stats.update(shade_kernels(scene, r, cams[0], card))

@@ -92,13 +92,29 @@ renders the same frames as inside plain_kernels(), one setup launch a
 frame, on the window path and on the deferred path (its one face table,
 the shade table).
 
+The encode kernel (csrc/encode.cu tr_encode) runs through
+present.encode_srgb_u8 the same way, against encode_srgb_u8_plain, one
+launch a call (tests/test_torch_memsafety.py's ENCODE_CASES): random frames
+with values below 0 and above 1, a frame on the tile grid with padded rows,
+a width off the 4-pixel grid, a slab's crop (fewer rows than its planes),
+rows off the 16-byte grid, and the values on which a rounding decides (the
+half-LSB ties of x * 255 in both segments of the transfer curve and in
+alpha, the threshold 0.0031308 and its neighbours, NaN, the infinities,
+-0.0, 0, 1): bit for bit against the plain arithmetic with the host's powf
+in place of torch's CPU pow, which rounds otherwise at about 1% of values
+(assert_encode_equal), so within 1 LSB of the plain version. The wrapper refuses planes that are
+not (4, Hp, Wp) contiguous f32 or a crop past them, CPU tensors take the
+plain version, and a slab's render_frame with every kernel emulated equals
+its plain frame, one encode launch a frame and a slab.
+
 Time on one worker: about 71 s (the shade cases about a fifth of it: the
 plain gather runs 16 probes over every pixel; the warp-shape cases about
 5 s together, the request counts about 2 s; the binning cases about 27 s,
 their 1,024-thread blocks emulated, the two-pass ones the longest); the
 setup cases add about 11 s, 9 of them the two emulated frames (111 s in
 all on a loaded host, the emulated library's build 21 s of it); the split
-face-row cases about 5 s each, the emulated deferred frames about 15 s.
+face-row cases about 5 s each, the emulated deferred frames about 15 s; the
+encode cases about 2 s, 1.3 s of it the emulated slab frame.
 """
 
 import ctypes
@@ -117,9 +133,10 @@ from tpurast_torch.device.scene import build_orbit_scene, orbit_track
 from tpurast_torch.device.textures import TEXTURE_DTYPES, texels_tensor
 from tpurast_torch.kernels import _build, geometry, present, probes, raster, resolve, sampler, shade
 from tpurast_torch.renderer import Renderer
-from test_torch_memsafety import (SCENE as SMALL_SCENE, SETUP_CASES, SPLIT_CASES, assert_resolve_bits,
-                                  assert_resolve_close, assert_same_bits, assert_shade_close, bin_boxes,
-                                  poisoned_gbuf, setup_inputs, split_rows, texture_grid_gbuf)
+from test_torch_memsafety import (ENCODE_CASES, SCENE as SMALL_SCENE, SETUP_CASES, SPLIT_CASES, assert_encode_equal,
+                                  assert_resolve_bits, assert_resolve_close, assert_same_bits, assert_shade_close,
+                                  bin_boxes, encode_inputs, encode_specials, poisoned_gbuf, setup_inputs,
+                                  split_rows, texture_grid_gbuf)
 from test_torch_raster import ADVERSARIAL, A_TILES_X, A_TILES_Y, AH, AW, adversarial_clip
 from test_torch_scene import numpy_bc_decoders  # noqa: F401  (module-wide autouse)
 
@@ -1223,7 +1240,7 @@ def test_render_frame_with_the_emulated_kernels(emu_bin):
         for k in want:
             assert torch.equal(got[k], want[k]), k
         assert int((want["depth"] > 0).sum()) > 1000
-    assert kernels.LAUNCHES["setup"] == kernels.LAUNCHES["raster"] == 2
+    assert kernels.LAUNCHES["setup"] == kernels.LAUNCHES["raster"] == kernels.LAUNCHES["encode"] == 2
 
 
 def test_deferred_frame_with_the_emulated_kernels(emu_bin):
@@ -1249,7 +1266,91 @@ def test_deferred_frame_with_the_emulated_kernels(emu_bin):
         for k in want:
             assert torch.equal(got[k], want[k]), k
         assert int((want["depth"] > 0).sum()) > 1000
-    assert kernels.LAUNCHES["deferred"] == kernels.LAUNCHES["raster"] == 2 and kernels.LAUNCHES["resolve"] == 0
+    assert kernels.LAUNCHES["deferred"] == kernels.LAUNCHES["raster"] == kernels.LAUNCHES["encode"] == 2
+    assert kernels.LAUNCHES["resolve"] == 0
+
+
+# ---------------------------------------------------------------------------
+# The sRGB encode (csrc/encode.cu tr_encode), through present.encode_srgb_u8
+# with the emulated library in place of the card's.
+
+
+@pytest.mark.parametrize("case", list(ENCODE_CASES))
+def test_encode_kernel(emu_bin, case):
+    """The encode kernel against encode_srgb_u8_plain, one launch a call
+    (LAUNCHES["encode"]): a frame on the tile grid with padded rows (16-byte
+    loads, 4-byte stores), a width off the 4-pixel grid (a byte a pixel), a
+    slab's crop, rows off the 16-byte grid (a 4-byte load a pixel), and
+    encode_specials() in every plane: the half-LSB ties of x * 255 in both
+    segments of the curve and in alpha, the threshold and its neighbours,
+    NaN, the infinities, -0.0, 0, 1. Bit for bit against the plain
+    arithmetic with the host's powf, and within 1 LSB of the plain version
+    at a ten-thousandth of a random frame's values at most
+    (assert_encode_equal)."""
+    from tpurast_torch import kernels
+
+    planes, w, h = encode_inputs(case)
+    before = kernels.LAUNCHES["encode"]
+    got = present.encode_srgb_u8(planes, w, h)
+    assert kernels.LAUNCHES["encode"] == before + 1
+    # A tie sits on a rounding boundary: wherever the two pows part there, the plain version is 1 LSB off.
+    assert assert_encode_equal(got, planes, w, h) <= (0.02 if case == "specials" else 0.0001) * got.numel()
+    if case == "specials":
+        assert encode_specials().size > 700
+    else:
+        assert int((planes[:, :h, :w] < 0).sum()) > 0 and int((planes[:, :h, :w] > 1).sum()) > 0
+
+
+def test_encode_kernel_refuses_bad_planes(emu_bin):
+    """Planes that are not contiguous (4, Hp, Wp) f32, or a crop past them,
+    are refused before the launch."""
+    from tpurast_torch import kernels
+
+    planes, w, h = encode_inputs("frame_grid")
+    before = kernels.LAUNCHES["encode"]
+    with pytest.raises(TypeError, match="planes"):
+        present.encode_srgb_u8(planes.double(), w, h)
+    with pytest.raises(ValueError, match=r"\(4, Hp, Wp\)"):
+        present.encode_srgb_u8(planes[:3].contiguous(), w, h)
+    with pytest.raises(ValueError, match="contiguous"):
+        present.encode_srgb_u8(planes.transpose(1, 2), w, h)
+    with pytest.raises(ValueError, match="does not fit"):
+        present.encode_srgb_u8(planes, planes.shape[2] + 1, h)
+    assert kernels.LAUNCHES["encode"] == before
+
+
+def test_encode_on_cpu_tensors_takes_the_plain_version():
+    """On CPU tensors encode_srgb_u8 is encode_srgb_u8_plain: the same
+    bytes, no launch counted."""
+    from tpurast_torch import kernels
+
+    planes, w, h = encode_inputs("odd_width")
+    before = kernels.LAUNCHES["encode"]
+    assert torch.equal(present.encode_srgb_u8(planes, w, h), present.encode_srgb_u8_plain(planes, w, h))
+    assert kernels.LAUNCHES["encode"] == before
+
+
+def test_slab_frame_with_the_emulated_kernels(emu_bin):
+    """render_frame of a slab (its first tile row 2, a crop of 20 of its
+    32 rows, as parallel.py's last slab of a frame crops) with every kernel
+    emulated, the encode reading the slab's padded planes, against the same
+    slab inside plain_kernels(): color, depth and the counters equal, one
+    encode launch."""
+    from tpurast_torch import kernels
+    from tpurast_torch.renderer import render_frame
+
+    r = Renderer(build_orbit_scene(seed=2, **SMALL_SCENE), RendererConfig(width=256, height=128), device="cpu")
+    vp, cp = r.frame_uniforms(orbit_track(8)[1])
+    kw = dict(r._frame_kwargs, tiles_y=1, tile_row_offset=2, crop_height=20)
+    kernels.reset_launches()
+    got = render_frame(r.scene, vp, cp, **kw)
+    with kernels.plain_kernels():
+        want = render_frame(r.scene, vp, cp, **kw)
+    assert got["color"].shape == (4, 20, 256) and set(got) == set(want)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+    assert int((want["depth"] > 0).sum()) > 2000
+    assert kernels.LAUNCHES["encode"] == kernels.LAUNCHES["raster"] == 1
 
 
 def test_bin_kernels_refuse_mixed_devices():

@@ -16,9 +16,10 @@ without a card.
   * test_shade_wrappers_read_nothing_back_before_the_launch: what those two
     wrappers do on a CUDA device before the launch (the row check, the
     srgb8 decode table) reads nothing back inside the guard; so for the
-    binning wrapper (csrc/bin.cu), bin_pairs' and bin_triangles', and for
-    the setup wrapper (csrc/setup.cu, geometry.setup_faces), up to its
-    launch, which is recorded and not made.
+    binning wrapper (csrc/bin.cu), bin_pairs' and bin_triangles', for the
+    setup wrapper (csrc/setup.cu, geometry.setup_faces) and for the encode
+    wrapper (csrc/encode.cu, present.encode_srgb_u8), up to its launch,
+    which is recorded and not made.
   * test_forked_slabs_read_nothing_back: render_slabs' fork and join
     (parallel._fork_join, taken as on a CUDA device, with fake streams):
     each slab on a stream of its own that waits for the current stream,
@@ -258,6 +259,29 @@ def test_setup_wrapper_reads_nothing_back_before_the_launch(scene, cam, monkeypa
     f = corners.shape[0]
     assert clip.shape == (f, 3, 4) and out["setup"].shape == (f, geometry.SETUP_WIDTH)
     assert out["valid"].dtype == torch.bool and out["aabb"].shape == (f, 4) and out["det"].shape == (f,)
+
+
+@pytest.mark.parametrize("crop", ["frame", "slab"])
+def test_encode_wrapper_reads_nothing_back_before_the_launch(monkeypatch, crop):
+    """What present.encode_srgb_u8 does on a CUDA device before its launch
+    (the checks, the output it allocates, the launch's arguments) reads
+    nothing back inside the guard, for a frame's crop and a slab's; the
+    launch itself is recorded, not made."""
+    from tpurast_torch.kernels import _build, present
+
+    planes = torch.zeros((4, 64, 256))
+    width, height = (200, 50) if crop == "frame" else (256, 20)
+    calls = []
+    monkeypatch.setattr(kernels, "use_kernel", lambda *tensors: True)
+    monkeypatch.setattr(_build, "call", lambda name, *args: calls.append((name, args)))
+    guard = Guard()
+    _install(monkeypatch, guard)
+    before = kernels.LAUNCHES["encode"]
+    with guard.on():
+        out = present.encode_srgb_u8(planes, width, height)
+    assert [name for name, _ in calls] == ["tr_encode"] and kernels.LAUNCHES["encode"] == before + 1
+    assert calls[0][1][:5] == (planes, 64, 256, width, height) and calls[0][1][5] is out
+    assert out.shape == (4, height, width) and out.dtype == torch.uint8 and out.is_contiguous()
 
 
 def test_guard_catches_each_read_back(monkeypatch):

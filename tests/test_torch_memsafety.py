@@ -61,6 +61,13 @@ and warp-synchronous code that leans on lockstep. The ASan shapes:
     past n_faces, with NaN and infinite corners, and on faces crafted so
     that a rounding decides (setup_inputs' ties): the five outputs against
     transform_corners and triangle_setup, bit for bit;
+  * the encode kernel (csrc/encode.cu tr_encode) on ENCODE_CASES: a frame
+    on the tile grid with padded rows, a width off the 4-pixel grid, a
+    slab's crop, rows off the 16-byte grid and the special values
+    (encode_inputs), the planes and the output exact-size, then the output
+    as a view inside guard bands of 0xA5 bytes (on and off the 4-byte
+    grid) whose margins must stay intact: against encode_srgb_u8_plain
+    (assert_encode_equal);
   * the port's Zstandard decoder (tpurast_torch/native/zstd.cpp, built
     into the ASan library beside the kernels) on frames made with the
     zstandard package at levels 3 and 19 and on 600 truncated and
@@ -72,7 +79,8 @@ a block's threads share the srgb8 decode table; the binning kernels, whose
 warps keep counters in shared memory and whose last block reads what the
 others wrote, on the frame and on a slab; the setup kernel at every face
 count, whose block stages corners and rows in shared memory and reuses the
-corners' words for the clip rows). Each case is also held
+corners' words for the clip rows; the encode kernel, whose neighbouring
+threads store neighbouring bytes). Each case is also held
 to its plain version under tests/test_torch_csrc.py's budgets. Planted
 faults show that the harness catches them: the raster output one tile row
 short must abort with ASan's heap-buffer-overflow, and a small kernel that
@@ -82,7 +90,8 @@ ThreadSanitizer's data race.
 Time on one worker: about 120 s (the two builds side by side, then the
 four subprocesses side by side: the ThreadSanitizer cases, the shade and
 binning kernels among them, take the longest, the planted ones about 5 s
-each).
+each; the encode cases under a second each: 158 s for the whole file with
+them).
 
 Run the cases by hand: python tests/test_torch_memsafety.py LIB OUT.json
 CASE... with LD_PRELOAD=$(g++ -print-file-name=libasan.so) (or libtsan.so
@@ -137,6 +146,13 @@ LARGE_TILES = (("16x1024", "grid"), ("64x128", "off_grid"))
 SETUP_CASES = {"1_face": (1, 0, False, False), "255_faces": (255, 0, False, False),
                "257_faces": (257, 0, False, False), "2051_faces": (2051, 0, False, False),
                "2051_padded_non_finite": (2051, 300, True, False), "257_rounding_ties": (257, 0, False, True)}
+# The encode kernel's cases (encode_inputs): (Hp, Wp, width, height, the planes' offset in floats past the
+# 16-byte grid). A frame on the 128-px tile grid with padded rows (16-byte loads, 4-byte stores); a width
+# off the 4-pixel grid (a byte a pixel); a slab's crop, fewer rows than its planes; rows off the 16-byte grid
+# (a 4-byte load a pixel); the special values (encode_specials) in every plane.
+ENCODE_CASES = {"frame_grid": (136, 256, 256, 130, 0), "odd_width": (64, 256, 201, 64, 0),
+                "slab_crop": (96, 384, 384, 37, 0), "off_grid_rows": (33, 130, 127, 31, 1),
+                "specials": (24, 128, 128, 24, 0)}
 # The resolve and deferred kernels on their split face rows (split_rows):
 # a slab (the frame's rows from 32 down, at y_offset 32); the scene's
 # tables without its page origins (the resolve table's page bases zero);
@@ -157,6 +173,7 @@ CASES = (
     + ["bin_random_faces", "bin_random_faces_slab", "bin_scan_truncated", "bin_two_tile_passes"]
     + ["bin_near_faces", "bin_near_faces_scan"]
     + [f"setup_{k}" for k in SETUP_CASES]
+    + [f"encode_{k}" for k in ENCODE_CASES]
 )
 ZSTD_SRC = pathlib.Path(__file__).resolve().parent.parent / "tpurast_torch" / "native" / "zstd.cpp"
 # The cases under ThreadSanitizer: each kernel once; the plan (with raster
@@ -169,7 +186,7 @@ ZSTD_SRC = pathlib.Path(__file__).resolve().parent.parent / "tpurast_torch" / "n
 RACE_CASES = ["raster_grid", "resolve_grid", "sample_grid", "plan_24_windows", "vmem_take_odd_rows",
               "plane_scale_tile_grid", "raster_64x128_off_grid", "plan_64x128_off_grid", "shade_gather_off_grid",
               "shade_deferred_off_grid", "bin_random_faces", "bin_random_faces_slab", "bin_near_faces",
-              *(f"setup_{k}" for k in SETUP_CASES)]
+              *(f"setup_{k}" for k in SETUP_CASES), "encode_odd_width"]
 PLANTED = "raster_output_one_tile_row_short"
 PLANTED_RACE = "planted_race"
 # A block whose threads read their neighbour's shared-memory word without
@@ -329,6 +346,95 @@ def assert_same_bits(got, want, what: str = "") -> None:
     nan = torch.isnan(want)
     assert torch.equal(torch.isnan(got), nan), f"{what}: NaN positions"
     assert torch.equal(got.view(torch.int32)[~nan], want.view(torch.int32)[~nan]), what
+
+
+def encode_specials() -> np.ndarray:
+    """Float32 values on which the encode's roundings decide, as the plain
+    version (kernels/present.py encode_srgb_u8_plain) computes them on the
+    CPU: every value below the transfer curve's threshold 0.0031308 whose
+    product by 12.92, then by 255, is exactly k + 0.5 (a half-LSB tie), and
+    so for the curve's power segment (1.055 c^(1/2.4) - 0.055) and for
+    alpha's product by 255; the threshold's float32 value and the 4 values
+    either side of it; NaN, the infinities, -0.0, 0, 1 and their
+    neighbours, the least subnormal and the largest float of each sign."""
+    def around(x, n):
+        b = int(np.float32(x).view(np.int32))
+        return np.arange(b - n, b + n + 1, dtype=np.int32).view(np.float32)
+
+    def pre(c):  # the plain version's value before its rounding
+        c = torch.clamp(torch.from_numpy(c), 0.0, 1.0)
+        return (present.linear_to_srgb(c) * 255.0).numpy()
+
+    ties = []
+    for k in range(255):
+        s = (k + 0.5) / 255
+        for c in (around(s / 12.92, 64), around(((s + 0.055) / 1.055) ** 2.4, 256)):
+            ties.append(c[pre(c) == k + 0.5])
+        a = around(s, 8)
+        ties.append(a[a * np.float32(255.0) == np.float32(k + 0.5)])
+    tiny, big = np.finfo(np.float32).smallest_subnormal, np.finfo(np.float32).max
+    special = [np.nan, np.inf, -np.inf, -0.0, 0.0, 1.0, tiny, -tiny, big, -big, 0.5, -1e-30]
+    return np.concatenate(ties + [around(0.0031308, 4), around(0.0, 2), around(1.0, 2),
+                                  np.array(special, np.float32)]).astype(np.float32)
+
+
+def encode_inputs(case: str, seed: int = 17):
+    """The encode kernel's inputs for ENCODE_CASES[case]: (planes (4, Hp, Wp)
+    f32, contiguous, starting the case's offset past the 16-byte grid;
+    width; height). Random values in [-0.25, 1.25] (a tenth exactly 0 or
+    1), or for "specials" encode_specials() in every plane, each plane's
+    sequence rolled against the others so that a pixel mixes them."""
+    hp, wp, width, height, offset = ENCODE_CASES[case]
+    rng = np.random.default_rng(seed)
+    n = hp * wp
+    if case == "specials":
+        v = encode_specials()
+        assert v.size <= n
+        vals = np.stack([np.roll(np.resize(v, n), 97 * p) for p in range(4)])
+    else:
+        vals = rng.uniform(-0.25, 1.25, (4, n)).astype(np.float32)
+        pick = rng.random((4, n))
+        vals[pick < 0.05] = 0.0
+        vals[pick > 0.95] = 1.0
+    buf = torch.empty(4 * n + offset, dtype=torch.float32)
+    planes = buf[offset:].view(4, hp, wp)
+    planes.copy_(torch.from_numpy(vals.reshape(4, hp, wp)))
+    return planes, width, height
+
+
+@functools.cache
+def _host_powf():
+    import ctypes.util
+
+    fn = ctypes.CDLL(ctypes.util.find_library("m")).powf
+    fn.argtypes = [ctypes.c_float, ctypes.c_float]
+    fn.restype = ctypes.c_float
+    return fn
+
+
+def assert_encode_equal(got, planes, width: int, height: int) -> int:
+    """got, the encode kernel's u8 frame of planes, against the plain
+    version's arithmetic (encode_srgb_u8_plain) with the host's powf in
+    place of torch's CPU pow: bit for bit (the emulated kernel's fast power
+    is the host's exp2f(y log2f(x)), and near a rounding boundary its powf).
+    Against encode_srgb_u8_plain itself within 1 LSB, at the few values
+    where the two pows round to floats that land either side of a rounding
+    boundary. The card's build is held to the card's torch.pow bit for bit
+    on every float32 in [0, 1] (chip_smoke.py --encode-kernel). Returns the
+    count of channel values where got and encode_srgb_u8_plain differ."""
+    want = present.encode_srgb_u8_plain(planes, width, height)
+    assert got.shape == want.shape == (4, height, width) and got.dtype == torch.uint8
+    c = torch.clamp(planes[:, :height, :width], 0.0, 1.0)
+    curve = c[:3] > 0.0031308
+    vals, inv = torch.unique(c[:3][curve], return_inverse=True)
+    powf, e = _host_powf(), float(np.float32(1.0 / 2.4))
+    p = torch.zeros_like(c[:3])
+    p[curve] = torch.tensor([powf(x, e) for x in vals.tolist()], dtype=torch.float32)[inv]
+    host = torch.cat([torch.where(curve, 1.055 * p - 0.055, c[:3] * 12.92), c[3:]])
+    assert torch.equal(got, torch.round(host * 255.0).to(torch.uint8))
+    diff = (got.int() - want.int()).abs()
+    assert int(diff.max()) <= 1
+    return int((diff > 0).sum())
 
 
 # The binning cases: (boxes: n, width, height, seed, huge share, small and large sizes), the grid (tiles_x,
@@ -824,6 +930,26 @@ class Cases:
             assert_same_bits(v, want[k], k)
         assert f < 64 or int(want["valid"].sum()) > 0
 
+    def encode(self, case):
+        """tr_encode on encode_inputs(case), the planes an allocation of
+        exactly their bytes (and the case's offset before them) and the
+        output an exact-size tensor, against
+        encode_srgb_u8_plain (assert_encode_equal); then into guard bands:
+        the output a view inside a buffer of 0xA5 bytes, on and off the
+        4-byte grid, every margin byte intact and the same bytes."""
+        planes, w, h = encode_inputs(case)
+        hp, wp = planes.shape[1:]
+        out = torch.empty((4, h, w), dtype=torch.uint8)
+        assert self.lib.tr_encode(planes.data_ptr(), hp, wp, w, h, out.data_ptr(), None) == 0
+        assert_encode_equal(out, planes, w, h)
+        for shift in (0, 3):
+            margin = 64 + shift
+            buf = torch.full((out.numel() + 2 * margin,), 0xA5, dtype=torch.uint8)
+            view = buf[margin:margin + out.numel()].view(out.shape)
+            assert self.lib.tr_encode(planes.data_ptr(), hp, wp, w, h, view.data_ptr(), None) == 0
+            assert bool((buf[:margin] == 0xA5).all()) and bool((buf[margin + out.numel():] == 0xA5).all())
+            assert torch.equal(view, out)
+
     def plan_24_windows(self):
         plan = self.check_plan(texture_grid_gbuf(24, 6), dict(tiles_x=1, tiles_y=1, tile_h=32, tile_w=128))
         assert int(plan["cls"][0]) == sampler.CLS_WINDOWED and int(plan["n_used"][0]) >= 24
@@ -922,6 +1048,7 @@ class Cases:
             "bin_near_faces": lambda: self.bin_near(False),
             "bin_near_faces_scan": lambda: self.bin_near(True),
             **{f"setup_{k}": functools.partial(self.setup, k) for k in SETUP_CASES},
+            **{f"encode_{k}": functools.partial(self.encode, k) for k in ENCODE_CASES},
             PLANTED: self.planted,
             PLANTED_RACE: self.planted_race,
         }

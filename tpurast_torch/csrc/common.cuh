@@ -1,5 +1,5 @@
 // Shared helpers of the tpurast_torch CUDA kernels (raster.cu, resolve.cu,
-// plan.cu, sampler.cu, shade.cu, probes.cu, bin.cu, setup.cu).
+// plan.cu, sampler.cu, shade.cu, probes.cu, bin.cu, setup.cu, encode.cu).
 //
 // The kernels are built with --fmad=false and without fast math, so every
 // a*b+c below rounds twice and every division and sqrtf is correctly
@@ -167,6 +167,14 @@ __device__ __forceinline__ void st_f4(float4* p, float4 v) {
   *p = v;
 }
 
+// A 4-byte store, p aligned to 4 bytes (checked as st_f4 checks).
+__device__ __forceinline__ void st_u32(unsigned* p, unsigned v) {
+#ifdef TR_HOST_EMU
+  tr_emu_check_aligned(p, 4);
+#endif
+  *p = v;
+}
+
 // Streaming 4-byte load and store (ld.global.cs, st.global.cs: evict
 // first), for data that passes once and should not push reused lines out
 // of L1 / L2.
@@ -183,6 +191,28 @@ __device__ __forceinline__ void st_stream_f(float* p, float v) {
   *p = v;
 #else
   __stcs(p, v);
+#endif
+}
+
+// A streaming 16-byte load (ld.global.cs), p aligned to 16 bytes (checked
+// as ldg_f4 checks).
+__device__ __forceinline__ float4 ld_stream_f4(const float4* p) {
+#ifdef TR_HOST_EMU
+  tr_emu_check_aligned(p, 16);
+  return *p;
+#else
+  return __ldcs(p);
+#endif
+}
+
+// x^y by the card's fast path (__powf: lg2.approx, a product, ex2.approx;
+// for x > 0 at most 2 + floor(|1.173 y log2 x|) ulps from the exact power);
+// the host emulation: exp2f(y * log2f(x)).
+__device__ __forceinline__ float fast_powf(float x, float y) {
+#ifdef TR_HOST_EMU
+  return exp2f(y * log2f(x));
+#else
+  return __powf(x, y);
 #endif
 }
 

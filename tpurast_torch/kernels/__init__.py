@@ -11,7 +11,7 @@ Stages of one frame (tpurast_torch.renderer.render_frame):
   shade.py    — the lighting / footprint formulas shared by the plain
                 paths, and the row-atlas gather and deferred shading
                 (CUDA kernels tr_shade_gbuffer, tr_shade_deferred)
-  present.py  — sRGB encode and crops (torch ops)
+  present.py  — sRGB u8 encode (CUDA kernel, csrc/encode.cu) and crops
 
 and, for the device microbenchmarks (tpurast_torch/tools):
 
@@ -45,7 +45,7 @@ import torch
 
 #: CUDA launches per kernel since the last reset_launches().
 LAUNCHES = {"raster": 0, "resolve": 0, "plan": 0, "sample": 0, "gather": 0, "deferred": 0, "vmem_take": 0,
-            "plane_scale": 0, "bin": 0, "setup": 0}
+            "plane_scale": 0, "bin": 0, "setup": 0, "encode": 0}
 
 
 def reset_launches() -> None:

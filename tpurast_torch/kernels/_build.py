@@ -64,6 +64,7 @@ SIGNATURES = {
     "tr_trace_mark": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P],
     "tr_bin": [_P, _P, _P, _I, _I] + [_I] * 10 + [_P] * 7 + [_L, _P],
     "tr_setup": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+    "tr_encode": [_P, _I, _I, _I, _I, _P, _P],
 }
 # Host functions that return a count (see csrc/*.cu): their int arguments.
 COUNTS = {"tr_bin_scratch": 9}
@@ -75,7 +76,7 @@ COUNTS = {"tr_bin_scratch": 9}
 # also give threads and static shared bytes per block.
 INFO = {"tr_raster_info": (0, 2), "tr_plan_info": (0, 2), "tr_plan_large_info": (0, 2), "tr_sample_info": (0, 2),
         "tr_shade_gbuffer_info": (1, 4), "tr_shade_deferred_info": (1, 4), "tr_vmem_take_info": (0, 2),
-        "tr_setup_info": (0, 2)}
+        "tr_setup_info": (0, 2), "tr_encode_info": (0, 2)}
 
 
 def nvcc_path() -> str:
@@ -158,7 +159,7 @@ def library() -> ctypes.CDLL:
 
 def kernel_info(name: str, *args: int) -> tuple[int, ...]:
     """(registers per thread, resident blocks per SM) of a kernel of INFO
-    ("raster", "plan", "plan_large", "sample", "vmem_take", "setup") as
+    ("raster", "plan", "plan_large", "sample", "vmem_take", "setup", "encode") as
     built, from the CUDA runtime; for "shade_gbuffer" and "shade_deferred",
     given the rows' format code, also (threads, static shared bytes) per
     block."""

@@ -172,26 +172,36 @@ def trs(t, r_quat, s) -> np.ndarray:
 # ---------------------------------------------------------------------------
 
 
+_EPS = np.finfo(np.float32).eps
+#: The components of a x b: a[_NEXT] * b[_PREV] - a[_PREV] * b[_NEXT].
+_NEXT, _PREV = np.array([1, 2, 0]), np.array([2, 0, 1])
+
+
 def normalize(v: np.ndarray) -> np.ndarray:
     """Zero-safe normalize (src/math.zig:106-115 returns 0 for tiny norms)."""
     v = np.asarray(v, dtype=F32)
-    n = np.sqrt(np.sum(v * v))
-    if n < np.finfo(np.float32).eps:
+    n = np.sqrt(np.add.reduce(v * v, axis=None))
+    if n < _EPS:
         return np.zeros_like(v)
     return v / n
 
 
 def cross(a, b) -> np.ndarray:
-    return np.cross(np.asarray(a, dtype=F32), np.asarray(b, dtype=F32))
+    """np.cross of f32 vectors; two 3-vectors take the same f32 products
+    and differences in three array operations, a fifth of np.cross's host
+    time (a frame's view matrix makes two)."""
+    a, b = np.asarray(a, dtype=F32), np.asarray(b, dtype=F32)
+    if a.shape == b.shape == (3,):
+        return a[_NEXT] * b[_PREV] - a[_PREV] * b[_NEXT]
+    return np.cross(a, b)
 
 
 def forward_from_euler(pitch: float, yaw: float) -> np.ndarray:
     """Pitch/yaw to forward direction: ``(cos p sin y, sin p, cos p cos y)``
     (src/math.zig:130-138; SURVEY.md §2.4.5)."""
     p, y = F32(pitch), F32(yaw)
-    return normalize(
-        np.array([np.cos(p) * np.sin(y), np.sin(p), np.cos(p) * np.cos(y)], dtype=F32)
-    )
+    cos_p = np.cos(p)
+    return normalize(np.array([cos_p * np.sin(y), np.sin(p), cos_p * np.cos(y)], dtype=F32))
 
 
 # ---------------------------------------------------------------------------

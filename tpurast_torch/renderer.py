@@ -15,7 +15,7 @@ keyword arguments and the same output dict. A frame runs
        deferred: deferred kernel
            (shade_deferred: the pixel's face row, interpolation, its own
            probes from the atlas rows, lighting, blend)
-  -> sRGB encode (torch)
+  -> sRGB encode (encode kernel)
 
 The resolve and deferred kernels read each pixel's face row from the
 frame's setup rows and the scene's per-face table (scene["resolve_table"],
@@ -332,8 +332,7 @@ class _PinnedUniforms:
         self.copied[i].synchronize()
         self.arrays[i][:16] = view_proj.reshape(-1)
         self.arrays[i][16:] = position
-        dev = torch.empty(19, dtype=torch.float32, device=self.device)
-        dev.copy_(self.host[i], non_blocking=True)
+        dev = self.host[i].to(self.device, non_blocking=True)
         self.copied[i].record(torch.cuda.current_stream(self.device))
         return dev[:16].view(4, 4), dev[16:]
 
